@@ -1,0 +1,487 @@
+"""Llama-family decoder with real-time prefill KV compression (PyTorch).
+
+Port of the main path of the JAX package's `models/llama.py`: parameters
+are a plain dict tree with the reference's keys (`init_params`,
+`params_from_jax`, `fuse_params`); `prefill_compressed` compresses every
+layer's K/V into packed tier pools while it runs, and `decode_loop` decodes
+greedily over those pools plus an uncompressed recent ring. The baseline
+arm is `prefill_uncompressed` + `decode_loop_uncompressed`.
+
+Kernels: with `use_flash` the prefill attention runs K1
+(ops/cuda/flash_prefill.py); with `use_fused` the decode attention runs K2
+(ops/cuda/decode_attention.py). Both default to on for CUDA tensors; on CPU
+tensors the wrappers take their plain versions. The reference's
+`lax.scan` decode is a Python loop here, and decode updates the recent
+rings (and the baseline arm's dense cache) in place.
+
+Not ported yet: ragged batches (`lengths`), sampling, the decode pool,
+quantized weights, chunked prefill, MoE and the other model families'
+options beyond the config fields themselves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..compression.compressor import compress_layer_kv, dequantize_layer_cache
+from ..compression.kv_cache import (CompressedLayerCache, RecentCache,
+                                    append_recent, init_recent_cache,
+                                    model_dtype)
+from ..config import CompressionConfig, ModelConfig
+from ..ops.attention import (attention_over_tokens,
+                             prefill_attention_with_prompt_mass)
+from ..ops.cuda.decode_attention import (decode_attention_plain,
+                                         fused_decode_attention)
+from ..ops.cuda.flash_prefill import flash_prefill_with_prompt_mass
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(seed: int, cfg: ModelConfig, device="cpu") -> Params:
+    """Random-init params with the reference's keys, shapes and
+    N(0, 1) * fan_in**-0.5 scale, drawn from a torch.Generator seeded with
+    `seed` on `device` (other numbers than jax.random's)."""
+    if cfg.num_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+    dtype = model_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, qd, kvd, i = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
+                     cfg.intermediate_size)
+
+    def dense(fan_in, shape):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w * fan_in ** -0.5).to(dtype)
+
+    def ones():
+        return torch.ones((h,), dtype=dtype, device=device)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {
+            "wq": dense(h, (h, qd)), "wk": dense(h, (h, kvd)),
+            "wv": dense(h, (h, kvd)), "wo": dense(qd, (qd, h)),
+            "input_norm": ones(), "post_norm": ones(),
+            "w_gate": dense(h, (h, i)), "w_up": dense(h, (h, i)),
+            "w_down": dense(i, (i, h)),
+        }
+        if cfg.qkv_bias:
+            layer.update(bq=dense(h, (qd,)), bk=dense(h, (kvd,)),
+                         bv=dense(h, (kvd,)))
+        layers.append(layer)
+    params = {"embed": dense(h, (cfg.vocab_size, h)), "layers": layers,
+              "final_norm": ones()}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense(h, (h, cfg.vocab_size))
+    return params
+
+
+def _to_torch(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no numpy kernel
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def params_from_jax(tree, device="cpu") -> Params:
+    """A JAX params tree (leaves as numpy arrays) → the port's params, with
+    the same keys, shapes, dtypes and values."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return _to_torch(tree, device)
+
+
+def fuse_params(params: Params) -> Params:
+    """Fuse each layer's q/k/v projections into one `wqkv` and gate/up into
+    one `w_gateup` weight (concatenated along the output axis)."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = []
+    for layer in params["layers"]:
+        lo = dict(layer)
+        if "wq" in lo:
+            lo["wqkv"] = torch.cat([lo.pop("wq"), lo.pop("wk"),
+                                    lo.pop("wv")], dim=1)
+            if "bq" in lo:
+                lo["bqkv"] = torch.cat([lo.pop("bq"), lo.pop("bk"),
+                                        lo.pop("bv")])
+        if "w_gate" in lo:
+            lo["w_gateup"] = torch.cat([lo.pop("w_gate"), lo.pop("w_up")],
+                                       dim=1)
+        out["layers"].append(lo)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _embed_lookup(embed: torch.Tensor, input_ids: torch.Tensor, dtype,
+                  cfg: ModelConfig) -> torch.Tensor:
+    out = embed[input_ids.long()].to(dtype)
+    if cfg.scale_embeddings:
+        out = out * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
+    return out
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalise in float32, cast to the model dtype, then scale by w."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                scaling=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables at `positions` [B, S] → [B, S, D/2] float32, with the
+    reference's "linear" and "llama3" frequency scaling."""
+    dev = positions.device
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=dev) / head_dim))
+    if scaling is not None:
+        if scaling.kind == "linear":
+            inv_freq = inv_freq / scaling.factor
+        elif scaling.kind == "llama3":
+            wavelen = 2.0 * np.pi / inv_freq
+            low_wl = scaling.original_max_position / scaling.low_freq_factor
+            high_wl = (scaling.original_max_position
+                       / scaling.high_freq_factor)
+            smooth = ((scaling.original_max_position / wavelen
+                       - scaling.low_freq_factor)
+                      / (scaling.high_freq_factor - scaling.low_freq_factor))
+            smooth = torch.clamp(smooth, 0.0, 1.0)
+            blended = ((1.0 - smooth) * inv_freq / scaling.factor
+                       + smooth * inv_freq)
+            inv_freq = torch.where(
+                wavelen > low_wl, inv_freq / scaling.factor,
+                torch.where(wavelen < high_wl, inv_freq, blended))
+        else:
+            raise ValueError(f"unknown rope scaling kind {scaling.kind!r}")
+    angles = positions.float()[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Half-split RoPE (HF Llama convention). x: [B, S, H, D]."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    if "wqkv" in layer:
+        qkv = x @ layer["wqkv"]
+        if "bqkv" in layer:
+            qkv = qkv + layer["bqkv"]
+        q = qkv[..., :cfg.q_dim]
+        k = qkv[..., cfg.q_dim:cfg.q_dim + cfg.kv_dim]
+        v = qkv[..., cfg.q_dim + cfg.kv_dim:]
+    else:
+        q, k, v = x @ layer["wq"], x @ layer["wk"], x @ layer["wv"]
+        if "bq" in layer:
+            q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
+            k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _act(x: torch.Tensor, name: str) -> torch.Tensor:
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "gelu_tanh":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown hidden_act {name!r}")
+
+
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = cfg.hidden_act
+    if "w_gateup" in layer:
+        gu = x @ layer["w_gateup"]
+        i = gu.shape[-1] // 2
+        return (_act(gu[..., :i], act) * gu[..., i:]) @ layer["w_down"]
+    return ((_act(x @ layer["w_gate"], act) * (x @ layer["w_up"]))
+            @ layer["w_down"])
+
+
+def logits_from_hidden(params: Params, h: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
+    if cfg.tie_word_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def _attn_out(layer: Params, h: torch.Tensor, attn: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Residual add of the attention output, then the gated-MLP block."""
+    b, s = h.shape[:2]
+    h = h + attn.reshape(b, s, cfg.q_dim) @ layer["wo"]
+    return h + _mlp(layer, rmsnorm(h, layer["post_norm"], cfg.rms_norm_eps),
+                    cfg)
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DecodeState:
+    """Everything decode needs: per-layer compressed pools + recent rings,
+    and the next position per row."""
+
+    caches: Tuple[CompressedLayerCache, ...]
+    recents: Tuple[RecentCache, ...]
+    position: torch.Tensor  # [B] int32
+
+
+def _prefill_attention(q, k, v, prompt_len, use_flash):
+    if use_flash:
+        return flash_prefill_with_prompt_mass(q, k, v, prompt_len)
+    return prefill_attention_with_prompt_mass(q, k, v, prompt_len)
+
+
+def _prefill_start(params, input_ids, cfg, lengths):
+    if lengths is not None:
+        raise NotImplementedError("ragged batches (lengths) are not ported "
+                                  "yet")
+    b, s = input_ids.shape
+    h = _embed_lookup(params["embed"], input_ids, model_dtype(cfg), cfg)
+    positions = torch.arange(s, device=input_ids.device)[None].expand(b, s)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_scaling)
+    return h, positions, cos, sin
+
+
+def prefill_compressed(
+    params: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    max_decode_len: int = 128,
+    use_flash: Optional[bool] = None,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
+    """Full-sequence prefill with per-layer real-time KV compression.
+
+    input_ids: [B, S]. use_flash=None runs K1 on CUDA inputs. Returns
+    (logits for the last position [B, V], decode state, per-layer stats).
+    """
+    if ccfg.decode_pool_blocks:
+        raise NotImplementedError("the decode pool (decode_pool_blocks > 0) "
+                                  "is not ported yet")
+    if use_flash is None:
+        use_flash = input_ids.is_cuda
+    b, s = input_ids.shape
+    prompt_len = ccfg.prompt_length(s)
+    h, positions, cos, sin = _prefill_start(params, input_ids, cfg, lengths)
+    caches, recents, all_stats = [], [], []
+    for layer_idx, layer in enumerate(params["layers"]):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn, prompt_mass = _prefill_attention(q, k, v, prompt_len,
+                                               use_flash)
+        cache, stats = compress_layer_kv(k, v, prompt_mass, layer_idx, ccfg,
+                                         cfg)
+        caches.append(cache)
+        all_stats.append(stats)
+        recents.append(init_recent_cache(b, max_decode_len, cfg,
+                                         device=h.device))
+        if ccfg.recompute_prefill_attention:
+            # Reference-parity mode: recompute the prefill output against
+            # the compressed K/V at the survivors' exact positions.
+            k_d, v_d, pos_c, valid = dequantize_layer_cache(cache, ccfg)
+            attn = attention_over_tokens(q, k_d.to(q.dtype), v_d.to(q.dtype),
+                                         pos_c, valid, positions)
+        h = _attn_out(layer, h, attn, cfg)
+    logits = logits_from_hidden(params, h[:, -1], cfg)
+    state = DecodeState(
+        caches=tuple(caches), recents=tuple(recents),
+        position=torch.full((b,), s, dtype=torch.int32, device=h.device))
+    return logits, state, all_stats
+
+
+def prefill_uncompressed(
+    params: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    lengths: Optional[torch.Tensor] = None,
+    use_flash: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Vanilla prefill (baseline arm). Returns (last-position logits,
+    (K, V)) with K/V stacked over layers: [L, B, S, H_kv, D]."""
+    if use_flash is None:
+        use_flash = input_ids.is_cuda
+    h, _, cos, sin = _prefill_start(params, input_ids, cfg, lengths)
+    ks, vs = [], []
+    for layer in params["layers"]:
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn, _ = _prefill_attention(q, k, v, 1, use_flash)
+        ks.append(k)
+        vs.append(v)
+        h = _attn_out(layer, h, attn, cfg)
+    logits = logits_from_hidden(params, h[:, -1], cfg)
+    return logits, (torch.stack(ks), torch.stack(vs))
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def decode_step(
+    params: Params,
+    token: torch.Tensor,
+    state: DecodeState,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    use_fused: Optional[bool] = None,
+) -> Tuple[torch.Tensor, DecodeState]:
+    """One decode step over the compressed caches. token: [B] ids.
+    use_fused=None runs K2 on CUDA inputs. The state's rings are updated in
+    place; returns (logits [B, V], the state with position + 1)."""
+    if use_fused is None:
+        use_fused = token.is_cuda
+    b = token.shape[0]
+    h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg)[:, None]
+    q_pos = state.position[:, None]
+    cos, sin = rope_tables(q_pos, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_scaling)
+    for layer, cache, recent in zip(params["layers"], state.caches,
+                                    state.recents):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        append_recent(recent, k, v, q_pos)
+        if use_fused:
+            attn = fused_decode_attention(q, cache, recent, q_pos, ccfg)
+        else:
+            attn = decode_attention_plain(q, cache, recent, q_pos, ccfg,
+                                          dtype=q.dtype)
+        h = _attn_out(layer, h, attn, cfg)
+    logits = logits_from_hidden(params, h[:, 0], cfg)
+    state = dataclasses.replace(state, position=state.position + 1)
+    return logits, state
+
+
+def decode_loop(
+    params: Params,
+    first_token: torch.Tensor,
+    state: DecodeState,
+    n_steps: int,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    use_fused: Optional[bool] = None,
+) -> Tuple[torch.Tensor, DecodeState]:
+    """n_steps of greedy decode. The recent rings must hold n_steps tokens
+    (appends past a full ring are dropped). Returns (tokens [B, n_steps],
+    state)."""
+    tok, toks = first_token, []
+    for _ in range(n_steps):
+        logits, state = decode_step(params, tok, state, cfg, ccfg,
+                                    use_fused=use_fused)
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+    if not toks:
+        return first_token.new_zeros((first_token.shape[0], 0)), state
+    return torch.stack(toks, dim=1), state
+
+
+def decode_step_uncompressed(
+    params: Params,
+    token: torch.Tensor,
+    kv: Tuple[torch.Tensor, torch.Tensor],
+    position: torch.Tensor,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Baseline decode over a padded dense KV cache (K, V) [L, B, M, H, D];
+    slots < `position` are live. Writes this step's K/V into the cache in
+    place."""
+    ks, vs = kv
+    b, m = ks.shape[1], ks.shape[2]
+    h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg)[:, None]
+    q_pos = position[:, None]
+    cos, sin = rope_tables(q_pos, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_scaling)
+    pos_all = torch.arange(m, device=token.device)[None].expand(b, m)
+    valid = pos_all <= q_pos
+    bidx = torch.arange(b, device=token.device)
+    pos_l = position.long()
+    for layer_idx, layer in enumerate(params["layers"]):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        ks[layer_idx][bidx, pos_l] = k[:, 0]
+        vs[layer_idx][bidx, pos_l] = v[:, 0]
+        attn = attention_over_tokens(q, ks[layer_idx], vs[layer_idx],
+                                     pos_all, valid, q_pos)
+        h = _attn_out(layer, h, attn, cfg)
+    logits = logits_from_hidden(params, h[:, 0], cfg)
+    return logits, kv, position + 1
+
+
+def decode_loop_uncompressed(
+    params: Params,
+    first_token: torch.Tensor,
+    kv: Tuple[torch.Tensor, torch.Tensor],
+    position: torch.Tensor,
+    n_steps: int,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Baseline-arm greedy decode over the padded dense cache."""
+    tok, toks = first_token, []
+    for _ in range(n_steps):
+        logits, kv, position = decode_step_uncompressed(params, tok, kv,
+                                                        position, cfg)
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), kv, position
+
+
+def generate(
+    params: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    max_new_tokens: int = 32,
+    use_flash: Optional[bool] = None,
+    use_fused_decode: Optional[bool] = None,
+    eos_token_id: Optional[int] = None,
+) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """Greedy generation with compressed KV. Returns (generated ids
+    [B, max_new_tokens], per-layer prefill compression stats); tokens after
+    a row's first EOS are set to EOS."""
+    logits, state, stats = prefill_compressed(
+        params, input_ids, cfg, ccfg, max_decode_len=max_new_tokens,
+        use_flash=use_flash)
+    tok = torch.argmax(logits, dim=-1)
+    rest, _ = decode_loop(params, tok, state, max_new_tokens - 1, cfg, ccfg,
+                          use_fused=use_fused_decode)
+    out = torch.cat([tok[:, None], rest], dim=1)
+    if eos_token_id is not None:
+        is_eos = (out == eos_token_id).to(torch.int32)
+        hit = torch.cumsum(is_eos, dim=1) - is_eos
+        out = torch.where(hit > 0, torch.full_like(out, eos_token_id), out)
+    return out, stats

@@ -1,0 +1,115 @@
+"""Builds the package's CUDA sources into one shared library and loads it.
+
+`csrc/*.cu` compile with nvcc for sm_90a into a library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
+The library lands in `build/cuda_kernels/<hash of sources and flags>/` at the
+root of the checkout, at first use; later calls and processes reuse it.
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without nvcc or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = _PACKAGE / "csrc"
+BUILD_ROOT = _PACKAGE.parent / "build" / "cuda_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes shared with csrc/common.cuh.
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    """The loaded library, where it lives, and what building it cost
+    (build_seconds is 0.0 when an earlier build was reused)."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float
+    ptxas_log: str
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+        if CUDA_HOME is None:
+            raise RuntimeError("nvcc not found: the CUDA kernels need the "
+                               "CUDA toolkit")
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    return nvcc
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernels; raises if nvcc fails."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib_path = out_dir / "libkernels.so"
+    log_path = out_dir / "ptxas.log"
+    seconds = 0.0
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        # Build into a private name, then rename: concurrent first uses
+        # (test workers) never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(lib_path))
+    lib.kernels_error_string.argtypes = [ctypes.c_int]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    for name in ("flash_prefill_launch", "decode_attention_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    ptxas = log_path.read_text() if log_path.exists() else ""
+    return KernelLibrary(lib=lib, path=lib_path, build_seconds=seconds,
+                         ptxas_log=ptxas)
+
+
+def launch(name: str, params: ctypes.Structure, stream: int) -> None:
+    """Call the C entry `name` with a pointer to `params` on `stream`;
+    raise with CUDA's message if the launch was refused."""
+    kl = load_library()
+    err = getattr(kl.lib, name)(ctypes.addressof(params), stream)
+    if err != 0:
+        msg = kl.lib.kernels_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
+
+
+def dtype_code(dtype) -> int:
+    """Kernel dtype code of a torch dtype; raises for unsupported ones."""
+    name = str(dtype).replace("torch.", "")
+    if name not in DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
+    return DTYPE_CODES[name]

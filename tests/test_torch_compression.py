@@ -1,0 +1,207 @@
+"""PyTorch port's importance, selection and layer compression vs the JAX
+package's (CPU).
+
+Importance scores agree within 1e-6 (float32, same formula; the log bias
+may differ in the last bit between the two frameworks' log). Selection is
+fed the JAX scores and labels, so float ties cannot flip: kept positions,
+tiers and validity must be identical. `compress_layer_kv` end to end must
+give identical positions, validity and packed bytes, scales and zero points
+within 1e-6 relative (the jitted reference may fuse `-min / scale`
+differently, one ulp at |zp| ~ 200) and equal stats.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import realtime_kv_cache_compression_tpu as rj
+import realtime_kv_cache_compression_tpu_torch as rt
+from realtime_kv_cache_compression_tpu import compression as jc
+from realtime_kv_cache_compression_tpu.ops import importance as ji
+from realtime_kv_cache_compression_tpu.ops import quantization as jq
+from realtime_kv_cache_compression_tpu.ops import selection as js
+from realtime_kv_cache_compression_tpu_torch import compression as tc
+from realtime_kv_cache_compression_tpu_torch.ops import importance as ti
+from realtime_kv_cache_compression_tpu_torch.ops import selection as ts
+
+ATOL_SCORES = 1e-6
+
+# The JAX side runs jitted with static configs: one compile per (config,
+# layer) is far cheaper than first-call eager dispatch of every op.
+_j_scores = jax.jit(ji.importance_scores, static_argnums=(1, 2, 3, 4))
+_j_compress = jax.jit(jc.compress_layer_kv, static_argnums=(3, 4, 5))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _j_select(mass, layer, cfg):
+    s = mass.shape[1]
+    scores = ji.importance_scores(mass, layer, s, cfg.prompt_length(s), cfg)
+    labels, _ = jq.assign_precision(scores, cfg)
+    return scores, labels, js.select_tokens(scores, labels, layer, cfg)
+
+CASES = {
+    "default": {},
+    "log_bias": dict(position_bias_mode="log", prompt_region_floor=0.0),
+    "sinks": dict(sink_tokens=3, prompt_region_floor=0.5),
+    "threshold": dict(tier_mode="threshold", theta_h=0.6, theta_m=0.3),
+    "anchor_16_8_4": "anchor",
+}
+
+
+def _cfgs(case, num_layers=4):
+    kw = CASES[case]
+    if kw == "anchor":
+        return (rj.reference_anchor_config(num_layers=num_layers),
+                rt.reference_anchor_config(num_layers=num_layers))
+    return (rj.CompressionConfig(num_layers=num_layers, **kw),
+            rt.CompressionConfig(num_layers=num_layers, **kw))
+
+
+def _mass(seed, b=2, s=96):
+    return np.random.default_rng(seed).random((b, s)).astype(np.float32)
+
+
+@pytest.mark.parametrize("layer", [0, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_importance_scores(case, layer):
+    cj, ct = _cfgs(case)
+    mass = _mass(layer)
+    s = mass.shape[1]
+    plen = cj.prompt_length(s)
+    sj = _j_scores(jnp.asarray(mass), layer, s, plen, cj)
+    st = ti.importance_scores(torch.from_numpy(mass), layer, s, plen, ct)
+    np.testing.assert_allclose(np.asarray(sj), st.numpy(), atol=ATOL_SCORES)
+
+
+def test_importance_unported_paths_raise():
+    ct = rt.CompressionConfig(importance_source="query")
+    with pytest.raises(NotImplementedError):
+        ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, ct)
+    with pytest.raises(NotImplementedError):
+        ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, rt.CompressionConfig(),
+                             lengths=torch.tensor([8]))
+
+
+@pytest.mark.parametrize("layer", [0, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_select_tokens_on_jax_scores(case, layer):
+    cj, ct = _cfgs(case)
+    mass = _mass(10 + layer, s=120)
+    scores, labels, sel_j = _j_select(jnp.asarray(mass), layer, cj)
+    sel_t = ts.select_tokens(torch.from_numpy(np.array(scores)),
+                             torch.from_numpy(np.array(labels)), layer, ct)
+    for a, b in zip(sel_j.indices, sel_t.indices):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for a, b in zip(sel_j.valid, sel_t.valid):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(np.asarray(sel_j.kept_mask),
+                                  sel_t.kept_mask.numpy())
+    assert set(sel_j.stats) == set(sel_t.stats)
+    for key in sel_j.stats:
+        np.testing.assert_allclose(np.asarray(sel_j.stats[key]),
+                                   sel_t.stats[key].numpy(), rtol=1e-6,
+                                   err_msg=key)
+
+
+def test_selection_unported_paths_raise():
+    ct = rt.CompressionConfig(selection_mode="exact_greedy")
+    with pytest.raises(NotImplementedError):
+        ts.select_tokens(torch.rand(1, 16), torch.zeros(1, 16,
+                                                        dtype=torch.int32),
+                         0, ct)
+
+
+@pytest.mark.parametrize("case,layers", [
+    ("default", (0, 3)), ("log_bias", (1,)), ("sinks", (0,)),
+    ("threshold", (2,)), ("anchor_16_8_4", (0,))])
+def test_compress_layer_kv_end_to_end(case, layers):
+    mcfg_j = rj.tiny_test_model(num_heads=4, num_kv_heads=2, head_dim=16)
+    mcfg_t = rt.tiny_test_model(num_heads=4, num_kv_heads=2, head_dim=16)
+    cj, ct = _cfgs(case, num_layers=mcfg_j.num_layers)
+    rng = np.random.default_rng(sorted(CASES).index(case))
+    b, s = 2, 160
+    k = rng.normal(size=(b, s, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(b, s, 2, 16)).astype(np.float32)
+    mass = rng.random((b, s)).astype(np.float32)
+    stats_j, stats_t = [], []
+    for layer in layers:
+        cache_j, st_j = _j_compress(
+            jnp.asarray(k), jnp.asarray(v), jnp.asarray(mass), layer, cj,
+            mcfg_j)
+        cache_t, st_t = tc.compress_layer_kv(
+            torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(mass),
+            layer, ct, mcfg_t)
+        for a, t in zip(cache_j.tiers, cache_t.tiers):
+            assert a.chunk == t.chunk
+            for f in ("positions", "valid", "k_stored", "v_stored"):
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(a, f)).astype(np.float32),
+                    getattr(t, f).float().numpy(), err_msg=f)
+            for f in ("k_scale", "k_zp", "v_scale", "v_zp"):
+                np.testing.assert_allclose(np.asarray(getattr(a, f)),
+                                           getattr(t, f).numpy(), rtol=1e-6,
+                                           atol=1e-6, err_msg=f)
+        assert set(st_j) == set(st_t)
+        for key in st_j:
+            np.testing.assert_allclose(np.asarray(st_j[key]),
+                                       st_t[key].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=key)
+        stats_j.append(st_j)
+        stats_t.append(st_t)
+        # Dequantizing the same (JAX) cache agrees too.
+        cache_from_j = _cache_to_torch(cache_j)
+        for a, t in zip(jc.dequantize_layer_cache(cache_j, cj),
+                        tc.dequantize_layer_cache(cache_from_j, ct)):
+            np.testing.assert_allclose(np.asarray(a).astype(np.float32),
+                                       t.float().numpy(), atol=1e-5)
+    assert jc.summarize_layer_stats(stats_j) == \
+        tc.summarize_layer_stats(stats_t)
+
+
+def _cache_to_torch(cache):
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        kv_cache as tk)
+    tiers = []
+    for t in cache.tiers:
+        arrs = {f: torch.from_numpy(np.array(getattr(t, f))) for f in (
+            "k_stored", "v_stored", "k_scale", "k_zp", "v_scale", "v_zp",
+            "positions", "valid")}
+        tiers.append(tk.TierCache(**arrs, chunk=t.chunk))
+    return tk.CompressedLayerCache(tiers=tuple(tiers))
+
+
+def test_recent_ring_append_and_drop():
+    from realtime_kv_cache_compression_tpu.compression import kv_cache as jk
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        kv_cache as tk)
+    mj = rj.tiny_test_model(num_kv_heads=2, head_dim=4)
+    mt = rt.tiny_test_model(num_kv_heads=2, head_dim=4)
+    rng = np.random.default_rng(0)
+    rj_, rt_ = jk.init_recent_cache(2, 3, mj), tk.init_recent_cache(2, 3, mt)
+    for step in range(5):  # the ring holds 3: the last two appends drop
+        kn = rng.normal(size=(2, 1, 2, 4)).astype(np.float32)
+        vn = rng.normal(size=(2, 1, 2, 4)).astype(np.float32)
+        pos = np.full((2, 1), 10 + step, np.int32)
+        rj_ = jk.append_recent(rj_, jnp.asarray(kn), jnp.asarray(vn),
+                               jnp.asarray(pos))
+        rt_ = tk.append_recent(rt_, torch.from_numpy(kn),
+                               torch.from_numpy(vn), torch.from_numpy(pos))
+        for f in ("k", "v", "positions", "length"):
+            np.testing.assert_array_equal(np.asarray(getattr(rj_, f)),
+                                          getattr(rt_, f).numpy())
+    # Storage bytes at the end-to-end test's default shapes and config (the
+    # JAX side reuses that compile).
+    mass = np.random.default_rng(1).random((2, 160)).astype(np.float32)
+    cache_t, _ = tc.compress_layer_kv(
+        torch.zeros(2, 160, 2, 16), torch.zeros(2, 160, 2, 16),
+        torch.from_numpy(mass), 0, rt.CompressionConfig(num_layers=4),
+        rt.tiny_test_model())
+    cache_j, _ = _j_compress(
+        jnp.zeros((2, 160, 2, 16)), jnp.zeros((2, 160, 2, 16)),
+        jnp.asarray(mass), 0, rj.CompressionConfig(num_layers=4),
+        rj.tiny_test_model())
+    assert tk.cache_storage_bytes(cache_t) == jk.cache_storage_bytes(cache_j)

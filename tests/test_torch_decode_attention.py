@@ -1,0 +1,101 @@
+"""Plain version of K2 (what `fused_decode_attention` runs on CPU tensors)
+vs the JAX Pallas kernel in interpret mode, on caches built by the JAX
+package's `compress_layer_kv` and converted to the port's containers.
+
+Inputs from a numpy seed, float32. Tolerance: 1e-5 absolute on the
+attention output (dequantize-then-attend on one side, rank-1 folded
+dequant inside the online softmax on the other).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import realtime_kv_cache_compression_tpu as rj
+import realtime_kv_cache_compression_tpu_torch as rt
+from realtime_kv_cache_compression_tpu.compression import (
+    append_recent, compress_layer_kv, init_recent_cache)
+from realtime_kv_cache_compression_tpu.ops.pallas import (
+    decode_attention as jda)
+from realtime_kv_cache_compression_tpu_torch.compression import (
+    kv_cache as tk)
+from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
+    decode_attention as tda)
+
+ATOL = 1e-5
+
+# Jitted with static configs: one compile per case is cheaper than eager
+# dispatch of the interpreted kernel's grid.
+_compress = jax.jit(compress_layer_kv, static_argnums=(3, 4, 5))
+_pallas_k2 = jax.jit(functools.partial(jda.fused_decode_attention,
+                                       interpret=True), static_argnums=(4,))
+
+
+def _to_torch(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _state(seed, ccfg_kw, b=2, s=96, hq=4, hkv=2, d=32, ring=8, n_recent=3):
+    kw = dict(num_heads=hq, num_kv_heads=hkv, head_dim=d)
+    mcfg = rj.tiny_test_model(**kw)
+    if ccfg_kw == "anchor":
+        cj = rj.reference_anchor_config(num_layers=mcfg.num_layers)
+        ct = rt.reference_anchor_config(num_layers=mcfg.num_layers)
+    else:
+        cj = rj.CompressionConfig(num_layers=mcfg.num_layers, **ccfg_kw)
+        ct = rt.CompressionConfig(num_layers=mcfg.num_layers, **ccfg_kw)
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    mass = rng.random((b, s)).astype(np.float32)
+    cache, _ = _compress(jnp.asarray(k), jnp.asarray(v), jnp.asarray(mass),
+                         0, cj, mcfg)
+    recent = init_recent_cache(b, ring, mcfg, dtype=jnp.float32)
+    for i in range(n_recent):
+        kn = rng.normal(size=(b, 1, hkv, d)).astype(np.float32)
+        vn = rng.normal(size=(b, 1, hkv, d)).astype(np.float32)
+        recent = append_recent(recent, jnp.asarray(kn), jnp.asarray(vn),
+                               jnp.full((b, 1), s + i, jnp.int32))
+    q = rng.normal(size=(b, 1, hq, d)).astype(np.float32)
+    q_pos = np.full((b, 1), s + n_recent, np.int32)
+    q_pos[-1, 0] -= 2  # a row whose newest ring token is in its future
+    cache_t = tk.CompressedLayerCache(tiers=tuple(
+        tk.TierCache(**{f: _to_torch(getattr(t, f)) for f in (
+            "k_stored", "v_stored", "k_scale", "k_zp", "v_scale", "v_zp",
+            "positions", "valid")}, chunk=t.chunk) for t in cache.tiers))
+    recent_t = tk.RecentCache(**{f: _to_torch(getattr(recent, f))
+                                 for f in ("k", "v", "positions", "length")})
+    return (jnp.asarray(q), cache, recent, jnp.asarray(q_pos), cj,
+            torch.from_numpy(q), cache_t, recent_t, torch.from_numpy(q_pos),
+            ct)
+
+
+@pytest.mark.parametrize("name,ccfg_kw,shape", [
+    ("tiers_8_4_2", {}, {}),
+    ("tiers_16_8_4_anchor", "anchor", {}),
+    ("multi_chunk", dict(pack_chunk_tokens=16), dict(s=256)),
+    ("mha_d16_empty_ring", {}, dict(hq=4, hkv=4, d=16, n_recent=0)),
+    ("threshold_full_ring", dict(tier_mode="threshold"),
+     dict(ring=4, n_recent=4)),
+])
+def test_plain_k2_matches_pallas(name, ccfg_kw, shape):
+    (qj, cache_j, rec_j, qpos_j, cj,
+     qt, cache_t, rec_t, qpos_t, ct) = _state(len(name), ccfg_kw, **shape)
+    out_j = _pallas_k2(qj, cache_j, rec_j, qpos_j, cj)
+    out_t = tda.fused_decode_attention(qt, cache_t, rec_t, qpos_t, ct)
+    assert out_t.shape == tuple(qt.shape)
+    np.testing.assert_allclose(np.asarray(out_j), out_t.numpy(), atol=ATOL)
+
+
+def test_unported_arguments_raise():
+    (_, _, _, _, _, qt, cache_t, rec_t, qpos_t, ct) = _state(0, {})
+    with pytest.raises(NotImplementedError):
+        tda.fused_decode_attention(qt, cache_t, rec_t, qpos_t, ct,
+                                   pool=object())
+    q_meta = torch.empty(tuple(qt.shape), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tda.fused_decode_attention(q_meta, cache_t, rec_t, qpos_t, ct)

@@ -1,0 +1,177 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+Marked `cuda`; every test skips without a CUDA device (decided inside the
+`cuda` fixture, never at import). The card machine has no JAX, and
+tests/conftest.py imports it, so run this file there without the conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: float32 kernels vs float32 references within 1e-4 (K1: exp2
+with the scale folded into q, blockwise sums) and 1e-5 (K2); bf16 outputs
+per element within two bf16 ulps of |reference| plus 1e-5 (both sides
+round one float32 result to bf16); prompt mass within 1e-5.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+import realtime_kv_cache_compression_tpu_torch as rt
+from realtime_kv_cache_compression_tpu_torch.compression import (
+    append_recent, compress_layer_kv, init_recent_cache)
+from realtime_kv_cache_compression_tpu_torch.models import llama
+from realtime_kv_cache_compression_tpu_torch.ops.attention import (
+    prefill_attention_with_prompt_mass)
+from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
+    decode_attention_plain, fused_decode_attention)
+from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
+    flash_prefill_with_prompt_mass)
+
+pytestmark = pytest.mark.cuda
+
+TOL_K1_F32 = 1e-4
+TOL_K2_F32 = 1e-5
+TOL_MASS = 1e-5
+BF16_ULPS, BF16_FLOOR = 2, 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(out, ref, f32_tol):
+    """bf16: every element within BF16_ULPS ulps of |ref| plus BF16_FLOOR;
+    float32: within `f32_tol` absolute."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    if out.dtype == torch.bfloat16:
+        mag = ref.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool((err <= BF16_ULPS * ulp + BF16_FLOOR).all()), \
+            float(err.max())
+    else:
+        assert float(err.max()) <= f32_tol
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,plens", [
+    (1, 512, 32, 4, 64, None),
+    (2, 333, 8, 8, 16, (5, 40)),
+    (2, 200, 8, 2, 32, (64, 1)),
+    (1, 129, 4, 1, 128, None),
+])
+def test_k1_matches_plain(cuda, dtype, b, s, hq, hkv, d, plens):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = _randn(gen, (b, s, hq, d), dtype, cuda)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    pl = None if plens is None else torch.tensor(plens, device=cuda)
+    before = flash_prefill_with_prompt_mass.launches
+    o, pm = flash_prefill_with_prompt_mass(q, k, v, 48, prompt_lens=pl)
+    torch.cuda.synchronize()
+    assert flash_prefill_with_prompt_mass.launches == before + 1
+    o_ref, pm_ref = prefill_attention_with_prompt_mass(q, k, v, 48,
+                                                       prompt_lens=pl)
+    assert o.dtype == dtype and pm.shape == (b, s)
+    _assert_close(o, o_ref, TOL_K1_F32)
+    assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+
+
+def test_k1_reads_strided_views(cuda):
+    """q/k/v as column slices of one fused projection (non-contiguous)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qkv = _randn(gen, (2, 100, (8 + 2 + 2) * 32), torch.float32, cuda)
+    q = qkv[..., :256].reshape(2, 100, 8, 32)
+    k = qkv[..., 256:320].reshape(2, 100, 2, 32)
+    v = qkv[..., 320:].reshape(2, 100, 2, 32)
+    assert not q.is_contiguous()
+    o, pm = flash_prefill_with_prompt_mass(q, k, v, 20)
+    o_ref, pm_ref = prefill_attention_with_prompt_mass(q, k, v, 20)
+    _assert_close(o, o_ref, TOL_K1_F32)
+    assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+
+
+def _decode_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, n_recent, seed):
+    mcfg = rt.tiny_test_model(num_heads=hq, num_kv_heads=hkv, head_dim=d,
+                              dtype=str(dtype).replace("torch.", ""))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    mass = torch.rand((b, s), generator=gen, device=cuda)
+    cache, _ = compress_layer_kv(k, v, mass, 0, ccfg, mcfg)
+    recent = init_recent_cache(b, ring, mcfg, device=cuda)
+    for i in range(n_recent):
+        pos = torch.full((b, 1), s + i, dtype=torch.int32, device=cuda)
+        append_recent(recent, _randn(gen, (b, 1, hkv, d), dtype, cuda),
+                      _randn(gen, (b, 1, hkv, d), dtype, cuda), pos)
+    q = _randn(gen, (b, 1, hq, d), dtype, cuda)
+    q_pos = torch.full((b, 1), s + n_recent, dtype=torch.int32, device=cuda)
+    q_pos[-1] -= 2  # the newest ring tokens lie in this row's future
+    return q, cache, recent, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiers,shape", [
+    ("8/4/2", dict(b=2, s=700, hq=32, hkv=4, d=64, ring=16, n_recent=5)),
+    ("16/8/4", dict(b=1, s=1000, hq=32, hkv=4, d=64, ring=8, n_recent=8)),
+    ("8/4/2 chunk 16", dict(b=2, s=300, hq=4, hkv=2, d=32, ring=4,
+                            n_recent=0)),
+    ("8/4/2", dict(b=1, s=260, hq=16, hkv=1, d=128, ring=4, n_recent=2)),
+    ("16/8/4", dict(b=2, s=90, hq=2, hkv=2, d=16, ring=4, n_recent=3)),
+])
+def test_k2_matches_plain(cuda, dtype, tiers, shape):
+    ccfg = {"8/4/2": rt.CompressionConfig(num_layers=4),
+            "16/8/4": rt.reference_anchor_config(num_layers=4),
+            "8/4/2 chunk 16": rt.CompressionConfig(
+                num_layers=4, pack_chunk_tokens=16)}[tiers]
+    q, cache, recent, q_pos = _decode_state(cuda, dtype, ccfg, seed=7,
+                                            **shape)
+    before = fused_decode_attention.launches
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
+    torch.cuda.synchronize()
+    assert fused_decode_attention.launches == before + 1
+    ref = decode_attention_plain(q, cache, recent, q_pos, ccfg)
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_close(out, ref, TOL_K2_F32)
+
+
+def test_kernel_path_tokens_equal_plain_path_f32(cuda):
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=8,
+                              num_kv_heads=2, head_dim=32,
+                              intermediate_size=512)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.init_params(0, mcfg, cuda)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 300), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    outs = [llama.generate(params, ids, mcfg, ccfg, max_new_tokens=12,
+                           use_flash=kern, use_fused_decode=kern)[0]
+            for kern in (True, False)]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill_with_prompt_mass(q, q[:, :, :1], q[:, :, :1], 2)
+    h = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_prefill_with_prompt_mass(h, h, h, 2)
+    ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=8)
+    q, cache, recent, q_pos = _decode_state(
+        cuda, torch.float32, ccfg, b=1, s=64, hq=2, hkv=2, d=16, ring=4,
+        n_recent=1, seed=0)
+    with pytest.raises(NotImplementedError, match="group"):
+        fused_decode_attention(q, cache, recent, q_pos, ccfg)
+    ccfg2 = dataclasses.replace(ccfg, quant_group_size=0)
+    with pytest.raises(NotImplementedError):
+        fused_decode_attention(q, cache, recent, q_pos, ccfg2, pool=object())
