@@ -1,18 +1,30 @@
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `realtime_kv_cache_compression_tpu_torch/
-csrc`, checks each kernel against its plain PyTorch version at the main
-path's shapes in bf16 and float32, checks the kernel path against the plain
-path end to end in float32 (equal greedy tokens), then runs the main path
-at full width: TinyLlama-1.1B shape (22 layers, bf16, fused weights, random
-weights from a seed), prompt 4096, batch 1, 128 new tokens, tiers 8/4/2
-bits, compressed prefill with K1 and fused decode with K2, once counted and
-REPEATS times timed (median and spread), plus the uncompressed arm, and
-last a torch.profiler breakdown of the main run (device idle share, top
-kernels). Any failed check exits nonzero. The last line is the device
-JSON.
+Builds the port's CUDA kernels (K1-K4) from
+`realtime_kv_cache_compression_tpu_torch/csrc`, one nvcc per source, all at
+once. Checks each kernel against its plain PyTorch version at the shapes of
+the paths below, in bf16 and float32, with its time, bound and library
+yardstick. Then it drives three paths, each with every launch count set to
+0 just before it and read just after:
+
+- TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
+  prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
+  tokens, tiers 8/4/2, counted once and timed REPEATS times, plus the
+  uncompressed arm and a torch.profiler breakdown;
+- Llama-2-7B (32 layers, hidden 4096, 32/32 heads, d=128), bf16 random
+  weights quantized with `quantize_params_streaming(bits=4)` and fused:
+  every layer matmul through K3, embed and lm_head int8 weight-only; the
+  same prompt, tiers and generation, counted once and timed REPEATS_7B
+  times, the uncompressed arm, and a profile;
+- the same model under `quantize_params(bits=8, act_quant=True)`: every
+  layer matmul and lm_head through K4.
+
+Before the full runs, each path's kernel path is checked against the plain
+path in float32 at reduced depth (2 layers, full width): equal greedy
+tokens. Any failed check exits nonzero. The last line is the device JSON;
+the line before it lists every kernel.
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -20,6 +32,7 @@ Needs a CUDA device and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.metadata
 import json
 import subprocess
@@ -28,28 +41,52 @@ import time
 
 import torch
 
-K1_SOURCE = "realtime_kv_cache_compression_tpu_torch/csrc/flash_prefill.cu"
-K1_REPLACES = "realtime_kv_cache_compression_tpu/ops/pallas/flash_prefill.py:39"
-K2_SOURCE = "realtime_kv_cache_compression_tpu_torch/csrc/decode_attention.cu"
-K2_REPLACES = ("realtime_kv_cache_compression_tpu/ops/pallas/"
-               "decode_attention.py:143")
+PKG = "realtime_kv_cache_compression_tpu_torch"
+JAX_PKG = "realtime_kv_cache_compression_tpu"
+KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
+    "K1": ("flash_prefill", "flash_prefill_with_prompt_mass",
+           f"{PKG}/csrc/flash_prefill.cu",
+           f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
+    "K2": ("decode_attention", "fused_decode_attention",
+           f"{PKG}/csrc/decode_attention.cu",
+           f"{JAX_PKG}/ops/pallas/decode_attention.py:143"),
+    "K3": ("int4_matmul", "int4_matmul", f"{PKG}/csrc/int4_matmul.cu",
+           f"{JAX_PKG}/ops/pallas/int4_matmul.py:46"),
+    "K4": ("int8_matmul", "int8_matmul", f"{PKG}/csrc/int8_matmul.cu",
+           f"{JAX_PKG}/ops/pallas/int8_matmul.py:42"),
+}
 
 # Tolerances. float32 kernel vs float32 reference: summation order and
 # exp2-vs-exp rounding; K1 within 1e-4, K2 within 1e-5, prompt mass within
-# 1e-5. bf16 outputs: both sides compute in float32 and round to bf16 once,
-# so an element may differ by one bf16 ulp of its own magnitude; the limit
-# is two ulps of |reference| per element, plus a floor for float32
-# rounding in elements near zero.
+# 1e-5, K3 within 1e-4 of max|reference| (sums over K up to 11008 in
+# another order). bf16 outputs: both sides compute in float32 and round to
+# bf16 once, so an element may differ by one bf16 ulp of its own magnitude;
+# the limit is two ulps of |reference| per element, plus a floor for the
+# float32 difference before rounding: 1e-5 for attention outputs, and for
+# K3 the float32 limit itself (1e-4 of max|reference|), since an output
+# near zero after cancelling large terms carries the float32 difference of
+# those terms and a tiny ulp. K4 is integer arithmetic with one epilogue in
+# the same order on both sides: equal bit for bit.
 TOL_K1_F32 = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
+TOL_K3_REL = 1e-4
 BF16_ULPS = 2
 BF16_FLOOR = 1e-5
+
+# H100 SXM peaks (NVIDIA data sheet, dense) for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 SEED = 0
 PROMPT = 4096
 NEW_TOKENS = 128
 REPEATS = 5
+REPEATS_7B = 3
+# Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
+SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
+LM_HEAD_7B = (4096, 32000)
+K3_CHECK_ROWS = 512  # K3's plain version at M=4096 is compared on a slice
 
 
 def log(msg: str) -> None:
@@ -61,33 +98,40 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+def wrapper(key: str):
+    module, name = KERNELS[key][:2]
+    return getattr(importlib.import_module(f"{PKG}.ops.cuda.{module}"), name)
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bf16_share(out: torch.Tensor, ref: torch.Tensor) -> float:
+def bf16_share(out: torch.Tensor, ref: torch.Tensor,
+               floor: float = BF16_FLOOR) -> float:
     """Largest share of its limit that any element's error uses; the limit
-    is BF16_ULPS bf16 ulps of |ref| plus BF16_FLOOR. Passes at <= 1."""
+    is BF16_ULPS bf16 ulps of |ref| plus `floor`. Passes at <= 1."""
     ref = ref.float()
     mag = ref.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)  # 8-bit significand
     err = (out.float() - ref).abs()
-    return float((err / (BF16_ULPS * ulp + BF16_FLOOR)).max())
+    return float((err / (BF16_ULPS * ulp + floor)).max())
 
 
-def check_close(out, ref, tol, what: str) -> float:
-    """Checks `out` against `ref` (bf16: the per-element ulp limit; float32:
-    `tol` absolute), logs the result and returns the max abs error."""
+def check_close(out, ref, tol, what: str, floor: float = BF16_FLOOR) -> float:
+    """Checks `out` against `ref` (bf16: the per-element ulp limit with
+    `floor`; float32: `tol` absolute), logs the result and returns the max
+    abs error."""
     err = max_err(out, ref)
     peak = float(ref.float().abs().max())
     if out.dtype == torch.bfloat16:
-        share = bf16_share(out, ref)
+        share = bf16_share(out, ref, floor)
         log(f"{what}: max abs err {err:.3e}, max|ref| {peak:.3e}, worst "
             f"element at {share:.3f} of its limit ({BF16_ULPS} bf16 ulps "
-            f"+ {BF16_FLOOR})")
+            f"+ {floor:.3e})")
         check(share <= 1.0, what)
     else:
-        log(f"{what}: max abs err {err:.3e} (tol {tol}), max|ref| "
+        log(f"{what}: max abs err {err:.3e} (tol {tol:.3e}), max|ref| "
             f"{peak:.3e}")
         check(err <= tol, what)
     return err
@@ -116,6 +160,19 @@ def kernel_and_plain_ms(kernel, plain, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(n_bytes: float, ops: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -141,7 +198,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     kl = _build.load_library()
     log(f"build: {kl.path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {kl.build_seconds:.1f} s)")
+        f"(nvcc, one process per source, {kl.build_seconds:.1f} s)")
     for line in kl.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
@@ -157,11 +214,11 @@ def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device):
             v.unflatten(-1, (hkv, d)))
 
 
-def phase_k1(device, shape=(1, PROMPT, 32, 4, 64), ragged=(2, 1000),
-             reps: int = 10) -> dict:
-    """K1 against its plain version on strided q/k/v: the main-path shape
-    in bf16 (timed) and float32, then a ragged S with per-row prompt
-    lengths in both dtypes."""
+def phase_k1(device, shape, ragged=(2, 1000), reps: int = 10) -> dict:
+    """K1 against its plain version on strided q/k/v: `shape` (B, S, Hq,
+    Hkv, D) in bf16 (timed, with its bound and SDPA as the library
+    yardstick) and float32, then a ragged S with per-row prompt lengths in
+    both dtypes."""
     from realtime_kv_cache_compression_tpu_torch.ops.attention import (
         prefill_attention_with_prompt_mass)
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
@@ -189,14 +246,25 @@ def phase_k1(device, shape=(1, PROMPT, 32, 4, 64), ragged=(2, 1000),
         worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what + " out"),
                     check_close(pm, pm_ref, TOL_MASS, what + " prompt mass"))
         del o_ref, pm_ref
-        if timing is None:  # the main path's shape and dtype
-            timing = kernel_and_plain_ms(
+        if timing is None:  # the path's shape and dtype
+            ms, plain_ms = kernel_and_plain_ms(
                 lambda: flash_prefill_with_prompt_mass(q, k, v, plen),
                 lambda: prefill_attention_with_prompt_mass(q, k, v, plen),
                 reps)
-            log(f"K1 main shape: kernel {timing[0]:.4f} ms, plain "
-                f"{timing[1]:.4f} ms")
-    return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                               enable_gqa=hq != hkv)
+            lib()
+            _, lib_ms = cuda_ms(lib, reps)
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      **bound(nbytes(q, k, v, o) + b * s * 4,
+                              4 * b * hq * d * s * (s + 1) / 2, dtype)}
+            log(f"K1 {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+                f"({timing['bound_by']}), SDPA {lib_ms:.4f} ms (causal "
+                f"attention alone, no prompt mass)")
+    return {"max_abs_err": worst, **timing}
 
 
 def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
@@ -204,9 +272,12 @@ def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
     """K2 against dequantize + attention_over_tokens on real decode states:
     a full-width prefill at reduced depth, a few decode steps into the
     ring, then every layer's cache at 8/4/2 and at the anchor config's
-    16/8/4 tiers, in bf16 (8/4/2 layer 0 timed) and in float32."""
+    16/8/4 tiers, in bf16 (8/4/2 layer 0 timed, with its bound) and in
+    float32. No single PyTorch call computes it (library_ms null)."""
     from realtime_kv_cache_compression_tpu_torch import (
         CompressionConfig, reference_anchor_config)
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        cache_storage_bytes)
     from realtime_kv_cache_compression_tpu_torch.models import llama
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
         import decode_attention_plain, fused_decode_attention
@@ -238,47 +309,255 @@ def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
                         f"{int(recent.length[0])}/{recent.capacity}, tier "
                         f"capacities {[t.capacity for t in cache.tiers]}")
                 worst = max(worst, check_close(out, ref, TOL_K2_F32, what))
-            if timing is None:  # the main path's dtype and tiers
+            if timing is None:  # the path's dtype and tiers
                 cache, recent = state.caches[0], state.recents[0]
-                timing = kernel_and_plain_ms(
+                ms, plain_ms = kernel_and_plain_ms(
                     lambda: fused_decode_attention(q, cache, recent, q_pos,
                                                    ccfg),
                     lambda: decode_attention_plain(q, cache, recent, q_pos,
                                                    ccfg), reps)
-                log(f"K2 {name} {dtype} layer 0: kernel {timing[0]:.4f} ms,"
-                    f" plain {timing[1]:.4f} ms")
-    return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+                n_ring = int(recent.length.sum())
+                n_keys = sum(int(t.valid.sum()) for t in cache.tiers) + n_ring
+                ring_bytes = 2 * n_ring * nbytes(recent.k[0, 0])
+                timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          **bound(cache_storage_bytes(cache) + ring_bytes
+                                  + 2 * nbytes(q),
+                                  4 * mcfg.num_heads * mcfg.head_dim * n_keys,
+                                  torch.bfloat16)}
+                log(f"K2 {name} {dtype} layer 0 ({n_keys} keys): kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+        del params
+    return {"max_abs_err": worst, **timing}
 
 
-def phase_parity(device, mcfg, prompt: int = 1024, new_tokens: int = 16):
-    """Kernel path vs plain path in float32: equal greedy tokens."""
+def _int4_weight(gen, k, n, device):
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_tensor_int4
+    w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    return quantize_tensor_int4(w, group_size=128)
+
+
+def _int8_weight(gen, k, n, device):
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_tensor
+    w = torch.randn((k, n), generator=gen, device=device) * k ** -0.5
+    return quantize_tensor(w, axis=1, act_quant=True)
+
+
+def _per_forward(rows, layers: int, lm_head=None) -> dict:
+    """One forward's worth of a kernel's calls: `layers` times each
+    per-layer shape's numbers, plus lm_head's once (None stays None); bound_by
+    names the limit of the calls that hold most of the summed bound."""
+    parts = [(layers, r) for r in rows] + ([(1, lm_head)] if lm_head else [])
+    tot = {}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [(n, r[key]) for n, r in parts]
+        tot[key] = (None if any(v is None for _, v in vals)
+                    else sum(n * v for n, v in vals))
+    by_bytes = sum(n * r["bound_ms"] for n, r in parts
+                   if r["bound_by"] == "bytes")
+    tot["bound_by"] = ("bytes" if by_bytes >= tot["bound_ms"] / 2
+                       else "operations")
+    return tot
+
+
+def _int4pack_library(w):
+    """K3's function as one PyTorch call, for the yardstick only (the port
+    never calls it): `torch._weight_int4pack_mm` dequantises a code u as
+    (u - 8) * scale + zero (the layout of `_group_quantize_tensor` in
+    torch/testing/_internal/common_quantization.py, zeros = min + 8 *
+    scale), so zero = 0 gives K3's q * scale; its scales are bf16, K3's
+    float32. The weight is repacked once, here: codes in K order [N, K],
+    two per byte, even k in the high nibble. Returns a function of bf16 x;
+    raises where the installed PyTorch refuses the shape."""
+    p = w.q_packed.to(torch.int32)
+    u = torch.cat([p & 0xF, p >> 4]).t().contiguous()  # [N, K], u = q + 8
+    w_pk = torch._convert_weight_to_int4pack(
+        ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([w.scale, torch.zeros_like(w.scale)], -1).bfloat16()
+    return lambda x: torch._weight_int4pack_mm(x, w_pk, w.group_size, sz)
+
+
+def phase_k3(device, layers: int, prefill_m: int = PROMPT,
+             reps: int = 20) -> dict:
+    """K3 against its plain version at every fused Llama-2-7B matmul shape,
+    M=1 and M=prefill_m (compared on the first K3_CHECK_ROWS rows), bf16
+    and float32; timed in bf16 at both M with its bound, and
+    torch._weight_int4pack_mm on the same codes (bf16 scales) as the
+    library yardstick where it takes the shape."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
+        int4_matmul_plain, int4_matmul_tensor)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    worst, rows = 0.0, {1: [], prefill_m: []}
+    for k, n in SHAPES_7B:
+        w = _int4_weight(gen, k, n, device)
+        plain = lambda x: int4_matmul_plain(  # noqa: E731
+            x, w.q_packed, w.scale)
+        try:
+            lib, lib_refused = _int4pack_library(w), None
+        except RuntimeError as e:  # the yardstick only; never the port
+            lib, lib_refused = None, f"refused ({str(e)[:80]})"
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in (1, prefill_m):
+                x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+                out = int4_matmul_tensor(x, w)
+                r = min(m, K3_CHECK_ROWS)
+                ref = plain(x[:r])
+                tol = TOL_K3_REL * float(ref.float().abs().max())
+                worst = max(worst, check_close(
+                    out[:r], ref, tol, f"K3 M={m} (rows checked {r}) K={k} "
+                    f"N={n} {str(dtype)[6:]}", floor=tol))
+                del ref
+                if dtype != torch.bfloat16:
+                    continue
+                reps_m = reps if m == 1 else 3
+                ms, plain_ms = kernel_and_plain_ms(
+                    lambda: int4_matmul_tensor(x, w), lambda: plain(x),
+                    reps_m)
+                lib_ms, lib_note = None, lib_refused
+                if lib is not None:
+                    try:
+                        lib_out = lib(x)
+                        lib_ms = cuda_ms(lambda: lib(x), reps_m)[1]
+                        lib_note = (
+                            f"{lib_ms:.4f} ms, max abs diff from K3 "
+                            f"{max_err(lib_out, out):.3e} (bf16 scales)")
+                        del lib_out
+                    except RuntimeError as e:
+                        lib_note = f"refused ({str(e)[:80]})"
+                cost = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        **bound(nbytes(x, w.q_packed, w.scale, out),
+                                2 * m * k * n, dtype)}
+                rows[m].append(cost)
+                log(f"K3 M={m} K={k} N={n} bf16: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+                    f"({cost['bound_by']}, {cost['bound_ms'] / ms:.3f} of "
+                    f"it reached); torch._weight_int4pack_mm {lib_note}")
+    decode, prefill = (_per_forward(rows[m], layers) for m in (1, prefill_m))
+    log(f"K3 per forward ({layers} layers x 4 matmuls): decode step "
+        f"{decode}; prefill {prefill}")
+    return {"max_abs_err": worst, **decode,
+            "per_layer_m1": rows[1], "prefill": prefill}
+
+
+def phase_k4(device, layers: int, prefill_m: int = PROMPT,
+             reps: int = 20) -> dict:
+    """K4 against its plain version at every fused Llama-2-7B matmul shape
+    and lm_head, M=1 and M=prefill_m, bf16 and float32 outputs: equal bit
+    for bit. Timed in bf16 at both M with its bound, and torch._int_mm plus
+    the same scaling as the library yardstick where it takes the shape."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.int8_matmul import (
+        int8_matmul, int8_matmul_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    worst, rows = 0.0, {1: [], prefill_m: []}
+    lm_head = {}
+    for k, n in SHAPES_7B + (LM_HEAD_7B,):
+        w = _int8_weight(gen, k, n, device)
+        for m in (1, prefill_m):
+            x_q = torch.randint(-127, 128, (m, k), generator=gen,
+                                device=device, dtype=torch.int8)
+            x_s = torch.rand((m,), generator=gen, device=device) / 127 + 1e-4
+            for dtype in (torch.bfloat16, torch.float32):
+                out = int8_matmul(x_q, w.q, x_s, w.scale, out_dtype=dtype)
+                ref = int8_matmul_plain(x_q, w.q, x_s, w.scale,
+                                        out_dtype=dtype)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = torch.equal(out.view(bits), ref.view(bits))
+                err = max_err(out, ref)
+                worst = max(worst, err)
+                log(f"K4 M={m} K={k} N={n} {str(dtype)[6:]}: bit-equal "
+                    f"{same}, max abs err {err:.3e}")
+                check(same, f"K4 M={m} K={k} N={n} {dtype} bit for bit")
+                del ref
+            ms, plain_ms = kernel_and_plain_ms(
+                lambda: int8_matmul(x_q, w.q, x_s, w.scale),
+                lambda: int8_matmul_plain(x_q, w.q, x_s, w.scale),
+                reps if m == 1 else 3)
+            lib = lambda: (torch._int_mm(x_q, w.q).float()  # noqa: E731
+                           * x_s[:, None] * w.scale[None, :]).bfloat16()
+            try:
+                lib()
+                lib_ms = cuda_ms(lib, reps if m == 1 else 3)[1]
+                lib_note = f"{lib_ms:.4f} ms"
+            except RuntimeError as e:  # the yardstick only; never the port
+                lib_ms, lib_note = None, f"refused ({str(e)[:80]})"
+            cost = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    **bound(nbytes(x_q, w.q, x_s, w.scale) + m * n * 2,
+                            2 * m * k * n, torch.int8)}
+            if (k, n) == LM_HEAD_7B:
+                lm_head[m] = cost
+            else:
+                rows[m].append(cost)
+            log(f"K4 M={m} K={k} N={n} bf16: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+                f"({cost['bound_by']}, {cost['bound_ms'] / ms:.3f} of it "
+                f"reached); torch._int_mm + scaling {lib_note}")
+    # lm_head runs at M=1 in decode and in prefill (last position only).
+    decode = _per_forward(rows[1], layers, lm_head[1])
+    prefill = _per_forward(rows[prefill_m], layers, lm_head[1])
+    log(f"K4 per forward ({layers} layers x 4 matmuls + lm_head): decode "
+        f"step {decode}; prefill {prefill}; lm_head at M={prefill_m} "
+        f"(not on the path) {lm_head[prefill_m]}")
+    return {"max_abs_err": worst, **decode, "per_layer_m1": rows[1],
+            "lm_head_m1": lm_head[1], "prefill": prefill}
+
+
+def _quantized(params, arm: str):
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_params, quantize_params_streaming
+    if arm == "int4":
+        params = quantize_params_streaming(params, bits=4, group_size=128)
+    elif arm == "w8a8":
+        params = quantize_params(params, bits=8, act_quant=True)
+    return llama.fuse_params(params)
+
+
+def phase_parity(device, mcfg, arm: str = "raw", prompt: int = 1024,
+                 new_tokens: int = 16):
+    """Kernel path vs plain path in float32: equal greedy tokens. The raw
+    arm runs its plain path on the card (use_flash / use_fused off); the
+    quantized arms run theirs on the CPU, where every wrapper takes its
+    plain version (the matmul wrappers have no switch)."""
     from realtime_kv_cache_compression_tpu_torch import CompressionConfig
     from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import params_to
 
     mcfg = dataclasses.replace(mcfg, dtype="float32")
     ccfg = CompressionConfig(num_layers=mcfg.num_layers)
-    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    params = _quantized(llama.init_params(SEED, mcfg, device), arm)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
                         device=device)
     runs = {}
     for kernels in (True, False):
+        p, i, use = params, ids, kernels
+        if arm != "raw" and not kernels:  # CPU tensors: plain versions
+            p, i, use = params_to(params, "cpu"), ids.cpu(), None
         logits, state, _ = llama.prefill_compressed(
-            params, ids, mcfg, ccfg, max_decode_len=new_tokens,
-            use_flash=kernels)
+            p, i, mcfg, ccfg, max_decode_len=new_tokens, use_flash=use)
         tok = torch.argmax(logits, -1)
-        toks, _ = llama.decode_loop(params, tok, state, new_tokens - 1, mcfg,
-                                    ccfg, use_fused=kernels)
-        runs[kernels] = (torch.cat([tok[:, None], toks], 1), state, logits)
+        toks, _ = llama.decode_loop(p, tok, state, new_tokens - 1, mcfg,
+                                    ccfg, use_fused=use)
+        runs[kernels] = (torch.cat([tok[:, None], toks], 1).cpu(), state,
+                         logits.cpu())
     (tk, sk, lk), (tp, sp, lp) = runs[True], runs[False]
     for i, (ck, cp) in enumerate(zip(sk.caches, sp.caches)):
-        agree = [float((a.positions == b.positions).float().mean())
-                 if a.capacity else 1.0 for a, b in zip(ck.tiers, cp.tiers)]
-        log(f"parity layer {i}: kept-position agreement per tier "
+        agree = [float((a.positions.cpu() == b.positions.cpu()).float()
+                       .mean()) if a.capacity else 1.0
+                 for a, b in zip(ck.tiers, cp.tiers)]
+        log(f"parity {arm} layer {i}: kept-position agreement per tier "
             f"(high, mid, low) {agree}")
-    log(f"parity f32: prefill logits max err {max_err(lk, lp):.3e}; "
-        f"tokens kernel {tk.tolist()} plain {tp.tolist()}")
-    check(torch.equal(tk, tp), "greedy tokens of kernel and plain paths")
+    log(f"parity {arm} f32 ({mcfg.num_layers} layers, hidden "
+        f"{mcfg.hidden_size}, prompt {prompt}): prefill logits max err "
+        f"{max_err(lk, lp):.3e}; tokens kernel {tk.tolist()} plain "
+        f"{tp.tolist()}")
+    check(torch.equal(tk, tp), f"greedy tokens of kernel and plain paths "
+                               f"({arm})")
 
 
 def _spread(xs) -> str:
@@ -287,51 +566,48 @@ def _spread(xs) -> str:
             f"{xs[-1]:.3f}; runs {', '.join(f'{x:.3f}' for x in xs)})")
 
 
-def phase_main(device, mcfg, prompt: int = PROMPT,
-               new_tokens: int = NEW_TOKENS,
-               repeats: int = REPEATS) -> dict:
-    """The main path at full width, counted once (the warm-up), then timed
-    `repeats` times; then the uncompressed arm, timed the same way."""
+def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
+               new_tokens: int = NEW_TOKENS, repeats: int = REPEATS) -> dict:
+    """One path at full width: counted once (the warm-up; every launch count
+    set to 0 just before, read just after and held to `expect`, a dict of
+    kernel key -> launches), then timed `repeats` times; then the
+    uncompressed arm, timed the same way."""
     from realtime_kv_cache_compression_tpu_torch import CompressionConfig
     from realtime_kv_cache_compression_tpu_torch.compression import (
         summarize_layer_stats)
     from realtime_kv_cache_compression_tpu_torch.models import llama
-    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
-        import fused_decode_attention
-    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
-        import flash_prefill_with_prompt_mass
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import params_bytes
 
     ccfg = CompressionConfig(num_layers=mcfg.num_layers)  # tiers 8/4/2
-    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
                         device=device)
     n_steps = new_tokens - 1
-    prefill = lambda: llama.prefill_compressed(params, ids, mcfg, ccfg,
-                                               max_decode_len=new_tokens)
+    prefill = lambda: llama.prefill_compressed(  # noqa: E731
+        params, ids, mcfg, ccfg, max_decode_len=new_tokens)
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_prefill_with_prompt_mass.launches = 0
-    fused_decode_attention.launches = 0
+    for key in KERNELS:
+        wrapper(key).launches = 0
     logits, state, stats = prefill()
     toks, state = llama.decode_loop(params, torch.argmax(logits, -1), state,
                                     n_steps, mcfg, ccfg)
     torch.cuda.synchronize()
-    k1, k2 = (flash_prefill_with_prompt_mass.launches,
-              fused_decode_attention.launches)
+    launches = {key: wrapper(key).launches for key in KERNELS}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     summary = summarize_layer_stats(stats)
-    log(f"main run launches: K1 {k1} (expect {mcfg.num_layers}), K2 {k2} "
-        f"(expect {mcfg.num_layers * n_steps})")
-    check(k1 == mcfg.num_layers and k2 == mcfg.num_layers * n_steps,
-          "main path launched K1 once per layer and K2 once per layer-step")
+    log(f"{label} launches: {launches} (expect {expect})")
+    check(launches == expect, f"{label}: launches per kernel")
     check(toks.shape == (1, n_steps) and bool(torch.isfinite(logits).all()),
-          "main run output shape and finite logits")
+          f"{label}: output shape and finite logits")
     check(0.0 < summary["avg_compression_ratio"] < 1.0,
           "kept ratio in (0, 1)")
-    log(f"main run: kept_ratio {summary['avg_compression_ratio']:.4f}, "
-        f"byte_savings {summary['avg_memory_savings']:.4f}, peak memory "
-        f"{peak_mb:.1f} MB")
+    log(f"{label}: kept_ratio {summary['avg_compression_ratio']:.4f}, "
+        f"byte_savings {summary['avg_memory_savings']:.4f}, params "
+        f"{params_bytes(params) / 2**20:.1f} MB, peak memory {peak_mb:.1f} "
+        f"MB")
 
     ttft, rate = [], []
     for _ in range(repeats):
@@ -341,26 +617,29 @@ def phase_main(device, mcfg, prompt: int = PROMPT,
             params, tok, state, n_steps, mcfg, ccfg))
         ttft.append(ms)
         rate.append(n_steps / (dec_ms / 1e3))
-    log(f"main run (compressed), {repeats} timed runs: TTFT ms "
+    log(f"{label} (compressed), {repeats} timed runs: TTFT ms "
         f"{_spread(ttft)}; decode tok/s {_spread(rate)}")
 
     # Uncompressed arm (its prefill runs K1 as well).
-    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, new_tokens))
+    pad = lambda a: torch.nn.functional.pad(  # noqa: E731
+        a, (0, 0, 0, 0, 0, new_tokens))
     pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
     ttft_u, rate_u = [], []
     for i in range(repeats + 1):  # the first is the warm-up
         (lo, (ks, vs)), ms = cuda_ms(
             lambda: llama.prefill_uncompressed(params, ids, mcfg))
         tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
+        del ks, vs
         _, dec_ms = cuda_ms(lambda: llama.decode_loop_uncompressed(
             params, tok, kv, pos, n_steps, mcfg))
+        del kv
         if i:
             ttft_u.append(ms)
             rate_u.append(n_steps / (dec_ms / 1e3))
-    log(f"main run (uncompressed arm), {repeats} timed runs: TTFT ms "
+    log(f"{label} (uncompressed arm), {repeats} timed runs: TTFT ms "
         f"{_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
-    return {"k1_launches": k1, "k2_launches": k2, "params": params,
-            "ids": ids, "ccfg": ccfg}
+    return {"launches": launches, "params": params, "ids": ids,
+            "ccfg": ccfg}
 
 
 def _device_busy_ms(prof) -> float:
@@ -378,9 +657,9 @@ def _device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def phase_profile(mcfg, main_run, decode_steps: int = 10,
+def phase_profile(label: str, mcfg, main_run, decode_steps: int = 10,
                   top: int = 6) -> None:
-    """Where the time goes in the main run: torch.profiler over one
+    """Where the time goes in a main run: torch.profiler over one
     compressed prefill and over `decode_steps` decode steps; device busy
     time against host wall time (the profiler slows the host), and the
     kernels that take most device time. Then `compress_layer_kv` of one
@@ -409,9 +688,9 @@ def phase_profile(mcfg, main_run, decode_steps: int = 10,
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         busy = _device_busy_ms(prof)
-        log(f"profile {what}: wall {wall:.3f} ms, device busy {busy:.3f} "
-            f"ms, device idle share {1 - busy / wall:.4f}")
-        check(busy > 0, f"profile {what} saw device time")
+        log(f"profile {label} {what}: wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms, device idle share {1 - busy / wall:.4f}")
+        check(busy > 0, f"profile {label} {what} saw device time")
         kernels = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
@@ -434,38 +713,118 @@ def phase_profile(mcfg, main_run, decode_steps: int = 10,
         compress_layer_kv(k, v, mass, 0, ccfg, mcfg)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    log(f"compress_layer_kv alone, one layer, S={s}: host ms "
+    log(f"compress_layer_kv alone ({label}), one layer, S={s}: host ms "
         f"{_spread(times[1:])}")
+
+
+def run_7b_arm(arm: str, device, mcfg) -> dict:
+    """Llama-2-7B bf16 random weights from SEED, quantized for `arm`, fused;
+    the main run with its launch counts, then a profile."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    params = _quantized(llama.init_params(SEED, mcfg, device), arm)
+    torch.cuda.synchronize()
+    log(f"llama2-7b {arm}: init + quantize + fuse "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_layers, n_steps = mcfg.num_layers, NEW_TOKENS - 1
+    expect = {"K1": n_layers, "K2": n_layers * n_steps, "K3": 0, "K4": 0}
+    if arm == "int4":
+        expect["K3"] = 4 * n_layers * (1 + n_steps)
+    else:
+        expect["K4"] = (4 * n_layers + 1) * (1 + n_steps)
+    run = phase_main(f"llama2-7b {arm} main run", device, mcfg, params,
+                     expect, repeats=REPEATS_7B)
+    phase_profile(f"llama2-7b {arm}", mcfg, run)
+    launches = run["launches"]
+    del run, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_all(device, tiny, big) -> list:
+    """Every phase, in order; returns the kernels' entries for the JSON
+    line. `tiny` and `big` are the TinyLlama and Llama-2-7B configs."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    two = lambda cfg: dataclasses.replace(cfg, num_layers=2)  # noqa: E731
+    t0 = time.perf_counter()
+    phase_build()
+    k1_tiny = phase_k1(device, (1, PROMPT, tiny.num_heads, tiny.num_kv_heads,
+                                tiny.head_dim))
+    k1 = phase_k1(device, (1, PROMPT, big.num_heads, big.num_kv_heads,
+                           big.head_dim))
+    k2_tiny = phase_k2(device, two(tiny))
+    k2 = phase_k2(device, two(big))
+    k3 = phase_k3(device, big.num_layers)
+    k4 = phase_k4(device, big.num_layers)
+    phase_parity(device, two(tiny))
+    for arm in ("int4", "w8a8"):
+        phase_parity(device, two(big), arm, prompt=512, new_tokens=8)
+    n_steps = NEW_TOKENS - 1
+    tiny_run = phase_main(
+        "tinyllama main run", device, tiny,
+        llama.fuse_params(llama.init_params(SEED, tiny, device)),
+        {"K1": tiny.num_layers, "K2": tiny.num_layers * n_steps, "K3": 0,
+         "K4": 0})
+    phase_profile("tinyllama", tiny, tiny_run)
+    launches = {"tinyllama": tiny_run["launches"]}
+    del tiny_run
+    torch.cuda.empty_cache()
+    for arm in ("int4", "w8a8"):
+        launches[f"llama2_7b_{arm}"] = run_7b_arm(arm, device, big)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+
+    def entry(key, result, path, extra=None):
+        _, name, source, replaces = KERNELS[key]
+        fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[path][key],
+                **{f: result[f] for f in fields},
+                "launches_by_path": {p: c[key] for p, c in launches.items()},
+                **(extra or {})}
+
+    shape_note = ("ms, plain_ms, bound_ms, library_ms: one decode step's "
+                  f"calls ({big.num_layers} layers x 4 matmuls{{}}) at M=1, "
+                  "bf16")
+    kernels = [
+        entry("K1", k1, "llama2_7b_int4", {
+            "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
+            "library": "scaled_dot_product_attention, causal, no prompt "
+                       "mass",
+            "tinyllama": {**k1_tiny, "shape": "B=1 S=4096 Hq=32 Hkv=4 d=64"}}),
+        entry("K2", k2, "llama2_7b_int4", {
+            "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, bf16",
+            "tinyllama": k2_tiny}),
+        entry("K3", k3, "llama2_7b_int4", {
+            "shape": shape_note.format(""), "prefill": k3["prefill"],
+            "library": "torch._weight_int4pack_mm, same codes, bf16 "
+                       "scales"}),
+        entry("K4", k4, "llama2_7b_w8a8", {
+            "shape": shape_note.format(" + lm_head"),
+            "prefill": k4["prefill"],
+            "library": "torch._int_mm + scaling (refuses M=1)"}),
+    ]
+    return kernels
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from realtime_kv_cache_compression_tpu_torch import TINYLLAMA_1_1B
+    from realtime_kv_cache_compression_tpu_torch import (LLAMA2_7B,
+                                                         TINYLLAMA_1_1B)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = "cuda"
-    mcfg = dataclasses.replace(TINYLLAMA_1_1B,
-                               max_position_embeddings=PROMPT + NEW_TOKENS)
-    t0 = time.perf_counter()
     phase_environment()
-    phase_build()
-    k1 = phase_k1(device)
-    k2 = phase_k2(device, dataclasses.replace(mcfg, num_layers=2))
-    phase_parity(device, dataclasses.replace(mcfg, num_layers=2))
-    main_run = phase_main(device, mcfg)
-    phase_profile(mcfg, main_run)
-    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
-    kernels = [
-        {"name": "flash_prefill_with_prompt_mass", "route": "cuda",
-         "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": main_run["k1_launches"], **k1},
-        {"name": "fused_decode_attention", "route": "cuda",
-         "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": main_run["k2_launches"], **k2},
-    ]
+    kernels = run_all(
+        "cuda", dataclasses.replace(TINYLLAMA_1_1B,
+                                    max_position_embeddings=PROMPT
+                                    + NEW_TOKENS),
+        dataclasses.replace(LLAMA2_7B,
+                            max_position_embeddings=PROMPT + NEW_TOKENS))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,13 +10,16 @@ arm is `prefill_uncompressed` + `decode_loop_uncompressed`.
 Kernels: with `use_flash` the prefill attention runs K1
 (ops/cuda/flash_prefill.py); with `use_fused` the decode attention runs K2
 (ops/cuda/decode_attention.py). Both default to on for CUDA tensors; on CPU
-tensors the wrappers take their plain versions. The reference's
-`lax.scan` decode is a Python loop here, and decode updates the recent
-rings (and the baseline arm's dense cache) in place.
+tensors the wrappers take their plain versions. Quantized weights
+(models/quantized_params.py) dispatch in `_matmul`: `Int4Tensor` runs K3
+(ops/cuda/int4_matmul.py), act-quant `QuantizedTensor` K4
+(ops/cuda/int8_matmul.py). The reference's `lax.scan` decode is a Python
+loop here, and decode updates the recent rings (and the baseline arm's
+dense cache) in place.
 
 Not ported yet: ragged batches (`lengths`), sampling, the decode pool,
-quantized weights, chunked prefill, MoE and the other model families'
-options beyond the config fields themselves.
+chunked prefill, MoE (and its quantized experts) and the other model
+families' options beyond the config fields themselves.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ from ..ops.attention import (attention_over_tokens,
 from ..ops.cuda.decode_attention import (decode_attention_plain,
                                          fused_decode_attention)
 from ..ops.cuda.flash_prefill import flash_prefill_with_prompt_mass
+from ..ops.cuda.int4_matmul import int4_matmul_tensor
+from ..ops.cuda.int8_matmul import dynamic_int8_matmul
+from .quantized_params import Int4Tensor, QuantizedTensor
 
 Params = Dict[str, Any]
 
@@ -45,7 +51,7 @@ Params = Dict[str, Any]
 # Parameters
 # ---------------------------------------------------------------------------
 
-def init_params(seed: int, cfg: ModelConfig, device="cpu") -> Params:
+def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
     """Random-init params with the reference's keys, shapes and
     N(0, 1) * fan_in**-0.5 scale, drawn from a torch.Generator seeded with
     `seed` on `device` (other numbers than jax.random's)."""
@@ -93,32 +99,67 @@ def _to_torch(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree, device="cpu") -> Params:
+def params_from_jax(tree, device="cuda") -> Params:
     """A JAX params tree (leaves as numpy arrays) → the port's params, with
-    the same keys, shapes, dtypes and values."""
+    the same keys, shapes, dtypes and values. Quantized leaves are known by
+    their fields (the JAX package is not imported): `q`, `scale`, `axis`,
+    `act_quant` make a `QuantizedTensor`; `q_packed`, `scale`, `in_dim` an
+    `Int4Tensor`."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
+    if all(hasattr(tree, f) for f in ("q", "scale", "axis", "act_quant")):
+        return QuantizedTensor(q=_to_torch(tree.q, device),
+                               scale=_to_torch(tree.scale, device),
+                               axis=int(tree.axis),
+                               act_quant=bool(tree.act_quant))
+    if all(hasattr(tree, f) for f in ("q_packed", "scale", "in_dim")):
+        return Int4Tensor(q_packed=_to_torch(tree.q_packed, device),
+                          scale=_to_torch(tree.scale, device),
+                          in_dim=int(tree.in_dim))
     return _to_torch(tree, device)
+
+
+def _concat_weights(ws):
+    """Matmul weights concatenated along the out axis: raw tensors or
+    quantized leaves (per-out-channel int8 and grouped int4 keep their
+    scales per output column, so this equals the separate matmuls)."""
+    w0 = ws[0]
+    if isinstance(w0, QuantizedTensor):
+        if any(w.axis != 1 for w in ws):
+            raise ValueError("only per-out-channel int8 weights fuse")
+        return QuantizedTensor(q=torch.cat([w.q for w in ws], dim=1),
+                               scale=torch.cat([w.scale for w in ws]),
+                               axis=1, act_quant=w0.act_quant)
+    if isinstance(w0, Int4Tensor):
+        if any(w.in_dim != w0.in_dim or w.group_size != w0.group_size
+               for w in ws):
+            raise ValueError("int4 weights fuse only with equal in_dim and "
+                             "group size")
+        return Int4Tensor(
+            q_packed=torch.cat([w.q_packed for w in ws], dim=1),
+            scale=torch.cat([w.scale for w in ws], dim=1), in_dim=w0.in_dim)
+    return torch.cat(ws, dim=1)
 
 
 def fuse_params(params: Params) -> Params:
     """Fuse each layer's q/k/v projections into one `wqkv` and gate/up into
-    one `w_gateup` weight (concatenated along the output axis)."""
+    one `w_gateup` weight (concatenated along the output axis); raw or
+    quantized trees."""
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = []
     for layer in params["layers"]:
         lo = dict(layer)
         if "wq" in lo:
-            lo["wqkv"] = torch.cat([lo.pop("wq"), lo.pop("wk"),
-                                    lo.pop("wv")], dim=1)
+            lo["wqkv"] = _concat_weights([lo.pop("wq"), lo.pop("wk"),
+                                          lo.pop("wv")])
             if "bq" in lo:
                 lo["bqkv"] = torch.cat([lo.pop("bq"), lo.pop("bk"),
                                         lo.pop("bv")])
         if "w_gate" in lo:
-            lo["w_gateup"] = torch.cat([lo.pop("w_gate"), lo.pop("w_up")],
-                                       dim=1)
+            lo["w_gateup"] = _concat_weights([lo.pop("w_gate"),
+                                              lo.pop("w_up")])
         out["layers"].append(lo)
     return out
 
@@ -127,9 +168,42 @@ def fuse_params(params: Params) -> Params:
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _embed_lookup(embed: torch.Tensor, input_ids: torch.Tensor, dtype,
+def _int8_weight_only(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """x @ (q * scale) for per-out-channel int8 q [in, out], in the JAX
+    package's order: the codes convert (exactly) to x's dtype, the product
+    comes out in float32, is scaled, then rounds once to x's dtype. The
+    JAX package leaves this to XLA outside any Pallas kernel; here it is a
+    plain matmul. On the card a bf16 product reads the bf16 codes and
+    writes float32 (`out_dtype`, which the CPU lacks: there both operands
+    go to float32, the same products and sums)."""
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), q.to(x.dtype),
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = x.float() @ q.float()
+    return (y * scale).to(x.dtype)
+
+
+def _matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for raw, int8- or int4-quantized weights: act-quant int8 runs
+    K4, int4 runs K3 (both take their plain versions on CPU tensors)."""
+    if isinstance(w, QuantizedTensor):
+        if w.act_quant and w.axis == 1:
+            return dynamic_int8_matmul(x, w.q, w.scale)
+        return _int8_weight_only(x, w.q, w.scale)
+    if isinstance(w, Int4Tensor):
+        return int4_matmul_tensor(x, w)
+    return x @ w
+
+
+def _embed_lookup(embed, input_ids: torch.Tensor, dtype,
                   cfg: ModelConfig) -> torch.Tensor:
-    out = embed[input_ids.long()].to(dtype)
+    ids = input_ids.long()
+    if isinstance(embed, QuantizedTensor):  # per-row int8
+        out = (embed.q[ids].float() * embed.scale[ids][..., None]).to(dtype)
+    else:
+        out = embed[ids].to(dtype)
     if cfg.scale_embeddings:
         out = out * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
     return out
@@ -187,14 +261,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     if "wqkv" in layer:
-        qkv = x @ layer["wqkv"]
+        qkv = _matmul(x, layer["wqkv"])
         if "bqkv" in layer:
             qkv = qkv + layer["bqkv"]
         q = qkv[..., :cfg.q_dim]
         k = qkv[..., cfg.q_dim:cfg.q_dim + cfg.kv_dim]
         v = qkv[..., cfg.q_dim + cfg.kv_dim:]
     else:
-        q, k, v = x @ layer["wq"], x @ layer["wk"], x @ layer["wv"]
+        q, k, v = (_matmul(x, layer[n]) for n in ("wq", "wk", "wv"))
         if "bq" in layer:
             q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
@@ -213,26 +287,29 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
 def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = cfg.hidden_act
     if "w_gateup" in layer:
-        gu = x @ layer["w_gateup"]
+        gu = _matmul(x, layer["w_gateup"])
         i = gu.shape[-1] // 2
-        return (_act(gu[..., :i], act) * gu[..., i:]) @ layer["w_down"]
-    return ((_act(x @ layer["w_gate"], act) * (x @ layer["w_up"]))
-            @ layer["w_down"])
+        return _matmul(_act(gu[..., :i], act) * gu[..., i:], layer["w_down"])
+    return _matmul(_act(_matmul(x, layer["w_gate"]), act)
+                   * _matmul(x, layer["w_up"]), layer["w_down"])
 
 
 def logits_from_hidden(params: Params, h: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     h = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+        embed = params["embed"]
+        if isinstance(embed, QuantizedTensor):  # per-row scale = per logit
+            return _int8_weight_only(h, embed.q.T, embed.scale)
+        return h @ embed.T
+    return _matmul(h, params["lm_head"])
 
 
 def _attn_out(layer: Params, h: torch.Tensor, attn: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """Residual add of the attention output, then the gated-MLP block."""
     b, s = h.shape[:2]
-    h = h + attn.reshape(b, s, cfg.q_dim) @ layer["wo"]
+    h = h + _matmul(attn.reshape(b, s, cfg.q_dim), layer["wo"])
     return h + _mlp(layer, rmsnorm(h, layer["post_norm"], cfg.rms_norm_eps),
                     cfg)
 

@@ -2,8 +2,10 @@
 
 `csrc/*.cu` compile with nvcc for sm_90a into a library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
-The library lands in `build/cuda_kernels/<hash of sources and flags>/` at the
-root of the checkout, at first use; later calls and processes reuse it.
+Each source compiles in its own nvcc process, all started together, and one
+more links the objects. The library lands in
+`build/cuda_kernels/<hash of sources and flags>/` at the root of the
+checkout, at first use; later calls and processes reuse it.
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without nvcc or a GPU.
 """
@@ -25,10 +27,19 @@ _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_ROOT = _PACKAGE.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# C entries: each takes a pointer to its params struct and a stream.
+ENTRIES = ("flash_prefill_launch", "decode_attention_launch",
+           "int4_matmul_launch", "int8_matmul_launch")
 
 # dtype codes shared with csrc/common.cuh.
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+# Small-M route of the matmul kernels (csrc/int4_matmul.cu and
+# csrc/int8_matmul.cu, kSmallM and kGemvThreads): up to SMALL_M rows, a
+# split-K GEMV whose blocks cover GEMV_COLUMNS columns (256 threads x 4).
+SMALL_M = 8
+GEMV_COLUMNS = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,24 +82,36 @@ def load_library() -> KernelLibrary:
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # Build into a private name, then rename: concurrent first uses
-        # (test workers) never load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        # Build in a private directory, then rename the library: concurrent
+        # first uses (test workers) never load a half-written one.
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            nvcc, tmp = _nvcc(), Path(tmp)
+            objs = [tmp / (src.stem + ".o")
+                    for src in sorted(CSRC.glob("*.cu"))]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                 str(CSRC / (obj.stem + ".cu"))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for obj in objs]
+            logs = [proc.communicate()[0] for proc in procs]
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / "lib.so"),
+                 *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            failed = [(obj.stem, proc.returncode, log) for obj, proc, log in
+                      zip(objs, procs, logs) if proc.returncode != 0]
+            if link.returncode != 0:
+                failed.append(("link", link.returncode, link.stdout))
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"[{name}] exit {rc}\n{log}" for name, rc, log in failed))
+            log_path.write_text("".join(logs))
+            os.replace(tmp / "lib.so", lib_path)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))
     lib.kernels_error_string.argtypes = [ctypes.c_int]
     lib.kernels_error_string.restype = ctypes.c_char_p
-    for name in ("flash_prefill_launch", "decode_attention_launch"):
+    for name in ENTRIES:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -105,6 +128,14 @@ def launch(name: str, params: ctypes.Structure, stream: int) -> None:
     if err != 0:
         msg = kl.lib.kernels_error_string(err).decode()
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
+
+
+def split_k(n: int, k: int) -> int:
+    """K splits of the small-M route over N columns and K reduction rows:
+    about four blocks per SM of the H100's 132, each at least 64 rows of
+    k."""
+    col_blocks = -(-n // GEMV_COLUMNS)
+    return max(1, min(-(-528 // col_blocks), k // 64))
 
 
 def dtype_code(dtype) -> int:

@@ -9,7 +9,11 @@ tests/conftest.py imports it, so run this file there without the conftest:
 Tolerances: float32 kernels vs float32 references within 1e-4 (K1: exp2
 with the scale folded into q, blockwise sums) and 1e-5 (K2); bf16 outputs
 per element within two bf16 ulps of |reference| plus 1e-5 (both sides
-round one float32 result to bf16); prompt mass within 1e-5.
+round one float32 result to bf16); prompt mass within 1e-5. K3: float32
+within 1e-4 of max|reference| (sums over K in another order); bf16 within
+two ulps plus that same float32 limit, which an output near zero after
+cancellation carries. K4: equal bit for bit (integer sums, one epilogue in
+the same order).
 """
 
 import dataclasses
@@ -21,18 +25,25 @@ import realtime_kv_cache_compression_tpu_torch as rt
 from realtime_kv_cache_compression_tpu_torch.compression import (
     append_recent, compress_layer_kv, init_recent_cache)
 from realtime_kv_cache_compression_tpu_torch.models import llama
+from realtime_kv_cache_compression_tpu_torch.models.quantized_params import (
+    params_to, quantize_params, quantize_tensor, quantize_tensor_int4)
 from realtime_kv_cache_compression_tpu_torch.ops.attention import (
     prefill_attention_with_prompt_mass)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain, fused_decode_attention)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
     flash_prefill_with_prompt_mass)
+from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
+    int4_matmul, int4_matmul_plain, int4_matmul_tensor)
+from realtime_kv_cache_compression_tpu_torch.ops.cuda.int8_matmul import (
+    dynamic_int8_matmul, int8_matmul, int8_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 
 TOL_K1_F32 = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
+TOL_K3_REL = 1e-4
 BF16_ULPS, BF16_FLOOR = 2, 1e-5
 
 
@@ -45,15 +56,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_close(out, ref, f32_tol):
-    """bf16: every element within BF16_ULPS ulps of |ref| plus BF16_FLOOR;
+def _assert_close(out, ref, f32_tol, floor=BF16_FLOOR):
+    """bf16: every element within BF16_ULPS ulps of |ref| plus `floor`;
     float32: within `f32_tol` absolute."""
     ref = ref.float()
     err = (out.float() - ref).abs()
     if out.dtype == torch.bfloat16:
         mag = ref.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        assert bool((err <= BF16_ULPS * ulp + BF16_FLOOR).all()), \
+        assert bool((err <= BF16_ULPS * ulp + floor).all()), \
             float(err.max())
     else:
         assert float(err.max()) <= f32_tol
@@ -69,6 +80,7 @@ def _randn(gen, shape, dtype, device):
     (2, 333, 8, 8, 16, (5, 40)),
     (2, 200, 8, 2, 32, (64, 1)),
     (1, 129, 4, 1, 128, None),
+    (1, 300, 8, 8, 128, (100,)),  # Llama-2-7B heads: d=128, n_rep = 1
 ])
 def test_k1_matches_plain(cuda, dtype, b, s, hq, hkv, d, plens):
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -127,6 +139,7 @@ def _decode_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, n_recent, seed):
     ("8/4/2 chunk 16", dict(b=2, s=300, hq=4, hkv=2, d=32, ring=4,
                             n_recent=0)),
     ("8/4/2", dict(b=1, s=260, hq=16, hkv=1, d=128, ring=4, n_recent=2)),
+    ("8/4/2", dict(b=1, s=700, hq=8, hkv=8, d=128, ring=8, n_recent=3)),
     ("16/8/4", dict(b=2, s=90, hq=2, hkv=2, d=16, ring=4, n_recent=3)),
 ])
 def test_k2_matches_plain(cuda, dtype, tiers, shape):
@@ -175,3 +188,124 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     ccfg2 = dataclasses.replace(ccfg, quant_group_size=0)
     with pytest.raises(NotImplementedError):
         fused_decode_attention(q, cache, recent, q_pos, ccfg2, pool=object())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,group_size", [
+    (1, 4096, 4096, 128),    # decode GEMV, grouped
+    (3, 256, 130, 64),       # ragged N (byte loads), small M
+    (17, 384, 72, 64),       # tiled: ragged M, N below one tile
+    (9, 100, 40, 128),       # single group, ragged K/2 edge
+    (1, 100, 37, 128),       # single group, M=1, odd N
+    (5, 11008, 256, 128),    # w_down's K: 43 groups per half
+    (300, 4096, 640, 128),   # tiled over several tiles
+])
+def test_k3_matches_plain(cuda, dtype, m, k, n, group_size):
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    w = quantize_tensor_int4(_randn(gen, (k, n), torch.float32, cuda)
+                             * k ** -0.5, group_size=group_size)
+    x = _randn(gen, (m, k), dtype, cuda)
+    before = int4_matmul.launches
+    out = int4_matmul(x, w.q_packed, w.scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    ref = int4_matmul_plain(x, w.q_packed, w.scale)
+    assert out.dtype == dtype and out.shape == (m, n)
+    tol = TOL_K3_REL * float(ref.float().abs().max())
+    _assert_close(out, ref, tol, floor=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 4096), (2, 11008, 4096), (3, 300, 130), (17, 128, 72),
+    (130, 11008, 200), (256, 4096, 512)])
+def test_k4_matches_plain_bit_for_bit(cuda, dtype, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x_q = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    xs = torch.rand((m,), generator=gen, device=cuda) + 0.01
+    ws = torch.rand((n,), generator=gen, device=cuda) + 0.01
+    before = int8_matmul.launches
+    out = int8_matmul(x_q, w_q, xs, ws, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_plain(x_q, w_q, xs, ws, out_dtype=dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), ref.view(bits))
+
+
+def test_k3_k4_take_leading_dims(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = _randn(gen, (256, 96), torch.float32, cuda)
+    x = _randn(gen, (2, 1, 256), torch.bfloat16, cuda)
+    t4 = quantize_tensor_int4(w)
+    y = int4_matmul_tensor(x, t4)
+    assert y.shape == (2, 1, 96) and y.dtype == torch.bfloat16
+    t8 = quantize_tensor(w, act_quant=True)
+    y = dynamic_int8_matmul(x, t8.q, t8.scale)
+    assert y.shape == (2, 1, 96) and y.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("lead,k,n", [((1, 1), 4096, 32000),
+                                      ((2, 7), 256, 96)])
+def test_int8_weight_only_bf16_matches_float32_route(cuda, lead, k, n):
+    """The card's bf16 route (bf16 codes, float32 product) against the
+    float32 route on the same card: equal products, sums in another order,
+    one rounding to bf16 on each side; also the tied head's transposed
+    codes."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    w = quantize_tensor(_randn(gen, (k, n), torch.float32, cuda)
+                        * k ** -0.5)
+    x = _randn(gen, (*lead, k), torch.bfloat16, cuda)
+    ref = ((x.float() @ w.q.float()) * w.scale).to(torch.bfloat16)
+    out = llama._int8_weight_only(x, w.q, w.scale)
+    assert out.dtype == torch.bfloat16 and out.shape == (*lead, n)
+    _assert_close(out, ref, None)
+    q_t = w.q.T.contiguous().T  # [k, n] view of an [n, k] tensor
+    _assert_close(llama._int8_weight_only(x, q_t, w.scale), ref, None)
+
+
+@pytest.mark.parametrize("arm", [dict(bits=4, group_size=64),
+                                 dict(bits=8, act_quant=True)])
+def test_quantized_kernel_path_tokens_equal_plain_path_f32(cuda, arm):
+    """Kernel path on the card vs the plain path on the CPU (where every
+    wrapper takes its plain version), float32, 2 layers."""
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=4,
+                              num_kv_heads=4, head_dim=64,
+                              intermediate_size=512)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.fuse_params(quantize_params(
+        llama.init_params(0, mcfg, "cpu"), **arm))
+    ids = torch.randint(0, mcfg.vocab_size, (2, 300),
+                        generator=torch.Generator().manual_seed(1))
+    before = (int4_matmul.launches, int8_matmul.launches)
+    on_card = llama.generate(params_to(params, cuda), ids.to(cuda), mcfg,
+                             ccfg, max_new_tokens=10)[0]
+    launched = (int4_matmul.launches - before[0],
+                int8_matmul.launches - before[1])
+    assert launched[0 if arm["bits"] == 4 else 1] > 0
+    plain = llama.generate(params, ids, mcfg, ccfg, max_new_tokens=10)[0]
+    assert torch.equal(on_card.cpu(), plain)
+
+
+def test_matmul_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    w = quantize_tensor_int4(torch.randn((256, 64), device=cuda))
+    x = torch.randn((2, 256), device=cuda)
+    with pytest.raises(TypeError):
+        int4_matmul(x.half(), w.q_packed, w.scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(torch.randn((256, 2), device=cuda).T, w.q_packed,
+                    w.scale)
+    with pytest.raises(ValueError, match="whole groups"):
+        int4_matmul(x, w.q_packed, w.scale[:1].expand(3, -1).contiguous())
+    q = torch.zeros((2, 256), dtype=torch.int8, device=cuda)
+    wq = torch.zeros((256, 8), dtype=torch.int8, device=cuda)
+    s2, s8 = torch.ones(2, device=cuda), torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        int8_matmul(q.float(), wq, s2, s8)
+    with pytest.raises(TypeError):
+        int8_matmul(q, wq, s2, s8, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        int8_matmul(q, wq[:128], s2, s8)

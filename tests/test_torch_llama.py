@@ -78,7 +78,7 @@ def runs():
     jcc = rj.CompressionConfig(num_layers=LAYERS)
     tcc = rt.CompressionConfig(num_layers=LAYERS)
     jp = jl.init_params(jax.random.PRNGKey(0), jcfg)
-    tp = tl.params_from_jax(_numpy_tree(jp))
+    tp = tl.params_from_jax(_numpy_tree(jp), device="cpu")
     ids = np.random.default_rng(0).integers(0, jcfg.vocab_size,
                                             (BATCH, PROMPT))
 
@@ -128,7 +128,8 @@ def test_layer_caches_match_across_seeds(runs, seed):
         0, runs["jcfg"].vocab_size, (BATCH, PROMPT))
     _, j_state, _ = runs["pre"](jp, jnp.asarray(ids))
     _, t_state, _ = tl.prefill_compressed(
-        tl.params_from_jax(_numpy_tree(jp)), torch.from_numpy(ids),
+        tl.params_from_jax(_numpy_tree(jp), device="cpu"),
+        torch.from_numpy(ids),
         runs["tcfg"], runs["tcc"], max_decode_len=STEPS + 1)
     _assert_caches_match(j_state.caches, t_state.caches, runs["tcc"])
 
@@ -221,9 +222,10 @@ def test_params_from_jax_roundtrip(dtype, fused):
     jp = jl.init_params(jax.random.PRNGKey(1), jcfg)
     if fused:
         expect = jl.fuse_params(jp)
-        got = tl.fuse_params(tl.params_from_jax(_numpy_tree(jp)))
+        got = tl.fuse_params(tl.params_from_jax(_numpy_tree(jp),
+                                                device="cpu"))
     else:
-        expect, got = jp, tl.params_from_jax(_numpy_tree(jp))
+        expect, got = jp, tl.params_from_jax(_numpy_tree(jp), device="cpu")
     leaves_j, tree_j = jax.tree_util.tree_flatten_with_path(expect)
     leaves_t, tree_t = jax.tree_util.tree_flatten_with_path(got)
     assert tree_j == tree_t
@@ -236,8 +238,9 @@ def test_params_from_jax_roundtrip(dtype, fused):
 
 def test_init_params_shapes_and_scale():
     cfg = rt.tiny_test_model(num_layers=2)
-    p = tl.init_params(0, cfg)
-    assert torch.equal(p["embed"], tl.init_params(0, cfg)["embed"])
+    p = tl.init_params(0, cfg, device="cpu")
+    assert torch.equal(p["embed"],
+                       tl.init_params(0, cfg, device="cpu")["embed"])
     jshapes = jax.eval_shape(lambda: jl.init_params(
         jax.random.PRNGKey(0), rj.tiny_test_model(num_layers=2)))
     got = jax.tree_util.tree_map(lambda t: tuple(t.shape), p)
