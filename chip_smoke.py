@@ -4,10 +4,12 @@
 
 Builds the port's CUDA kernels (K1-K4) from
 `realtime_kv_cache_compression_tpu_torch/csrc`, one nvcc per source, all at
-once. Checks each kernel against its plain PyTorch version at the shapes of
-the paths below, in bf16 and float32, with its time, bound and library
-yardstick. Then it drives three paths, each with every launch count set to
-0 just before it and read just after:
+once. Checks each kernel (K1 in its one-shot mode (a) and chunked mode
+(b), K2 over tiers + ring and with the decode pool and scale groups)
+against its plain PyTorch version at the shapes of the paths below, in
+bf16 and float32, with its time, bound and library yardstick. Then it
+drives four paths, each with every launch count set to 0 just before it
+and read just after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
@@ -19,12 +21,21 @@ yardstick. Then it drives three paths, each with every launch count set to
   same prompt, tiers and generation, counted once and timed REPEATS_7B
   times, the uncompressed arm, and a profile;
 - the same model under `quantize_params(bits=8, act_quant=True)`: every
-  layer matmul and lm_head through K4.
+  layer matmul and lm_head through K4;
+- TinyLlama again on the ragged, chunked, long-generation path: batch 2
+  with lengths (4096, 3000) right-padded to 4096,
+  `prefill_compressed_chunked` in 4 chunks of 1024 (K1 mode (b)), then 383
+  greedy steps over a 64-token ring and a decode pool of 4 blocks at 4
+  bits, with 2 scale groups per head (K2 with the pool), so every layer
+  flushes its ring 5 times and wraps the pool; counted once, timed
+  REPEATS_NEW times, the uncompressed arm with the same lengths, and a
+  profile.
 
 Before the full runs, each path's kernel path is checked against the plain
 path in float32 at reduced depth (2 layers, full width): equal greedy
-tokens. Any failed check exits nonzero. The last line is the device JSON;
-the line before it lists every kernel.
+tokens, and for the chunked path also chunked against one-shot prefill.
+Any failed check exits nonzero. The last line is the device JSON; the line
+before it lists every kernel.
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -47,6 +58,9 @@ KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
     "K1": ("flash_prefill", "flash_prefill_with_prompt_mass",
            f"{PKG}/csrc/flash_prefill.cu",
            f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
+    "K1b": ("flash_prefill", "flash_chunk_attention_with_prompt_mass",
+            f"{PKG}/csrc/flash_prefill.cu",
+            f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
     "K2": ("decode_attention", "fused_decode_attention",
            f"{PKG}/csrc/decode_attention.cu",
            f"{JAX_PKG}/ops/pallas/decode_attention.py:143"),
@@ -66,7 +80,8 @@ KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
 # K3 the float32 limit itself (1e-4 of max|reference|), since an output
 # near zero after cancelling large terms carries the float32 difference of
 # those terms and a tiny ulp. K4 is integer arithmetic with one epilogue in
-# the same order on both sides: equal bit for bit.
+# the same order on both sides: equal bit for bit. K1's chunked mode and
+# K2 with the decode pool and scale groups are held to the same limits.
 TOL_K1_F32 = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
@@ -82,11 +97,22 @@ SEED = 0
 PROMPT = 4096
 NEW_TOKENS = 128
 REPEATS = 5
-REPEATS_7B = 3
+REPEATS_7B = 2
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
 LM_HEAD_7B = (4096, 32000)
 K3_CHECK_ROWS = 512  # K3's plain version at M=4096 is compared on a slice
+# The ragged, chunked, long-generation path.
+LENGTHS = (4096, 3000)
+CHUNK = 1024
+RING = 64
+POOL_BLOCKS = 4
+POOL_BITS = 4
+GROUP_SIZE = 32       # 2 scale groups per head at d=64
+DECODE_STEPS = 383    # flushes at steps 64, 128, ..., 320: 5 per layer
+REPEATS_NEW = 3
+SWAP_TOL = 1e-5       # chunked vs one-shot: a kept-token swap at a tier
+                      # boundary passes only between near-equal scores
 
 
 def log(msg: str) -> None:
@@ -171,6 +197,13 @@ def bound(n_bytes: float, ops: float, dtype) -> dict:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def pool_bytes(pool) -> int:
+    """Bytes one layer's decode pool holds."""
+    return nbytes(pool.k_stored, pool.v_stored, pool.k_scale, pool.k_zp,
+                  pool.v_scale, pool.v_zp, pool.positions, pool.valid,
+                  pool.write_block)
 
 
 def nvidia_smi_line() -> str:
@@ -327,6 +360,183 @@ def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
                 log(f"K2 {name} {dtype} layer 0 ({n_keys} keys): kernel "
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                     f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+        del params
+    return {"max_abs_err": worst, **timing}
+
+
+def _pooled_ccfg(num_layers: int, group_size: int = GROUP_SIZE,
+                 pool_bits: int = POOL_BITS,
+                 blocks: int = POOL_BLOCKS):
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    return CompressionConfig(num_layers=num_layers,
+                             quant_group_size=group_size,
+                             decode_pool_blocks=blocks,
+                             decode_pool_bits=pool_bits)
+
+
+def phase_k1_chunk(device, shape, offsets=(0, 1024, 2048, 3072),
+                   chunk: int = CHUNK, reps: int = 10) -> dict:
+    """K1 mode (b) against `chunk_attention_with_prompt_mass`: batch 2 with
+    the chunked path's per-row prompt lengths, `chunk` query rows (strided
+    slices of one fused QKV, as the path hands them over) over a
+    contiguous PROMPT-row K/V buffer at each chunk offset, bf16 and
+    float32. Timed in bf16 at every offset with its bound (operations:
+    4 B Hq d c (q_offset + (c + 1) / 2)) and SDPA with a boolean [c, S_k]
+    causal mask as the library yardstick (no prompt mass); the returned
+    numbers sum the offsets, one layer's chunked prefill."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.attention import (
+        chunk_attention_with_prompt_mass)
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import flash_chunk_attention_with_prompt_mass
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    hq, hkv, d = shape
+    b, s_k = len(LENGTHS), PROMPT
+    ccfg = _pooled_ccfg(1)
+    plen = ccfg.prompt_length(s_k)
+    plens = llama._prompt_lens(torch.tensor(LENGTHS, device=device), ccfg,
+                               plen)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, rows = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        k_buf, v_buf = (torch.randn((b, s_k, hkv, d), generator=gen,
+                                    device=device).to(dtype)
+                        for _ in range(2))
+        for off in offsets:
+            q = _fused_qkv(gen, b, chunk, hq, hkv, d, dtype, device)[0]
+            kernel = lambda: flash_chunk_attention_with_prompt_mass(  # noqa
+                q, k_buf, v_buf, off, plen, prompt_lens=plens)
+            plain = lambda: chunk_attention_with_prompt_mass(  # noqa: E731
+                q, k_buf, v_buf, off, plen, prompt_lens=plens)
+            # The plain version rounds probabilities to the value dtype
+            # before the value product, as the reference does; the kernel
+            # keeps them in float32, so it is held against the plain
+            # version on exact float32 copies of the same inputs.
+            o, pm = kernel()
+            o_ref, pm_ref = chunk_attention_with_prompt_mass(
+                q.float(), k_buf.float(), v_buf.float(), off, plen,
+                prompt_lens=plens)
+            what = (f"K1 mode b {tuple(q.shape)} over {s_k} keys at "
+                    f"q_offset {off} {str(dtype)[6:]} plens {plens.tolist()}")
+            worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what),
+                        check_close(pm, pm_ref, TOL_MASS,
+                                    what + " prompt mass"))
+            del o_ref, pm_ref
+            if dtype != torch.bfloat16:
+                continue
+            ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
+            mask = (torch.arange(s_k, device=device)[None, :]
+                    <= off + torch.arange(chunk, device=device)[:, None])
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k_buf, v_buf))
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                               enable_gqa=hq != hkv)
+            try:
+                lib()
+                lib_ms = cuda_ms(lib, reps)[1]
+            except RuntimeError as e:  # the yardstick only; never the port
+                lib_ms = None
+                log(f"SDPA refused ({str(e)[:80]})")
+            keys = off + chunk  # keys this chunk's rows can see
+            cost = {"q_offset": off, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms,
+                    **bound(nbytes(q, o) + 2 * b * keys * hkv * d
+                            * k_buf.element_size() + b * chunk * 4,
+                            4 * b * hq * d * chunk * (off + (chunk + 1) / 2),
+                            dtype)}
+            rows.append(cost)
+            log(f"K1 mode b {tuple(q.shape)} q_offset {off} bf16: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}), SDPA "
+                f"{lib_ms} ms (masked, no prompt mass)")
+    return {"max_abs_err": worst, **_per_forward(rows, 1),
+            "per_offset": rows}
+
+
+def phase_k2_pool(device, mcfg, groups, prompt: int = PROMPT,
+                  steps: int = 330, reps: int = 20) -> dict:
+    """K2 with the decode pool and scale groups against
+    `decode_attention_plain(pool=)` on real states at the chunked path's
+    batch: a full-width ragged prefill of len(LENGTHS) rows with LENGTHS
+    right-padded to `prompt` at reduced depth, then `steps` decode steps
+    over a RING-token ring and POOL_BLOCKS pool blocks (past a pool wrap),
+    so every row has its own positions and valid slots. 4- and 16-bit pools
+    and each group count in `groups`, in bf16 and float32, every layer.
+    The path's variant (4-bit pool, groups[-1] groups, bf16) is timed on
+    layer 0 with its bound. No single PyTorch call computes it."""
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        cache_storage_bytes)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import decode_attention_plain, fused_decode_attention
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    b = len(LENGTHS)
+    ids = torch.randint(0, mcfg.vocab_size, (b, prompt), generator=gen,
+                        device=device)
+    lengths = torch.tensor(LENGTHS, device=device)
+    flushes = (steps - 1) // RING
+    worst, timing = 0.0, None
+    for dtype in ("bfloat16", "float32"):
+        mcfg_d = dataclasses.replace(mcfg, dtype=dtype)
+        params = llama.fuse_params(llama.init_params(SEED, mcfg_d, device))
+        for bits in (POOL_BITS, 16):
+            for g in reversed(groups):
+                ccfg = _pooled_ccfg(mcfg.num_layers,
+                                    0 if g == 1 else mcfg.head_dim // g,
+                                    bits)
+                logits, state, _ = llama.prefill_compressed(
+                    params, ids, mcfg_d, ccfg, max_decode_len=RING,
+                    lengths=lengths)
+                _, state = llama.decode_loop(
+                    params, torch.argmax(logits, -1), state, steps, mcfg_d,
+                    ccfg)
+                q = torch.randn((b, 1, mcfg.num_heads, mcfg.head_dim),
+                                generator=gen, device=device).to(
+                                    llama.model_dtype(mcfg_d))
+                q_pos = state.position[:, None]
+                check(state.position.tolist() == [n + steps
+                                                  for n in LENGTHS],
+                      "per-row decode positions")
+                for i, (cache, recent, pool) in enumerate(zip(
+                        state.caches, state.recents, state.pools)):
+                    check(bool(pool.valid.all()) and pool.write_block.tolist()
+                          == [flushes % POOL_BLOCKS] * b, "the pool wrapped")
+                    out = fused_decode_attention(q, cache, recent, q_pos,
+                                                 ccfg, pool=pool)
+                    ref = decode_attention_plain(q, cache, recent, q_pos,
+                                                 ccfg, pool=pool)
+                    what = (f"K2 pool {bits}-bit G={g} {dtype} layer {i}, "
+                            f"B={b} lengths {LENGTHS}: ring "
+                            f"{recent.length.tolist()}/{RING}, pool "
+                            f"{pool.capacity} tokens, {flushes} flushes")
+                    worst = max(worst, check_close(out, ref, TOL_K2_F32,
+                                                   what))
+                if timing is not None:
+                    continue
+                cache, recent, pool = (state.caches[0], state.recents[0],
+                                       state.pools[0])
+                ms, plain_ms = kernel_and_plain_ms(
+                    lambda: fused_decode_attention(q, cache, recent, q_pos,
+                                                   ccfg, pool=pool),
+                    lambda: decode_attention_plain(q, cache, recent, q_pos,
+                                                   ccfg, pool=pool), reps)
+                n_ring = int(recent.length.sum())
+                n_keys = (sum(int(t.valid.sum()) for t in cache.tiers)
+                          + int(pool.valid.sum()) + n_ring)
+                timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "variant": f"B={b} lengths {LENGTHS}, {bits}-bit "
+                                     f"pool, G={g}, {dtype}",
+                          **bound(cache_storage_bytes(cache)
+                                  + pool_bytes(pool)
+                                  + 2 * n_ring * nbytes(recent.k[0, 0])
+                                  + 2 * nbytes(q),
+                                  4 * mcfg.num_heads * mcfg.head_dim * n_keys,
+                                  torch.bfloat16)}
+                log(f"K2 pool {bits}-bit G={g} {dtype} layer 0 ({n_keys} "
+                    f"keys): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {timing['bound_ms']:.4f} ms "
+                    f"({timing['bound_by']})")
         del params
     return {"max_abs_err": worst, **timing}
 
@@ -560,6 +770,91 @@ def phase_parity(device, mcfg, arm: str = "raw", prompt: int = 1024,
                                f"({arm})")
 
 
+def _kept_swaps(caches_a, caches_b, masses, ccfg, lengths, s) -> list:
+    """Per layer, the tokens kept (per tier and row) by one prefill and not
+    the other, with their importance scores from `masses`: [(layer, tier,
+    row, tokens, scores)]."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.importance import (
+        importance_scores)
+
+    plens = llama._prompt_lens(lengths, ccfg, ccfg.prompt_length(s))
+    swaps = []
+    for li, (ca, cb) in enumerate(zip(caches_a, caches_b)):
+        scores = importance_scores(masses[li], li, s, ccfg.prompt_length(s),
+                                   ccfg, lengths=lengths, prompt_lens=plens)
+        for ti, (ta, tb) in enumerate(zip(ca.tiers, cb.tiers)):
+            for r in range(lengths.shape[0]):
+                ka = set(ta.positions[r][ta.valid[r]].tolist())
+                kb = set(tb.positions[r][tb.valid[r]].tolist())
+                if ka != kb:
+                    toks = sorted(ka ^ kb)
+                    swaps.append((li, ti, r, toks,
+                                  scores[r, toks].tolist(),
+                                  len(ka - kb) == len(kb - ka)))
+    return swaps
+
+
+def phase_parity_chunked(device, mcfg, prompt: int = 1024,
+                         lengths=(1024, 700), chunk: int = 256,
+                         ring: int = 16, blocks: int = 2, steps: int = 64):
+    """The chunked, pooled path in float32 at reduced depth (full width):
+    ragged `lengths`, chunks of `chunk`, a `ring`-token ring and `blocks`
+    4-bit pool blocks with 2 scale groups, `steps` greedy steps (3 flushes
+    per layer and a wrap). Kernel path vs plain path (both on the card):
+    equal tokens. Chunked vs one-shot prefill (kernel path): equal tokens,
+    and equal kept positions and validity per layer, except a swap at a
+    tier boundary between tokens whose scores lie within SWAP_TOL (the two
+    prefills run float32 matmuls at other shapes), which is logged."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    ccfg = _pooled_ccfg(mcfg.num_layers, mcfg.head_dim // 2, blocks=blocks)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    ids = torch.randint(0, mcfg.vocab_size, (len(lengths), prompt),
+                        generator=gen, device=device)
+    lens = torch.tensor(lengths, device=device)
+    runs = {}
+    for kernels in (True, False):
+        st = llama._prefill_chunks(params, ids, mcfg, ccfg, chunk, lens,
+                                   kernels)
+        logits, state, _ = llama.prefill_chunked_finish(
+            params, st, mcfg, ccfg, max_decode_len=ring, lengths=lens)
+        masses, caches = st.masses, state.caches
+        toks, state = llama.decode_loop(params, torch.argmax(logits, -1),
+                                        state, steps, mcfg, ccfg,
+                                        use_fused=kernels)
+        check(int(state.pools[0].write_block[0])
+              == ((steps - 1) // ring) % blocks, "chunked parity: pool wrap")
+        runs[kernels] = (toks.cpu(), caches, masses, logits.cpu())
+    (tk_, ck, mk, lk), (tp, _, _, lp) = runs[True], runs[False]
+    log(f"parity chunked f32 ({mcfg.num_layers} layers, hidden "
+        f"{mcfg.hidden_size}, lengths {lengths}, chunk {chunk}, ring {ring}, "
+        f"{blocks} pool blocks, G=2): prefill logits max err "
+        f"{max_err(lk, lp):.3e}; tokens kernel {tk_.tolist()} plain "
+        f"{tp.tolist()}")
+    check(torch.equal(tk_, tp), "chunked path: greedy tokens of kernel and "
+                                "plain paths")
+    logits, state, _ = llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=ring, lengths=lens)
+    swaps = _kept_swaps(ck, state.caches, mk, ccfg, lens, prompt)
+    for li, ti, r, toks, scores, paired in swaps:
+        spread = max(scores) - min(scores)
+        log(f"chunked vs one-shot: layer {li} tier {ti} row {r} swaps "
+            f"tokens {toks} (scores {scores}, spread {spread:.3e})")
+        check(paired and spread <= SWAP_TOL,
+              "chunked vs one-shot kept positions (boundary swap rule)")
+    t1, _ = llama.decode_loop(params, torch.argmax(logits, -1), state, steps,
+                              mcfg, ccfg)
+    log(f"chunked vs one-shot prefill: logits max err "
+        f"{max_err(lk, logits.cpu()):.3e}, {len(swaps)} boundary swaps, "
+        f"tokens "
+        f"equal {torch.equal(t1.cpu(), tk_)}")
+    check(torch.equal(t1.cpu(), tk_), "greedy tokens of chunked and one-shot "
+                                      "prefill")
+
+
 def _spread(xs) -> str:
     xs = sorted(xs)
     return (f"median {xs[len(xs) // 2]:.3f} (min {xs[0]:.3f}, max "
@@ -625,13 +920,13 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
         a, (0, 0, 0, 0, 0, new_tokens))
     pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
     ttft_u, rate_u = [], []
-    for i in range(repeats + 1):  # the first is the warm-up
+    for i in range(repeats + 1):  # the first is a warm-up of 2 steps
         (lo, (ks, vs)), ms = cuda_ms(
             lambda: llama.prefill_uncompressed(params, ids, mcfg))
         tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
         del ks, vs
         _, dec_ms = cuda_ms(lambda: llama.decode_loop_uncompressed(
-            params, tok, kv, pos, n_steps, mcfg))
+            params, tok, kv, pos, n_steps if i else 2, mcfg))
         del kv
         if i:
             ttft_u.append(ms)
@@ -657,6 +952,34 @@ def _device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
+def _profile_window(label: str, what: str, fn, top: int = 6) -> None:
+    """torch.profiler over one call of `fn`: device busy time against host
+    wall time (the profiler slows the host), and the kernels that take most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = _device_busy_ms(prof)
+    log(f"profile {label} {what}: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, device idle share {1 - busy / wall:.4f}")
+    check(busy > 0, f"profile {label} {what} saw device time")
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    for name, (n, t) in sorted(kernels.items(),
+                               key=lambda kv: -kv[1][1])[:top]:
+        log(f"  {t / 1e3:9.3f} ms  {n:5d} x  {name[:90]}")
+
+
 def phase_profile(label: str, mcfg, main_run, decode_steps: int = 10,
                   top: int = 6) -> None:
     """Where the time goes in a main run: torch.profiler over one
@@ -664,9 +987,6 @@ def phase_profile(label: str, mcfg, main_run, decode_steps: int = 10,
     time against host wall time (the profiler slows the host), and the
     kernels that take most device time. Then `compress_layer_kv` of one
     layer alone, on the host clock."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from realtime_kv_cache_compression_tpu_torch.compression import (
         compress_layer_kv)
     from realtime_kv_cache_compression_tpu_torch.models import llama
@@ -675,30 +995,11 @@ def phase_profile(label: str, mcfg, main_run, decode_steps: int = 10,
     logits, state, _ = llama.prefill_compressed(
         params, ids, mcfg, ccfg, max_decode_len=NEW_TOKENS)
     tok = torch.argmax(logits, -1)
-    for what, fn in (
-            ("prefill", lambda: llama.prefill_compressed(
-                params, ids, mcfg, ccfg, max_decode_len=NEW_TOKENS)),
-            (f"decode {decode_steps} steps", lambda: llama.decode_loop(
-                params, tok, state, decode_steps, mcfg, ccfg))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        busy = _device_busy_ms(prof)
-        log(f"profile {label} {what}: wall {wall:.3f} ms, device busy "
-            f"{busy:.3f} ms, device idle share {1 - busy / wall:.4f}")
-        check(busy > 0, f"profile {label} {what} saw device time")
-        kernels = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n, t = kernels.get(e.name, (0, 0.0))
-                kernels[e.name] = (n + 1, t + e.time_range.elapsed_us())
-        for name, (n, t) in sorted(kernels.items(),
-                                   key=lambda kv: -kv[1][1])[:top]:
-            log(f"  {t / 1e3:9.3f} ms  {n:5d} x  {name[:90]}")
+    _profile_window(label, "prefill", lambda: llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=NEW_TOKENS), top)
+    _profile_window(label, f"decode {decode_steps} steps",
+                    lambda: llama.decode_loop(params, tok, state,
+                                              decode_steps, mcfg, ccfg), top)
 
     gen = torch.Generator(device=ids.device).manual_seed(SEED + 4)
     b, s, hkv, d = 1, ids.shape[1], mcfg.num_kv_heads, mcfg.head_dim
@@ -728,7 +1029,8 @@ def run_7b_arm(arm: str, device, mcfg) -> dict:
     log(f"llama2-7b {arm}: init + quantize + fuse "
         f"{time.perf_counter() - t0:.1f} s")
     n_layers, n_steps = mcfg.num_layers, NEW_TOKENS - 1
-    expect = {"K1": n_layers, "K2": n_layers * n_steps, "K3": 0, "K4": 0}
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1=n_layers, K2=n_layers * n_steps)
     if arm == "int4":
         expect["K3"] = 4 * n_layers * (1 + n_steps)
     else:
@@ -738,6 +1040,166 @@ def run_7b_arm(arm: str, device, mcfg) -> dict:
     phase_profile(f"llama2-7b {arm}", mcfg, run)
     launches = run["launches"]
     del run, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _host_ms(fn, runs: int = 6) -> list:
+    """Host milliseconds of `runs - 1` calls of `fn` after a warm-up, each
+    between two synchronizes."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[1:]
+
+
+def phase_chunked_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
+    """The ragged, chunked, long-generation path at full width and depth:
+    batch 2 with LENGTHS right-padded to PROMPT, `prefill_compressed_chunked`
+    in chunks of CHUNK (K1 mode (b)), DECODE_STEPS greedy steps over a
+    RING-token ring and a POOL_BLOCKS x POOL_BITS-bit decode pool with 2
+    scale groups (K2 with the pool). Counted once (launches and flushes per
+    layer held exactly), timed `repeats` times, the uncompressed arm with
+    the same lengths, the bf16 chunked-vs-one-shot kept-position reading,
+    the flush's cost alone, and a profile whose decode window holds a
+    flush."""
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        cache_storage_bytes, flush_recent, init_decode_pool,
+        init_recent_cache, summarize_layer_stats)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    label = "tinyllama chunked pooled run"
+    layers, n = mcfg.num_layers, DECODE_STEPS
+    ccfg = _pooled_ccfg(layers)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    b = len(LENGTHS)
+    ids = torch.randint(0, mcfg.vocab_size, (b, PROMPT), generator=gen,
+                        device=device)
+    lengths = torch.tensor(LENGTHS, device=device)
+    prefill = lambda: llama.prefill_compressed_chunked(  # noqa: E731
+        params, ids, mcfg, ccfg, chunk_size=CHUNK, max_decode_len=RING,
+        lengths=lengths)
+
+    flushes = {}
+
+    def counting_flush(recent, pool, *args):
+        flushes[id(pool)] = flushes.get(id(pool), 0) + 1
+        return flush_recent(recent, pool, *args)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in KERNELS:
+        wrapper(key).launches = 0
+    llama.flush_recent = counting_flush
+    try:
+        logits, state, stats = prefill()
+        toks, state = llama.decode_loop(params, torch.argmax(logits, -1),
+                                        state, n, mcfg, ccfg)
+        torch.cuda.synchronize()
+    finally:
+        llama.flush_recent = flush_recent
+    launches = {key: wrapper(key).launches for key in KERNELS}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1b=layers * PROMPT // CHUNK, K2=layers * n)
+    per_layer = [flushes.get(id(p), 0) for p in state.pools]
+    log(f"{label} launches: {launches} (expect {expect}); flushes per "
+        f"layer {per_layer} (expect {(n - 1) // RING})")
+    check(launches == expect, f"{label}: launches per kernel")
+    check(per_layer == [(n - 1) // RING] * layers, f"{label}: flushes")
+    check(all(bool(p.valid.all()) and int(p.write_block[0])
+              == ((n - 1) // RING) % POOL_BLOCKS for p in state.pools),
+          f"{label}: every pool wrapped")
+    check(toks.shape == (b, n) and bool(torch.isfinite(logits).all()),
+          f"{label}: output shape and finite logits")
+    summary = summarize_layer_stats(stats)
+    check(0.0 < summary["avg_compression_ratio"] < 1.0,
+          "kept ratio in (0, 1)")
+    stored = sum(cache_storage_bytes(c) + pool_bytes(p)
+                 + nbytes(r.k, r.v, r.positions, r.length)
+                 for c, p, r in zip(state.caches, state.pools,
+                                    state.recents))
+    dense = (layers * 2 * (sum(LENGTHS) + b * n) * mcfg.num_kv_heads
+             * mcfg.head_dim * 2)
+    log(f"{label}: kept_ratio {summary['avg_compression_ratio']:.4f}, "
+        f"byte_savings (prefill tiers) {summary['avg_memory_savings']:.4f}; "
+        f"after {n} steps tiers + pools + rings hold {stored / 2**20:.3f} "
+        f"MB against {dense / 2**20:.3f} MB of bf16 K/V for the "
+        f"{sum(LENGTHS) + b * n} tokens (savings {1 - stored / dense:.4f}); "
+        f"peak memory {peak_mb:.1f} MB")
+
+    ttft, rate = [], []
+    for _ in range(repeats):
+        (logits, state, _), ms = cuda_ms(prefill)
+        tok = torch.argmax(logits, -1)
+        _, dec_ms = cuda_ms(lambda: llama.decode_loop(
+            params, tok, state, n, mcfg, ccfg))
+        ttft.append(ms)
+        rate.append(b * n / (dec_ms / 1e3))
+    log(f"{label} (compressed), {repeats} timed runs: chunked-prefill TTFT "
+        f"ms {_spread(ttft)}; decode tok/s (both rows) {_spread(rate)}")
+
+    pad = lambda a: torch.nn.functional.pad(  # noqa: E731
+        a, (0, 0, 0, 0, 0, n))
+    pos = lengths.to(torch.int32)
+    ttft_u, rate_u = [], []
+    for i in range(repeats + 1):  # the first is a warm-up of 2 steps
+        (lo, (ks, vs)), ms = cuda_ms(lambda: llama.prefill_uncompressed(
+            params, ids, mcfg, lengths=lengths))
+        tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
+        del ks, vs
+        _, dec_ms = cuda_ms(lambda: llama.decode_loop_uncompressed(
+            params, tok, kv, pos, n if i else 2, mcfg))
+        del kv
+        if i:
+            ttft_u.append(ms)
+            rate_u.append(b * n / (dec_ms / 1e3))
+    log(f"{label} (uncompressed arm, same lengths), {repeats} timed runs: "
+        f"TTFT ms {_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
+
+    # Reading, not a check: bf16 chunked vs one-shot kept positions.
+    _, chunked, _ = prefill()
+    _, one_shot, _ = llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=RING, lengths=lengths)
+    differ = [li for li, (a, c) in enumerate(zip(chunked.caches,
+                                                 one_shot.caches))
+              if any(not torch.equal(ta.positions, tc.positions)
+                     for ta, tc in zip(a.tiers, c.tiers))]
+    log(f"{label}: bf16 chunked vs one-shot prefill, layers whose kept "
+        f"positions differ: {len(differ)} of {layers} {differ}")
+    del chunked, one_shot
+
+    # The flush alone: one layer's full ring into its pool.
+    recent = init_recent_cache(b, RING, mcfg, device=device)
+    recent.k.normal_(generator=gen)
+    recent.v.normal_(generator=gen)
+    pool = init_decode_pool(b, RING, ccfg, mcfg, device=device)
+
+    def one_flush():
+        recent.length.fill_(RING)
+        flush_recent(recent, pool, ccfg, mcfg)
+
+    times = _host_ms(one_flush)
+    med = sorted(times)[len(times) // 2]
+    log(f"flush_recent alone, one layer (B={b}, ring {RING}, "
+        f"{POOL_BITS}-bit, G=2): host ms {_spread(times)}; per decode step "
+        f"over {layers} layers, one flush every {RING} steps: "
+        f"{med * layers / RING:.3f} ms")
+
+    logits, state, _ = prefill()
+    tok = torch.argmax(logits, -1)
+    _profile_window("tinyllama chunked", "chunked prefill", prefill)
+    toks, state = llama.decode_loop(params, tok, state, RING - 4, mcfg, ccfg)
+    _profile_window("tinyllama chunked",
+                    "decode 10 steps (a flush at the 5th)",
+                    lambda: llama.decode_loop(params, toks[:, -1], state, 10,
+                                              mcfg, ccfg))
+    del params, state
     torch.cuda.empty_cache()
     return launches
 
@@ -754,23 +1216,33 @@ def run_all(device, tiny, big) -> list:
                                 tiny.head_dim))
     k1 = phase_k1(device, (1, PROMPT, big.num_heads, big.num_kv_heads,
                            big.head_dim))
+    k1b_tiny = phase_k1_chunk(device, (tiny.num_heads, tiny.num_kv_heads,
+                                       tiny.head_dim))
+    k1b_big = phase_k1_chunk(device, (big.num_heads, big.num_kv_heads,
+                                      big.head_dim))
     k2_tiny = phase_k2(device, two(tiny))
     k2 = phase_k2(device, two(big))
+    k2p_tiny = phase_k2_pool(device, two(tiny), groups=(1, 2))
+    k2p_big = phase_k2_pool(device, two(big), groups=(1, 4))
     k3 = phase_k3(device, big.num_layers)
     k4 = phase_k4(device, big.num_layers)
     phase_parity(device, two(tiny))
     for arm in ("int4", "w8a8"):
         phase_parity(device, two(big), arm, prompt=512, new_tokens=8)
+    phase_parity_chunked(device, two(tiny))
     n_steps = NEW_TOKENS - 1
     tiny_run = phase_main(
         "tinyllama main run", device, tiny,
         llama.fuse_params(llama.init_params(SEED, tiny, device)),
-        {"K1": tiny.num_layers, "K2": tiny.num_layers * n_steps, "K3": 0,
-         "K4": 0})
+        {**{key: 0 for key in KERNELS}, "K1": tiny.num_layers,
+         "K2": tiny.num_layers * n_steps})
     phase_profile("tinyllama", tiny, tiny_run)
     launches = {"tinyllama": tiny_run["launches"]}
     del tiny_run
     torch.cuda.empty_cache()
+    launches["tinyllama_chunked"] = phase_chunked_path(
+        device, dataclasses.replace(tiny,
+                                    max_position_embeddings=PROMPT + 512))
     for arm in ("int4", "w8a8"):
         launches[f"llama2_7b_{arm}"] = run_7b_arm(arm, device, big)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -788,15 +1260,41 @@ def run_all(device, tiny, big) -> list:
     shape_note = ("ms, plain_ms, bound_ms, library_ms: one decode step's "
                   f"calls ({big.num_layers} layers x 4 matmuls{{}}) at M=1, "
                   "bf16")
+    chunk_note = (f"B=2 c={CHUNK} over S_k={PROMPT}, Hq={{}} Hkv={{}} "
+                  f"d={{}}, bf16; ms, plain_ms, bound_ms, library_ms: the "
+                  f"{PROMPT // CHUNK} chunk offsets summed, one layer's "
+                  f"chunked prefill")
+    pool_note = (f"layer 0 of a 2-layer {{}} state, B={len(LENGTHS)} "
+                 f"lengths {LENGTHS} right-padded to {PROMPT}, after 330 "
+                 f"steps (ring {RING}, {POOL_BLOCKS} pool blocks, wrapped); "
+                 f"{{}}")
+    k2_err = max(r["max_abs_err"] for r in (k2, k2_tiny, k2p_tiny, k2p_big))
     kernels = [
         entry("K1", k1, "llama2_7b_int4", {
+            "mode": "a (square causal)",
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
                        "mass",
             "tinyllama": {**k1_tiny, "shape": "B=1 S=4096 Hq=32 Hkv=4 d=64"}}),
-        entry("K2", k2, "llama2_7b_int4", {
-            "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, bf16",
-            "tinyllama": k2_tiny}),
+        entry("K1b", {**k1b_tiny, "max_abs_err": max(
+            k1b_tiny["max_abs_err"], k1b_big["max_abs_err"])},
+              "tinyllama_chunked", {
+            "mode": "b (rectangular causal at q_offset, chunked prefill)",
+            "shape": chunk_note.format(tiny.num_heads, tiny.num_kv_heads,
+                                       tiny.head_dim),
+            "library": "scaled_dot_product_attention with a boolean "
+                       "[c, S_k] causal mask, no prompt mass",
+            "llama2_7b": {**k1b_big, "shape": chunk_note.format(
+                big.num_heads, big.num_kv_heads, big.head_dim)}}),
+        entry("K2", {**k2, "max_abs_err": k2_err}, "llama2_7b_int4", {
+            "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, "
+                     "tiers + ring, bf16",
+            "tinyllama": k2_tiny,
+            "pool": {  # the decode-pool segment and G > 1 (chunked path)
+                "tinyllama": {**k2p_tiny, "shape": pool_note.format(
+                    "TinyLlama", k2p_tiny["variant"])},
+                "llama2_7b": {**k2p_big, "shape": pool_note.format(
+                    "Llama-2-7B", k2p_big["variant"])}}}),
         entry("K3", k3, "llama2_7b_int4", {
             "shape": shape_note.format(""), "prefill": k3["prefill"],
             "library": "torch._weight_int4pack_mm, same codes, bf16 "

@@ -1,10 +1,10 @@
 """Real-time prefill KV compression pipeline (PyTorch).
 
-Port of the JAX package's `compression/compressor.py` for one device and
-uniform batches: score → precision labels → budgeted tier selection →
-quantize + pack each tier pool, with the same per-layer statistics, and the
-host-side summary over layers. Ragged, chunked and sequence-sharded
-compression are not ported yet.
+Port of the JAX package's `compression/compressor.py` for one device,
+uniform or ragged batches: score → precision labels → budgeted tier
+selection → quantize + pack each tier pool, with the same per-layer
+statistics, and the host-side summary over layers. Sequence-sharded and
+chunked-minmax compression are not ported yet (ROADMAP Queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -37,25 +37,29 @@ def compress_layer_kv(
     cfg: CompressionConfig,
     model_cfg: ModelConfig,
     token_valid: torch.Tensor = None,
+    prompt_lens: torch.Tensor = None,
 ) -> Tuple[CompressedLayerCache, Dict[str, torch.Tensor]]:
     """Compress one layer's prefill K/V into packed tier pools.
 
     k, v: [B, S, H_kv, D] RoPE'd keys / values; prompt_mass: [B, S].
+    token_valid: optional [B, S] bool for right-padded ragged rows: padding
+    is never stored, and scores, budgets and stats follow the true lengths
+    (`importance_min` / `importance_max` still span the padding, as in the
+    reference). prompt_lens: optional [B] per-row prompt lengths.
     Returns (cache, stats): the layer's `CompressedLayerCache` and a dict of
-    per-row statistics with the reference's keys. Ragged batches
-    (`token_valid`) are not ported yet.
+    per-row statistics with the reference's keys.
     """
-    if token_valid is not None:
-        raise NotImplementedError("ragged compression is not ported yet")
     batch, seq_len, num_kv_heads, head_dim = k.shape
     prompt_len = cfg.prompt_length(seq_len)
     group_size = cfg.quant_group_size or head_dim
     store_dtype = model_dtype(model_cfg)
 
+    lengths = token_valid.sum(dim=-1) if token_valid is not None else None
     scores = importance_scores(prompt_mass, layer_idx, seq_len, prompt_len,
-                               cfg)
+                               cfg, lengths=lengths, prompt_lens=prompt_lens)
     labels, prec_stats = assign_precision(scores, cfg)
-    sel = select_tokens(scores, labels, layer_idx, cfg)
+    sel = select_tokens(scores, labels, layer_idx, cfg,
+                        token_valid=token_valid, prompt_lens=prompt_lens)
 
     tiers = []
     for slot, tier in enumerate((HIGH, MID, LOW)):
@@ -82,11 +86,14 @@ def compress_layer_kv(
     kept_valid = torch.cat(sel.valid, dim=-1)
     mem = memory_report(kept_labels, kept_valid, cfg,
                         head_dim * num_kv_heads,
-                        original_tokens=batch * seq_len,
+                        original_tokens=(token_valid.sum()
+                                         if token_valid is not None
+                                         else batch * seq_len),
                         group_size=group_size)
 
     kept = sel.kept_mask.sum(dim=-1)
-    true_len = torch.full((batch,), seq_len, device=k.device)
+    true_len = (lengths if lengths is not None
+                else torch.full((batch,), seq_len, device=k.device))
     stats = {
         "seq_len": true_len,
         "kept_tokens": kept,

@@ -1,22 +1,27 @@
-// K2: fused dequant + attention decode over the packed tier pools and the
-// recent ring, flash-decoding style.
+// K2: fused dequant + attention decode over the packed tier pools, the
+// quantized decode pool and the recent ring, flash-decoding style.
 //
 // Replaces the TPU kernel `_decode_kernel` in
-// realtime_kv_cache_compression_tpu/ops/pallas/decode_attention.py (tier
-// pools + recent ring; the decode-pool segment and G > 1 scale groups are
-// not ported yet).
+// realtime_kv_cache_compression_tpu/ops/pallas/decode_attention.py, all of
+// it: tiers, decode pool, ring, and G >= 1 scale groups per head.
 //
 // One query token per batch row attends over every stored token of a
 // layer: the HIGH/MID/LOW tier pools (2/4/8-bit codes packed chunk-strided
-// along the token axis, or raw 16-bit values) and the uncompressed recent
-// ring. Within a chunk of C tokens with R = ceil(C * bits / 8) byte rows,
-// token t sits in byte row floor(t / C) * R + (t mod C) mod R at bit offset
-// floor((t mod C) / R) * bits. Codes are unpacked here; with one scale per
-// (token, kv head) the affine folds into rank-1 corrections:
+// along the token axis, or raw 16-bit values), the decode pool (ring-sized
+// blocks, each packed as one chunk, or raw 16-bit) and the uncompressed
+// recent ring. Within a chunk of C tokens with R = ceil(C * bits / 8) byte
+// rows, token t sits in byte row floor(t / C) * R + (t mod C) mod R at bit
+// offset floor((t mod C) / R) * bits. Codes are unpacked here. With one
+// scale per (token, kv head), G = 1, the affine folds into rank-1
+// corrections:
 //   s = (q.c - sum(q) * zp_k) * sc_k * sm_scale
 //   o = sum_t p_t sc_v,t c_t - sum_t p_t sc_v,t zp_v,t
-// The only mask is stored position <= query position; invalid tier slots
-// and ring slots at or past the ring length are skipped.
+// With G > 1 groups of gs = D / G channels (a power of two, at least 8)
+// each code is dequantized in registers, (c - zp_g) * sc_g, before its
+// products: the same function as the reference's per-channel expansion
+// (decode_attention.py:195-200, :230-234), summed in another order.
+// The only mask is stored position <= query position; invalid tier and
+// pool slots and ring slots at or past the ring length are skipped.
 //
 // Grid: the TPU walks segments in order in one program per batch row, which
 // on this card would leave 131 of 132 SMs idle at batch 1. Here the token
@@ -41,12 +46,12 @@ using rkv::to_f;
 struct DecodeSegment {
   const void* k;          // [B, rows, H, D] uint8 codes, or raw q-dtype values
   const void* v;
-  const float* k_scale;   // [B, n, H] float32 (unused for raw segments)
+  const float* k_scale;   // [B, n, H, G] float32 (unused for raw segments)
   const float* k_zp;
   const float* v_scale;
   const float* v_zp;
   const int* pos;         // [B, n] stored positions
-  const uint8_t* valid;   // [B, n] slot validity (tiers), or null
+  const uint8_t* valid;   // [B, n] slot validity (tiers, pool), or null
   const int* length;      // [B] live ring length (ring), or null
   long long rows;         // stored rows per batch row
   int n;                  // tokens (slots)
@@ -57,8 +62,10 @@ struct DecodeSegment {
   int n_splits;
 };
 
+constexpr int kMaxSegments = 5;  // HIGH, MID, LOW, decode pool, ring
+
 struct DecodeParams {
-  DecodeSegment seg[4];
+  DecodeSegment seg[kMaxSegments];
   const void* q;          // [B, Hq, D]
   const int* q_pos;       // [B]
   float* part_acc;        // [B, Hkv, splits, rep, D]
@@ -66,6 +73,7 @@ struct DecodeParams {
   float* part_l;
   void* out;              // [B, Hq, D], q dtype
   int n_seg, total_splits, B, Hkv, rep, D, dtype;
+  int G, gshift;          // scale groups per head; log2(D / G)
   float sm_scale;
 };
 
@@ -86,15 +94,19 @@ __device__ __forceinline__ long long code_offset(const DecodeSegment& sg,
   return ((b * sg.rows + row) * H + h) * static_cast<long long>(D);
 }
 
-template <typename T, int D>
+// kGrouped: G > 1 scale groups per head. The G = 1 instance keeps one V
+// scale row per block and the rank-1 arithmetic; only the grouped instance
+// holds [G][kTile] rows (16 KB at D = 128), so G = 1 occupancy is unchanged.
+template <typename T, int D, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const DecodeParams p) {
   constexpr int kGroups = kThreads / D;  // token groups in the PV pass
+  constexpr int kMaxG = kGrouped ? D / 8 : 1;  // groups of >= 8 channels
   __shared__ __align__(16) float sq[kMaxRep][D];
   __shared__ float sqsum[kMaxRep];
-  __shared__ float sp[kMaxRep][kTile];   // scores, then p * v_scale
-  __shared__ float svzp[kTile];
-  __shared__ float svsc[kTile];
+  __shared__ float sp[kMaxRep][kTile];   // scores, then p (* v_scale if G=1)
+  __shared__ float svzp[kMaxG][kTile];   // V zero points / scales per group
+  __shared__ float svsc[kMaxG][kTile];
   __shared__ float sred[kMaxRep][kThreads];
   __shared__ float sm[kMaxRep], sl[kMaxRep], scorr[kMaxRep];
 
@@ -108,6 +120,7 @@ decode_split_kernel(const DecodeParams p) {
   const int nt = min(kTile, sg.n - t0);
   const int qpos = p.q_pos[b];
   const bool raw = sg.bits == 16;
+  constexpr bool grouped = kGrouped;
   const int hq0 = h * rep;
 
   const T* q = static_cast<const T*>(p.q);
@@ -130,7 +143,7 @@ decode_split_kernel(const DecodeParams p) {
     float dots[kMaxRep];
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) dots[r] = 0.f;
-    float vsc = 0.f, vzp = 0.f;
+    float vsc = 0.f, vzp = 0.f;  // G = 1: this token's V scale and zero
     if (t < nt) {
       const int tok = t0 + t;
       const long long bt = static_cast<long long>(b) * sg.n + tok;
@@ -152,6 +165,34 @@ decode_split_kernel(const DecodeParams p) {
 #pragma unroll
         for (int r = 0; r < kMaxRep; ++r) dots[r] *= p.sm_scale;
         vsc = 1.f;
+      } else if (grouped) {
+        int shift;
+        const uint8_t* kr = static_cast<const uint8_t*>(sg.k) +
+                            code_offset(sg, b, h, H, D, tok, &shift);
+        const unsigned mask = (1u << sg.bits) - 1u;
+        const float* ksc = sg.k_scale + bth * p.G;
+        const float* kzp = sg.k_zp + bth * p.G;
+        for (int d8 = 0; d8 < D; d8 += 8) {  // 8 channels lie in one group
+          const uint2 w = *reinterpret_cast<const uint2*>(kr + d8);
+          const uint32_t words[2] = {w.x, w.y};
+          const int g = d8 >> p.gshift;
+          const float sc = ksc[g], zp = kzp[g];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float c = static_cast<float>(
+                ((words[e >> 2] >> (8 * (e & 3))) >> shift) & mask);
+            const float kv = (c - zp) * sc;
+#pragma unroll
+            for (int r = 0; r < kMaxRep; ++r)
+              if (r < rep) dots[r] = fmaf(sq[r][d8 + e], kv, dots[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r) dots[r] *= p.sm_scale;
+        for (int g = 0; g < p.G; ++g) {
+          svsc[g][t] = sg.v_scale[bth * p.G + g];
+          svzp[g][t] = sg.v_zp[bth * p.G + g];
+        }
       } else {
         int shift;
         const uint8_t* kr = static_cast<const uint8_t*>(sg.k) +
@@ -180,8 +221,15 @@ decode_split_kernel(const DecodeParams p) {
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r)
       if (r < rep) sp[r][t] = ok ? dots[r] : -INFINITY;
-    svsc[t] = vsc;
-    svzp[t] = vzp;
+    if (!grouped) {
+      svsc[0][t] = vsc;
+      svzp[0][t] = vzp;
+    } else if (!ok || raw) {  // raw values pass (c - 0) * 1 unchanged
+      for (int g = 0; g < p.G; ++g) {
+        svsc[g][t] = 1.f;
+        svzp[g][t] = 0.f;
+      }
+    }
   }
   __syncthreads();
 
@@ -194,10 +242,14 @@ decode_split_kernel(const DecodeParams p) {
     float l = 0.f, corr = 0.f;
     for (int t = lane; t < kTile; t += 32) {
       const float e = mx == -INFINITY ? 0.f : expf(sp[r][t] - mx);
-      const float w = e * svsc[t];
-      sp[r][t] = w;
       l += e;
-      corr = fmaf(w, svzp[t], corr);
+      if (grouped) {  // V dequantizes per channel in pass 3
+        sp[r][t] = e;
+      } else {
+        const float w = e * svsc[0][t];
+        sp[r][t] = w;
+        corr = fmaf(w, svzp[0][t], corr);
+      }
     }
     l = rkv::warp_sum(l);
     corr = rkv::warp_sum(corr);
@@ -209,9 +261,9 @@ decode_split_kernel(const DecodeParams p) {
   }
   __syncthreads();
 
-  // Pass 3: weighted sum of values; thread (group g, channel d).
+  // Pass 3: weighted sum of values; thread (token group g, channel d).
   {
-    const int d = tid % D, g = tid / D;
+    const int d = tid % D, g = tid / D, cg = d >> p.gshift;
     float acc[kMaxRep];
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) acc[r] = 0.f;
@@ -228,6 +280,7 @@ decode_split_kernel(const DecodeParams p) {
             code_offset(sg, b, h, H, D, tok, &shift) + d];
         c = static_cast<float>((byte >> shift) & ((1u << sg.bits) - 1u));
       }
+      if (grouped) c = (c - svzp[cg][t]) * svsc[cg][t];
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r)
         if (r < rep) acc[r] = fmaf(sp[r][t], c, acc[r]);
@@ -277,14 +330,22 @@ __global__ void decode_merge_kernel(const DecodeParams p) {
       from_f<T>(L > 0.f ? O / L : 0.f);
 }
 
+template <typename T, int D>
+void launch_split(const DecodeParams& p, dim3 grid, cudaStream_t stream) {
+  if (p.G > 1)
+    decode_split_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(p);
+  else
+    decode_split_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(p);
+}
+
 template <typename T>
 cudaError_t launch_typed(const DecodeParams& p, cudaStream_t stream) {
   const dim3 grid(p.total_splits, p.Hkv, p.B);
   switch (p.D) {
-    case 16: decode_split_kernel<T, 16><<<grid, kThreads, 0, stream>>>(p); break;
-    case 32: decode_split_kernel<T, 32><<<grid, kThreads, 0, stream>>>(p); break;
-    case 64: decode_split_kernel<T, 64><<<grid, kThreads, 0, stream>>>(p); break;
-    case 128: decode_split_kernel<T, 128><<<grid, kThreads, 0, stream>>>(p); break;
+    case 16: launch_split<T, 16>(p, grid, stream); break;
+    case 32: launch_split<T, 32>(p, grid, stream); break;
+    case 64: launch_split<T, 64>(p, grid, stream); break;
+    case 128: launch_split<T, 128>(p, grid, stream); break;
     default: return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
@@ -297,7 +358,9 @@ cudaError_t launch_typed(const DecodeParams& p, cudaStream_t stream) {
 
 extern "C" int decode_attention_launch(const DecodeParams* p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->rep < 1 || p->rep > kMaxRep || p->n_seg < 1 || p->n_seg > 4)
+  if (p->rep < 1 || p->rep > kMaxRep || p->n_seg < 1 ||
+      p->n_seg > kMaxSegments || p->G < 1 || (p->D >> p->gshift) != p->G ||
+      (p->D >> p->gshift) << p->gshift != p->D || (p->G > 1 && p->gshift < 3))
     return cudaErrorInvalidValue;
   if (p->dtype == rkv::kFloat32) return launch_typed<float>(*p, s);
   if (p->dtype == rkv::kBFloat16) return launch_typed<__nv_bfloat16>(*p, s);

@@ -1,21 +1,29 @@
 // K1: causal flash-attention prefill with the prompt-mass side channel.
 //
 // Replaces the TPU kernel `_flash_kernel` in
-// realtime_kv_cache_compression_tpu/ops/pallas/flash_prefill.py (square
-// causal mode, as called by `flash_prefill_with_prompt_mass`).
+// realtime_kv_cache_compression_tpu/ops/pallas/flash_prefill.py in its
+// square causal mode (a), as called by `flash_prefill_with_prompt_mass`,
+// and its rectangular causal mode (b), as called by
+// `flash_chunk_attention_with_prompt_mass`: S_q query rows of a prefill
+// chunk at global positions q_offset .. q_offset + S_q - 1 over an S_k-row
+// position-ordered key buffer. Mode (a) is q_offset = 0, S_q = S_k.
 //
-// For every query row i of every query head it computes
-//   o_i  = softmax(q_i K^T / sqrt(d)) V          over keys j <= i
-//   pm_i = sum_{j < plen[b], j <= i} softmax(.)_ij
+// For every query row i (global row g = q_offset + i) of every query head
+// it computes
+//   o_i  = softmax(q_i K^T / sqrt(d)) V          over keys j <= g
+//   pm_i = sum_{j < plen[b], j <= g} softmax(.)_ij
 // with the online softmax: a running max m, denominator l, accumulator acc,
 // and one more running sum, the prompt mass, rescaled by the same
 // exp(m_old - m_new) as l and divided by l at the end. The S x S score
 // matrix never exists.
 //
-// Layout: q [B, S, Hq, D], k/v [B, S, Hkv, D], read through strides (unit
-// stride on D), GQA by kv head = q head / (Hq / Hkv). Outputs: o with q's
-// layout and dtype, pm [B, Hq, S] float32 per head (the wrapper averages
-// heads). The ragged S edge is masked here, not padded by the caller.
+// Layout: q [B, S_q, Hq, D], k/v [B, S_k, Hkv, D], read through strides
+// (unit stride on D), GQA by kv head = q head / (Hq / Hkv). Outputs: o with
+// q's layout and dtype, pm [B, Hq, S_q] float32 per head (the wrapper
+// averages heads). Buffer keys past the chunk's rows hold later positions
+// and causality hides them; the ragged S_q and S_k edges are masked here,
+// not padded by the caller. In mode (b) the rows of a later chunk see more
+// keys: a block's work grows with q_offset + its rows.
 //
 // Design (first version, right before fast): one thread per query row,
 // 128 rows per block, grid (row tiles, Hq, B). Each thread keeps its scaled
@@ -47,7 +55,7 @@ struct FlashParams {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int B, S, Hq, Hkv, D, dtype;
+  int B, S_q, S_k, q_offset, Hq, Hkv, D, dtype;
   float sm_scale;
 };
 
@@ -67,8 +75,11 @@ flash_prefill_kernel(const FlashParams p) {
   const int b = blockIdx.z, hq = blockIdx.y;
   const int hk = hq / (p.Hq / p.Hkv);
   const int row0 = blockIdx.x * kRows;
+  // The local row indexes q, o and pm; causality takes the global row
+  // row + q_offset, with q_offset read where it is used (at d=128, where
+  // the kernel spills, this keeps one register fewer live).
   const int row = row0 + threadIdx.x;
-  const bool live = row < p.S;
+  const bool live = row < p.S_q;
 
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
@@ -85,14 +96,15 @@ flash_prefill_kernel(const FlashParams p) {
   }
   float m = -INFINITY, l = 0.f, pmass = 0.f;
   const int plen = p.plen[b];
-  const int kv_end = min(p.S, row0 + kRows);  // causal: later keys unseen
+  // Causal: keys past the block's last global row are unseen.
+  const int kv_end = min(p.S_k, p.q_offset + row0 + kRows);
 
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();
     for (int i = threadIdx.x; i < BN * D; i += kRows) {
       const int j = i / D, d = i % D, key = k0 + j;
       float kf = 0.f, vf = 0.f;
-      if (key < p.S) {
+      if (key < p.S_k) {
         kf = to_f(k[b * p.k_sb + key * p.k_ss + hk * p.k_sh + d]);
         vf = to_f(v[b * p.v_sb + key * p.v_ss + hk * p.v_sh + d]);
       }
@@ -100,8 +112,8 @@ flash_prefill_kernel(const FlashParams p) {
       sV[j][d] = vf;
     }
     __syncthreads();
-    if (!live || k0 > row) continue;
-    const int jmax = min(BN, row - k0 + 1);  // visible keys of this tile
+    if (!live || k0 > row + p.q_offset) continue;
+    const int jmax = min(BN, row + p.q_offset - k0 + 1);  // visible keys
     for (int j0 = 0; j0 < jmax; j0 += SUB) {
       float s[SUB];
       float mt = -INFINITY;
@@ -156,13 +168,13 @@ flash_prefill_kernel(const FlashParams p) {
 #pragma unroll
     for (int d = 0; d < D; ++d)
       o[b * p.o_sb + row * p.o_ss + hq * p.o_sh + d] = from_f<T>(acc[d] * inv);
-    p.pm[(static_cast<long long>(b) * p.Hq + hq) * p.S + row] = pmass * inv;
+    p.pm[(static_cast<long long>(b) * p.Hq + hq) * p.S_q + row] = pmass * inv;
   }
 }
 
 template <typename T>
 cudaError_t launch_typed(const FlashParams& p, cudaStream_t stream) {
-  const dim3 grid((p.S + kRows - 1) / kRows, p.Hq, p.B);
+  const dim3 grid((p.S_q + kRows - 1) / kRows, p.Hq, p.B);
   switch (p.D) {
     case 16: flash_prefill_kernel<T, 16><<<grid, kRows, 0, stream>>>(p); break;
     case 32: flash_prefill_kernel<T, 32><<<grid, kRows, 0, stream>>>(p); break;
@@ -177,6 +189,8 @@ cudaError_t launch_typed(const FlashParams& p, cudaStream_t stream) {
 
 extern "C" int flash_prefill_launch(const FlashParams* p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->q_offset < 0 || p->q_offset + p->S_q > p->S_k)
+    return cudaErrorInvalidValue;
   if (p->dtype == rkv::kFloat32) return launch_typed<float>(*p, s);
   if (p->dtype == rkv::kBFloat16) return launch_typed<__nv_bfloat16>(*p, s);
   return cudaErrorInvalidValue;

@@ -1,23 +1,28 @@
 """Llama-family decoder with real-time prefill KV compression (PyTorch).
 
-Port of the main path of the JAX package's `models/llama.py`: parameters
-are a plain dict tree with the reference's keys (`init_params`,
-`params_from_jax`, `fuse_params`); `prefill_compressed` compresses every
-layer's K/V into packed tier pools while it runs, and `decode_loop` decodes
-greedily over those pools plus an uncompressed recent ring. The baseline
-arm is `prefill_uncompressed` + `decode_loop_uncompressed`.
+Port of the JAX package's `models/llama.py`: parameters are a plain dict
+tree with the reference's keys (`init_params`, `params_from_jax`,
+`fuse_params`); `prefill_compressed` compresses every layer's K/V into
+packed tier pools while it runs, or `prefill_compressed_chunked` runs the
+prompt chunk by chunk and compresses once at the end; both take ragged
+right-padded batches (`lengths`). `decode_loop` decodes greedily over those
+pools plus an uncompressed recent ring and, with
+`decode_pool_blocks > 0`, a quantized decode pool that full rings flush
+into, so a generation may outlive the ring. The baseline arm is
+`prefill_uncompressed` + `decode_loop_uncompressed`.
 
 Kernels: with `use_flash` the prefill attention runs K1
-(ops/cuda/flash_prefill.py); with `use_fused` the decode attention runs K2
-(ops/cuda/decode_attention.py). Both default to on for CUDA tensors; on CPU
-tensors the wrappers take their plain versions. Quantized weights
-(models/quantized_params.py) dispatch in `_matmul`: `Int4Tensor` runs K3
-(ops/cuda/int4_matmul.py), act-quant `QuantizedTensor` K4
-(ops/cuda/int8_matmul.py). The reference's `lax.scan` decode is a Python
-loop here, and decode updates the recent rings (and the baseline arm's
-dense cache) in place.
+(ops/cuda/flash_prefill.py: mode (a) one-shot, mode (b) per chunk); with
+`use_fused` the decode attention runs K2 (ops/cuda/decode_attention.py).
+Both default to on for CUDA tensors; on CPU tensors the wrappers take
+their plain versions. Quantized weights (models/quantized_params.py)
+dispatch in `_matmul`: `Int4Tensor` runs K3 (ops/cuda/int4_matmul.py),
+act-quant `QuantizedTensor` K4 (ops/cuda/int8_matmul.py). The reference's
+`lax.scan` decode is a Python loop here, and decode updates the recent
+rings, the decode pools (and the baseline arm's dense cache) in place, as
+chunked prefill does its K/V buffers.
 
-Not ported yet: ragged batches (`lengths`), sampling, the decode pool,
+Not ported yet: sampling, query-guided importance, compressed-prefix
 chunked prefill, MoE (and its quantized experts) and the other model
 families' options beyond the config fields themselves.
 """
@@ -31,15 +36,18 @@ import numpy as np
 import torch
 
 from ..compression.compressor import compress_layer_kv, dequantize_layer_cache
-from ..compression.kv_cache import (CompressedLayerCache, RecentCache,
-                                    append_recent, init_recent_cache,
-                                    model_dtype)
+from ..compression.kv_cache import (CompressedLayerCache, DecodePool,
+                                    RecentCache, append_recent,
+                                    flush_recent, init_decode_pool,
+                                    init_recent_cache, model_dtype)
 from ..config import CompressionConfig, ModelConfig
 from ..ops.attention import (attention_over_tokens,
+                             chunk_attention_with_prompt_mass,
                              prefill_attention_with_prompt_mass)
 from ..ops.cuda.decode_attention import (decode_attention_plain,
                                          fused_decode_attention)
-from ..ops.cuda.flash_prefill import flash_prefill_with_prompt_mass
+from ..ops.cuda.flash_prefill import (flash_chunk_attention_with_prompt_mass,
+                                      flash_prefill_with_prompt_mass)
 from ..ops.cuda.int4_matmul import int4_matmul_tensor
 from ..ops.cuda.int8_matmul import dynamic_int8_matmul
 from .quantized_params import Int4Tensor, QuantizedTensor
@@ -320,30 +328,68 @@ def _attn_out(layer: Params, h: torch.Tensor, attn: torch.Tensor,
 
 @dataclasses.dataclass
 class DecodeState:
-    """Everything decode needs: per-layer compressed pools + recent rings,
-    and the next position per row."""
+    """Everything decode needs: per-layer compressed pools + recent rings
+    (+ decode pools when ccfg.decode_pool_blocks > 0), and the next
+    position per row.
+
+    `ring_fill` is a host-side count of the tokens in every row's ring:
+    rings start empty after prefill and every row appends every step, so
+    all rows fill alike, and `decode_step` knows when to flush the rings
+    into the pools without reading a device value.
+    """
 
     caches: Tuple[CompressedLayerCache, ...]
     recents: Tuple[RecentCache, ...]
     position: torch.Tensor  # [B] int32
+    # One DecodePool per layer when ccfg.decode_pool_blocks > 0, else Nones.
+    pools: Tuple[Optional[DecodePool], ...] = ()
+    ring_fill: int = 0
 
 
-def _prefill_attention(q, k, v, prompt_len, use_flash):
+def _prefill_attention(q, k, v, prompt_len, use_flash, prompt_lens=None):
     if use_flash:
-        return flash_prefill_with_prompt_mass(q, k, v, prompt_len)
-    return prefill_attention_with_prompt_mass(q, k, v, prompt_len)
+        return flash_prefill_with_prompt_mass(q, k, v, prompt_len,
+                                              prompt_lens=prompt_lens)
+    return prefill_attention_with_prompt_mass(q, k, v, prompt_len,
+                                              prompt_lens=prompt_lens)
 
 
-def _prefill_start(params, input_ids, cfg, lengths):
-    if lengths is not None:
-        raise NotImplementedError("ragged batches (lengths) are not ported "
-                                  "yet")
+def _prompt_lens(lengths: torch.Tensor, ccfg: CompressionConfig,
+                 prompt_len: int) -> torch.Tensor:
+    """Per-row prompt lengths, the reference heuristic max(1, min(len *
+    prompt_frac, prompt_len)) on the true lengths."""
+    return torch.clamp((lengths.float() * ccfg.prompt_frac).to(torch.int32),
+                       1, prompt_len)
+
+
+def _prefill_start(params, input_ids, cfg):
     b, s = input_ids.shape
     h = _embed_lookup(params["embed"], input_ids, model_dtype(cfg), cfg)
     positions = torch.arange(s, device=input_ids.device)[None].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
     return h, positions, cos, sin
+
+
+def _last_hidden(h: torch.Tensor, lengths) -> torch.Tensor:
+    """Hidden state at each row's last true position: [B, hidden]."""
+    if lengths is None:
+        return h[:, -1]
+    bidx = torch.arange(h.shape[0], device=h.device)
+    return h[bidx, lengths.to(h.device).long() - 1]
+
+
+def _end_positions(b: int, s: int, lengths, device) -> torch.Tensor:
+    if lengths is None:
+        return torch.full((b,), s, dtype=torch.int32, device=device)
+    return lengths.to(device=device, dtype=torch.int32)
+
+
+def _decode_buffers(b: int, max_decode_len: int, cfg: ModelConfig,
+                    ccfg: CompressionConfig, device):
+    """A layer's empty recent ring and decode pool (None without one)."""
+    return (init_recent_cache(b, max_decode_len, cfg, device=device),
+            init_decode_pool(b, max_decode_len, ccfg, cfg, device=device))
 
 
 def prefill_compressed(
@@ -357,31 +403,39 @@ def prefill_compressed(
 ) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
     """Full-sequence prefill with per-layer real-time KV compression.
 
-    input_ids: [B, S]. use_flash=None runs K1 on CUDA inputs. Returns
-    (logits for the last position [B, V], decode state, per-layer stats).
+    input_ids: [B, S]. lengths: optional [B] true lengths of right-padded
+    ragged rows: padding is never stored, per-row prompt lengths follow the
+    true lengths, and the logits and decode positions are each row's last
+    true position. use_flash=None runs K1 on CUDA inputs. Returns (logits
+    for the last position [B, V], decode state, per-layer stats).
     """
-    if ccfg.decode_pool_blocks:
-        raise NotImplementedError("the decode pool (decode_pool_blocks > 0) "
-                                  "is not ported yet")
     if use_flash is None:
         use_flash = input_ids.is_cuda
     b, s = input_ids.shape
     prompt_len = ccfg.prompt_length(s)
-    h, positions, cos, sin = _prefill_start(params, input_ids, cfg, lengths)
-    caches, recents, all_stats = [], [], []
+    h, positions, cos, sin = _prefill_start(params, input_ids, cfg)
+    token_valid = prompt_lens = None
+    if lengths is not None:
+        lengths = lengths.to(h.device)
+        token_valid = positions < lengths[:, None]
+        prompt_lens = _prompt_lens(lengths, ccfg, prompt_len)
+    caches, recents, pools, all_stats = [], [], [], []
     for layer_idx, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, x, cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn, prompt_mass = _prefill_attention(q, k, v, prompt_len,
-                                               use_flash)
+                                               use_flash, prompt_lens)
         cache, stats = compress_layer_kv(k, v, prompt_mass, layer_idx, ccfg,
-                                         cfg)
+                                         cfg, token_valid=token_valid,
+                                         prompt_lens=prompt_lens)
         caches.append(cache)
         all_stats.append(stats)
-        recents.append(init_recent_cache(b, max_decode_len, cfg,
-                                         device=h.device))
+        recent, pool = _decode_buffers(b, max_decode_len, cfg, ccfg,
+                                       h.device)
+        recents.append(recent)
+        pools.append(pool)
         if ccfg.recompute_prefill_attention:
             # Reference-parity mode: recompute the prefill output against
             # the compressed K/V at the survivors' exact positions.
@@ -389,10 +443,10 @@ def prefill_compressed(
             attn = attention_over_tokens(q, k_d.to(q.dtype), v_d.to(q.dtype),
                                          pos_c, valid, positions)
         h = _attn_out(layer, h, attn, cfg)
-    logits = logits_from_hidden(params, h[:, -1], cfg)
-    state = DecodeState(
-        caches=tuple(caches), recents=tuple(recents),
-        position=torch.full((b,), s, dtype=torch.int32, device=h.device))
+    logits = logits_from_hidden(params, _last_hidden(h, lengths), cfg)
+    state = DecodeState(caches=tuple(caches), recents=tuple(recents),
+                        position=_end_positions(b, s, lengths, h.device),
+                        pools=tuple(pools))
     return logits, state, all_stats
 
 
@@ -404,10 +458,13 @@ def prefill_uncompressed(
     use_flash: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Vanilla prefill (baseline arm). Returns (last-position logits,
-    (K, V)) with K/V stacked over layers: [L, B, S, H_kv, D]."""
+    (K, V)) with K/V stacked over layers: [L, B, S, H_kv, D]. With
+    `lengths`, right-padded ragged rows take their logits at their true
+    last position (causality isolates them from the padding keys, and
+    decode overwrites the pad slots)."""
     if use_flash is None:
         use_flash = input_ids.is_cuda
-    h, _, cos, sin = _prefill_start(params, input_ids, cfg, lengths)
+    h, _, cos, sin = _prefill_start(params, input_ids, cfg)
     ks, vs = [], []
     for layer in params["layers"]:
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
@@ -418,8 +475,186 @@ def prefill_uncompressed(
         ks.append(k)
         vs.append(v)
         h = _attn_out(layer, h, attn, cfg)
-    logits = logits_from_hidden(params, h[:, -1], cfg)
+    logits = logits_from_hidden(params, _last_hidden(h, lengths), cfg)
     return logits, (torch.stack(ks), torch.stack(vs))
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (serving: interleaves prompt processing with decode)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ChunkedPrefillState:
+    """Carry between prefill chunks: per-layer K/V buffers filled up to
+    `offset`, the per-layer prompt-mass side channel, and the hidden state
+    at each row's final position (captured by the chunk that holds it).
+    `offset` is a host int: the chunk loop runs on the host."""
+
+    k_bufs: Tuple[torch.Tensor, ...]   # per layer [B, S, H_kv, D]
+    v_bufs: Tuple[torch.Tensor, ...]
+    masses: Tuple[torch.Tensor, ...]   # per layer [B, S] float32
+    last_h: torch.Tensor               # [B, hidden]
+    offset: int = 0
+
+
+def prefill_chunked_init(batch: int, seq_len: int, cfg: ModelConfig,
+                         ccfg: Optional[CompressionConfig] = None,
+                         device="cuda") -> ChunkedPrefillState:
+    """Zero-initialised chunked-prefill carry for a [batch, seq_len]
+    bucket, on `device`. Query-guided importance (the reference's
+    observation-window `q_tails`) is not ported yet (ROADMAP Queue 1,
+    items 3 and 5)."""
+    if ccfg is not None and ccfg.importance_source != "prompt":
+        raise NotImplementedError(
+            "query-guided importance (q_tails) is not ported yet (ROADMAP "
+            "Queue 1, items 3 and 5)")
+    dtype = model_dtype(cfg)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    kv = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return ChunkedPrefillState(
+        k_bufs=tuple(zeros(kv) for _ in range(cfg.num_layers)),
+        v_bufs=tuple(zeros(kv) for _ in range(cfg.num_layers)),
+        masses=tuple(zeros((batch, seq_len), torch.float32)
+                     for _ in range(cfg.num_layers)),
+        last_h=zeros((batch, cfg.hidden_size)))
+
+
+def prefill_chunked_step(
+    params: Params,
+    chunk_ids: torch.Tensor,
+    st: ChunkedPrefillState,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    lengths: Optional[torch.Tensor] = None,
+    use_flash: Optional[bool] = None,
+) -> ChunkedPrefillState:
+    """Advance the prefill by one chunk of tokens, chunk_ids [B, c].
+
+    Writes the chunk's K/V and prompt mass into the state's buffers in
+    place, attends the chunk over the position-ordered buffers (K1 mode (b)
+    with use_flash, which defaults to on for CUDA inputs), and captures the
+    hidden state of rows whose last true position lies in this chunk.
+    Per-row softmax over the buffer equals full-sequence causal attention,
+    so caches and logits match the one-shot `prefill_compressed`. Returns
+    the state with `offset` advanced by c.
+    """
+    if use_flash is None:
+        use_flash = chunk_ids.is_cuda
+    attend = (flash_chunk_attention_with_prompt_mass if use_flash
+              else chunk_attention_with_prompt_mass)
+    b, c = chunk_ids.shape
+    off = st.offset
+    s_total = st.k_bufs[0].shape[1]
+    prompt_len = ccfg.prompt_length(s_total)
+    prompt_lens = None
+    if lengths is not None:
+        lengths = lengths.to(chunk_ids.device)
+        prompt_lens = _prompt_lens(lengths, ccfg, prompt_len)
+
+    h = _embed_lookup(params["embed"], chunk_ids, model_dtype(cfg), cfg)
+    positions = (off + torch.arange(c, device=chunk_ids.device))[None]
+    cos, sin = rope_tables(positions.expand(b, c), cfg.head_dim,
+                           cfg.rope_theta, cfg.rope_scaling)
+    for li, layer in enumerate(params["layers"]):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        k_buf, v_buf = st.k_bufs[li], st.v_bufs[li]
+        k_buf[:, off:off + c] = k
+        v_buf[:, off:off + c] = v
+        attn, mass_c = attend(q, k_buf, v_buf, off, prompt_len,
+                              prompt_lens=prompt_lens)
+        st.masses[li][:, off:off + c] = mass_c
+        h = _attn_out(layer, h, attn, cfg)
+
+    # Capture the hidden state at each row's final position if it falls in
+    # this chunk (rows keep their earlier capture otherwise).
+    last_pos = (lengths.long() - 1 if lengths is not None
+                else torch.full((b,), s_total - 1, device=h.device))
+    in_chunk = (last_pos >= off) & (last_pos < off + c)
+    idx = torch.clamp(last_pos - off, 0, c - 1)
+    cand = h[torch.arange(b, device=h.device), idx]
+    last_h = torch.where(in_chunk[:, None], cand, st.last_h)
+    return dataclasses.replace(st, last_h=last_h, offset=off + c)
+
+
+def prefill_chunked_finish(
+    params: Params,
+    st: ChunkedPrefillState,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    max_decode_len: int = 128,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
+    """Compress the filled buffers into the decode state + last logits.
+
+    Compression runs once over the complete K/V and prompt mass, as the
+    one-shot prefill's per-layer `compress_layer_kv` does: chunking changes
+    when the attention runs, not what is compressed."""
+    b, s = st.masses[0].shape
+    dev = st.last_h.device
+    token_valid = prompt_lens = None
+    if lengths is not None:
+        lengths = lengths.to(dev)
+        token_valid = torch.arange(s, device=dev)[None] < lengths[:, None]
+        prompt_lens = _prompt_lens(lengths, ccfg, ccfg.prompt_length(s))
+    caches, recents, pools, all_stats = [], [], [], []
+    for li in range(cfg.num_layers):
+        cache, stats = compress_layer_kv(
+            st.k_bufs[li], st.v_bufs[li], st.masses[li], li, ccfg, cfg,
+            token_valid=token_valid, prompt_lens=prompt_lens)
+        caches.append(cache)
+        all_stats.append(stats)
+        recent, pool = _decode_buffers(b, max_decode_len, cfg, ccfg, dev)
+        recents.append(recent)
+        pools.append(pool)
+    logits = logits_from_hidden(params, st.last_h, cfg)
+    state = DecodeState(caches=tuple(caches), recents=tuple(recents),
+                        position=_end_positions(b, s, lengths, dev),
+                        pools=tuple(pools))
+    return logits, state, all_stats
+
+
+def prefill_compressed_chunked(
+    params: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    chunk_size: int,
+    max_decode_len: int = 128,
+    lengths: Optional[torch.Tensor] = None,
+    use_flash: Optional[bool] = None,
+) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
+    """init → one `prefill_chunked_step` per chunk → finish: the chunked
+    equivalent of `prefill_compressed` (the same caches and logits to
+    float tolerance). input_ids: [B, S] with S a multiple of chunk_size.
+    The serving engine calls the three phases itself to interleave chunks
+    with decode."""
+    st = _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
+                         use_flash)
+    return prefill_chunked_finish(params, st, cfg, ccfg,
+                                  max_decode_len=max_decode_len,
+                                  lengths=lengths)
+
+
+def _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
+                    use_flash) -> ChunkedPrefillState:
+    """init → one `prefill_chunked_step` per chunk: the filled carry that
+    `prefill_chunked_finish` compresses (its masses are the per-layer
+    prompt masses the compression scores)."""
+    b, s = input_ids.shape
+    if s % chunk_size:
+        raise ValueError(f"seq len {s} not a multiple of chunk {chunk_size}")
+    st = prefill_chunked_init(b, s, cfg, ccfg, device=input_ids.device)
+    for off in range(0, s, chunk_size):
+        st = prefill_chunked_step(params, input_ids[:, off:off + chunk_size],
+                                  st, cfg, ccfg, lengths=lengths,
+                                  use_flash=use_flash)
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -435,30 +670,40 @@ def decode_step(
     use_fused: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step over the compressed caches. token: [B] ids.
-    use_fused=None runs K2 on CUDA inputs. The state's rings are updated in
-    place; returns (logits [B, V], the state with position + 1)."""
+    use_fused=None runs K2 on CUDA inputs. With decode pools, full rings
+    are first flushed into the pools (`flush_recent`; the state's host-side
+    `ring_fill` says when), so the ring never overflows. The state's rings
+    and pools are updated in place; returns (logits [B, V], the state with
+    position + 1)."""
     if use_fused is None:
         use_fused = token.is_cuda
-    b = token.shape[0]
     h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg)[:, None]
     q_pos = state.position[:, None]
     cos, sin = rope_tables(q_pos, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
-    for layer, cache, recent in zip(params["layers"], state.caches,
-                                    state.recents):
+    pools = state.pools or (None,) * len(state.caches)
+    capacity = state.recents[0].capacity if state.recents else 0
+    flush = pools[0] is not None and state.ring_fill >= capacity
+    for layer, cache, recent, pool in zip(params["layers"], state.caches,
+                                          state.recents, pools):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, x, cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        if flush:
+            flush_recent(recent, pool, ccfg, cfg)
         append_recent(recent, k, v, q_pos)
         if use_fused:
-            attn = fused_decode_attention(q, cache, recent, q_pos, ccfg)
+            attn = fused_decode_attention(q, cache, recent, q_pos, ccfg,
+                                          pool=pool)
         else:
             attn = decode_attention_plain(q, cache, recent, q_pos, ccfg,
-                                          dtype=q.dtype)
+                                          dtype=q.dtype, pool=pool)
         h = _attn_out(layer, h, attn, cfg)
     logits = logits_from_hidden(params, h[:, 0], cfg)
-    state = dataclasses.replace(state, position=state.position + 1)
+    fill = 0 if flush else state.ring_fill
+    state = dataclasses.replace(state, position=state.position + 1,
+                                ring_fill=min(fill + 1, capacity))
     return logits, state
 
 
@@ -471,9 +716,12 @@ def decode_loop(
     ccfg: CompressionConfig,
     use_fused: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, DecodeState]:
-    """n_steps of greedy decode. The recent rings must hold n_steps tokens
-    (appends past a full ring are dropped). Returns (tokens [B, n_steps],
-    state)."""
+    """n_steps of greedy decode. With decode pools (ccfg.decode_pool_blocks
+    > 0) any n_steps is supported: full rings flush into the quantized pool,
+    and past ring * (blocks + 1) decode tokens the oldest pool block is
+    overwritten (the prefill tiers are never evicted). Without pools the
+    recent rings must hold n_steps tokens (appends past a full ring are
+    dropped). Returns (tokens [B, n_steps], state)."""
     tok, toks = first_token, []
     for _ in range(n_steps):
         logits, state = decode_step(params, tok, state, cfg, ccfg,

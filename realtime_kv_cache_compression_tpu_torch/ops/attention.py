@@ -2,7 +2,8 @@
 
 Port of the dense functions of the JAX package's `ops/attention.py`. They
 are the plain versions the CUDA kernels are checked against (flash prefill:
-`prefill_attention_with_prompt_mass`; fused decode: dequantize, then
+`prefill_attention_with_prompt_mass`, and `chunk_attention_with_prompt_mass`
+for its chunked mode; fused decode: dequantize, then
 `attention_over_tokens`) and the uncompressed arm's decode attention.
 Logits and accumulation are float32 as in the reference: bf16 operands are
 widened before the products, and probabilities are cast to the value dtype
@@ -97,3 +98,45 @@ def attention_over_tokens(
     any_valid = mask.any(dim=-1)[:, :, None, None, None]
     out = torch.where(any_valid, out, torch.zeros((), device=q.device))
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def chunk_attention_with_prompt_mass(
+    q: torch.Tensor,
+    k_buf: torch.Tensor,
+    v_buf: torch.Tensor,
+    q_offset: int,
+    prompt_len: int,
+    prompt_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rectangular causal attention of one prefill chunk over the KV buffer.
+
+    q: [B, c, H_q, D], the chunk's queries at positions q_offset ..
+    q_offset + c - 1; k_buf, v_buf: [B, S, H_kv, D] position-ordered
+    buffers with this chunk already written (rows past the fill hold later
+    positions, so causality hides them); prompt_lens: optional [B] per-row
+    prompt lengths <= prompt_len. Returns (out [B, c, H_q, D] in q's dtype,
+    prompt_mass [B, c] float32), as `prefill_attention_with_prompt_mass`
+    gives for the same rows of the whole sequence.
+    """
+    b, c, hq, d = q.shape
+    s, hkv = k_buf.shape[1], k_buf.shape[2]
+    n_rep = hq // hkv
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d)))
+    q5 = q.reshape(b, c, hkv, n_rep, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", q5.float(),
+                          k_buf.float()) * scale
+    q_pos = q_offset + torch.arange(c, device=q.device)
+    visible = torch.arange(s, device=q.device)[None, :] <= q_pos[:, None]
+    logits = torch.where(visible, logits,
+                         torch.full((), NEG_INF, device=q.device))
+    attn = torch.softmax(logits, dim=-1)                      # [B,h,r,c,S]
+    prompt_probs = attn[..., :prompt_len]
+    if prompt_lens is not None:
+        col = torch.arange(prompt_probs.shape[-1], device=q.device)
+        prompt_probs = torch.where(
+            col < prompt_lens.to(q.device)[:, None, None, None, None],
+            prompt_probs, torch.zeros((), device=q.device))
+    prompt_mass = prompt_probs.sum(dim=-1).mean(dim=(1, 2))   # [B, c]
+    out = torch.einsum("bhrqk,bkhd->bqhrd", attn.to(v_buf.dtype).float(),
+                       v_buf.float())
+    return out.reshape(b, c, hq, d).to(q.dtype), prompt_mass

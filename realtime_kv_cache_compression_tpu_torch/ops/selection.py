@@ -6,7 +6,8 @@ cumulative byte cost fits the layer budget, cap the count at the exact token
 limit, fall back to the top max(1, S * fallback_frac) tokens when nothing
 fits, and bucket the survivors into per-tier slot arrays of static capacity
 (quantile or threshold tier mode, with demotion when a threshold-mode pool
-is full). Original token positions ride along with every slot.
+is full). Original token positions ride along with every slot. Ragged rows
+(`token_valid`) take their budget from their true length.
 """
 
 from __future__ import annotations
@@ -48,26 +49,41 @@ def select_tokens(
     """Select tokens under the layer byte budget, bucketed into tier slots.
 
     scores: [B, S] importance; labels: [B, S] threshold precision labels
-    (costs, and tiers in threshold mode). Ragged rows (`token_valid`,
-    `prompt_lens`), local sharded selection (`total_len`) and
-    `selection_mode="exact_greedy"` are not ported yet.
+    (costs, and tiers in threshold mode). token_valid: optional [B, S] bool
+    for ragged rows: padding is never selected, and the budget, token limit
+    and fallback floor follow each row's true length. prompt_lens: optional
+    [B] per-row prompt lengths: the HIGH tier's anchor growth follows each
+    row's floored prompt region. Local sharded selection (`total_len`,
+    ROADMAP item 18) and `selection_mode="exact_greedy"` (item 4) are not
+    ported yet.
     """
-    if token_valid is not None or prompt_lens is not None:
-        raise NotImplementedError("ragged selection is not ported yet")
     if total_len is not None:
-        raise NotImplementedError("sharded selection is not ported yet")
+        raise NotImplementedError("sharded selection is not ported yet "
+                                  "(ROADMAP Queue 1, item 18)")
     if cfg.selection_mode == "exact_greedy":
         raise NotImplementedError(
-            "selection_mode='exact_greedy' is not ported yet")
+            "selection_mode='exact_greedy' is not ported yet (ROADMAP "
+            "Queue 1, item 4)")
     dev = scores.device
     batch, seq_len = scores.shape
     ratio = cfg.layer_ratio(layer_idx)
     caps = cfg.tier_capacities(seq_len, layer_idx)
 
     scores = scores.float()
-    budget = float(seq_len) * ratio
-    limit = cfg.token_limit(seq_len, layer_idx)
-    k_fb = max(1, int(seq_len * cfg.fallback_frac))
+    if token_valid is not None:
+        scores = torch.where(token_valid, scores, -torch.inf)
+        lens = token_valid.sum(dim=-1, keepdim=True).float()      # [B, 1]
+        budget = lens * ratio
+        limit = torch.minimum(
+            torch.maximum(torch.ceil(lens * ratio), torch.clamp(
+                torch.ceil(lens * cfg.fallback_frac), min=1.0)),
+            lens).to(torch.int32)
+        k_fb = torch.clamp((lens * cfg.fallback_frac).to(torch.int32),
+                           min=1)
+    else:
+        budget = float(seq_len) * ratio
+        limit = cfg.token_limit(seq_len, layer_idx)
+        k_fb = max(1, int(seq_len * cfg.fallback_frac))
     costs = token_costs(labels, cfg)
 
     order = torch.argsort(-scores, dim=-1, stable=True)            # [B, S]
@@ -77,18 +93,35 @@ def select_tokens(
     rank = torch.arange(seq_len, device=dev)[None, :]
     none_selected = sel_sorted.sum(dim=-1, keepdim=True) == 0
     sel_sorted = torch.where(none_selected, rank < k_fb, sel_sorted)
+    if token_valid is not None:
+        # Padding sorts last (-inf) and is never selected, not even by the
+        # fallback floor.
+        sel_sorted &= torch.gather(token_valid, 1, order)
 
     sel_rank = torch.cumsum(sel_sorted.to(torch.int32), dim=-1) - 1
     sel_sorted = sel_sorted & (sel_rank < limit)
 
     demoted = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.tier_mode == "quantile":
+        # Boundaries as float32 ceils of the (per-row, for ragged rows)
+        # limit, like the reference computes them.
         fh, fm, _ = cfg.tier_fractions
-        # Boundaries as float32 ceils, like the reference computes them.
-        lim_f = torch.tensor(float(limit), dtype=torch.float32)
-        n_h = min(int(torch.ceil(lim_f * fh)), limit)
-        n_h = max(n_h, min(cfg.anchor_count(seq_len), limit))
-        n_m = min(int(torch.ceil(lim_f * fm)), limit - n_h)
+        # torch.full, not torch.tensor: a host scalar copied to the device
+        # would wait for the queued prefill once per layer.
+        lim = (limit if torch.is_tensor(limit) else torch.full(
+            (1, 1), limit, dtype=torch.int32, device=dev))
+        lim_f = lim.float()
+        n_h = torch.minimum(torch.ceil(lim_f * fh), lim_f).to(torch.int32)
+        anchors = cfg.anchor_count(seq_len)
+        if anchors and prompt_lens is not None:
+            anchors = torch.clamp(torch.ceil(
+                prompt_lens.float() * cfg.prompt_region_floor
+            ).to(torch.int32)[:, None], min=cfg.sink_tokens)
+        n_h = torch.maximum(n_h, torch.minimum(anchors, lim)
+                            if torch.is_tensor(anchors)
+                            else torch.clamp(lim, max=anchors))
+        n_m = torch.minimum(torch.ceil(lim_f * fm),
+                            (lim - n_h).float()).to(torch.int32)
         tier_sorted = torch.where(
             sel_rank < n_h, HIGH, torch.where(sel_rank < n_h + n_m, MID, LOW))
     else:
@@ -146,16 +179,22 @@ def select_tokens(
     avg_imp = (torch.where(sel_sorted, sorted_scores,
                            torch.zeros_like(sorted_scores)).sum(dim=-1)
                / torch.clamp(n_selected, min=1))
+    if token_valid is not None:
+        utilization = spent / torch.clamp(budget[:, 0], min=1e-9)
+        true_len = token_valid.sum(dim=-1)
+    else:
+        utilization = spent / max(budget, 1e-9)
+        true_len = seq_len
     stats = {
         "selected_count": n_selected,
-        "budget_utilization": spent / max(budget, 1e-9),
+        "budget_utilization": utilization,
         "avg_importance": avg_imp,
         "high_count": tier_counts[HIGH],
         "medium_count": tier_counts[MID],
         "low_count": tier_counts[LOW],
         "propagation_ratio": torch.full((batch,), ratio, device=dev),
         "demoted_count": demoted,
-        "compression_ratio": kept_mask.sum(dim=-1) / seq_len,
+        "compression_ratio": kept_mask.sum(dim=-1) / true_len,
     }
     return Selection(
         indices=(indices[HIGH], indices[MID], indices[LOW]),

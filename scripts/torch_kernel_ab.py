@@ -1,0 +1,182 @@
+"""A/B timing of the PyTorch port's earlier-path kernels across two trees.
+
+    python3 scripts/torch_kernel_ab.py TREE_A TREE_B [TREE ...]
+
+Each TREE is the root of a checkout that holds
+`realtime_kv_cache_compression_tpu_torch/` (for example the parent commit
+unpacked with `git archive` into a git-ignored directory, and `.`). The
+trees are measured in the order given, each in a fresh process that
+imports the package from that tree and builds its kernels there, so list
+them as A B B A to spread drift over both. Needs one CUDA device.
+
+Per tree, on the earlier paths (no decode pool, one scale group):
+- K2 over tiers + ring on layer 0 of 2-layer 4096-token states at
+  TinyLlama's and Llama-2-7B's widths, bf16, 8/4/2 tiers after 5 decode
+  steps: ms per wrapper call (CUDA events over back-to-back calls) and
+  device us per split-kernel launch (torch.profiler);
+- K1 mode (a), B=1 S=4096, bf16, at both widths: ms per call;
+- TinyLlama at full depth, prompt 4096, 127 decode steps: TTFT and decode
+  tok/s, medians of 3 timed runs after a warm-up.
+Prints one JSON line per tree and a table at the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 0
+PROMPT = 4096
+NEW_TOKENS = 128
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def measure(tree: str) -> dict:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from realtime_kv_cache_compression_tpu_torch import (
+        LLAMA2_7B, TINYLLAMA_1_1B, CompressionConfig)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import _build
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import fused_decode_attention
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import flash_prefill_with_prompt_mass
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.load_library()
+    out = {"tree": tree, "build_s": time.perf_counter() - t0}
+
+    def cuda_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    dev = "cuda"
+    width = {"tinyllama": TINYLLAMA_1_1B, "llama2_7b": LLAMA2_7B}
+    for name, base in width.items():
+        mcfg = dataclasses.replace(base, num_layers=2,
+                                   max_position_embeddings=PROMPT
+                                   + NEW_TOKENS)
+        ccfg = CompressionConfig(num_layers=2)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        ids = torch.randint(0, mcfg.vocab_size, (1, PROMPT), generator=gen,
+                            device=dev)
+        params = llama.fuse_params(llama.init_params(SEED, mcfg, dev))
+        logits, state, _ = llama.prefill_compressed(
+            params, ids, mcfg, ccfg, max_decode_len=NEW_TOKENS)
+        _, state = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                     5, mcfg, ccfg)
+        q = torch.randn((1, 1, mcfg.num_heads, mcfg.head_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        q_pos = state.position[:, None]
+        cache, recent = state.caches[0], state.recents[0]
+        k2 = lambda: fused_decode_attention(  # noqa: E731
+            q, cache, recent, q_pos, ccfg)
+        out[f"k2_{name}_ms"] = [cuda_ms(k2, 200) for _ in range(3)]
+        k2()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                k2()
+            torch.cuda.synchronize()
+        split = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "decode_split_kernel" in e.name]
+        out[f"k2_{name}_split_us"] = (sum(split) / len(split)
+                                      if split else None)
+        qkv = torch.randn((1, PROMPT, (mcfg.num_heads + 2
+                                       * mcfg.num_kv_heads) * mcfg.head_dim),
+                          generator=gen, device=dev).to(torch.bfloat16)
+        qq, kk, vv = (t.unflatten(-1, (-1, mcfg.head_dim)) for t in qkv.split(
+            [mcfg.num_heads * mcfg.head_dim,
+             mcfg.num_kv_heads * mcfg.head_dim,
+             mcfg.num_kv_heads * mcfg.head_dim], dim=-1))
+        plen = ccfg.prompt_length(PROMPT)
+        out[f"k1_{name}_ms"] = cuda_ms(
+            lambda: flash_prefill_with_prompt_mass(qq, kk, vv, plen), 10)
+        del params, state, cache, recent, qkv
+        torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(TINYLLAMA_1_1B,
+                               max_position_embeddings=PROMPT + NEW_TOKENS)
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ids = torch.randint(0, mcfg.vocab_size, (1, PROMPT), generator=gen,
+                        device=dev)
+    ttft, rate = [], []
+    for i in range(4):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, state, _ = llama.prefill_compressed(
+            params, ids, mcfg, ccfg, max_decode_len=NEW_TOKENS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        llama.decode_loop(params, torch.argmax(logits, -1), state,
+                          NEW_TOKENS - 1, mcfg, ccfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i:
+            ttft.append((t1 - t) * 1e3)
+            rate.append((NEW_TOKENS - 1) / (t2 - t1))
+    out["tinyllama_ttft_ms"] = ttft
+    out["tinyllama_decode_tok_s"] = rate
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--measure":
+        print("AB " + json.dumps(measure(argv[1])), flush=True)
+        return 0
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    rows = []
+    for tree in argv:
+        res = subprocess.run([sys.executable, __file__, "--measure", tree],
+                             capture_output=True, text=True, timeout=900)
+        sys.stderr.write(res.stderr[-4000:])
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
+        if res.returncode or not line:
+            print(f"{tree}: failed (rc {res.returncode})", flush=True)
+            return 1
+        rows.append(json.loads(line[-1][3:]))
+        print(line[-1][3:], flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    keys = ("k2_tinyllama_ms", "k2_tinyllama_split_us", "k2_llama2_7b_ms",
+            "k2_llama2_7b_split_us", "k1_tinyllama_ms", "k1_llama2_7b_ms",
+            "tinyllama_ttft_ms", "tinyllama_decode_tok_s")
+    for i, r in enumerate(rows):
+        cells = []
+        for k in keys:
+            v = r[k]
+            v = _median(v) if isinstance(v, list) else v
+            cells.append(f"{k} {v:.4f}")
+        print(f"run {i + 1} {r['tree']}: " + "; ".join(cells))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

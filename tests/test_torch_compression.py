@@ -27,6 +27,7 @@ from realtime_kv_cache_compression_tpu.ops import selection as js
 from realtime_kv_cache_compression_tpu_torch import compression as tc
 from realtime_kv_cache_compression_tpu_torch.ops import importance as ti
 from realtime_kv_cache_compression_tpu_torch.ops import selection as ts
+from torch_parity import cache_to_torch
 
 ATOL_SCORES = 1e-6
 
@@ -83,7 +84,7 @@ def test_importance_unported_paths_raise():
         ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, ct)
     with pytest.raises(NotImplementedError):
         ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, rt.CompressionConfig(),
-                             lengths=torch.tensor([8]))
+                             minmax=(torch.zeros(1, 1), torch.ones(1, 1)))
 
 
 @pytest.mark.parametrize("layer", [0, 3])
@@ -153,25 +154,13 @@ def test_compress_layer_kv_end_to_end(case, layers):
         stats_j.append(st_j)
         stats_t.append(st_t)
         # Dequantizing the same (JAX) cache agrees too.
-        cache_from_j = _cache_to_torch(cache_j)
+        cache_from_j = cache_to_torch(cache_j)
         for a, t in zip(jc.dequantize_layer_cache(cache_j, cj),
                         tc.dequantize_layer_cache(cache_from_j, ct)):
             np.testing.assert_allclose(np.asarray(a).astype(np.float32),
                                        t.float().numpy(), atol=1e-5)
     assert jc.summarize_layer_stats(stats_j) == \
         tc.summarize_layer_stats(stats_t)
-
-
-def _cache_to_torch(cache):
-    from realtime_kv_cache_compression_tpu_torch.compression import (
-        kv_cache as tk)
-    tiers = []
-    for t in cache.tiers:
-        arrs = {f: torch.from_numpy(np.array(getattr(t, f))) for f in (
-            "k_stored", "v_stored", "k_scale", "k_zp", "v_scale", "v_zp",
-            "positions", "valid")}
-        tiers.append(tk.TierCache(**arrs, chunk=t.chunk))
-    return tk.CompressedLayerCache(tiers=tuple(tiers))
 
 
 def test_recent_ring_append_and_drop():

@@ -7,6 +7,7 @@ attention output (dequantize-then-attend on one side, rank-1 folded
 dequant inside the online softmax on the other).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -25,6 +26,7 @@ from realtime_kv_cache_compression_tpu_torch.compression import (
     kv_cache as tk)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
     decode_attention as tda)
+from torch_parity import cache_to_torch, to_torch
 
 ATOL = 1e-5
 
@@ -33,10 +35,6 @@ ATOL = 1e-5
 _compress = jax.jit(compress_layer_kv, static_argnums=(3, 4, 5))
 _pallas_k2 = jax.jit(functools.partial(jda.fused_decode_attention,
                                        interpret=True), static_argnums=(4,))
-
-
-def _to_torch(x):
-    return torch.from_numpy(np.array(x))
 
 
 def _state(seed, ccfg_kw, b=2, s=96, hq=4, hkv=2, d=32, ring=8, n_recent=3):
@@ -63,11 +61,8 @@ def _state(seed, ccfg_kw, b=2, s=96, hq=4, hkv=2, d=32, ring=8, n_recent=3):
     q = rng.normal(size=(b, 1, hq, d)).astype(np.float32)
     q_pos = np.full((b, 1), s + n_recent, np.int32)
     q_pos[-1, 0] -= 2  # a row whose newest ring token is in its future
-    cache_t = tk.CompressedLayerCache(tiers=tuple(
-        tk.TierCache(**{f: _to_torch(getattr(t, f)) for f in (
-            "k_stored", "v_stored", "k_scale", "k_zp", "v_scale", "v_zp",
-            "positions", "valid")}, chunk=t.chunk) for t in cache.tiers))
-    recent_t = tk.RecentCache(**{f: _to_torch(getattr(recent, f))
+    cache_t = cache_to_torch(cache)
+    recent_t = tk.RecentCache(**{f: to_torch(getattr(recent, f))
                                  for f in ("k", "v", "positions", "length")})
     return (jnp.asarray(q), cache, recent, jnp.asarray(q_pos), cj,
             torch.from_numpy(q), cache_t, recent_t, torch.from_numpy(q_pos),
@@ -92,10 +87,15 @@ def test_plain_k2_matches_pallas(name, ccfg_kw, shape):
 
 
 def test_unported_arguments_raise():
+    """The pool and scale groups are ported; off the CPU the wrapper still
+    refuses groups of fewer than 8 channels and any non-CUDA tensor."""
     (_, _, _, _, _, qt, cache_t, rec_t, qpos_t, ct) = _state(0, {})
-    with pytest.raises(NotImplementedError):
-        tda.fused_decode_attention(qt, cache_t, rec_t, qpos_t, ct,
-                                   pool=object())
     q_meta = torch.empty(tuple(qt.shape), device="meta")
+    four = tk.CompressedLayerCache(tiers=tuple(  # d=32: 8 groups of 4
+        dataclasses.replace(t, k_scale=t.k_scale.expand(*t.k_scale.shape[:3],
+                                                        8))
+        for t in cache_t.tiers))
+    with pytest.raises(ValueError, match="scale groups"):
+        tda.fused_decode_attention(q_meta, four, rec_t, qpos_t, ct)
     with pytest.raises(ValueError, match="CUDA"):
         tda.fused_decode_attention(q_meta, cache_t, rec_t, qpos_t, ct)

@@ -6,8 +6,10 @@ tests/conftest.py imports it, so run this file there without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 kernels vs float32 references within 1e-4 (K1: exp2
-with the scale folded into q, blockwise sums) and 1e-5 (K2); bf16 outputs
+Tolerances: float32 kernels vs float32 references within 1e-4 (K1 in
+both modes: exp2 with the scale folded into q, blockwise sums) and 1e-5
+(K2, also with the decode pool and G > 1 groups, where the codes are
+dequantized before their products on both sides); bf16 outputs
 per element within two bf16 ulps of |reference| plus 1e-5 (both sides
 round one float32 result to bf16); prompt mass within 1e-5. K3: float32
 within 1e-4 of max|reference| (sums over K in another order); bf16 within
@@ -16,27 +18,32 @@ cancellation carries. K4: equal bit for bit (integer sums, one epilogue in
 the same order).
 """
 
-import dataclasses
-
 import pytest
 import torch
 
 import realtime_kv_cache_compression_tpu_torch as rt
 from realtime_kv_cache_compression_tpu_torch.compression import (
-    append_recent, compress_layer_kv, init_recent_cache)
+    append_recent, compress_layer_kv, flush_recent, init_decode_pool,
+    init_recent_cache)
 from realtime_kv_cache_compression_tpu_torch.models import llama
 from realtime_kv_cache_compression_tpu_torch.models.quantized_params import (
     params_to, quantize_params, quantize_tensor, quantize_tensor_int4)
 from realtime_kv_cache_compression_tpu_torch.ops.attention import (
-    prefill_attention_with_prompt_mass)
+    chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain, fused_decode_attention)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
-    flash_prefill_with_prompt_mass)
+    flash_chunk_attention_with_prompt_mass, flash_prefill_with_prompt_mass)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
     int4_matmul, int4_matmul_plain, int4_matmul_tensor)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.int8_matmul import (
     dynamic_int8_matmul, int8_matmul, int8_matmul_plain)
+from realtime_kv_cache_compression_tpu_torch.ops.importance import (
+    importance_scores)
+from realtime_kv_cache_compression_tpu_torch.ops.quantization import (
+    assign_precision)
+from realtime_kv_cache_compression_tpu_torch.ops.selection import (
+    select_tokens)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +120,35 @@ def test_k1_reads_strided_views(cuda):
     assert float((pm - pm_ref).abs().max()) <= TOL_MASS
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,s,q_offset,hq,hkv,d,plens", [
+    (2, 128, 512, 0, 32, 4, 64, (37, 100)),     # first chunk
+    (2, 128, 512, 256, 32, 4, 64, (37, 100)),   # mid-buffer
+    (2, 100, 512, 412, 8, 2, 32, None),         # last rows, ragged c
+    (1, 96, 300, 150, 8, 8, 128, (40,)),        # d=128, n_rep = 1
+])
+def test_k1_chunk_mode_matches_plain(cuda, dtype, b, c, s, q_offset, hq, hkv,
+                                     d, plens):
+    gen = torch.Generator(device=cuda).manual_seed(s + q_offset)
+    q = _randn(gen, (b, c, hq, d), dtype, cuda)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    pl = None if plens is None else torch.tensor(plens, device=cuda)
+    before = flash_chunk_attention_with_prompt_mass.launches
+    o, pm = flash_chunk_attention_with_prompt_mass(q, k, v, q_offset, 48,
+                                                   prompt_lens=pl)
+    torch.cuda.synchronize()
+    assert flash_chunk_attention_with_prompt_mass.launches == before + 1
+    # The plain version rounds probabilities to the value dtype before the
+    # value product, as the reference does; the kernel keeps them in
+    # float32, so bf16 is held against it on exact float32 copies.
+    o_ref, pm_ref = chunk_attention_with_prompt_mass(
+        q.float(), k.float(), v.float(), q_offset, 48, prompt_lens=pl)
+    assert o.dtype == dtype and pm.shape == (b, c)
+    _assert_close(o, o_ref, TOL_K1_F32)
+    assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+
+
 def _decode_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, n_recent, seed):
     mcfg = rt.tiny_test_model(num_heads=hq, num_kv_heads=hkv, head_dim=d,
                               dtype=str(dtype).replace("torch.", ""))
@@ -158,6 +194,81 @@ def test_k2_matches_plain(cuda, dtype, tiers, shape):
     _assert_close(out, ref, TOL_K2_F32)
 
 
+def _pooled_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, steps, seed):
+    """A compressed layer, then `steps` decode appends with the ring
+    flushed into the decode pool whenever it is full (as decode_step does),
+    so the pool wraps once steps > ring * (blocks + 1)."""
+    mcfg = rt.tiny_test_model(num_heads=hq, num_kv_heads=hkv, head_dim=d,
+                              dtype=str(dtype).replace("torch.", ""))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    mass = torch.rand((b, s), generator=gen, device=cuda)
+    cache, _ = compress_layer_kv(k, v, mass, 0, ccfg, mcfg)
+    recent = init_recent_cache(b, ring, mcfg, device=cuda)
+    pool = init_decode_pool(b, ring, ccfg, mcfg, device=cuda)
+    for i in range(steps):
+        if i and i % ring == 0:
+            flush_recent(recent, pool, ccfg, mcfg)
+        pos = torch.full((b, 1), s + i, dtype=torch.int32, device=cuda)
+        append_recent(recent, _randn(gen, (b, 1, hkv, d), dtype, cuda),
+                      _randn(gen, (b, 1, hkv, d), dtype, cuda), pos)
+    q = _randn(gen, (b, 1, hq, d), dtype, cuda)
+    q_pos = torch.full((b, 1), s + steps, dtype=torch.int32, device=cuda)
+    q_pos[-1] -= 2  # the newest ring tokens lie in this row's future
+    return q, cache, recent, pool, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_bits,group_size,shape", [
+    (4, 0, dict(b=2, s=700, hq=32, hkv=4, d=64)),
+    (4, 32, dict(b=2, s=700, hq=32, hkv=4, d=64)),      # G = 2
+    (16, 32, dict(b=2, s=700, hq=32, hkv=4, d=64)),
+    (2, 8, dict(b=1, s=300, hq=8, hkv=2, d=64)),        # G = 8
+    (4, 32, dict(b=1, s=500, hq=8, hkv=8, d=128)),      # G = 4, n_rep = 1
+    (8, 8, dict(b=1, s=260, hq=16, hkv=1, d=128)),      # G = 16
+    (16, 0, dict(b=2, s=90, hq=2, hkv=2, d=16)),
+])
+def test_k2_pool_and_groups_match_plain(cuda, dtype, pool_bits, group_size,
+                                        shape):
+    ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=group_size,
+                                decode_pool_blocks=2,
+                                decode_pool_bits=pool_bits)
+    q, cache, recent, pool, q_pos = _pooled_state(
+        cuda, dtype, ccfg, ring=8, steps=30, seed=pool_bits, **shape)
+    assert bool(pool.valid.all()) and int(recent.length[0]) == 6
+    before = fused_decode_attention.launches
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
+    torch.cuda.synchronize()
+    assert fused_decode_attention.launches == before + 1
+    ref = decode_attention_plain(q, cache, recent, q_pos, ccfg, pool=pool)
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_close(out, ref, TOL_K2_F32)
+
+
+def test_pooled_chunked_kernel_path_tokens_equal_plain_path_f32(cuda):
+    """Ragged chunked prefill (K1 mode b) + decode past a pool wrap with
+    G = 2 (K2 with pool), kernels vs plain versions on the card."""
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=8,
+                              num_kv_heads=2, head_dim=32,
+                              intermediate_size=512)
+    ccfg = rt.CompressionConfig(num_layers=2, quant_group_size=16,
+                                decode_pool_blocks=2, decode_pool_bits=4)
+    params = llama.init_params(0, mcfg, cuda)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    lengths = torch.tensor([256, 190], device=cuda)
+    outs = []
+    for kern in (True, False):
+        logits, state, _ = llama.prefill_compressed_chunked(
+            params, ids, mcfg, ccfg, chunk_size=64, max_decode_len=8,
+            lengths=lengths, use_flash=kern)
+        toks, _ = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                    30, mcfg, ccfg, use_fused=kern)
+        outs.append(toks)
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_kernel_path_tokens_equal_plain_path_f32(cuda):
     mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=8,
                               num_kv_heads=2, head_dim=32,
@@ -172,6 +283,33 @@ def test_kernel_path_tokens_equal_plain_path_f32(cuda):
     assert torch.equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("ragged", [False, True])
+def test_scoring_and_selection_read_no_device_value(cuda, ragged):
+    """Compression runs once per layer between prefill launches: a host
+    read of a device value (or a blocking host-to-device copy) there makes
+    the host wait for the queued prefill in every layer."""
+    ccfg = rt.CompressionConfig(num_layers=4)
+    b, s = 2, 4096
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mass = torch.rand((b, s), generator=gen, device=cuda)
+    lengths = torch.tensor([s, 3000], device=cuda) if ragged else None
+    token_valid = plens = None
+    if ragged:
+        token_valid = torch.arange(s, device=cuda)[None] < lengths[:, None]
+        plens = llama._prompt_lens(lengths, ccfg, ccfg.prompt_length(s))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scores = importance_scores(mass, 1, s, ccfg.prompt_length(s), ccfg,
+                                   lengths=lengths, prompt_lens=plens)
+        labels, _ = assign_precision(scores, ccfg)
+        sel = select_tokens(scores, labels, 1, ccfg, token_valid=token_valid,
+                            prompt_lens=plens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sel.kept_mask.shape == (b, s)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -179,15 +317,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     h = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_prefill_with_prompt_mass(h, h, h, 2)
-    ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=8)
+    ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=4)
     q, cache, recent, q_pos = _decode_state(
         cuda, torch.float32, ccfg, b=1, s=64, hq=2, hkv=2, d=16, ring=4,
         n_recent=1, seed=0)
-    with pytest.raises(NotImplementedError, match="group"):
+    with pytest.raises(ValueError, match="scale groups"):
         fused_decode_attention(q, cache, recent, q_pos, ccfg)
-    ccfg2 = dataclasses.replace(ccfg, quant_group_size=0)
-    with pytest.raises(NotImplementedError):
-        fused_decode_attention(q, cache, recent, q_pos, ccfg2, pool=object())
+    with pytest.raises(ValueError, match="outside"):
+        flash_chunk_attention_with_prompt_mass(
+            q[:, :, :, :16].expand(1, 8, 2, 16).contiguous(), recent.k,
+            recent.v, 0, 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

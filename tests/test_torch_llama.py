@@ -11,8 +11,9 @@ the limit below, stats equal, and the uncompressed arm's tokens equal.
 Packed codes: upstream float32 values (matmul and RoPE rounding) may differ
 in the last bit between the two frameworks, and a value that lands on a
 rounding boundary quantizes to the neighbouring code. So the limit is at
-most MAX_CODE_FLIPS codes per layer, each one step off; it is checked over
-several seeds (in 12 seeds, two showed one such code). The per-op tests
+most MAX_CODE_FLIPS codes per layer (tests/torch_parity.py), each one
+step off; it is checked over several seeds (in 12 seeds, two showed one
+such code). The per-op tests
 (test_torch_quantization, test_torch_compression) hold packed bytes
 byte-identical on identical inputs.
 """
@@ -32,43 +33,11 @@ from realtime_kv_cache_compression_tpu.compression import (
 from realtime_kv_cache_compression_tpu.models import llama as jl
 from realtime_kv_cache_compression_tpu_torch.compression import (
     summarize_layer_stats as t_summary)
-from realtime_kv_cache_compression_tpu_torch.config import HIGH, LOW, MID
 from realtime_kv_cache_compression_tpu_torch.models import llama as tl
-from realtime_kv_cache_compression_tpu_torch.ops.quantization import (
-    unpack_codes)
+from torch_parity import assert_caches_match, numpy_tree
 
 LAYERS, BATCH, PROMPT, STEPS = 2, 2, 160, 16
 ATOL_LOGITS = 1e-4
-MAX_CODE_FLIPS = 2
-
-
-def _assert_caches_match(j_caches, t_caches, ccfg):
-    """Kept positions and validity identical; codes within the limit."""
-    for a_cache, t_cache in zip(j_caches, t_caches, strict=True):
-        flips = 0
-        for tier, a, t in zip((HIGH, MID, LOW), a_cache.tiers, t_cache.tiers):
-            assert a.chunk == t.chunk
-            for f in ("positions", "valid"):
-                np.testing.assert_array_equal(
-                    np.asarray(getattr(a, f)), getattr(t, f).numpy(),
-                    err_msg=f)
-            bits = ccfg.tier_bits(tier)
-            for f in ("k_stored", "v_stored"):
-                ja = torch.from_numpy(np.array(getattr(a, f)))
-                if bits == 16:
-                    assert torch.equal(ja, getattr(t, f)), f
-                    continue
-                codes = [unpack_codes(x, bits, t.capacity, axis=-3,
-                                      chunk=t.chunk).int()
-                         for x in (ja, getattr(t, f))]
-                off = (codes[0] - codes[1]).abs()
-                assert bool((off <= 1).all()), f
-                flips += int((off > 0).sum())
-        assert flips <= MAX_CODE_FLIPS, flips
-
-
-def _numpy_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +47,7 @@ def runs():
     jcc = rj.CompressionConfig(num_layers=LAYERS)
     tcc = rt.CompressionConfig(num_layers=LAYERS)
     jp = jl.init_params(jax.random.PRNGKey(0), jcfg)
-    tp = tl.params_from_jax(_numpy_tree(jp), device="cpu")
+    tp = tl.params_from_jax(numpy_tree(jp), device="cpu")
     ids = np.random.default_rng(0).integers(0, jcfg.vocab_size,
                                             (BATCH, PROMPT))
 
@@ -116,7 +85,7 @@ def test_prefill_logits_close(runs):
 
 @pytest.mark.parametrize("layer", range(LAYERS))
 def test_layer_caches_identical(runs, layer):
-    _assert_caches_match(runs["j_state"].caches[layer:layer + 1],
+    assert_caches_match(runs["j_state"].caches[layer:layer + 1],
                          runs["t_caches"][layer:layer + 1], runs["tcc"])
 
 
@@ -128,10 +97,10 @@ def test_layer_caches_match_across_seeds(runs, seed):
         0, runs["jcfg"].vocab_size, (BATCH, PROMPT))
     _, j_state, _ = runs["pre"](jp, jnp.asarray(ids))
     _, t_state, _ = tl.prefill_compressed(
-        tl.params_from_jax(_numpy_tree(jp), device="cpu"),
+        tl.params_from_jax(numpy_tree(jp), device="cpu"),
         torch.from_numpy(ids),
         runs["tcfg"], runs["tcc"], max_decode_len=STEPS + 1)
-    _assert_caches_match(j_state.caches, t_state.caches, runs["tcc"])
+    assert_caches_match(j_state.caches, t_state.caches, runs["tcc"])
 
 
 def test_layer_stats_equal(runs):
@@ -193,7 +162,7 @@ def test_recompute_prefill_attention_matches(runs):
                                atol=ATOL_LOGITS)
     assert not np.allclose(np.asarray(j_logits),
                            np.asarray(runs["j_logits"]), atol=1e-3)
-    _assert_caches_match(j_state.caches, t_state.caches, tcc)
+    assert_caches_match(j_state.caches, t_state.caches, tcc)
 
 
 def test_generate_is_prefill_then_decode(runs):
@@ -222,10 +191,10 @@ def test_params_from_jax_roundtrip(dtype, fused):
     jp = jl.init_params(jax.random.PRNGKey(1), jcfg)
     if fused:
         expect = jl.fuse_params(jp)
-        got = tl.fuse_params(tl.params_from_jax(_numpy_tree(jp),
+        got = tl.fuse_params(tl.params_from_jax(numpy_tree(jp),
                                                 device="cpu"))
     else:
-        expect, got = jp, tl.params_from_jax(_numpy_tree(jp), device="cpu")
+        expect, got = jp, tl.params_from_jax(numpy_tree(jp), device="cpu")
     leaves_j, tree_j = jax.tree_util.tree_flatten_with_path(expect)
     leaves_t, tree_t = jax.tree_util.tree_flatten_with_path(got)
     assert tree_j == tree_t
@@ -277,11 +246,16 @@ def test_rope_rmsnorm_building_blocks(scaling):
 
 
 def test_unported_paths_raise(runs):
+    """Ragged batches and the decode pool are ported; query-guided
+    importance (one-shot and chunked) and MoE still raise."""
     tp, tcfg, tcc = runs["tp"], runs["tcfg"], runs["tcc"]
     ids = torch.from_numpy(runs["ids"])
-    with pytest.raises(NotImplementedError):
-        tl.prefill_compressed(tp, ids, tcfg, tcc,
+    query = dataclasses.replace(tcc, importance_source="query")
+    with pytest.raises(NotImplementedError, match="item"):
+        tl.prefill_compressed(tp, ids, tcfg, query,
                               lengths=torch.tensor([PROMPT, PROMPT - 3]))
+    with pytest.raises(NotImplementedError, match="item"):
+        tl.prefill_compressed_chunked(tp, ids, tcfg, query, chunk_size=32)
     with pytest.raises(NotImplementedError):
-        tl.prefill_compressed(tp, ids, tcfg, dataclasses.replace(
-            tcc, decode_pool_blocks=2))
+        tl.init_params(0, dataclasses.replace(tcfg, num_experts=4),
+                       device="cpu")
