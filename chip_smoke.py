@@ -4,12 +4,13 @@
 
 Builds the port's CUDA kernels (K1-K4) from
 `realtime_kv_cache_compression_tpu_torch/csrc`, one nvcc per source, all at
-once. Checks each kernel (K1 in its one-shot mode (a) and chunked mode
-(b), K2 over tiers + ring and with the decode pool and scale groups)
-against its plain PyTorch version at the shapes of the paths below, in
-bf16 and float32, with its time, bound and library yardstick. Then it
-drives four paths, each with every launch count set to 0 just before it
-and read just after:
+once. Checks each kernel (K1 in its one-shot mode (a), chunked mode (b),
+positioned mode (d), the diagonal pair and the non-causal pair (c), K2
+over tiers + ring and with the decode pool and scale groups) against its
+plain PyTorch version at the shapes of the paths below, in bf16 and
+float32, with its time, bound and library yardstick. Then it drives five
+paths, each with every launch count set to 0 just before it and read just
+after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
@@ -29,11 +30,20 @@ and read just after:
   bits, with 2 scale groups per head (K2 with the pool), so every layer
   flushes its ring 5 times and wraps the pool; counted once, timed
   REPEATS_NEW times, the uncompressed arm with the same lengths, and a
+  profile;
+- TinyLlama on the compressed-prefix chunked path: batch 2 uniform rows
+  of 4096, `prefill_compressed_prefix_chunked` in 4 chunks of 1024 (each
+  chunk attends over the compressed pools of the earlier ones: K1 mode (d)
+  plus the diagonal pair, merged), then 127 greedy steps through K2 over
+  the chunk-packed tiers; counted once, timed REPEATS_NEW times beside the
+  full-buffer `prefill_compressed_chunked` at the same shape, and a
   profile.
 
 Before the full runs, each path's kernel path is checked against the plain
 path in float32 at reduced depth (2 layers, full width): equal greedy
-tokens, and for the chunked path also chunked against one-shot prefill.
+tokens, for the chunked path also chunked against one-shot prefill, and
+for the compressed-prefix path equal kept positions and a single chunk
+against `prefill_compressed`.
 Any failed check exits nonzero. The last line is the device JSON; the line
 before it lists every kernel.
 
@@ -61,6 +71,15 @@ KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
     "K1b": ("flash_prefill", "flash_chunk_attention_with_prompt_mass",
             f"{PKG}/csrc/flash_prefill.cu",
             f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
+    "K1c": ("flash_prefill", "flash_full_pair_attention",
+            f"{PKG}/csrc/flash_prefill_pair.cu",
+            f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
+    "K1d": ("flash_prefill", "flash_positioned_attention",
+            f"{PKG}/csrc/flash_prefill_positioned.cu",
+            f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
+    "K1p": ("flash_prefill", "flash_diagonal_pair_attention",
+            f"{PKG}/csrc/flash_prefill.cu",
+            f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
     "K2": ("decode_attention", "fused_decode_attention",
            f"{PKG}/csrc/decode_attention.cu",
            f"{JAX_PKG}/ops/pallas/decode_attention.py:143"),
@@ -81,10 +100,14 @@ KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
 # near zero after cancelling large terms carries the float32 difference of
 # those terms and a tiny ulp. K4 is integer arithmetic with one epilogue in
 # the same order on both sides: equal bit for bit. K1's chunked mode and
-# K2 with the decode pool and scale groups are held to the same limits.
+# K2 with the decode pool and scale groups are held to the same limits, and
+# so are K1's positioned and pair modes; their log-sum-exp within 1e-5 on
+# rows that see a key (float32 on both sides), -inf on the others.
 TOL_K1_F32 = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
+TOL_LSE = 1e-5
+TOL_LOGITS = 1e-4  # float32 kernel path vs plain path, prefill logits
 TOL_K3_REL = 1e-4
 BF16_ULPS = 2
 BF16_FLOOR = 1e-5
@@ -113,6 +136,10 @@ DECODE_STEPS = 383    # flushes at steps 64, 128, ..., 320: 5 per layer
 REPEATS_NEW = 3
 SWAP_TOL = 1e-5       # chunked vs one-shot: a kept-token swap at a tier
                       # boundary passes only between near-equal scores
+# The compressed-prefix path (the chunk = T/4 layout of
+# experiments/chunked_prefix_quality.py): B uniform rows of PROMPT tokens
+# in chunks of CHUNK, no decode pool.
+PREFIX_BATCH = 2
 
 
 def log(msg: str) -> None:
@@ -451,6 +478,189 @@ def phase_k1_chunk(device, shape, offsets=(0, 1024, 2048, 3072),
                 f"{lib_ms} ms (masked, no prompt mass)")
     return {"max_abs_err": worst, **_per_forward(rows, 1),
             "per_offset": rows}
+
+
+def check_partial(part, ref, what: str) -> float:
+    """A kernel's (o, lse, pm) partial against its plain version: o and pm
+    as `check_close` holds K1; lse within TOL_LSE on rows that see a key
+    and -inf on both sides elsewhere. Returns the largest error."""
+    (o, lse, pm), (o_ref, lse_ref, pm_ref) = part, ref
+    err = max(check_close(o, o_ref, TOL_K1_F32, what + " out"),
+              check_close(pm, pm_ref, TOL_MASS, what + " prompt mass"))
+    sees = torch.isfinite(lse_ref)
+    check(torch.equal(sees, torch.isfinite(lse))
+          and bool((lse[~sees] == -torch.inf).all()),
+          what + ": lse is -inf exactly on the rows that see no key")
+    lse_err = max_err(lse[sees], lse_ref[sees]) if bool(sees.any()) else 0.0
+    log(f"{what} lse: max abs err {lse_err:.3e} (tol {TOL_LSE:.0e}) on "
+        f"{int(sees.sum())} rows that see a key, -inf on "
+        f"{int((~sees).sum())}")
+    check(lse_err <= TOL_LSE, what + " lse")
+    return max(err, lse_err)
+
+
+def _sdpa_ms(q, k, v, reps: int, **kw):
+    """SDPA on the same inputs as the yardstick (never the port), or None
+    where the installed PyTorch refuses it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: sdpa(qt, kt, vt, enable_gqa=qt.shape[1] != kt.shape[1],  # noqa
+                       **kw)
+    try:
+        lib()
+        return cuda_ms(lib, reps)[1]
+    except RuntimeError as e:
+        log(f"SDPA refused ({str(e)[:80]})")
+        return None
+
+
+def _prefix_pools(device, mcfg, gen):
+    """Layer 0's dequantized pools and key positions (invalid slots at
+    POS_SENTINEL) before each chunk of a real compressed-prefix prefill at
+    mcfg's full width (its first layer, bf16 random weights from SEED,
+    compressed as the path compresses layer 0: ratio 0.8, its largest
+    pools): B = 2 rows of PROMPT tokens in chunks of CHUNK, tiers 8/4/2.
+    Returns [(q_offset, k_pool, v_pool, kpos)]."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        dequantize_layer_cache)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import POS_SENTINEL
+
+    cfg1 = dataclasses.replace(mcfg, num_layers=1,
+                               max_position_embeddings=PROMPT + 512)
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(llama.init_params(SEED, cfg1, device))
+    ids = torch.randint(0, mcfg.vocab_size, (PREFIX_BATCH, PROMPT),
+                        generator=gen, device=device)
+    st = llama.prefill_chunked_compressed_init(PREFIX_BATCH, PROMPT, CHUNK,
+                                               cfg1, ccfg, device=device)
+    pools = []
+    for off in range(0, PROMPT, CHUNK):
+        k_p, v_p, pos_p, valid_p = dequantize_layer_cache(
+            st.caches[0], ccfg, torch.bfloat16)
+        pools.append((off, k_p, v_p, torch.where(valid_p, pos_p,
+                                                 POS_SENTINEL)))
+        st = llama.prefill_chunked_compressed_step(
+            params, ids[:, off:off + CHUNK], st, cfg1, ccfg, total_len=PROMPT)
+    del params, st
+    return pools
+
+
+def phase_k1_prefix(device, mcfg, reps: int = 10) -> dict:
+    """K1 mode (d) and the diagonal pair against their plain versions at the
+    compressed-prefix path's shapes: B=2, CHUNK query rows (strided slices
+    of one fused QKV) at each chunk offset, mode (d) over the pools a real
+    prefill at mcfg's width leaves before that chunk (`_prefix_pools`, so N
+    is the real slot count), the pair over the chunk's own K/V with its
+    local prompt length. bf16 and float32 (exact float32 copies); timed in
+    bf16 with bounds (operations 4 B Hq d c N_visible for mode (d), 4 B Hq
+    d c (c + 1) / 2 for the pair) and SDPA as the yardstick (a boolean
+    [c, N] mask from the positions; causal), without prompt mass. Returns
+    both kernels' numbers summed over the offsets, one layer's prefill."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import (flash_diagonal_pair_attention, flash_positioned_attention,
+                pair_attention_plain, positioned_attention_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    hq, hkv, d = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    b, c = PREFIX_BATCH, CHUNK
+    plen = _pooled_ccfg(1).prompt_length(PROMPT)
+    worst = {"positioned": 0.0, "pair": 0.0}
+    rows = {"positioned": [], "pair": []}
+    for off, k_p, v_p, kpos in _prefix_pools(device, mcfg, gen):
+        n_vis = int((kpos <= off).sum())  # pool keys every row sees
+        q, k_c, v_c = _fused_qkv(gen, b, c, hq, hkv, d, torch.bfloat16,
+                                 device)
+        plen_local = min(max(plen - off, 0), c)
+        for dtype in (torch.bfloat16, torch.float32):
+            qd, kpd, vpd, kcd, vcd = (t.to(dtype)
+                                      for t in (q, k_p, v_p, k_c, v_c))
+            kernels = {
+                "positioned": (
+                    lambda: flash_positioned_attention(  # noqa: E731
+                        qd, kpd, vpd, kpos, off, plen),
+                    lambda: positioned_attention_plain(  # noqa: E731
+                        qd, kpd, vpd, kpos, off, plen)),
+                "pair": (
+                    lambda: flash_diagonal_pair_attention(  # noqa: E731
+                        qd, kcd, vcd, plen_local),
+                    lambda: pair_attention_plain(  # noqa: E731
+                        qd, kcd, vcd, plen_local, causal=True)),
+            }
+            for name, (kernel, plain) in kernels.items():
+                what = (f"K1 {'mode d' if name == 'positioned' else 'pair'} "
+                        f"{tuple(q.shape)} at q_offset {off} over "
+                        f"{kpd.shape[1] if name == 'positioned' else c} keys "
+                        f"({n_vis if name == 'positioned' else 'causal'} "
+                        f"visible) {str(dtype)[6:]}")
+                part = kernel()
+                worst[name] = max(worst[name],
+                                  check_partial(part, plain(), what))
+                if dtype != torch.bfloat16:
+                    continue
+                ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
+                o, lse, pm = part
+                if name == "positioned":
+                    mask = (kpos[:, None, None, :] <= off + torch.arange(
+                        c, device=device)[None, None, :, None])
+                    lib_ms = _sdpa_ms(qd, kpd, vpd, reps, attn_mask=mask)
+                    cost = bound(nbytes(qd, o, kpos, lse, pm)
+                                 + 2 * n_vis * hkv * d * 2,
+                                 4 * hq * d * c * n_vis, dtype)
+                else:
+                    lib_ms = _sdpa_ms(qd, kcd, vcd, reps, is_causal=True)
+                    cost = bound(nbytes(qd, kcd, vcd, o, lse, pm),
+                                 4 * b * hq * d * c * (c + 1) / 2, dtype)
+                cost.update(q_offset=off, n_slots=kpd.shape[1],
+                            n_visible=n_vis, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms)
+                rows[name].append(cost)
+                log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}), "
+                    f"SDPA {lib_ms} ms (masked, no prompt mass)")
+    return {name: {"max_abs_err": worst[name], **_per_forward(r, 1),
+                   "per_offset": r} for name, r in rows.items()}
+
+
+def phase_k1_full_pair(device, shape, s: int = CHUNK, reps: int = 10) -> dict:
+    """K1 mode (c), the non-causal pair (ring attention's off-diagonal
+    block, not on a path the port runs yet): B=2, S_q = S_k = s, strided q
+    and contiguous K/V, per-row local prompt lengths, bf16 and float32;
+    timed in bf16 with its bound (operations 4 B Hq d S_q S_k) and SDPA
+    without a mask as the yardstick."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import flash_full_pair_attention, pair_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    hq, hkv, d = shape
+    b = PREFIX_BATCH
+    plen = torch.tensor([s // 4, 0], dtype=torch.int32, device=device)
+    worst, timing = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _fused_qkv(gen, b, s, hq, hkv, d, dtype, device)[0]
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=device)
+                .to(dtype) for _ in range(2))
+        kernel = lambda: flash_full_pair_attention(q, k, v, plen)  # noqa
+        plain = lambda: pair_attention_plain(q, k, v, plen,  # noqa: E731
+                                             causal=False)
+        part = kernel()
+        worst = max(worst, check_partial(
+            part, plain(), f"K1 mode c {tuple(q.shape)} over {s} keys "
+                           f"{str(dtype)[6:]}"))
+        if dtype != torch.bfloat16:
+            continue
+        ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
+        o, lse, pm = part
+        timing = {"ms": ms, "plain_ms": plain_ms,
+                  "library_ms": _sdpa_ms(q, k, v, reps),
+                  **bound(nbytes(q, k, v, o, lse, pm),
+                          4 * b * hq * d * s * s, dtype)}
+        log(f"K1 mode c {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+            f"({timing['bound_by']}), SDPA {timing['library_ms']} ms")
+    return {"max_abs_err": worst, **timing}
 
 
 def phase_k2_pool(device, mcfg, groups, prompt: int = PROMPT,
@@ -855,6 +1065,101 @@ def phase_parity_chunked(device, mcfg, prompt: int = 1024,
                                       "prefill")
 
 
+def _recording_compress(compress_layer_kv, records):
+    """`compress_layer_kv` that records each call's layer, offset, mass and
+    min-max (for the swap rule's scores), then compresses."""
+    def compress(k, v, mass, li, ccfg, mcfg, **kw):
+        records[(li, kw.get("shard_offset", 0))] = (mass, kw.get("minmax"))
+        return compress_layer_kv(k, v, mass, li, ccfg, mcfg, **kw)
+    return compress
+
+
+def phase_parity_prefix(device, mcfg, prompt: int = 1024, chunk: int = 256,
+                        steps: int = 16):
+    """The compressed-prefix path in float32 at reduced depth (full width):
+    B=2, `prompt` tokens in chunks of `chunk`, `steps` greedy steps. Kernel
+    path (K1 mode (d) + the diagonal pair, K2 over the chunk-packed tiers)
+    vs plain path (dense positioned attention, plain decode), both on the
+    card: logits within TOL_LOGITS, equal tokens, and equal kept positions
+    per layer, except a swap at a tier boundary between tokens whose
+    chunk-local scores lie within SWAP_TOL. Then one chunk of `prompt`
+    tokens (kernel path) against `prefill_compressed`: logits within
+    TOL_LOGITS and identical kept positions and validity."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.importance import (
+        importance_scores)
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    ids = torch.randint(0, mcfg.vocab_size, (PREFIX_BATCH, prompt),
+                        generator=gen, device=device)
+    plen = ccfg.prompt_length(prompt)
+    runs, records = {}, {}
+    original = llama.compress_layer_kv
+    for kernels in (True, False):
+        llama.compress_layer_kv = _recording_compress(
+            original, records if kernels else {})
+        try:
+            logits, state, _ = llama.prefill_compressed_prefix_chunked(
+                params, ids, mcfg, ccfg, chunk_size=chunk,
+                max_decode_len=steps, use_flash=kernels)
+        finally:
+            llama.compress_layer_kv = original
+        toks, _ = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                    steps, mcfg, ccfg, use_fused=kernels)
+        runs[kernels] = (logits, state.caches, toks)
+    (lk, ck, tk), (lp, cp, tp) = runs[True], runs[False]
+    n_swaps = 0
+    for li, (a, c) in enumerate(zip(ck, cp)):
+        for ti, (ta, tc) in enumerate(zip(a.tiers, c.tiers)):
+            for r in range(PREFIX_BATCH):
+                ka = set(ta.positions[r][ta.valid[r]].tolist())
+                kb = set(tc.positions[r][tc.valid[r]].tolist())
+                if ka == kb:
+                    continue
+                toks_x = sorted(ka ^ kb)
+                scores = []
+                for t in toks_x:
+                    off = t // chunk * chunk
+                    mass, mm = records[(li, off)]
+                    scores.append(float(importance_scores(
+                        mass, li, chunk, plen, ccfg, position_offset=off,
+                        total_len=prompt, minmax=mm)[r, t - off]))
+                spread = max(scores) - min(scores)
+                n_swaps += 1
+                log(f"prefix kernel vs plain: layer {li} tier {ti} row {r} "
+                    f"swaps tokens {toks_x} (scores {scores}, spread "
+                    f"{spread:.3e})")
+                check(len(ka - kb) == len(kb - ka) and spread <= SWAP_TOL,
+                      "prefix path kept positions (boundary swap rule)")
+    log(f"parity prefix f32 ({mcfg.num_layers} layers, hidden "
+        f"{mcfg.hidden_size}, B={PREFIX_BATCH} x {prompt}, chunk {chunk}): "
+        f"prefill logits max err {max_err(lk, lp):.3e}, {n_swaps} boundary "
+        f"swaps; tokens kernel {tk.tolist()} plain {tp.tolist()}")
+    check(max_err(lk, lp) <= TOL_LOGITS, "prefix path: logits of kernel and "
+                                         "plain paths")
+    check(torch.equal(tk, tp), "prefix path: greedy tokens of kernel and "
+                               "plain paths")
+
+    lg1, st1, _ = llama.prefill_compressed_prefix_chunked(
+        params, ids, mcfg, ccfg, chunk_size=prompt, max_decode_len=steps)
+    lg2, st2, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                           max_decode_len=steps)
+    same = all(torch.equal(a.valid, c.valid) and all(
+        torch.equal(torch.sort(a.positions[r][a.valid[r]])[0],
+                    torch.sort(c.positions[r][c.valid[r]])[0])
+        for r in range(PREFIX_BATCH))
+        for x, y in zip(st1.caches, st2.caches)
+        for a, c in zip(x.tiers, y.tiers))
+    log(f"prefix path, one chunk of {prompt} vs prefill_compressed: logits "
+        f"max err {max_err(lg1, lg2):.3e}, kept positions identical {same}")
+    check(max_err(lg1, lg2) <= TOL_LOGITS and same,
+          "single-chunk prefix path equals prefill_compressed")
+
+
 def _spread(xs) -> str:
     xs = sorted(xs)
     return (f"median {xs[len(xs) // 2]:.3f} (min {xs[0]:.3f}, max "
@@ -1204,6 +1509,134 @@ def phase_chunked_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
     return launches
 
 
+def _kept_and_stored(caches, layers: int, b: int, s: int, mcfg):
+    """(kept ratio from the tiers' `valid`, stored tier bytes, dense bf16
+    K/V bytes of the same b x s tokens)."""
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        cache_storage_bytes)
+
+    kept = sum(int(t.valid.sum()) for c in caches for t in c.tiers)
+    stored = sum(cache_storage_bytes(c) for c in caches)
+    dense = layers * 2 * b * s * mcfg.num_kv_heads * mcfg.head_dim * 2
+    return kept / (layers * b * s), stored, dense
+
+
+def phase_prefix_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
+    """The compressed-prefix chunked path at full width and depth:
+    PREFIX_BATCH uniform rows of PROMPT tokens, `prefill_compressed_prefix_
+    chunked` in chunks of CHUNK (K1 mode (d) over the pools plus the
+    diagonal pair, merged), NEW_TOKENS - 1 greedy steps through K2 over the
+    chunk-packed tiers, no decode pool. Counted once (launches held
+    exactly), K2 held against its plain version on that state's first and
+    last layers, then timed `repeats` times in turns with the full-buffer
+    `prefill_compressed_chunked` at the same shape (TTFT, decode rate, kept
+    ratio from the tiers' `valid`, stored bytes, peak memory of each), and
+    a profile with `compress_layer_kv`'s host time per chunk and layer."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        compress_layer_kv)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import decode_attention_plain, fused_decode_attention
+
+    label = "tinyllama compressed-prefix run"
+    layers, n = mcfg.num_layers, NEW_TOKENS - 1
+    b = PREFIX_BATCH
+    ccfg = CompressionConfig(num_layers=layers)  # tiers 8/4/2
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    ids = torch.randint(0, mcfg.vocab_size, (b, PROMPT), generator=gen,
+                        device=device)
+    forms = {
+        "prefix": lambda: llama.prefill_compressed_prefix_chunked(  # noqa
+            params, ids, mcfg, ccfg, chunk_size=CHUNK,
+            max_decode_len=NEW_TOKENS),
+        "full-buffer": lambda: llama.prefill_compressed_chunked(  # noqa
+            params, ids, mcfg, ccfg, chunk_size=CHUNK,
+            max_decode_len=NEW_TOKENS),
+    }
+    readings = {}
+    for form, prefill in forms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for key in KERNELS:
+            wrapper(key).launches = 0
+        logits, state, _ = prefill()
+        toks, state = llama.decode_loop(params, torch.argmax(logits, -1),
+                                        state, n, mcfg, ccfg)
+        torch.cuda.synchronize()
+        launches = {key: wrapper(key).launches for key in KERNELS}
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        check(toks.shape == (b, n) and bool(torch.isfinite(logits).all()),
+              f"{label} ({form}): output shape and finite logits")
+        kept, stored, dense = _kept_and_stored(state.caches, layers, b,
+                                               PROMPT, mcfg)
+        check(0.0 < kept < 1.0, f"{form}: kept ratio in (0, 1)")
+        readings[form] = {"launches": launches, "kept_ratio": kept,
+                          "stored_mb": stored / 2**20, "peak_mb": peak_mb,
+                          "ttft_ms": [], "tok_s": []}
+        log(f"{label} ({form} prefill): launches {launches}; kept_ratio "
+            f"{kept:.4f}; tiers hold {stored / 2**20:.3f} MB against "
+            f"{dense / 2**20:.3f} MB of dense bf16 K/V (savings "
+            f"{1 - stored / dense:.4f}); peak memory {peak_mb:.1f} MB")
+        expect = {key: 0 for key in KERNELS}
+        expect.update({"K1d": layers * PROMPT // CHUNK,
+                       "K1p": layers * PROMPT // CHUNK} if form == "prefix"
+                      else {"K1b": layers * PROMPT // CHUNK}, K2=layers * n)
+        log(f"{label} ({form}) launches: expect {expect}")
+        check(launches == expect, f"{label} ({form}): launches per kernel")
+        if form == "prefix":
+            # K2 over the chunk-packed tiers at the full shape.
+            q = torch.randn((b, 1, mcfg.num_heads, mcfg.head_dim),
+                            generator=gen, device=device).bfloat16()
+            q_pos = state.position[:, None]
+            for li in (0, layers - 1):
+                cache, recent = state.caches[li], state.recents[li]
+                check_close(
+                    fused_decode_attention(q, cache, recent, q_pos, ccfg),
+                    decode_attention_plain(q, cache, recent, q_pos, ccfg),
+                    TOL_K2_F32, f"K2 over the chunk-packed tiers, layer {li} "
+                                f"(tier chunks {[t.chunk for t in cache.tiers]}"
+                                f", capacities "
+                                f"{[t.capacity for t in cache.tiers]})")
+        del logits, state, toks
+
+    for _ in range(repeats):
+        for form, prefill in forms.items():
+            (logits, state, _), ms = cuda_ms(prefill)
+            tok = torch.argmax(logits, -1)
+            _, dec_ms = cuda_ms(lambda: llama.decode_loop(
+                params, tok, state, n, mcfg, ccfg))
+            readings[form]["ttft_ms"].append(ms)
+            readings[form]["tok_s"].append(b * n / (dec_ms / 1e3))
+            del logits, state
+    for form, r in readings.items():
+        log(f"{label} ({form} prefill, B={b} x {PROMPT}, chunks of {CHUNK}),"
+            f" {repeats} timed runs: TTFT ms {_spread(r['ttft_ms'])}; decode "
+            f"tok/s (both rows) {_spread(r['tok_s'])}")
+
+    prefill = forms["prefix"]
+    logits, state, _ = prefill()
+    tok = torch.argmax(logits, -1)
+    _profile_window("tinyllama prefix", "compressed-prefix prefill", prefill)
+    _profile_window("tinyllama prefix", "decode 10 steps",
+                    lambda: llama.decode_loop(params, tok, state, 10, mcfg,
+                                              ccfg))
+    hkv, d = mcfg.num_kv_heads, mcfg.head_dim
+    k, v = (torch.randn((b, CHUNK, hkv, d), generator=gen, device=device)
+            .bfloat16() for _ in range(2))
+    mass = torch.rand((b, CHUNK), generator=gen, device=device)
+    mm = (mass.amin(-1, keepdim=True), mass.amax(-1, keepdim=True))
+    times = _host_ms(lambda: compress_layer_kv(
+        k, v, mass, 0, ccfg, mcfg, shard_offset=3 * CHUNK, total_len=PROMPT,
+        minmax=mm))
+    log(f"compress_layer_kv alone (tinyllama prefix), one chunk of {CHUNK} "
+        f"and one layer, B={b}: host ms {_spread(times)}")
+    del params, state
+    torch.cuda.empty_cache()
+    return readings["prefix"]["launches"]
+
+
 def run_all(device, tiny, big) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
     line. `tiny` and `big` are the TinyLlama and Llama-2-7B configs."""
@@ -1220,6 +1653,12 @@ def run_all(device, tiny, big) -> list:
                                        tiny.head_dim))
     k1b_big = phase_k1_chunk(device, (big.num_heads, big.num_kv_heads,
                                       big.head_dim))
+    k1_prefix_tiny = phase_k1_prefix(device, tiny)
+    k1_prefix_big = phase_k1_prefix(device, big)
+    k1c_tiny = phase_k1_full_pair(device, (tiny.num_heads, tiny.num_kv_heads,
+                                           tiny.head_dim))
+    k1c_big = phase_k1_full_pair(device, (big.num_heads, big.num_kv_heads,
+                                          big.head_dim))
     k2_tiny = phase_k2(device, two(tiny))
     k2 = phase_k2(device, two(big))
     k2p_tiny = phase_k2_pool(device, two(tiny), groups=(1, 2))
@@ -1230,6 +1669,7 @@ def run_all(device, tiny, big) -> list:
     for arm in ("int4", "w8a8"):
         phase_parity(device, two(big), arm, prompt=512, new_tokens=8)
     phase_parity_chunked(device, two(tiny))
+    phase_parity_prefix(device, two(tiny))
     n_steps = NEW_TOKENS - 1
     tiny_run = phase_main(
         "tinyllama main run", device, tiny,
@@ -1241,6 +1681,9 @@ def run_all(device, tiny, big) -> list:
     del tiny_run
     torch.cuda.empty_cache()
     launches["tinyllama_chunked"] = phase_chunked_path(
+        device, dataclasses.replace(tiny,
+                                    max_position_embeddings=PROMPT + 512))
+    launches["tinyllama_prefix"] = phase_prefix_path(
         device, dataclasses.replace(tiny,
                                     max_position_embeddings=PROMPT + 512))
     for arm in ("int4", "w8a8"):
@@ -1268,6 +1711,13 @@ def run_all(device, tiny, big) -> list:
                  f"lengths {LENGTHS} right-padded to {PROMPT}, after 330 "
                  f"steps (ring {RING}, {POOL_BLOCKS} pool blocks, wrapped); "
                  f"{{}}")
+    prefix_note = (f"B={PREFIX_BATCH} c={CHUNK} at q_offsets 0-"
+                   f"{PROMPT - CHUNK}, Hq={{}} Hkv={{}} d={{}}, bf16, over "
+                   f"layer 0's pools of a {PROMPT}-token compressed-prefix "
+                   f"prefill; ms, plain_ms, bound_ms, library_ms: the "
+                   f"{PROMPT // CHUNK} chunks summed, one layer's prefill")
+    pair_note = (f"B={PREFIX_BATCH} S_q=S_k={CHUNK}, Hq={{}} Hkv={{}} d={{}}, "
+                 f"bf16")
     k2_err = max(r["max_abs_err"] for r in (k2, k2_tiny, k2p_tiny, k2p_big))
     kernels = [
         entry("K1", k1, "llama2_7b_int4", {
@@ -1286,6 +1736,42 @@ def run_all(device, tiny, big) -> list:
                        "[c, S_k] causal mask, no prompt mass",
             "llama2_7b": {**k1b_big, "shape": chunk_note.format(
                 big.num_heads, big.num_kv_heads, big.head_dim)}}),
+        entry("K1c", {**k1c_tiny, "max_abs_err": max(
+            k1c_tiny["max_abs_err"], k1c_big["max_abs_err"])},
+              "tinyllama_prefix", {
+            "mode": "c (non-causal pair, ring attention's off-diagonal "
+                    "block; on no path the port runs yet)",
+            "shape": pair_note.format(tiny.num_heads, tiny.num_kv_heads,
+                                      tiny.head_dim),
+            "library": "scaled_dot_product_attention, no mask, no prompt "
+                       "mass",
+            "llama2_7b": {**k1c_big, "shape": pair_note.format(
+                big.num_heads, big.num_kv_heads, big.head_dim)}}),
+        entry("K1d", {**k1_prefix_tiny["positioned"], "max_abs_err": max(
+            k1_prefix_tiny["positioned"]["max_abs_err"],
+            k1_prefix_big["positioned"]["max_abs_err"])},
+              "tinyllama_prefix", {
+            "mode": "d (positioned keys: compressed pools)",
+            "shape": prefix_note.format(tiny.num_heads, tiny.num_kv_heads,
+                                        tiny.head_dim),
+            "library": "scaled_dot_product_attention with a boolean [c, N] "
+                       "mask from the positions, no prompt mass",
+            "llama2_7b": {**k1_prefix_big["positioned"],
+                          "shape": prefix_note.format(
+                              big.num_heads, big.num_kv_heads,
+                              big.head_dim)}}),
+        entry("K1p", {**k1_prefix_tiny["pair"], "max_abs_err": max(
+            k1_prefix_tiny["pair"]["max_abs_err"],
+            k1_prefix_big["pair"]["max_abs_err"])}, "tinyllama_prefix", {
+            "mode": "diagonal pair (mode a with lse, local prompt length)",
+            "shape": prefix_note.format(tiny.num_heads, tiny.num_kv_heads,
+                                        tiny.head_dim),
+            "library": "scaled_dot_product_attention, causal, no prompt "
+                       "mass",
+            "llama2_7b": {**k1_prefix_big["pair"],
+                          "shape": prefix_note.format(
+                              big.num_heads, big.num_kv_heads,
+                              big.head_dim)}}),
         entry("K2", {**k2, "max_abs_err": k2_err}, "llama2_7b_int4", {
             "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, "
                      "tiers + ring, bf16",

@@ -3,8 +3,15 @@
 Port of the JAX package's `compression/compressor.py` for one device,
 uniform or ragged batches: score → precision labels → budgeted tier
 selection → quantize + pack each tier pool, with the same per-layer
-statistics, and the host-side summary over layers. Sequence-sharded and
-chunked-minmax compression are not ported yet (ROADMAP Queue 1, item 18).
+statistics, and the host-side summary over layers. A chunk of a longer
+sequence compresses at its global positions against its caller's mass
+range (`shard_offset`, `total_len`, `minmax`), into pools that concatenate
+along the slot axis: `empty_layer_cache` preallocates them for the
+compressed-prefix chunked prefill and `update_cache_chunk` writes one
+chunk's pools in place; `concat_layer_caches` and
+`compress_layer_kv_chunked` are the single-device chunked-selection policy.
+Sequence-sharded compression (`axis_name`) is not ported yet (ROADMAP
+Queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ def compress_layer_kv(
     model_cfg: ModelConfig,
     token_valid: torch.Tensor = None,
     prompt_lens: torch.Tensor = None,
+    shard_offset: int = 0,
+    total_len: int = None,
+    minmax: tuple = None,
+    chunk_lengths: torch.Tensor = None,
 ) -> Tuple[CompressedLayerCache, Dict[str, torch.Tensor]]:
     """Compress one layer's prefill K/V into packed tier pools.
 
@@ -46,26 +57,50 @@ def compress_layer_kv(
     is never stored, and scores, budgets and stats follow the true lengths
     (`importance_min` / `importance_max` still span the padding, as in the
     reference). prompt_lens: optional [B] per-row prompt lengths.
+
+    A chunk of a longer sequence: shard_offset is the global position of
+    local token 0 (a host int; stored positions are global), total_len the
+    global length, and minmax ([B, 1] min, [B, 1] max) the mass range the
+    chunk is normalised against. With minmax the pools record their packing
+    chunk (the tier's capacity when it packed as one chunk), so chunks'
+    pools concatenate along the slot axis; a chunk shorter than total_len
+    selects locally (no anchor growth of the HIGH tier). chunk_lengths: [B]
+    global true lengths, required with minmax on ragged rows.
     Returns (cache, stats): the layer's `CompressedLayerCache` and a dict of
-    per-row statistics with the reference's keys.
+    per-row statistics with the reference's keys. Sequence sharding
+    (`axis_name`) is not ported yet (ROADMAP Queue 1, item 18).
     """
     batch, seq_len, num_kv_heads, head_dim = k.shape
-    prompt_len = cfg.prompt_length(seq_len)
+    sharded = minmax is not None
+    if sharded and token_valid is not None and chunk_lengths is None:
+        raise ValueError("chunked-minmax ragged compression needs "
+                         "chunk_lengths (global per-row true lengths)")
+    total = total_len if total_len is not None else seq_len
+    prompt_len = cfg.prompt_length(total)
     group_size = cfg.quant_group_size or head_dim
     store_dtype = model_dtype(model_cfg)
 
     lengths = token_valid.sum(dim=-1) if token_valid is not None else None
-    scores = importance_scores(prompt_mass, layer_idx, seq_len, prompt_len,
-                               cfg, lengths=lengths, prompt_lens=prompt_lens)
+    scores = importance_scores(
+        prompt_mass, layer_idx, seq_len, prompt_len, cfg,
+        lengths=chunk_lengths if chunk_lengths is not None else lengths,
+        prompt_lens=prompt_lens, position_offset=shard_offset,
+        total_len=total, minmax=minmax)
     labels, prec_stats = assign_precision(scores, cfg)
+    # A chunk covering the whole sequence is the plain path, exactly.
+    local_window = sharded and seq_len != total
     sel = select_tokens(scores, labels, layer_idx, cfg,
-                        token_valid=token_valid, prompt_lens=prompt_lens)
+                        token_valid=token_valid,
+                        total_len=total if local_window else None,
+                        prompt_lens=prompt_lens)
 
     tiers = []
     for slot, tier in enumerate((HIGH, MID, LOW)):
         idx, valid = sel.indices[slot], sel.valid[slot]
         bits = cfg.tier_bits(tier)
         chunk = cfg.tier_chunk(idx.shape[1])
+        cache_chunk = (_concat_chunk(idx.shape[1], bits, chunk) if sharded
+                       else chunk)
         k_stored, k_scale, k_zp = quantize_tier(
             _gather_tokens(k, idx), bits, group_size, store_dtype,
             clip_frac=cfg.quant_clip_frac, chunk=chunk)
@@ -75,7 +110,8 @@ def compress_layer_kv(
         tiers.append(TierCache(
             k_stored=k_stored, v_stored=v_stored,
             k_scale=k_scale, k_zp=k_zp, v_scale=v_scale, v_zp=v_zp,
-            positions=idx.to(torch.int32), valid=valid, chunk=chunk))
+            positions=idx.to(torch.int32) + shard_offset, valid=valid,
+            chunk=cache_chunk))
     cache = CompressedLayerCache(tiers=tuple(tiers))
 
     kept_labels = torch.cat([
@@ -116,6 +152,161 @@ def compress_layer_kv(
         "demoted_count": sel.stats["demoted_count"],
     }
     return cache, stats
+
+
+def _concat_chunk(capacity: int, bits: int, chunk) -> int:
+    """Packing chunk a tier records when its pools concatenate with other
+    chunks' along the slot axis: the packing chunk, or the whole capacity
+    when the tier packed as one chunk, which must then fill whole bytes."""
+    if chunk is None and capacity % max(1, 8 // bits):
+        raise ValueError(f"chunked compression: tier capacity {capacity} "
+                         f"must be a multiple of {max(1, 8 // bits)} "
+                         f"({bits}-bit packing)")
+    return chunk if chunk is not None else capacity
+
+
+_TIER_FIELDS = ("k_stored", "v_stored", "k_scale", "k_zp", "v_scale", "v_zp",
+                "positions", "valid")
+
+
+def concat_layer_caches(caches: List[CompressedLayerCache]
+                        ) -> CompressedLayerCache:
+    """Concatenate per-chunk layer caches along the slot axis. All parts
+    must share tier shapes and packing chunks (as the chunked compression's
+    equal chunks do); the result's layout is chunked with that chunk."""
+    tiers = []
+    for i in range(len(caches[0].tiers)):
+        parts = [c.tiers[i] for c in caches]
+        chunks = {p.chunk for p in parts}
+        if len(chunks) != 1:
+            raise ValueError(f"mismatched packing chunks: {chunks}")
+        tiers.append(TierCache(
+            **{f: torch.cat([getattr(p, f) for p in parts], dim=1)
+               for f in _TIER_FIELDS}, chunk=parts[0].chunk))
+    return CompressedLayerCache(tiers=tuple(tiers))
+
+
+def empty_layer_cache(batch: int, chunk_size: int, n_chunks: int,
+                      layer_idx: int, cfg: CompressionConfig,
+                      model_cfg: ModelConfig,
+                      device=None) -> CompressedLayerCache:
+    """All-invalid layer cache sized for `n_chunks` chunk compressions of
+    `chunk_size` tokens, on `device`: the shapes, dtypes and packing chunks
+    one chunk's `compress_layer_kv(minmax=...)` gives, with the slot axis
+    times n_chunks (the layout of `concat_layer_caches`). Invalid slots
+    hold position 0 and valid False; every reader masks on `valid`."""
+    h, d = model_cfg.num_kv_heads, model_cfg.head_dim
+    groups = d // (cfg.quant_group_size or d)
+    local = n_chunks > 1  # as compress_layer_kv's local_window
+    caps = cfg.tier_capacities(chunk_size, layer_idx,
+                               grow_for_anchors=not local)
+    tiers = []
+    for tier, cap in zip((HIGH, MID, LOW), caps):
+        bits = cfg.tier_bits(tier)
+        chunk = cfg.tier_chunk(cap)
+        cache_chunk = _concat_chunk(cap, bits, chunk)
+        if bits == 16:
+            rows, code_dtype = cap, model_dtype(model_cfg)
+        else:
+            per_byte = 8 // bits
+            rows = (cap // chunk) * -(-chunk // per_byte) if chunk else \
+                -(-cap // per_byte)
+            code_dtype = torch.uint8
+
+        def zeros(shape, dtype):
+            return torch.zeros((batch, shape[0] * n_chunks) + shape[1:],
+                               dtype=dtype, device=device)
+
+        tiers.append(TierCache(
+            k_stored=zeros((rows, h, d), code_dtype),
+            v_stored=zeros((rows, h, d), code_dtype),
+            **{f: zeros((cap, h, groups), torch.float32)
+               for f in ("k_scale", "k_zp", "v_scale", "v_zp")},
+            positions=zeros((cap,), torch.int32),
+            valid=zeros((cap,), torch.bool), chunk=cache_chunk))
+    return CompressedLayerCache(tiers=tuple(tiers))
+
+
+def update_cache_chunk(cache: CompressedLayerCache,
+                       chunk_cache: CompressedLayerCache,
+                       chunk_idx: int) -> CompressedLayerCache:
+    """Write one chunk's freshly compressed pools into slot range
+    `chunk_idx` (a host int) of a preallocated `empty_layer_cache`, in
+    place; returns `cache`."""
+    for big, small in zip(cache.tiers, chunk_cache.tiers):
+        for f in _TIER_FIELDS:
+            dst, src = getattr(big, f), getattr(small, f)
+            n = src.shape[1]
+            dst[:, chunk_idx * n:(chunk_idx + 1) * n] = src
+    return cache
+
+
+def compress_layer_kv_chunked(
+    k: torch.Tensor,
+    v: torch.Tensor,
+    prompt_mass: torch.Tensor,
+    layer_idx: int,
+    cfg: CompressionConfig,
+    model_cfg: ModelConfig,
+    n_chunks: int,
+    token_valid: torch.Tensor = None,
+    prompt_lens: torch.Tensor = None,
+) -> Tuple[CompressedLayerCache, Dict[str, torch.Tensor]]:
+    """Chunked-selection compression: scores against the exact global mass
+    min-max, selection per chunk of S / n_chunks tokens with the budget
+    split evenly, pools concatenated (`concat_layer_caches`); the
+    single-device reference of sequence-sharded compression. Ragged rows:
+    token_valid (+ prompt_lens), each chunk's budget following its own
+    valid count. Stats aggregate exactly over the chunks."""
+    b, s = k.shape[:2]
+    if s % n_chunks:
+        raise ValueError(f"S={s} must divide n_chunks={n_chunks}")
+    s_loc = s // n_chunks
+    mass = prompt_mass.float()
+    if token_valid is None:
+        mn = mass.amin(dim=-1, keepdim=True)
+        mx = mass.amax(dim=-1, keepdim=True)
+    else:
+        mn = torch.where(token_valid, mass, torch.inf).amin(dim=-1,
+                                                            keepdim=True)
+        mx = torch.where(token_valid, mass, -torch.inf).amax(dim=-1,
+                                                             keepdim=True)
+    lengths_g = token_valid.sum(dim=-1) if token_valid is not None else None
+    caches, parts = [], []
+    for c in range(n_chunks):
+        sl = slice(c * s_loc, (c + 1) * s_loc)
+        cache_c, st_c = compress_layer_kv(
+            k[:, sl], v[:, sl], prompt_mass[:, sl], layer_idx, cfg,
+            model_cfg, shard_offset=c * s_loc, total_len=s, minmax=(mn, mx),
+            token_valid=None if token_valid is None else token_valid[:, sl],
+            prompt_lens=prompt_lens, chunk_lengths=lengths_g)
+        caches.append(cache_c)
+        parts.append(st_c)
+    n = float(n_chunks)
+    st = {}
+    for key in parts[0]:
+        vals = [p[key] for p in parts]
+        if key in ("seq_len", "kept_tokens", "stored_high", "stored_medium",
+                   "stored_low", "demoted_count"):
+            st[key] = sum(vals)
+        elif key == "importance_min":
+            st[key] = torch.stack(vals).amin(dim=0)
+        elif key == "importance_max":
+            st[key] = torch.stack(vals).amax(dim=0)
+        elif key == "importance_std":
+            means = [p["importance_mean"] for p in parts]
+            ex = sum(means) / n
+            ex2 = sum(v_ ** 2 + m_ ** 2 for v_, m_ in zip(vals, means)) / n
+            st[key] = torch.sqrt(torch.clamp(ex2 - ex ** 2, min=0.0))
+        elif key == "avg_selected_importance":
+            w = [p["kept_tokens"].float() for p in parts]
+            st[key] = (sum(v_ * w_ for v_, w_ in zip(vals, w))
+                       / torch.clamp(sum(w), min=1.0))
+        else:  # means and ratios over equal-size chunks: exact
+            st[key] = sum(vals) / n
+    st["compression_ratio"] = st["kept_tokens"] / st["seq_len"]
+    st["token_memory_savings"] = 1.0 - st["compression_ratio"]
+    return concat_layer_caches(caches), st
 
 
 def dequantize_layer_cache(

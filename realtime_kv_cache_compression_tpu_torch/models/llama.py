@@ -5,15 +5,18 @@ tree with the reference's keys (`init_params`, `params_from_jax`,
 `fuse_params`); `prefill_compressed` compresses every layer's K/V into
 packed tier pools while it runs, or `prefill_compressed_chunked` runs the
 prompt chunk by chunk and compresses once at the end; both take ragged
-right-padded batches (`lengths`). `decode_loop` decodes greedily over those
-pools plus an uncompressed recent ring and, with
-`decode_pool_blocks > 0`, a quantized decode pool that full rings flush
-into, so a generation may outlive the ring. The baseline arm is
-`prefill_uncompressed` + `decode_loop_uncompressed`.
+right-padded batches (`lengths`). `prefill_compressed_prefix_chunked`
+compresses each chunk as soon as its attention completes, so later chunks
+attend over the compressed pools of earlier ones (uniform batches).
+`decode_loop` decodes greedily over those pools plus an uncompressed
+recent ring and, with `decode_pool_blocks > 0`, a quantized decode pool
+that full rings flush into, so a generation may outlive the ring. The
+baseline arm is `prefill_uncompressed` + `decode_loop_uncompressed`.
 
 Kernels: with `use_flash` the prefill attention runs K1
-(ops/cuda/flash_prefill.py: mode (a) one-shot, mode (b) per chunk); with
-`use_fused` the decode attention runs K2 (ops/cuda/decode_attention.py).
+(ops/cuda/flash_prefill.py: mode (a) one-shot, mode (b) per chunk, mode
+(d) over the pools plus the diagonal pair on the compressed-prefix path);
+with `use_fused` the decode attention runs K2 (ops/cuda/decode_attention.py).
 Both default to on for CUDA tensors; on CPU tensors the wrappers take
 their plain versions. Quantized weights (models/quantized_params.py)
 dispatch in `_matmul`: `Int4Tensor` runs K3 (ops/cuda/int4_matmul.py),
@@ -22,9 +25,9 @@ act-quant `QuantizedTensor` K4 (ops/cuda/int8_matmul.py). The reference's
 rings, the decode pools (and the baseline arm's dense cache) in place, as
 chunked prefill does its K/V buffers.
 
-Not ported yet: sampling, query-guided importance, compressed-prefix
-chunked prefill, MoE (and its quantized experts) and the other model
-families' options beyond the config fields themselves.
+Not ported yet: sampling, query-guided importance, MoE (and its
+quantized experts) and the other model families' options beyond the
+config fields themselves.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..compression.compressor import compress_layer_kv, dequantize_layer_cache
+from ..compression.compressor import (compress_layer_kv,
+                                      dequantize_layer_cache,
+                                      empty_layer_cache, update_cache_chunk)
 from ..compression.kv_cache import (CompressedLayerCache, DecodePool,
                                     RecentCache, append_recent,
                                     flush_recent, init_decode_pool,
@@ -43,10 +48,12 @@ from ..compression.kv_cache import (CompressedLayerCache, DecodePool,
 from ..config import CompressionConfig, ModelConfig
 from ..ops.attention import (attention_over_tokens,
                              chunk_attention_with_prompt_mass,
+                             positioned_attention_with_prompt_mass,
                              prefill_attention_with_prompt_mass)
 from ..ops.cuda.decode_attention import (decode_attention_plain,
                                          fused_decode_attention)
 from ..ops.cuda.flash_prefill import (flash_chunk_attention_with_prompt_mass,
+                                      flash_compressed_prefix_attention,
                                       flash_prefill_with_prompt_mass)
 from ..ops.cuda.int4_matmul import int4_matmul_tensor
 from ..ops.cuda.int8_matmul import dynamic_int8_matmul
@@ -655,6 +662,185 @@ def _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
                                   st, cfg, ccfg, lengths=lengths,
                                   use_flash=use_flash)
     return st
+
+
+# ---------------------------------------------------------------------------
+# Compressed-prefix chunked prefill: later chunks attend over the compressed
+# pools of earlier chunks instead of the full uncompressed KV buffer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompressedChunkedState:
+    """Carry for compressed-prefix chunked prefill.
+
+    There are no full-length K/V or mass buffers: each chunk is compressed
+    into its slot range of the preallocated tier pools (`empty_layer_cache`)
+    as soon as its attention completes, so the per-layer carry is the
+    compressed cache, and chunk t attends over about kept * t * c surviving
+    prefix tokens instead of t * c. Against the full-buffer path this
+    approximates: later chunks see the quantized, selected prefix; each
+    chunk's importance normalises over its own mass range; and a chunk's
+    mass comes only from queries up to that chunk. Prompt-source
+    importance only. `offset` is a host int: the chunk loop runs on the
+    host.
+    """
+
+    caches: Tuple[CompressedLayerCache, ...]
+    last_h: torch.Tensor        # [B, hidden]
+    offset: int = 0
+
+
+def prefill_chunked_compressed_init(
+        batch: int, seq_len: int, chunk_size: int, cfg: ModelConfig,
+        ccfg: CompressionConfig, device="cuda") -> CompressedChunkedState:
+    """All-invalid compressed caches for seq_len / chunk_size chunks of a
+    [batch, seq_len] prompt, on `device`. Raises ValueError when chunk_size
+    does not divide seq_len, or for query-guided importance (its
+    observation window lies at the end of the sequence, after the chunks
+    it would score are compressed)."""
+    if seq_len % chunk_size:
+        raise ValueError(f"seq len {seq_len} not a multiple of chunk "
+                         f"{chunk_size}")
+    if ccfg.importance_source != "prompt":
+        raise ValueError(
+            "compressed-prefix chunked prefill supports importance_source="
+            "'prompt' only (the observation window lives at the END of the "
+            "sequence — it cannot score chunks that are compressed before "
+            "it exists; use prefill_chunked_* for query-guided scoring)")
+    n_chunks = seq_len // chunk_size
+    return CompressedChunkedState(
+        caches=tuple(empty_layer_cache(batch, chunk_size, n_chunks, li, ccfg,
+                                       cfg, device=device)
+                     for li in range(cfg.num_layers)),
+        last_h=torch.zeros((batch, cfg.hidden_size), dtype=model_dtype(cfg),
+                           device=device))
+
+
+def prefill_chunked_compressed_step(
+    params: Params,
+    chunk_ids: torch.Tensor,
+    st: CompressedChunkedState,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    total_len: int,
+    use_flash: Optional[bool] = None,
+) -> CompressedChunkedState:
+    """Advance compressed-prefix prefill by one chunk, chunk_ids [B, c]
+    (uniform batches).
+
+    Per layer: attention of the chunk's queries over {compressed pools so
+    far} ++ {own chunk K/V} with explicit positions (use_flash, on by
+    default for CUDA inputs: K1 mode (d) over the pools, the diagonal pair
+    over the chunk, merged; else the dense
+    `positioned_attention_with_prompt_mass`); then the chunk is compressed
+    with its own prompt mass (chunk-local min-max, global positions) and
+    written into its slot range of the state's caches in place. Returns the
+    state with `offset` advanced by c.
+    """
+    if use_flash is None:
+        use_flash = chunk_ids.is_cuda
+    b, c = chunk_ids.shape
+    off = st.offset
+    prompt_len = ccfg.prompt_length(total_len)
+    h = _embed_lookup(params["embed"], chunk_ids, model_dtype(cfg), cfg)
+    positions = (off + torch.arange(c, device=chunk_ids.device))[None] \
+        .expand(b, c)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                           cfg.rope_scaling)
+    for li, layer in enumerate(params["layers"]):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        cache = st.caches[li]
+        k_p, v_p, pos_p, valid_p = dequantize_layer_cache(cache, ccfg,
+                                                          q.dtype)
+        if use_flash:
+            attn, mass_c = flash_compressed_prefix_attention(
+                q, k_p, v_p, pos_p, valid_p, k, v, off, prompt_len)
+        else:
+            attn, mass_c = positioned_attention_with_prompt_mass(
+                q, torch.cat([k_p, k], dim=1), torch.cat([v_p, v], dim=1),
+                torch.cat([pos_p, positions.to(torch.int32)], dim=1),
+                torch.cat([valid_p, torch.ones((b, c), dtype=torch.bool,
+                                               device=q.device)], dim=1),
+                positions, prompt_len)
+        mn = mass_c.amin(dim=-1, keepdim=True)
+        mx = mass_c.amax(dim=-1, keepdim=True)
+        # A chunk whose mass is (near-)constant, e.g. one inside the prompt
+        # region where every row's mass is 1, must score as constant:
+        # min-max normalising a float-noise-wide range would blow backend
+        # noise up to full score scale. The wide span makes the mass term
+        # about 0, so the position and floor terms decide.
+        mx = torch.where(mx - mn < 1e-3, mn + 1e6, mx)
+        chunk_cache, _ = compress_layer_kv(
+            k, v, mass_c, li, ccfg, cfg, shard_offset=off,
+            total_len=total_len, minmax=(mn, mx))
+        update_cache_chunk(cache, chunk_cache, off // c)
+        h = _attn_out(layer, h, attn, cfg)
+    last_h = st.last_h
+    if off <= total_len - 1 < off + c:
+        last_h = h[:, total_len - 1 - off]
+    return dataclasses.replace(st, last_h=last_h, offset=off + c)
+
+
+def prefill_chunked_compressed_finish(
+    params: Params,
+    st: CompressedChunkedState,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    max_decode_len: int = 128,
+) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
+    """Last-position logits + the decode state over the caches the chunks
+    built (they are the decode caches: no second compression pass). Stats
+    are the reference's four keys per layer, counted from the tiers'
+    `valid`: seq_len, kept_tokens, compression_ratio and
+    token_memory_savings (so `summarize_layer_stats`, which wants the full
+    set, raises KeyError on them, as the reference's does)."""
+    b = st.last_h.shape[0]
+    dev = st.last_h.device
+    total = float(max(st.offset, 1))
+    all_stats = []
+    for cache in st.caches:
+        kept = sum(t.valid.sum(dim=-1) for t in cache.tiers)
+        all_stats.append({
+            "seq_len": torch.full((b,), st.offset, dtype=torch.int32,
+                                  device=dev),
+            "kept_tokens": kept,
+            "compression_ratio": kept / total,
+            "token_memory_savings": 1.0 - kept / total,
+        })
+    logits = logits_from_hidden(params, st.last_h, cfg)
+    buffers = [_decode_buffers(b, max_decode_len, cfg, ccfg, dev)
+               for _ in st.caches]
+    state = DecodeState(
+        caches=st.caches, recents=tuple(r for r, _ in buffers),
+        position=torch.full((b,), st.offset, dtype=torch.int32, device=dev),
+        pools=tuple(p for _, p in buffers))
+    return logits, state, all_stats
+
+
+def prefill_compressed_prefix_chunked(
+    params: Params,
+    input_ids: torch.Tensor,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    chunk_size: int,
+    max_decode_len: int = 128,
+    use_flash: Optional[bool] = None,
+) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
+    """init → one `prefill_chunked_compressed_step` per chunk → finish,
+    for a uniform batch input_ids [B, S] with S a multiple of chunk_size.
+    Returns (last-position logits [B, V], decode state, per-layer stats)."""
+    b, s = input_ids.shape
+    st = prefill_chunked_compressed_init(b, s, chunk_size, cfg, ccfg,
+                                         device=input_ids.device)
+    for off in range(0, s, chunk_size):
+        st = prefill_chunked_compressed_step(
+            params, input_ids[:, off:off + chunk_size], st, cfg, ccfg,
+            total_len=s, use_flash=use_flash)
+    return prefill_chunked_compressed_finish(params, st, cfg, ccfg,
+                                             max_decode_len=max_decode_len)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ Port of the dense functions of the JAX package's `ops/attention.py`. They
 are the plain versions the CUDA kernels are checked against (flash prefill:
 `prefill_attention_with_prompt_mass`, and `chunk_attention_with_prompt_mass`
 for its chunked mode; fused decode: dequantize, then
-`attention_over_tokens`) and the uncompressed arm's decode attention.
+`attention_over_tokens`), the uncompressed arm's decode attention, and
+`positioned_attention_with_prompt_mass`, the compressed-prefix chunked
+prefill's dense arm (`use_flash=False`).
 Logits and accumulation are float32 as in the reference: bf16 operands are
 widened before the products, and probabilities are cast to the value dtype
 before the value product, like the reference's bf16 einsums with
@@ -140,3 +142,49 @@ def chunk_attention_with_prompt_mass(
     out = torch.einsum("bhrqk,bkhd->bqhrd", attn.to(v_buf.dtype).float(),
                        v_buf.float())
     return out.reshape(b, c, hq, d).to(q.dtype), prompt_mass
+
+
+def positioned_attention_with_prompt_mass(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_positions: torch.Tensor,
+    k_valid: torch.Tensor,
+    q_positions: torch.Tensor,
+    prompt_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention of chunk queries over a positioned token set, with the
+    prompt-mass side channel: the dense form of the compressed-prefix
+    chunked prefill (pool slots ++ the chunk's own K/V).
+
+    Key j is visible to query i iff it is valid and k_positions[j] <=
+    q_positions[i]; it is a prompt column iff it is valid and k_positions[j]
+    < prompt_len. q: [B, c, H_q, D]; k, v: [B, N, H_kv, D]; k_positions:
+    [B, N] int; k_valid: [B, N] bool; q_positions: [B, c]. Returns (out
+    [B, c, H_q, D] in q's dtype, prompt_mass [B, c] float32, head-averaged);
+    a row that sees no key gets zeros in both. (The reference's per-row
+    `prompt_lens` has no caller and is not ported.)
+    """
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    n_rep = hq // hkv
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d)))
+    q5 = q.reshape(b, sq, hkv, n_rep, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", q5.float(), k.float()) * scale
+    mask = k_valid[:, None, :] & (k_positions[:, None, :]
+                                  <= q_positions[:, :, None])  # [B, c, N]
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    attn = torch.softmax(logits, dim=-1)                      # [B,h,r,c,N]
+    is_prompt = (k_positions < prompt_len) & k_valid          # [B, N]
+    pmass = torch.where(is_prompt[:, None, None, None], attn,
+                        torch.zeros((), device=q.device))
+    prompt_mass = pmass.sum(dim=-1).mean(dim=(1, 2))          # [B, c]
+    out = torch.einsum("bhrqk,bkhd->bqhrd", attn.to(v.dtype).float(),
+                       v.float())
+    any_valid = mask.any(dim=-1)                              # [B, c]
+    out = torch.where(any_valid[:, :, None, None, None], out,
+                      torch.zeros((), device=q.device))
+    return (out.reshape(b, sq, hq, d).to(q.dtype),
+            torch.where(any_valid, prompt_mass,
+                        torch.zeros((), device=q.device)))

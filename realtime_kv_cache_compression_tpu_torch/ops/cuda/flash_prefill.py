@@ -1,12 +1,27 @@
-"""K1: causal flash-attention prefill with the prompt-mass side channel.
+"""K1: flash-attention prefill with the prompt-mass side channel.
 
 Replaces the TPU kernel `_flash_kernel` of the JAX package's
-`ops/pallas/flash_prefill.py` in its square causal mode (a), entry point
-`flash_prefill_with_prompt_mass`, and its rectangular chunked mode (b),
-`flash_chunk_attention_with_prompt_mass`; the ring-pair (c) and positioned
-(d) modes are not ported yet. The CUDA source is `csrc/flash_prefill.cu`;
-one kernel serves both modes, mode (a) being q_offset = 0 over its own
-keys.
+`ops/pallas/flash_prefill.py` in all four modes, one CUDA kernel
+(`csrc/flash_prefill.cuh`) with the mode as a template parameter, each
+mode instantiated in its own source (`csrc/flash_prefill.cu`: the causal
+modes and the C entry, `flash_prefill_pair.cu`: (c),
+`flash_prefill_positioned.cu`: (d)) so that they build in parallel:
+
+- (a) square causal, `flash_prefill_with_prompt_mass`;
+- (b) rectangular causal at `q_offset`, `flash_chunk_attention_with_
+  prompt_mass`;
+- the diagonal pair, mode (a) with the log-sum-exp output and a per-row
+  local prompt length, `flash_pair_attention(causal=True)`, counted as
+  `flash_diagonal_pair_attention`;
+- (c) non-causal pair, `flash_pair_attention(causal=False)`, counted as
+  `flash_full_pair_attention`;
+- (d) positioned keys, `flash_positioned_attention`: pool slots at
+  arbitrary global positions, invalid ones at `POS_SENTINEL`.
+
+`merge_attention_partials` merges pair/positioned partials exactly by
+log-sum-exp, and `flash_compressed_prefix_attention` is the
+compressed-prefix chunked prefill's attention: mode (d) over the
+dequantized pools, the diagonal pair over the chunk itself, merged.
 
 Bound on the H100: at d=64 the first version is bound by float32 FMA issue
 and shared-memory broadcast reads (scalar FMAs, one thread per query row),
@@ -15,15 +30,17 @@ answers the TPU kernel's memory concern the same way (the S x S matrix
 never exists, the prompt mass rides as one more online-softmax sum), and
 leaves the tensor cores to later work.
 
-A CPU tensor takes the plain version, `ops.attention.
-prefill_attention_with_prompt_mass` or `chunk_attention_with_prompt_mass`.
+A CPU tensor takes the plain version: `ops.attention.
+prefill_attention_with_prompt_mass` or `chunk_attention_with_prompt_mass`
+for modes (a) and (b), `pair_attention_plain` and
+`positioned_attention_plain` (beside the wrappers here) for the others.
 A CUDA tensor launches the kernel or raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -32,24 +49,32 @@ from ..attention import (chunk_attention_with_prompt_mass,
 from . import _build
 
 _HEAD_DIMS = (16, 32, 64, 128)
+_CAUSAL, _FULL, _POSITIONED = 0, 1, 2  # Mode in csrc/flash_prefill.cuh
+
+# Position of an invalid pool slot: above every query position, so it is
+# never visible and never a prompt column (decode_attention / kv_cache use
+# the same value in the JAX package).
+POS_SENTINEL = 1 << 30
+
+Partial = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class FlashParams(ctypes.Structure):
-    """Mirror of `FlashParams` in csrc/flash_prefill.cu."""
+    """Mirror of `FlashParams` in csrc/flash_prefill.cuh."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "o", "pm",
-                                                "plen")]
+                                                "lse", "plen", "kpos")]
                 + [(n, ctypes.c_longlong) for n in (
                     "q_sb", "q_ss", "q_sh", "k_sb", "k_ss", "k_sh",
                     "v_sb", "v_ss", "v_sh", "o_sb", "o_ss", "o_sh")]
                 + [(n, ctypes.c_int) for n in (
                     "B", "S_q", "S_k", "q_offset", "Hq", "Hkv", "D",
-                    "dtype")]
+                    "dtype", "mode")]
                 + [("sm_scale", ctypes.c_float)])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           q_offset: int = 0) -> None:
+           q_offset: int = 0, mode: int = _CAUSAL) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash prefill: q, k, v must be on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
@@ -62,7 +87,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash prefill: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
-    if q_offset < 0 or q_offset + s > k.shape[1]:
+    if q_offset < 0 or (mode == _CAUSAL and q_offset + s > k.shape[1]):
         raise ValueError(f"flash prefill: rows {q_offset}..{q_offset + s} "
                          f"lie outside the {k.shape[1]}-row key buffer")
     if hq % k.shape[2]:
@@ -74,32 +99,52 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "contiguous")
 
 
-def _launch(q, k, v, q_offset: int, prompt_len: int, prompt_lens):
-    """Checks, allocates and launches K1; returns (out, prompt mass)."""
-    _check(q, k, v, q_offset)
+def _row_lengths(lens: Union[int, torch.Tensor], b: int,
+                 device) -> torch.Tensor:
+    """Per-row lengths as int32 [B] on `device`: a host int is filled on
+    the device (no host-to-device copy that would wait for queued work)."""
+    if torch.is_tensor(lens):
+        return lens.to(device=device, dtype=torch.int32).expand(b) \
+            .contiguous()
+    return torch.full((b,), int(lens), dtype=torch.int32, device=device)
+
+
+def _launch(q, k, v, q_offset: int, plen: torch.Tensor, mode: int = _CAUSAL,
+            kpos: Optional[torch.Tensor] = None, with_lse: bool = False):
+    """Checks, allocates and launches K1. plen: int32 [B] on q's device.
+    Returns (out, lse [B, Hq, S_q] or None, prompt mass [B, Hq, S_q]), the
+    statistics per head."""
+    _check(q, k, v, q_offset, mode)
     b, s_q, hq, d = q.shape
-    if prompt_lens is None:
-        plen = torch.full((b,), prompt_len, dtype=torch.int32,
-                          device=q.device)
-    else:
-        plen = torch.clamp(prompt_lens.to(device=q.device,
-                                          dtype=torch.int32),
-                           max=prompt_len).contiguous()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     pm = torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
+    lse = torch.empty_like(pm) if with_lse else None
+    if kpos is not None:
+        if (kpos.dtype != torch.int32 or kpos.shape != k.shape[:2]
+                or not kpos.is_contiguous() or kpos.device != q.device):
+            raise ValueError("flash prefill: key positions must be a "
+                             "contiguous int32 [B, S_k] tensor on q's device")
     p = FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
-        pm=pm.data_ptr(), plen=plen.data_ptr(),
+        pm=pm.data_ptr(), lse=lse.data_ptr() if with_lse else None,
+        plen=plen.data_ptr(), kpos=None if kpos is None else kpos.data_ptr(),
         q_sb=q.stride(0), q_ss=q.stride(1), q_sh=q.stride(2),
         k_sb=k.stride(0), k_ss=k.stride(1), k_sh=k.stride(2),
         v_sb=v.stride(0), v_ss=v.stride(1), v_sh=v.stride(2),
         o_sb=out.stride(0), o_ss=out.stride(1), o_sh=out.stride(2),
         B=b, S_q=s_q, S_k=k.shape[1], q_offset=q_offset, Hq=hq,
-        Hkv=k.shape[2], D=d, dtype=_build.dtype_code(q.dtype),
+        Hkv=k.shape[2], D=d, dtype=_build.dtype_code(q.dtype), mode=mode,
         sm_scale=1.0 / d ** 0.5)
     _build.launch("flash_prefill_launch", p,
                   torch.cuda.current_stream(q.device).cuda_stream)
-    return out, pm.mean(dim=1)
+    return out, lse, pm
+
+
+def _prompt_len_rows(q, prompt_len: int, prompt_lens) -> torch.Tensor:
+    if prompt_lens is None:
+        return _row_lengths(prompt_len, q.shape[0], q.device)
+    return torch.clamp(prompt_lens.to(device=q.device, dtype=torch.int32),
+                       max=prompt_len).contiguous()
 
 
 def flash_prefill_with_prompt_mass(
@@ -122,9 +167,10 @@ def flash_prefill_with_prompt_mass(
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash prefill: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
-    result = _launch(q, k, v, 0, prompt_len, prompt_lens)
+    out, _, pm = _launch(q, k, v, 0, _prompt_len_rows(q, prompt_len,
+                                                      prompt_lens))
     flash_prefill_with_prompt_mass.launches += 1
-    return result
+    return out, pm.mean(dim=1)
 
 
 def flash_chunk_attention_with_prompt_mass(
@@ -148,10 +194,201 @@ def flash_chunk_attention_with_prompt_mass(
         return chunk_attention_with_prompt_mass(q, k_buf, v_buf, q_offset,
                                                 prompt_len,
                                                 prompt_lens=prompt_lens)
-    result = _launch(q, k_buf, v_buf, q_offset, prompt_len, prompt_lens)
+    out, _, pm = _launch(q, k_buf, v_buf, q_offset,
+                         _prompt_len_rows(q, prompt_len, prompt_lens))
     flash_chunk_attention_with_prompt_mass.launches += 1
+    return out, pm.mean(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Partials with the log-sum-exp output: modes (c), (d) and the diagonal pair
+# ---------------------------------------------------------------------------
+
+def _attention_with_lse(q, k, v, visible, is_prompt) -> Partial:
+    """Dense partial: visible [B, S_q or 1, S_k] and is_prompt [B, 1, S_k]
+    bool. Returns (o in q's dtype, lse, pm [B, Hq, S_q] float32 per head);
+    a row with no visible key gets o = 0, pm = 0 and lse = -inf.
+    Probabilities stay float32 for the value product, as in the kernel."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    q5 = q.reshape(b, sq, hkv, hq // hkv, d)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d)))
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", q5.float(), k.float()) * scale
+    logits = torch.where(visible[:, None, None], logits,
+                         torch.full((), -torch.inf, device=q.device))
+    lse = torch.logsumexp(logits, dim=-1)                  # [B, h, r, S_q]
+    shift = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(logits - shift[..., None])               # masked: 0
+    out = torch.einsum("bhrqk,bkhd->bqhrd", p, v.float())
+    pm = torch.where(is_prompt[:, None, None], p,
+                     torch.zeros((), device=q.device)).sum(dim=-1)
+    return (out.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq),
+            pm.reshape(b, hq, sq))
+
+
+def pair_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         plen_local: Union[int, torch.Tensor],
+                         causal: bool) -> Partial:
+    """The plain version of `flash_pair_attention`: q [B, S_q, H_q, D] over
+    one key block k, v [B, S_k, H_kv, D]; causal=True is the diagonal pair
+    (q and k the same block, S_q = S_k), False full attention. plen_local:
+    the prompt length in the key block's coordinates, a host int or [B]."""
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
+    cols = torch.arange(sk, device=q.device)
+    if causal:
+        visible = (cols[None, :] <= torch.arange(sq, device=q.device)[:, None]
+                   )[None]
+    else:
+        visible = torch.ones((1, 1, sk), dtype=torch.bool, device=q.device)
+    plen = _row_lengths(plen_local, b, q.device)
+    return _attention_with_lse(q, k, v, visible,
+                               (cols[None, :] < plen[:, None])[:, None])
+
+
+def positioned_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_pos: torch.Tensor,
+                               q_offset: int, prompt_len: int) -> Partial:
+    """The plain version of `flash_positioned_attention`: key j is visible
+    to query row i iff k_pos[j] <= q_offset + i, a prompt column iff
+    k_pos[j] < prompt_len (invalid slots hold POS_SENTINEL)."""
+    q_pos = int(q_offset) + torch.arange(q.shape[1], device=q.device)
+    visible = k_pos[:, None, :] <= q_pos[None, :, None]
+    return _attention_with_lse(q, k, v, visible,
+                               (k_pos < prompt_len)[:, None])
+
+
+def flash_diagonal_pair_attention(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  plen_local: Union[int, torch.Tensor]
+                                  ) -> Partial:
+    """The diagonal pair: mode (a) with the lse output over the block's own
+    keys, with its local prompt length (see `flash_pair_attention`)."""
+    if q.device.type == "cpu":
+        return pair_attention_plain(q, k, v, plen_local, causal=True)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"diagonal pair: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} must be one block")
+    result = _launch(q, k, v, 0, _row_lengths(plen_local, q.shape[0],
+                                              q.device), with_lse=True)
+    flash_diagonal_pair_attention.launches += 1
     return result
+
+
+def flash_full_pair_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              plen_local: Union[int, torch.Tensor]
+                              ) -> Partial:
+    """Mode (c): every query sees every key of the block (see
+    `flash_pair_attention`)."""
+    if q.device.type == "cpu":
+        return pair_attention_plain(q, k, v, plen_local, causal=False)
+    result = _launch(q, k, v, 0, _row_lengths(plen_local, q.shape[0],
+                                              q.device), mode=_FULL,
+                     with_lse=True)
+    flash_full_pair_attention.launches += 1
+    return result
+
+
+def flash_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         plen_local: Union[int, torch.Tensor],
+                         causal: bool) -> Partial:
+    """One (query block, key block) pair of blockwise / ring attention.
+
+    q: [B, S_q, H_q, D]; k, v: [B, S_k, H_kv, D], one key block;
+    plen_local: the prompt length in the key block's coordinates,
+    clip(prompt_len - k_offset, 0, S_k), a host int or [B]. causal=True is
+    the diagonal pair (S_q = S_k), False a key block that precedes every
+    query. Returns (o [B, S_q, H_q, D] normalized, lse [B, H_q, S_q],
+    pm [B, H_q, S_q] per head) for `merge_attention_partials`; a row with
+    no visible key has o = 0, pm = 0 and lse = -inf.
+    """
+    if causal:
+        return flash_diagonal_pair_attention(q, k, v, plen_local)
+    return flash_full_pair_attention(q, k, v, plen_local)
+
+
+def flash_positioned_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_pos: torch.Tensor,
+                               q_offset: int, prompt_len: int) -> Partial:
+    """Mode (d): chunk queries over positioned key slots.
+
+    q: [B, c, H_q, D] at global positions q_offset .. q_offset + c - 1 (a
+    host int); k, v: [B, N, H_kv, D] dequantized pool slots; k_pos: [B, N]
+    int32 global positions (invalid slots at POS_SENTINEL); key j is
+    visible to row i iff k_pos[j] <= q_offset + i and is a prompt column
+    iff k_pos[j] < prompt_len. Returns (o, lse, pm) as
+    `flash_pair_attention` does.
+    """
+    q_offset = int(q_offset)
+    if q.device.type == "cpu":
+        return positioned_attention_plain(q, k, v, k_pos, q_offset,
+                                          prompt_len)
+    result = _launch(q, k, v, q_offset,
+                     _row_lengths(prompt_len, q.shape[0], q.device),
+                     mode=_POSITIONED,
+                     kpos=k_pos.to(torch.int32).contiguous(), with_lse=True)
+    flash_positioned_attention.launches += 1
+    return result
+
+
+def merge_attention_partials(parts: Sequence[Partial]
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact log-sum-exp merge of normalized partials over disjoint key
+    sets: parts of (o [B, S, Hq, D], lse [B, Hq, S], pm [B, Hq, S]).
+    Returns (out [B, S, Hq, D] float32, pm [B, Hq, S] per head). A part
+    whose lse is -inf weighs 0; rows where every part is -inf give 0."""
+    lse_all = torch.stack([p[1] for p in parts])          # [T, B, Hq, S]
+    m = lse_all.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse_all - m[None])
+    w_sum = torch.clamp(w.sum(dim=0), min=1e-30)
+    o_all = torch.stack([p[0].float() for p in parts])
+    w_q = w.movedim(3, 2)                                 # [T, B, S, Hq]
+    out = ((o_all * w_q[..., None]).sum(dim=0)
+           / w_sum.movedim(2, 1)[..., None])              # [B, S, Hq, D]
+    pm = (torch.stack([p[2] for p in parts]) * w).sum(dim=0) / w_sum
+    return out, pm
+
+
+def flash_compressed_prefix_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    pos_pool: torch.Tensor,
+    valid_pool: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    q_offset: int,
+    prompt_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk attention over {compressed pools} ++ {own chunk}, flash form:
+    mode (d) over the dequantized pools, the diagonal pair over the chunk's
+    own K/V, merged by log-sum-exp. Each partial's o comes in q's dtype and
+    merges in float32, then casts back, as in the reference. The dense form
+    is `ops.attention.positioned_attention_with_prompt_mass` over the
+    concatenated set.
+
+    q: [B, c, Hq, D] at q_offset (host int); k_pool, v_pool: [B, N, Hkv, D]
+    in q's dtype; pos_pool [B, N] int32, valid_pool [B, N] bool; k_chunk,
+    v_chunk: [B, c, Hkv, D]. Returns (out [B, c, Hq, D], prompt_mass [B, c]).
+    """
+    b, c = q.shape[:2]
+    q_offset = int(q_offset)
+    kpos = torch.where(valid_pool, pos_pool.to(torch.int32),
+                       torch.full((), POS_SENTINEL, dtype=torch.int32,
+                                  device=pos_pool.device))
+    part_pool = flash_positioned_attention(q, k_pool, v_pool, kpos, q_offset,
+                                           prompt_len)
+    plen_local = min(max(prompt_len - q_offset, 0), c)
+    part_self = flash_pair_attention(q, k_chunk, v_chunk, plen_local,
+                                     causal=True)
+    out, pm = merge_attention_partials([part_pool, part_self])
+    return out.to(q.dtype), pm.mean(dim=1)
 
 
 flash_prefill_with_prompt_mass.launches = 0
 flash_chunk_attention_with_prompt_mass.launches = 0
+flash_diagonal_pair_attention.launches = 0
+flash_full_pair_attention.launches = 0
+flash_positioned_attention.launches = 0

@@ -7,8 +7,10 @@ Port of the JAX package's `ops/importance.py` for the prompt-mass source:
 with min-max normalisation of the prompt mass per batch row, the
 "recency" or "log" position bias, r(i) = min(1, N_p / N), the prompt-region
 floor and the sink anchors, for uniform and ragged rows (true `lengths` and
-per-row `prompt_lens`). The query-window sources ("query", "both") and the
-sequence-sharded arguments are not ported yet.
+per-row `prompt_lens`), and for a chunk of a longer sequence scored at its
+global positions against its caller's min-max (`position_offset`,
+`total_len`, `minmax`). The query-window sources ("query", "both") and the
+sequence-sharded `axis_name` are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ def importance_scores(
     cfg: CompressionConfig,
     lengths: torch.Tensor = None,
     prompt_lens: torch.Tensor = None,
+    position_offset: int = 0,
+    total_len: int = None,
     minmax: tuple = None,
     axis_name: str = None,
     query_mass: torch.Tensor = None,
@@ -55,30 +59,46 @@ def importance_scores(
     """Three-term importance score for every token of a layer.
 
     prompt_mass: [B, S] raw prompt attention mass; seq_len: S (the padding
-    bucket for ragged rows). lengths: optional [B] true lengths: the mass
+    bucket for ragged rows; the LOCAL length when scoring a chunk of a
+    longer sequence). lengths: optional [B] true (global) lengths: the mass
     is normalised over each row's valid tokens, and the position bias and
     relevance follow the true length. prompt_lens: optional [B] per-row
     prompt lengths (default `prompt_len`), also for the prompt floor.
-    Returns [B, S] float32. The query-mass and sharded arguments raise
-    until ROADMAP items 5 and 18 port them.
+    position_offset: global position of local token 0 (a host int);
+    total_len: the global length T for the bias and relevance denominators
+    (default seq_len). minmax: optional ([B, 1] row_min, [B, 1] row_max)
+    that replaces the mass's own min-max, as a chunk is scored against its
+    caller's range. Returns [B, S] float32. The query-mass and sharded
+    (`axis_name`) arguments raise until ROADMAP items 5 and 18 port them.
     """
     if cfg.importance_source != "prompt" or query_mass is not None:
         raise NotImplementedError(
             "importance_source 'query'/'both' is not ported yet (ROADMAP "
             "Queue 1, items 3 and 5)")
-    if minmax is not None or axis_name is not None:
+    if axis_name is not None:
         raise NotImplementedError(
-            "sharded/chunked-minmax importance is not ported yet (ROADMAP "
-            "Queue 1, item 18)")
+            "sequence-sharded importance is not ported yet (ROADMAP Queue 1, "
+            "item 18)")
     dev = prompt_mass.device
     mass = prompt_mass.float()
-    valid = (None if lengths is None else
-             torch.arange(seq_len, device=dev)[None, :] < lengths[:, None])
-    normalized = minmax_normalize(mass, valid=valid)
+    total = total_len if total_len is not None else seq_len
+    gpos = torch.arange(seq_len, device=dev)[None, :] + position_offset
+    if minmax is not None:
+        row_min, row_max = minmax
+        denom = row_max - row_min
+        safe = denom > 1e-8
+        normalized = torch.where(
+            safe, (mass - row_min) / torch.where(safe, denom,
+                                                 torch.ones_like(denom)),
+            torch.zeros_like(mass))
+    else:
+        valid = None if lengths is None else gpos < lengths[:, None]
+        normalized = minmax_normalize(mass, valid=valid)
     w_l = cfg.layer_weights[layer_idx]
     term1 = cfg.alpha * normalized * w_l
     recency = cfg.position_bias_mode == "recency"
-    pos = torch.arange(1, seq_len + 1, dtype=torch.float32, device=dev)
+    pos = (torch.arange(1, seq_len + 1, dtype=torch.float32, device=dev)
+           + position_offset)
     if lengths is not None:
         lens = torch.clamp(lengths.float(), min=2.0)[:, None]
         pos = pos[None, :]
@@ -94,24 +114,24 @@ def importance_scores(
                   else float(prompt_len))
         term3 = cfg.gamma * torch.clamp(p_lens / lens, max=1.0)
     elif recency:
-        w = float(cfg.recency_window_for(seq_len))
-        term2 = cfg.beta * torch.clamp(1.0 - (float(seq_len) - pos) / w,
+        w = float(cfg.recency_window_for(total))
+        term2 = cfg.beta * torch.clamp(1.0 - (float(total) - pos) / w,
                                        0.0, 1.0)[None, :]
-        term3 = cfg.gamma * context_relevance(seq_len, prompt_len)
+        term3 = cfg.gamma * context_relevance(total, prompt_len)
     else:
-        if seq_len <= 1:
+        if total <= 1:
             term2 = torch.zeros((1, seq_len), dtype=torch.float32,
                                 device=dev)
         else:
             # float32 log on the host: a 0-dim CPU tensor broadcasts
             # without a host-to-device copy.
-            log_len = torch.log(torch.tensor(float(seq_len)))
+            log_len = torch.log(torch.tensor(float(total)))
             term2 = cfg.beta * (torch.log(pos) / log_len)[None, :]
-        term3 = cfg.gamma * context_relevance(seq_len, prompt_len)
+        term3 = cfg.gamma * context_relevance(total, prompt_len)
     scores = term1 + term2 + term3
     # Anchor boosts carry a small earliest-first ramp so anchored tokens
-    # order deterministically whatever float noise the mass carries.
-    gpos = torch.arange(seq_len, device=dev)[None, :]
+    # order deterministically whatever float noise the mass carries; the
+    # anchors are the first GLOBAL positions.
     ramp = 5e-4 * gpos.float()
     if cfg.prompt_region_floor:
         if prompt_lens is not None:

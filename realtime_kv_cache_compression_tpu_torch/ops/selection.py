@@ -7,7 +7,8 @@ limit, fall back to the top max(1, S * fallback_frac) tokens when nothing
 fits, and bucket the survivors into per-tier slot arrays of static capacity
 (quantile or threshold tier mode, with demotion when a threshold-mode pool
 is full). Original token positions ride along with every slot. Ragged rows
-(`token_valid`) take their budget from their true length.
+(`token_valid`) take their budget from their true length; a local chunk of a
+longer sequence (`total_len`) keeps uniform capacities.
 """
 
 from __future__ import annotations
@@ -53,13 +54,14 @@ def select_tokens(
     for ragged rows: padding is never selected, and the budget, token limit
     and fallback floor follow each row's true length. prompt_lens: optional
     [B] per-row prompt lengths: the HIGH tier's anchor growth follows each
-    row's floored prompt region. Local sharded selection (`total_len`,
-    ROADMAP item 18) and `selection_mode="exact_greedy"` (item 4) are not
-    ported yet.
+    row's floored prompt region. total_len: the GLOBAL length when scores
+    are a local chunk of a longer sequence; such local selection does not
+    grow the HIGH tier for anchors (`tier_capacities(grow_for_anchors=
+    False)`), so every chunk's capacities stay uniform: anchors are still
+    selected (their boost), but get the HIGH tier only as far as it holds
+    them. `selection_mode="exact_greedy"` (ROADMAP item 4) is not ported
+    yet.
     """
-    if total_len is not None:
-        raise NotImplementedError("sharded selection is not ported yet "
-                                  "(ROADMAP Queue 1, item 18)")
     if cfg.selection_mode == "exact_greedy":
         raise NotImplementedError(
             "selection_mode='exact_greedy' is not ported yet (ROADMAP "
@@ -67,7 +69,9 @@ def select_tokens(
     dev = scores.device
     batch, seq_len = scores.shape
     ratio = cfg.layer_ratio(layer_idx)
-    caps = cfg.tier_capacities(seq_len, layer_idx)
+    local = total_len is not None
+    caps = cfg.tier_capacities(seq_len, layer_idx,
+                               grow_for_anchors=not local)
 
     scores = scores.float()
     if token_valid is not None:
@@ -112,7 +116,7 @@ def select_tokens(
             (1, 1), limit, dtype=torch.int32, device=dev))
         lim_f = lim.float()
         n_h = torch.minimum(torch.ceil(lim_f * fh), lim_f).to(torch.int32)
-        anchors = cfg.anchor_count(seq_len)
+        anchors = 0 if local else cfg.anchor_count(seq_len)
         if anchors and prompt_lens is not None:
             anchors = torch.clamp(torch.ceil(
                 prompt_lens.float() * cfg.prompt_region_floor

@@ -84,7 +84,7 @@ def test_importance_unported_paths_raise():
         ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, ct)
     with pytest.raises(NotImplementedError):
         ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, rt.CompressionConfig(),
-                             minmax=(torch.zeros(1, 1), torch.ones(1, 1)))
+                             axis_name="seq")
 
 
 @pytest.mark.parametrize("layer", [0, 3])

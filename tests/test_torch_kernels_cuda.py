@@ -7,7 +7,8 @@ tests/conftest.py imports it, so run this file there without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: float32 kernels vs float32 references within 1e-4 (K1 in
-both modes: exp2 with the scale folded into q, blockwise sums) and 1e-5
+every mode: exp2 with the scale folded into q, blockwise sums; its lse
+within 1e-5 on rows that see a key, -inf on the others) and 1e-5
 (K2, also with the decode pool and G > 1 groups, where the codes are
 dequantized before their products on both sides); bf16 outputs
 per element within two bf16 ulps of |reference| plus 1e-5 (both sides
@@ -33,7 +34,11 @@ from realtime_kv_cache_compression_tpu_torch.ops.attention import (
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain, fused_decode_attention)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
-    flash_chunk_attention_with_prompt_mass, flash_prefill_with_prompt_mass)
+    POS_SENTINEL, flash_chunk_attention_with_prompt_mass,
+    flash_diagonal_pair_attention, flash_full_pair_attention,
+    flash_pair_attention, flash_positioned_attention,
+    flash_prefill_with_prompt_mass, pair_attention_plain,
+    positioned_attention_plain)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
     int4_matmul, int4_matmul_plain, int4_matmul_tensor)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.int8_matmul import (
@@ -50,6 +55,7 @@ pytestmark = pytest.mark.cuda
 TOL_K1_F32 = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
+TOL_LSE = 1e-5
 TOL_K3_REL = 1e-4
 BF16_ULPS, BF16_FLOOR = 2, 1e-5
 
@@ -147,6 +153,132 @@ def test_k1_chunk_mode_matches_plain(cuda, dtype, b, c, s, q_offset, hq, hkv,
     assert o.dtype == dtype and pm.shape == (b, c)
     _assert_close(o, o_ref, TOL_K1_F32)
     assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+
+
+def _assert_partial_close(part, ref):
+    """(o, lse, pm) of a kernel against its plain version: o as
+    `_assert_close` holds K1, pm within TOL_MASS, lse within TOL_LSE on
+    rows that see a key and -inf on both sides elsewhere."""
+    (o, lse, pm), (o_ref, lse_ref, pm_ref) = part, ref
+    assert o.dtype == o_ref.dtype and lse.shape == pm.shape == lse_ref.shape
+    _assert_close(o, o_ref, TOL_K1_F32)
+    assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+    sees = torch.isfinite(lse_ref)
+    assert torch.equal(sees, torch.isfinite(lse))
+    assert bool((lse[~sees] == -torch.inf).all())
+    assert float(o.float()[~sees.transpose(1, 2)].abs().sum()) == 0.0
+    if sees.any():
+        assert float((lse[sees] - lse_ref[sees]).abs().max()) <= TOL_LSE
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,n,q_offset,hq,hkv,d,layout", [
+    (2, 128, 700, 1024, 32, 4, 64, "invalid tiles"),  # ragged N
+    (2, 100, 300, 200, 8, 8, 128, "future keys"),     # d=128, n_rep = 1
+    (2, 64, 256, 0, 32, 4, 64, "all invalid"),        # the first chunk
+    (1, 130, 96, 64, 16, 2, 32, "future keys"),
+])
+def test_k1_positioned_mode_matches_plain(cuda, dtype, b, c, n, q_offset,
+                                          hq, hkv, d, layout):
+    """Mode (d) over pool slots: scattered positions, invalid slots at
+    POS_SENTINEL in whole 64-key tiles and singly, keys later than some
+    rows of the chunk, a row that sees no key, an all-invalid pool."""
+    gen = torch.Generator(device=cuda).manual_seed(n + q_offset)
+    q = _randn(gen, (b, c, hq, d), dtype, cuda)
+    k = _randn(gen, (b, n, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, n, hkv, d), dtype, cuda)
+    top = q_offset if layout == "invalid tiles" else q_offset + c
+    pos = torch.randint(0, max(top, 1), (b, n), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    if layout == "future keys":
+        pos[0, :8] = q_offset + c - 1  # visible to the last row only
+        pos[-1] = torch.clamp(pos[-1], min=q_offset + 1)  # row 0 sees none
+    invalid = torch.rand((b, n), generator=gen, device=cuda) < 0.2
+    invalid[:, 128:256] = True
+    if layout == "all invalid":
+        invalid[:] = True
+    pos = torch.where(invalid, POS_SENTINEL, pos)
+    prompt_len = max(q_offset // 2, 3)
+    before = flash_positioned_attention.launches
+    part = flash_positioned_attention(q, k, v, pos, q_offset, prompt_len)
+    torch.cuda.synchronize()
+    assert flash_positioned_attention.launches == before + 1
+    ref = positioned_attention_plain(q, k, v, pos, q_offset, prompt_len)
+    _assert_partial_close(part, ref)
+    if layout == "all invalid":
+        assert not bool(torch.isfinite(part[1]).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,b,sq,sk,hq,hkv,d,plens", [
+    (True, 2, 128, 128, 32, 4, 64, (37, 0)),     # the diagonal pair
+    (True, 1, 96, 96, 8, 8, 128, (96,)),
+    (False, 2, 128, 200, 32, 4, 64, (5, 200)),   # mode (c), ragged S_k
+    (False, 1, 100, 77, 8, 8, 128, (0,)),
+])
+def test_k1_pair_modes_match_plain(cuda, dtype, causal, b, sq, sk, hq, hkv,
+                                   d, plens):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = _randn(gen, (b, sq, hq, d), dtype, cuda)
+    k = _randn(gen, (b, sk, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, sk, hkv, d), dtype, cuda)
+    plen = torch.tensor(plens, dtype=torch.int32, device=cuda)
+    counter = (flash_diagonal_pair_attention if causal
+               else flash_full_pair_attention)
+    before = counter.launches
+    part = flash_pair_attention(q, k, v, plen, causal)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _assert_partial_close(part, pair_attention_plain(q, k, v, plen, causal))
+
+
+def test_compressed_prefix_step_reads_no_device_value(cuda):
+    """One compressed-prefix chunk step (K1 mode (d) and the diagonal pair,
+    compression, the in-place pool update) under the sync debug mode: the
+    host-int offset and chunk index read no device value."""
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=8,
+                              num_kv_heads=2, head_dim=32,
+                              intermediate_size=512)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.init_params(0, mcfg, cuda)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    st = llama.prefill_chunked_compressed_init(2, 256, 64, mcfg, ccfg,
+                                               device=cuda)
+    st = llama.prefill_chunked_compressed_step(params, ids[:, :64], st, mcfg,
+                                               ccfg, total_len=256)
+    torch.cuda.synchronize()
+    before = flash_positioned_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = llama.prefill_chunked_compressed_step(params, ids[:, 64:128], st,
+                                                   mcfg, ccfg, total_len=256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert st.offset == 128
+    assert flash_positioned_attention.launches == before + 2
+
+
+def test_compressed_prefix_kernel_path_tokens_equal_plain_path_f32(cuda):
+    """Compressed-prefix chunked prefill (K1 mode (d) + diagonal pair) and
+    fused decode over the chunk-packed tiers (K2) against the dense arm and
+    the plain decode, on the card."""
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=8,
+                              num_kv_heads=2, head_dim=32,
+                              intermediate_size=512)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.init_params(0, mcfg, cuda)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    outs = []
+    for kern in (True, False):
+        logits, state, _ = llama.prefill_compressed_prefix_chunked(
+            params, ids, mcfg, ccfg, chunk_size=64, max_decode_len=16,
+            use_flash=kern)
+        toks, _ = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                    12, mcfg, ccfg, use_fused=kern)
+        outs.append(toks)
+    assert torch.equal(outs[0], outs[1])
 
 
 def _decode_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, n_recent, seed):
