@@ -4,13 +4,17 @@
 
 Builds the port's CUDA kernels (K1-K4) from
 `realtime_kv_cache_compression_tpu_torch/csrc`, one nvcc per source, all at
-once. Checks each kernel (K1 in its one-shot mode (a), chunked mode (b),
-positioned mode (d), the diagonal pair and the non-causal pair (c), K2
-over tiers + ring and with the decode pool and scale groups) against its
-plain PyTorch version at the shapes of the paths below, in bf16 and
-float32, with its time, bound and library yardstick. Then it drives five
-paths, each with every launch count set to 0 just before it and read just
-after:
+once, and logs each K1 instance's registers, shared memory and spills
+(none allowed in the bf16 tensor-core instances, each of which must hold
+HGMMA where cuobjdump runs). Checks each kernel (K1 in its one-shot mode
+(a), chunked mode (b), positioned mode (d), the diagonal pair and the
+non-causal pair (c), K2 over tiers + ring and with the decode pool and
+scale groups) against its plain PyTorch version at the shapes of the
+paths below, in bf16 and float32, with its time, bound and library
+yardstick (K1: its share of the bound and its factor against SDPA), and
+K1 mode (a) on the model's own activations (TinyLlama, 2 layers, full
+width, prompt 1024, bf16). Then it drives five paths, each with every
+launch count set to 0 just before it and read just after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
@@ -102,7 +106,12 @@ KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
 # the same order on both sides: equal bit for bit. K1's chunked mode and
 # K2 with the decode pool and scale groups are held to the same limits, and
 # so are K1's positioned and pair modes; their log-sum-exp within 1e-5 on
-# rows that see a key (float32 on both sides), -inf on the others.
+# rows that see a key (float32 on both sides), -inf on the others. A bf16
+# K1 output is the exception: its tensor cores take the probabilities
+# rounded to bf16 (as the TPU kernel does), so it is held against the
+# plain version on float32 copies of its inputs to the port's
+# `bf16_output_limit`: two ulps plus 2^-8 (sum_j p_j |v_j|) / l (the
+# plain version on |v|) plus 1e-5.
 TOL_K1_F32 = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
@@ -171,13 +180,23 @@ def bf16_share(out: torch.Tensor, ref: torch.Tensor,
     return float((err / (BF16_ULPS * ulp + floor)).max())
 
 
-def check_close(out, ref, tol, what: str, floor: float = BF16_FLOOR) -> float:
+def check_close(out, ref, tol, what: str, floor: float = BF16_FLOOR,
+                ref_abs=None) -> float:
     """Checks `out` against `ref` (bf16: the per-element ulp limit with
-    `floor`; float32: `tol` absolute), logs the result and returns the max
-    abs error."""
+    `floor`, or with `ref_abs` given, K1's `bf16_output_limit`; float32:
+    `tol` absolute), logs the result and returns the max abs error."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import bf16_limit_share
+
     err = max_err(out, ref)
     peak = float(ref.float().abs().max())
-    if out.dtype == torch.bfloat16:
+    if out.dtype == torch.bfloat16 and ref_abs is not None:
+        share = bf16_limit_share(out, ref, ref_abs)
+        log(f"{what}: max abs err {err:.3e}, max|ref| {peak:.3e}, worst "
+            f"element at {share:.3f} of its limit ({BF16_ULPS} bf16 ulps "
+            f"+ 2^-8 sum p|v|/l + {floor:.0e})")
+        check(share <= 1.0, what)
+    elif out.dtype == torch.bfloat16:
         share = bf16_share(out, ref, floor)
         log(f"{what}: max abs err {err:.3e}, max|ref| {peak:.3e}, worst "
             f"element at {share:.3f} of its limit ({BF16_ULPS} bf16 ulps "
@@ -188,6 +207,26 @@ def check_close(out, ref, tol, what: str, floor: float = BF16_FLOOR) -> float:
             f"{peak:.3e}")
         check(err <= tol, what)
     return err
+
+
+def k1_refs(plain, q, k, v, *args, **kw):
+    """A K1 wrapper's plain version on float32 copies of q, k, v, and its
+    output with v replaced by |v| (the sum_j p_j |v_j| / l of the bf16
+    limit). Returns (result, ref_abs)."""
+    f = [x.float() for x in (q, k, v)]
+    return plain(*f, *args, **kw), plain(f[0], f[1], f[2].abs(), *args,
+                                         **kw)[0]
+
+
+def log_speed(what: str, cost: dict) -> None:
+    """Logs a bf16 K1 timing: kernel, plain, bound, the kernel's share of
+    its bound and its factor against SDPA (n/a where SDPA refused)."""
+    lib = cost["library_ms"]
+    factor = "n/a" if lib is None else f"{cost['ms'] / lib:.2f}"
+    log(f"{what} bf16: kernel {cost['ms']:.4f} ms, plain "
+        f"{cost['plain_ms']:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+        f"({cost['bound_by']}), {cost['bound_ms'] / cost['ms']:.3f} of its "
+        f"bound; SDPA {lib} ms (no prompt mass), kernel/SDPA {factor}")
 
 
 def cuda_ms(fn, reps: int = 1):
@@ -253,15 +292,59 @@ def phase_environment() -> None:
 
 
 def phase_build() -> None:
+    """Builds the kernels (one nvcc per source, in parallel), logs ptxas's
+    registers, shared memory and spills, and every K1 instance's as the
+    runtime reports them; checks that no bf16 K1 instance spills and,
+    where cuobjdump is present, that each holds HGMMA (wgmma) instructions.
+    """
+    import shutil
+
     from realtime_kv_cache_compression_tpu_torch.ops.cuda import _build
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
+        import kernel_instances
 
     t0 = time.perf_counter()
     kl = _build.load_library()
     log(f"build: {kl.path.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {kl.build_seconds:.1f} s)")
+    entry, spills = "", []
     for line in kl.ptxas_log.splitlines():
+        if "Compiling" in line:
+            entry = line
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+        if ("flash_tc_kernel" in entry and "spill" in line
+                and " 0 bytes spill stores, 0 bytes spill loads" not in line):
+            spills.append(entry.split("flash_tc_kernel")[1][:12])
+    for row in kernel_instances():
+        log(f"  K1 {row['mode']} {row['dtype']} d={row['head_dim']}: "
+            f"{row['regs']} registers, {row['local_bytes']} B local "
+            f"memory, {row['static_smem'] + row['dynamic_smem']} B shared "
+            f"memory, {row['threads']} threads")
+        if row["dtype"] == "bfloat16" and row["local_bytes"]:
+            spills.append(f"{row['mode']} d={row['head_dim']}")
+    check(not spills, f"bf16 K1 instances spill: {spills}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", str(kl.path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"cuobjdump not run ({e}): HGMMA not checked")
+        return
+    hgmma = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "flash_tc_kernel" in name:
+                hgmma[name] = 0
+        elif name in hgmma and "HGMMA" in line:
+            hgmma[name] += 1
+    for name, n in sorted(hgmma.items()):
+        log(f"  SASS {name}: {n} HGMMA instructions")
+    check(len(hgmma) == 12 and all(hgmma.values()),
+          "every bf16 K1 instance (3 modes x 4 head dims) holds HGMMA")
 
 
 def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device):
@@ -299,13 +382,14 @@ def phase_k1(device, shape, ragged=(2, 1000), reps: int = 10) -> dict:
               "K1 inputs are strided slices")
         o, pm = flash_prefill_with_prompt_mass(q, k, v, plen,
                                                prompt_lens=lens)
-        o_ref, pm_ref = prefill_attention_with_prompt_mass(
-            q, k, v, plen, prompt_lens=lens)
+        (o_ref, pm_ref), o_abs = k1_refs(prefill_attention_with_prompt_mass,
+                                         q, k, v, plen, prompt_lens=lens)
         what = (f"K1 {tuple(q.shape)} {str(dtype)[6:]} plens "
                 f"{plen if lens is None else lens.tolist()}")
-        worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what + " out"),
+        worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what + " out",
+                                       ref_abs=o_abs),
                     check_close(pm, pm_ref, TOL_MASS, what + " prompt mass"))
-        del o_ref, pm_ref
+        del o_ref, pm_ref, o_abs
         if timing is None:  # the path's shape and dtype
             ms, plain_ms = kernel_and_plain_ms(
                 lambda: flash_prefill_with_prompt_mass(q, k, v, plen),
@@ -320,11 +404,68 @@ def phase_k1(device, shape, ragged=(2, 1000), reps: int = 10) -> dict:
             timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       **bound(nbytes(q, k, v, o) + b * s * 4,
                               4 * b * hq * d * s * (s + 1) / 2, dtype)}
-            log(f"K1 {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-                f"({timing['bound_by']}), SDPA {lib_ms:.4f} ms (causal "
-                f"attention alone, no prompt mass)")
+            log_speed(f"K1 mode a {tuple(q.shape)}", timing)
     return {"max_abs_err": worst, **timing}
+
+
+def phase_k1_activations(device, mcfg, prompt: int = 1024) -> float:
+    """bf16 K1 on the model's own activations: `mcfg` (TinyLlama at 2
+    layers, full width) with bf16 random weights from SEED, one prompt of
+    `prompt` tokens through `prefill_compressed` with a recording wrapper
+    around K1 mode (a). Every call's output is held against the plain
+    version on float32 copies of its own q, k, v under the bf16 limit, its
+    prompt mass within TOL_MASS. Then the same prefill on the plain path
+    (`use_flash=False`, bf16): the kept positions per layer and tier of
+    the two are logged (bf16 rounding may move a token across a tier
+    boundary, so they are read, not checked). Returns the largest error."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.attention import (
+        prefill_attention_with_prompt_mass)
+
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
+                        device=device)
+    calls = []
+    original = llama.flash_prefill_with_prompt_mass
+
+    def recording(q, k, v, prompt_len, prompt_lens=None):
+        result = original(q, k, v, prompt_len, prompt_lens=prompt_lens)
+        calls.append((q, k, v, prompt_len, prompt_lens, result))
+        return result
+
+    llama.flash_prefill_with_prompt_mass = recording
+    try:
+        _, st_kernel, _ = llama.prefill_compressed(
+            params, ids, mcfg, ccfg, max_decode_len=16, use_flash=True)
+    finally:
+        llama.flash_prefill_with_prompt_mass = original
+    check(len(calls) == mcfg.num_layers, "one K1 call per layer recorded")
+    worst = 0.0
+    for li, (q, k, v, plen, lens, (o, pm)) in enumerate(calls):
+        check(q.dtype == torch.bfloat16, "the model's K1 calls are bf16")
+        (o_ref, pm_ref), o_abs = k1_refs(prefill_attention_with_prompt_mass,
+                                         q, k, v, plen, prompt_lens=lens)
+        what = (f"K1 mode a on layer {li}'s own activations "
+                f"{tuple(q.shape)} bf16")
+        worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what + " out",
+                                       ref_abs=o_abs),
+                    check_close(pm, pm_ref, TOL_MASS, what + " prompt mass"))
+    del calls
+    _, st_plain, _ = llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=16, use_flash=False)
+    for li, (ck, cp) in enumerate(zip(st_kernel.caches, st_plain.caches)):
+        moved = []
+        for a, c in zip(ck.tiers, cp.tiers):
+            ka = set(a.positions[0][a.valid[0]].tolist())
+            kc = set(c.positions[0][c.valid[0]].tolist())
+            moved.append(f"{len(ka - kc)} of {len(ka)}")
+        log(f"bf16 prefill, K1 vs plain attention, layer {li}: kept "
+            f"positions of the kernel path missing from the plain path's, "
+            f"per tier (high, mid, low): {moved}")
+    return worst
 
 
 def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
@@ -437,19 +578,20 @@ def phase_k1_chunk(device, shape, offsets=(0, 1024, 2048, 3072),
             plain = lambda: chunk_attention_with_prompt_mass(  # noqa: E731
                 q, k_buf, v_buf, off, plen, prompt_lens=plens)
             # The plain version rounds probabilities to the value dtype
-            # before the value product, as the reference does; the kernel
-            # keeps them in float32, so it is held against the plain
-            # version on exact float32 copies of the same inputs.
+            # before the value product, as the reference does, so the
+            # kernel is held against it on exact float32 copies of the
+            # same inputs.
             o, pm = kernel()
-            o_ref, pm_ref = chunk_attention_with_prompt_mass(
-                q.float(), k_buf.float(), v_buf.float(), off, plen,
+            (o_ref, pm_ref), o_abs = k1_refs(
+                chunk_attention_with_prompt_mass, q, k_buf, v_buf, off, plen,
                 prompt_lens=plens)
             what = (f"K1 mode b {tuple(q.shape)} over {s_k} keys at "
                     f"q_offset {off} {str(dtype)[6:]} plens {plens.tolist()}")
-            worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what),
+            worst = max(worst, check_close(o, o_ref, TOL_K1_F32, what,
+                                           ref_abs=o_abs),
                         check_close(pm, pm_ref, TOL_MASS,
                                     what + " prompt mass"))
-            del o_ref, pm_ref
+            del o_ref, pm_ref, o_abs
             if dtype != torch.bfloat16:
                 continue
             ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
@@ -472,20 +614,19 @@ def phase_k1_chunk(device, shape, offsets=(0, 1024, 2048, 3072),
                             4 * b * hq * d * chunk * (off + (chunk + 1) / 2),
                             dtype)}
             rows.append(cost)
-            log(f"K1 mode b {tuple(q.shape)} q_offset {off} bf16: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}), SDPA "
-                f"{lib_ms} ms (masked, no prompt mass)")
+            log_speed(f"K1 mode b {tuple(q.shape)} q_offset {off}", cost)
     return {"max_abs_err": worst, **_per_forward(rows, 1),
             "per_offset": rows}
 
 
-def check_partial(part, ref, what: str) -> float:
-    """A kernel's (o, lse, pm) partial against its plain version: o and pm
-    as `check_close` holds K1; lse within TOL_LSE on rows that see a key
-    and -inf on both sides elsewhere. Returns the largest error."""
-    (o, lse, pm), (o_ref, lse_ref, pm_ref) = part, ref
-    err = max(check_close(o, o_ref, TOL_K1_F32, what + " out"),
+def check_partial(part, refs, what: str) -> float:
+    """A kernel's (o, lse, pm) partial against its plain version on float32
+    copies, `refs` = (partial, ref_abs) from `k1_refs`: o and pm as
+    `check_close` holds K1; lse within TOL_LSE on rows that see a key and
+    -inf on both sides elsewhere. Returns the largest error."""
+    (o, lse, pm), ((o_ref, lse_ref, pm_ref), o_abs) = part, refs
+    err = max(check_close(o, o_ref, TOL_K1_F32, what + " out",
+                          ref_abs=o_abs),
               check_close(pm, pm_ref, TOL_MASS, what + " prompt mass"))
     sees = torch.isfinite(lse_ref)
     check(torch.equal(sees, torch.isfinite(lse))
@@ -582,14 +723,20 @@ def phase_k1_prefix(device, mcfg, reps: int = 10) -> dict:
                     lambda: flash_positioned_attention(  # noqa: E731
                         qd, kpd, vpd, kpos, off, plen),
                     lambda: positioned_attention_plain(  # noqa: E731
-                        qd, kpd, vpd, kpos, off, plen)),
+                        qd, kpd, vpd, kpos, off, plen),
+                    lambda: k1_refs(  # noqa: E731
+                        positioned_attention_plain, qd, kpd, vpd, kpos,
+                        off, plen)),
                 "pair": (
                     lambda: flash_diagonal_pair_attention(  # noqa: E731
                         qd, kcd, vcd, plen_local),
                     lambda: pair_attention_plain(  # noqa: E731
-                        qd, kcd, vcd, plen_local, causal=True)),
+                        qd, kcd, vcd, plen_local, causal=True),
+                    lambda: k1_refs(  # noqa: E731
+                        pair_attention_plain, qd, kcd, vcd, plen_local,
+                        causal=True)),
             }
-            for name, (kernel, plain) in kernels.items():
+            for name, (kernel, plain, refs) in kernels.items():
                 what = (f"K1 {'mode d' if name == 'positioned' else 'pair'} "
                         f"{tuple(q.shape)} at q_offset {off} over "
                         f"{kpd.shape[1] if name == 'positioned' else c} keys "
@@ -597,7 +744,7 @@ def phase_k1_prefix(device, mcfg, reps: int = 10) -> dict:
                         f"visible) {str(dtype)[6:]}")
                 part = kernel()
                 worst[name] = max(worst[name],
-                                  check_partial(part, plain(), what))
+                                  check_partial(part, refs(), what))
                 if dtype != torch.bfloat16:
                     continue
                 ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
@@ -617,9 +764,7 @@ def phase_k1_prefix(device, mcfg, reps: int = 10) -> dict:
                             n_visible=n_vis, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms)
                 rows[name].append(cost)
-                log(f"{what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}), "
-                    f"SDPA {lib_ms} ms (masked, no prompt mass)")
+                log_speed(what.rsplit(" ", 1)[0], cost)
     return {name: {"max_abs_err": worst[name], **_per_forward(r, 1),
                    "per_offset": r} for name, r in rows.items()}
 
@@ -647,8 +792,8 @@ def phase_k1_full_pair(device, shape, s: int = CHUNK, reps: int = 10) -> dict:
                                              causal=False)
         part = kernel()
         worst = max(worst, check_partial(
-            part, plain(), f"K1 mode c {tuple(q.shape)} over {s} keys "
-                           f"{str(dtype)[6:]}"))
+            part, k1_refs(pair_attention_plain, q, k, v, plen, causal=False),
+            f"K1 mode c {tuple(q.shape)} over {s} keys {str(dtype)[6:]}"))
         if dtype != torch.bfloat16:
             continue
         ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
@@ -657,9 +802,7 @@ def phase_k1_full_pair(device, shape, s: int = CHUNK, reps: int = 10) -> dict:
                   "library_ms": _sdpa_ms(q, k, v, reps),
                   **bound(nbytes(q, k, v, o, lse, pm),
                           4 * b * hq * d * s * s, dtype)}
-        log(f"K1 mode c {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-            f"({timing['bound_by']}), SDPA {timing['library_ms']} ms")
+        log_speed(f"K1 mode c {tuple(q.shape)}", timing)
     return {"max_abs_err": worst, **timing}
 
 
@@ -1283,6 +1426,11 @@ def _profile_window(label: str, what: str, fn, top: int = 6) -> None:
     for name, (n, t) in sorted(kernels.items(),
                                key=lambda kv: -kv[1][1])[:top]:
         log(f"  {t / 1e3:9.3f} ms  {n:5d} x  {name[:90]}")
+    k1 = [(n, t) for name, (n, t) in kernels.items()
+          if "flash_tc_kernel" in name or "flash_prefill_kernel" in name]
+    if k1:
+        log(f"  K1 in {label} {what}: {sum(t for _, t in k1) / 1e3:.3f} ms "
+            f"of device time over {sum(n for n, _ in k1)} launches")
 
 
 def phase_profile(label: str, mcfg, main_run, decode_steps: int = 10,
@@ -1659,6 +1807,7 @@ def run_all(device, tiny, big) -> list:
                                            tiny.head_dim))
     k1c_big = phase_k1_full_pair(device, (big.num_heads, big.num_kv_heads,
                                           big.head_dim))
+    k1_activations = phase_k1_activations(device, two(tiny))
     k2_tiny = phase_k2(device, two(tiny))
     k2 = phase_k2(device, two(big))
     k2p_tiny = phase_k2_pool(device, two(tiny), groups=(1, 2))
@@ -1725,7 +1874,8 @@ def run_all(device, tiny, big) -> list:
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
                        "mass",
-            "tinyllama": {**k1_tiny, "shape": "B=1 S=4096 Hq=32 Hkv=4 d=64"}}),
+            "tinyllama": {**k1_tiny, "shape": "B=1 S=4096 Hq=32 Hkv=4 d=64"},
+            "model_activations_max_abs_err": k1_activations}),
         entry("K1b", {**k1b_tiny, "max_abs_err": max(
             k1b_tiny["max_abs_err"], k1b_big["max_abs_err"])},
               "tinyllama_chunked", {

@@ -33,20 +33,27 @@
 // chunk's rows hold later positions and causality hides them; the ragged
 // S_q and S_k edges are masked here, not padded by the caller.
 //
-// Design (first version, right before fast): one thread per query row,
-// 128 rows per block, grid (row tiles, Hq, B). Each thread keeps its scaled
-// query row and output accumulator in registers; blocks stage K/V tiles in
-// shared memory as float32, which every thread of the block reads by
-// broadcast. Arithmetic is float32 scalar FMA (inputs f32 or bf16), in base
-// 2: sm_scale * log2(e) is folded into q so the exponentials are exp2.
-// Bound: at d=64 the kernel is bound by FMA issue and shared-memory reads
-// (two float4 broadcast reads per 8 FMAs), far below the tensor cores'
-// rate; tensor-core tiles (mma/wgmma) and TMA are later work.
-// kPositioned: the slots are unordered, so every tile is visited, except
-// that a tile none of whose keys the block's last row can see (all
-// POS_SENTINEL, say) is skipped before its K/V are staged; visibility is
-// then tested per key, and a 16-key sub-tile with no visible key is skipped
-// per row, so exp2(-inf - -inf) never arises.
+// Two routes, chosen by dtype in launch_mode (both hand-written kernels;
+// a CUDA tensor launches the one its dtype names, or the call fails):
+// - bf16 (every path users run): the tensor-core kernel of
+//   flash_prefill_tc.cuh, wgmma tiles over TMA-staged Q/K/V, float32
+//   accumulators and softmax statistics, P rounded to bf16 for the value
+//   product as the TPU kernel rounds it. Bound: operations (bf16 at 989
+//   TFLOP/s).
+// - float32 (the parity phases that hold greedy tokens and 1e-4 logits
+//   against the plain path): the scalar-FMA kernel below. Tensor cores
+//   would run float32 as TF32 (10-bit significands), which cannot hold
+//   those limits. One thread per query row, 128 rows per block, grid (row
+//   tiles, Hq, B); each thread keeps its scaled query row and output
+//   accumulator in registers; blocks stage K/V tiles in shared memory,
+//   which every thread reads by broadcast. Arithmetic is float32 scalar
+//   FMA in base 2: sm_scale * log2(e) is folded into q so the exponentials
+//   are exp2. Bound there: FMA issue and shared-memory reads.
+// Mode (d) in both routes: the slots are unordered, so every tile is
+// visited, except that a tile none of whose keys the block's last row can
+// see (all POS_SENTINEL, say) is skipped before its K/V are staged;
+// visibility is then tested per key. The scalar kernel skips a 16-key
+// sub-tile with no visible key per row, so exp2(-inf - -inf) never arises.
 
 #pragma once
 
@@ -84,7 +91,8 @@ constexpr int kPosSentinel = 1 << 30;  // POS_SENTINEL of the wrappers
 
 enum Mode : int { kCausal = 0, kFull = 1, kPositioned = 2 };
 
-template <typename T, int D, int MODE>
+// The float32 route: one thread per query row.
+template <int D, int MODE>
 __global__ void __launch_bounds__(kRows)
 flash_prefill_kernel(const FlashParams p) {
   constexpr int BN = D <= 64 ? 64 : 32;  // keys per shared-memory tile
@@ -102,16 +110,16 @@ flash_prefill_kernel(const FlashParams p) {
   const int row = row0 + threadIdx.x;
   const bool live = row < p.S_q;
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
 
   float qr[D];
   float acc[D];
   const float qscale = p.sm_scale * kLog2e;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = live ? to_f(q[b * p.q_sb + row * p.q_ss + hq * p.q_sh + d]) * qscale
+    qr[d] = live ? q[b * p.q_sb + row * p.q_ss + hq * p.q_sh + d] * qscale
                  : 0.f;
     acc[d] = 0.f;
   }
@@ -140,8 +148,8 @@ flash_prefill_kernel(const FlashParams p) {
       const int j = i / D, d = i % D, key = k0 + j;
       float kf = 0.f, vf = 0.f;
       if (key < p.S_k) {
-        kf = to_f(k[b * p.k_sb + key * p.k_ss + hk * p.k_sh + d]);
-        vf = to_f(v[b * p.v_sb + key * p.v_ss + hk * p.v_sh + d]);
+        kf = k[b * p.k_sb + key * p.k_ss + hk * p.k_sh + d];
+        vf = v[b * p.v_sb + key * p.v_ss + hk * p.v_sh + d];
       }
       sK[j][d] = kf;
       sV[j][d] = vf;
@@ -222,10 +230,10 @@ flash_prefill_kernel(const FlashParams p) {
 
   if (live) {
     const float inv = l > 0.f ? 1.f / l : 1.f;
-    T* o = static_cast<T*>(p.o);
+    float* o = static_cast<float*>(p.o);
 #pragma unroll
     for (int d = 0; d < D; ++d)
-      o[b * p.o_sb + row * p.o_ss + hq * p.o_sh + d] = from_f<T>(acc[d] * inv);
+      o[b * p.o_sb + row * p.o_ss + hq * p.o_sh + d] = acc[d] * inv;
     const long long stat = (static_cast<long long>(b) * p.Hq + hq) * p.S_q + row;
     p.pm[stat] = pmass * inv;
     // m is base 2; the lse is natural, -inf for a row that saw no key.
@@ -233,24 +241,82 @@ flash_prefill_kernel(const FlashParams p) {
   }
 }
 
-// Launches mode MODE for every head_dim; one source per mode instantiates
-// it (flash_prefill*.cu), so nvcc builds the modes in parallel.
-template <typename T, int MODE>
+}  // namespace flash
+}  // namespace rkv
+
+#include "flash_prefill_tc.cuh"
+
+namespace rkv {
+namespace flash {
+
+// Launches mode MODE at the route of p.dtype and its head_dim; one source
+// per mode instantiates it (flash_prefill*.cu), so nvcc builds the modes
+// in parallel.
+template <int MODE>
 cudaError_t launch_mode(const FlashParams& p, cudaStream_t stream) {
+  if (p.dtype == kBFloat16) {
+    switch (p.D) {
+      case 16: return tc::launch<16, MODE>(p, stream);
+      case 32: return tc::launch<32, MODE>(p, stream);
+      case 64: return tc::launch<64, MODE>(p, stream);
+      case 128: return tc::launch<128, MODE>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (p.dtype != kFloat32) return cudaErrorInvalidValue;
   const dim3 grid((p.S_q + kRows - 1) / kRows, p.Hq, p.B);
   switch (p.D) {
-    case 16: flash_prefill_kernel<T, 16, MODE><<<grid, kRows, 0, stream>>>(p); break;
-    case 32: flash_prefill_kernel<T, 32, MODE><<<grid, kRows, 0, stream>>>(p); break;
-    case 64: flash_prefill_kernel<T, 64, MODE><<<grid, kRows, 0, stream>>>(p); break;
-    case 128: flash_prefill_kernel<T, 128, MODE><<<grid, kRows, 0, stream>>>(p); break;
+    case 16: flash_prefill_kernel<16, MODE><<<grid, kRows, 0, stream>>>(p); break;
+    case 32: flash_prefill_kernel<32, MODE><<<grid, kRows, 0, stream>>>(p); break;
+    case 64: flash_prefill_kernel<64, MODE><<<grid, kRows, 0, stream>>>(p); break;
+    case 128: flash_prefill_kernel<128, MODE><<<grid, kRows, 0, stream>>>(p); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+// What the build made of one instance of mode MODE: index 0-3 the float32
+// route at head_dim 16, 32, 64, 128, index 4-7 the bf16 tensor-core route.
+// Mirrored by a ctypes Structure in ops/cuda/flash_prefill.py.
+struct FlashInstanceInfo {
+  int bf16, head_dim, regs, local_bytes, static_smem, dynamic_smem, threads;
+};
+
+template <int MODE>
+cudaError_t instance_info(int index, FlashInstanceInfo* out) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  switch (index) {
+    case 0: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<16, MODE>); break;
+    case 1: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<32, MODE>); break;
+    case 2: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<64, MODE>); break;
+    case 3: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<128, MODE>); break;
+    case 4: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<16, MODE>); break;
+    case 5: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<32, MODE>); break;
+    case 6: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<64, MODE>); break;
+    case 7: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<128, MODE>); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  static constexpr int kDims[4] = {16, 32, 64, 128};
+  static constexpr int kTcSmem[4] = {
+      tc::Layout<16, MODE>::kAlloc, tc::Layout<32, MODE>::kAlloc,
+      tc::Layout<64, MODE>::kAlloc, tc::Layout<128, MODE>::kAlloc};
+  out->bf16 = index >= 4;
+  out->head_dim = kDims[index % 4];
+  out->regs = a.numRegs;
+  out->local_bytes = static_cast<int>(a.localSizeBytes);
+  out->static_smem = static_cast<int>(a.sharedSizeBytes);
+  out->dynamic_smem = index >= 4 ? kTcSmem[index % 4] : 0;
+  out->threads = index >= 4 ? tc::kThreads : kRows;
+  return cudaSuccess;
+}
+
 // Defined in flash_prefill_pair.cu and flash_prefill_positioned.cu.
 cudaError_t launch_full(const FlashParams& p, cudaStream_t stream);
 cudaError_t launch_positioned(const FlashParams& p, cudaStream_t stream);
+cudaError_t instance_info_full(int index, FlashInstanceInfo* out);
+cudaError_t instance_info_positioned(int index, FlashInstanceInfo* out);
 
 }  // namespace flash
 }  // namespace rkv

@@ -1,7 +1,7 @@
 // K1 mode (c), kFull: every query row of a pair sees every key of the block
 // (`flash_pair_attention(causal=False)`). The kernel is the template in
-// flash_prefill.cuh; this source instantiates this mode only, so that nvcc
-// builds it beside the others.
+// flash_prefill.cuh (both dtype routes); this source instantiates this
+// mode only, so that nvcc builds it beside the others.
 
 #include "flash_prefill.cuh"
 
@@ -9,9 +9,11 @@ namespace rkv {
 namespace flash {
 
 cudaError_t launch_full(const FlashParams& p, cudaStream_t stream) {
-  if (p.dtype == kFloat32) return launch_mode<float, kFull>(p, stream);
-  if (p.dtype == kBFloat16) return launch_mode<__nv_bfloat16, kFull>(p, stream);
-  return cudaErrorInvalidValue;
+  return launch_mode<kFull>(p, stream);
+}
+
+cudaError_t instance_info_full(int index, FlashInstanceInfo* out) {
+  return instance_info<kFull>(index, out);
 }
 
 }  // namespace flash

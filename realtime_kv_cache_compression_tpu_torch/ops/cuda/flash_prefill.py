@@ -2,10 +2,11 @@
 
 Replaces the TPU kernel `_flash_kernel` of the JAX package's
 `ops/pallas/flash_prefill.py` in all four modes, one CUDA kernel
-(`csrc/flash_prefill.cuh`) with the mode as a template parameter, each
-mode instantiated in its own source (`csrc/flash_prefill.cu`: the causal
-modes and the C entry, `flash_prefill_pair.cu`: (c),
-`flash_prefill_positioned.cu`: (d)) so that they build in parallel:
+template (`csrc/flash_prefill.cuh`) with the mode as a template
+parameter, each mode instantiated in its own source
+(`csrc/flash_prefill.cu`: the causal modes and the C entries,
+`flash_prefill_pair.cu`: (c), `flash_prefill_positioned.cu`: (d)) so that
+they build in parallel:
 
 - (a) square causal, `flash_prefill_with_prompt_mass`;
 - (b) rectangular causal at `q_offset`, `flash_chunk_attention_with_
@@ -23,12 +24,16 @@ log-sum-exp, and `flash_compressed_prefix_attention` is the
 compressed-prefix chunked prefill's attention: mode (d) over the
 dequantized pools, the diagonal pair over the chunk itself, merged.
 
-Bound on the H100: at d=64 the first version is bound by float32 FMA issue
-and shared-memory broadcast reads (scalar FMAs, one thread per query row),
-not by memory: K/V tiles are staged once per 128 query rows. Its design
-answers the TPU kernel's memory concern the same way (the S x S matrix
-never exists, the prompt mass rides as one more online-softmax sum), and
-leaves the tensor cores to later work.
+Two routes, by dtype, both hand-written kernels:
+- bf16 (`csrc/flash_prefill_tc.cuh`): wgmma tiles on the tensor cores
+  over Q, K and V staged by TMA, float32 scores, softmax statistics and
+  prompt mass, P rounded to bf16 for the value product (as the TPU kernel
+  rounds p to v's dtype). Bound: operations. TMA reads q, k and v through
+  tensor maps of their strided views, so each needs a 16-byte aligned base
+  and strides that are multiples of 8 elements (the column slices of the
+  fused QKV projection are); `_check` refuses any other view.
+- float32: the scalar-FMA kernel (one thread per query row), which the
+  float32 parity phases need: tensor cores would round float32 to TF32.
 
 A CPU tensor takes the plain version: `ops.attention.
 prefill_attention_with_prompt_mass` or `chunk_attention_with_prompt_mass`
@@ -40,6 +45,7 @@ A CUDA tensor launches the kernel or raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -73,6 +79,67 @@ class FlashParams(ctypes.Structure):
                 + [("sm_scale", ctypes.c_float)])
 
 
+# The limit a bf16 K1 output is held to against its plain version in
+# float32, per element: BF16_ULPS ulps of |ref| (the output's own rounding),
+# plus BF16_P_ROUNDING * (sum_j p_j |v_j|) / l (the tensor cores take P
+# rounded to bf16, a relative step of 2^-9 per probability, as the TPU
+# kernel's p.astype(v.dtype) does; 2x headroom), plus BF16_FLOOR.
+BF16_ULPS = 2
+BF16_P_ROUNDING = 2.0 ** -8
+BF16_FLOOR = 1e-5
+
+
+def bf16_output_limit(ref: torch.Tensor, ref_abs: torch.Tensor
+                      ) -> torch.Tensor:
+    """Per-element limit for a bf16 K1 output: `ref` is the plain version's
+    output on float32 copies of the inputs, `ref_abs` the same with v
+    replaced by |v| (so it is sum_j p_j |v_j| / l)."""
+    ref = ref.float()
+    mag = ref.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)  # 8-bit significand
+    return BF16_ULPS * ulp + BF16_P_ROUNDING * ref_abs.float() + BF16_FLOOR
+
+
+def bf16_limit_share(out: torch.Tensor, ref: torch.Tensor,
+                     ref_abs: torch.Tensor) -> float:
+    """Largest share of its `bf16_output_limit` that any element of `out`
+    uses; the output passes at <= 1."""
+    err = (out.float() - ref.float()).abs()
+    return float((err / bf16_output_limit(ref, ref_abs)).max())
+
+
+class InstanceInfo(ctypes.Structure):
+    """Mirror of `FlashInstanceInfo` in csrc/flash_prefill.cuh."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "bf16", "head_dim", "regs", "local_bytes", "static_smem",
+        "dynamic_smem", "threads")]
+
+
+def kernel_instances() -> list:
+    """What the build made of each K1 instance (3 modes x 2 routes x 4
+    head dims): registers, local memory (spill) bytes, static and dynamic
+    shared memory, threads per block. Builds the library if needed; needs
+    a CUDA device."""
+    fn = _build.load_library().lib.flash_prefill_instance_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = []
+    for mode, name in ((_CAUSAL, "causal"), (_FULL, "full"),
+                       (_POSITIONED, "positioned")):
+        for index in range(8):
+            info = InstanceInfo()
+            err = fn(mode, index, ctypes.addressof(info))
+            if err:
+                raise RuntimeError(f"flash_prefill_instance_info({name}, "
+                                   f"{index}) failed: CUDA error {err}")
+            rows.append({"mode": name,
+                         "dtype": "bfloat16" if info.bf16 else "float32",
+                         **{n: getattr(info, n) for n, _ in
+                            InstanceInfo._fields_ if n != "bf16"}})
+    return rows
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int = 0, mode: int = _CAUSAL) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -97,6 +164,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash prefill: the head_dim axis must be "
                          "contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
+                raise ValueError(
+                    f"flash prefill: the bf16 kernel reads {name} by TMA, "
+                    f"which needs a 16-byte aligned base and strides that "
+                    f"are multiples of 8 elements; got base offset "
+                    f"{t.data_ptr() % 16} B and strides {t.stride()}")
+
+
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """Element strides of t's batch, row and head axes. An axis of size 1
+    is never stepped, and PyTorch leaves its stride free, so it takes the
+    stride a contiguous tensor of t's shape would have."""
+    return tuple(t.stride(i) if t.shape[i] != 1 else math.prod(t.shape[i + 1:])
+                 for i in range(3))
 
 
 def _row_lengths(lens: Union[int, torch.Tensor], b: int,
@@ -128,10 +211,9 @@ def _launch(q, k, v, q_offset: int, plen: torch.Tensor, mode: int = _CAUSAL,
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
         pm=pm.data_ptr(), lse=lse.data_ptr() if with_lse else None,
         plen=plen.data_ptr(), kpos=None if kpos is None else kpos.data_ptr(),
-        q_sb=q.stride(0), q_ss=q.stride(1), q_sh=q.stride(2),
-        k_sb=k.stride(0), k_ss=k.stride(1), k_sh=k.stride(2),
-        v_sb=v.stride(0), v_ss=v.stride(1), v_sh=v.stride(2),
-        o_sb=out.stride(0), o_ss=out.stride(1), o_sh=out.stride(2),
+        **{f"{n}_s{a}": s for n, x in (("q", q), ("k", k), ("v", v),
+                                        ("o", out))
+           for a, s in zip("bsh", _strides(x))},
         B=b, S_q=s_q, S_k=k.shape[1], q_offset=q_offset, Hq=hq,
         Hkv=k.shape[2], D=d, dtype=_build.dtype_code(q.dtype), mode=mode,
         sm_scale=1.0 / d ** 0.5)

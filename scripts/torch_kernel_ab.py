@@ -1,4 +1,4 @@
-"""A/B timing of the PyTorch port's earlier-path kernels across two trees.
+"""A/B timing of the PyTorch port's kernels across two trees.
 
     python3 scripts/torch_kernel_ab.py TREE_A TREE_B [TREE ...]
 
@@ -15,6 +15,13 @@ Per tree, on the earlier paths (no decode pool, one scale group):
   steps: ms per wrapper call (CUDA events over back-to-back calls) and
   device us per split-kernel launch (torch.profiler);
 - K1 mode (a), B=1 S=4096, bf16, at both widths: ms per call;
+- K1's other modes at chip_smoke.py's shapes, bf16, at both widths: mode
+  (b), B=2, chunks of 1024 over a 4096-key buffer at offsets 0-3072 (ms
+  summed over the four); mode (d), the same chunks over 4096 pool slots
+  that hold 820 valid keys per earlier chunk (layer 0's pools, ratio 0.8)
+  at positions drawn from SEED, the rest invalid (summed); the diagonal
+  pair over each chunk's own keys (summed); mode (c), B=2, S_q = S_k =
+  1024;
 - TinyLlama at full depth, prompt 4096, 127 decode steps: TTFT and decode
   tok/s, medians of 3 timed runs after a warm-up.
 Prints one JSON line per tree and a table at the end.
@@ -32,6 +39,7 @@ from pathlib import Path
 SEED = 0
 PROMPT = 4096
 NEW_TOKENS = 128
+CHUNK = 1024
 
 
 def _median(xs):
@@ -52,7 +60,9 @@ def measure(tree: str) -> dict:
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
         import fused_decode_attention
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
-        import flash_prefill_with_prompt_mass
+        import (POS_SENTINEL, flash_chunk_attention_with_prompt_mass,
+                flash_diagonal_pair_attention, flash_full_pair_attention,
+                flash_positioned_attention, flash_prefill_with_prompt_mass)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -72,6 +82,42 @@ def measure(tree: str) -> dict:
         return start.elapsed_time(end) / reps
 
     dev = "cuda"
+
+    def k1_modes(mcfg, plen, gen, b=2, c=CHUNK):
+        """ms of K1 modes (b), (d), the diagonal pair (each summed over the
+        PROMPT // c chunks) and (c), bf16, at mcfg's heads."""
+        hq, hkv, d = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+        bf = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+        k_buf, v_buf = rnd(b, PROMPT, hkv, d), rnd(b, PROMPT, hkv, d)
+        plens = torch.tensor([plen, plen * 3 // 4], device=dev)
+        res = {"k1b": 0.0, "k1d": 0.0, "k1p": 0.0}
+        for off in range(0, PROMPT, c):
+            q, k_c, v_c = rnd(b, c, hq, d), rnd(b, c, hkv, d), rnd(b, c, hkv, d)
+            kept = off // c * (c * 4 // 5)  # 820 of 1024 per earlier chunk
+            pos = torch.full((b, PROMPT), POS_SENTINEL, dtype=torch.int32,
+                             device=dev)
+            for r in range(b):
+                pos[r, :kept] = torch.sort(torch.randperm(
+                    max(off, 1), generator=gen, device=dev)[:kept])[0]
+            res["k1b"] += cuda_ms(
+                lambda: flash_chunk_attention_with_prompt_mass(  # noqa
+                    q, k_buf, v_buf, off, plen, prompt_lens=plens), 10)
+            res["k1d"] += cuda_ms(lambda: flash_positioned_attention(  # noqa
+                q, k_buf, v_buf, pos, off, plen), 10)
+            local = min(max(plen - off, 0), c)
+            res["k1p"] += cuda_ms(
+                lambda: flash_diagonal_pair_attention(  # noqa: E731
+                    q, k_c, v_c, local), 10)
+        q, k, v = rnd(b, c, hq, d), rnd(b, c, hkv, d), rnd(b, c, hkv, d)
+        plen_c = torch.tensor([c // 4, 0], dtype=torch.int32, device=dev)
+        res["k1c"] = cuda_ms(
+            lambda: flash_full_pair_attention(q, k, v, plen_c), 10)
+        return res
+
     width = {"tinyllama": TINYLLAMA_1_1B, "llama2_7b": LLAMA2_7B}
     for name, base in width.items():
         mcfg = dataclasses.replace(base, num_layers=2,
@@ -114,6 +160,8 @@ def measure(tree: str) -> dict:
         plen = ccfg.prompt_length(PROMPT)
         out[f"k1_{name}_ms"] = cuda_ms(
             lambda: flash_prefill_with_prompt_mass(qq, kk, vv, plen), 10)
+        out.update({f"{key}_{name}_ms": ms for key, ms in
+                    k1_modes(mcfg, plen, gen).items()})
         del params, state, cache, recent, qkv
         torch.cuda.empty_cache()
 
@@ -167,6 +215,8 @@ def main(argv) -> int:
                          text=True, timeout=60).stdout.strip())
     keys = ("k2_tinyllama_ms", "k2_tinyllama_split_us", "k2_llama2_7b_ms",
             "k2_llama2_7b_split_us", "k1_tinyllama_ms", "k1_llama2_7b_ms",
+            *(f"{m}_{w}_ms" for m in ("k1b", "k1d", "k1p", "k1c")
+              for w in ("tinyllama", "llama2_7b")),
             "tinyllama_ttft_ms", "tinyllama_decode_tok_s")
     for i, r in enumerate(rows):
         cells = []

@@ -1,9 +1,11 @@
 """Plain version of K1 (what `flash_prefill_with_prompt_mass` runs on CPU
-tensors) vs the JAX Pallas kernel in interpret mode.
+tensors) vs the JAX Pallas kernel in interpret mode, and the bf16 limit
+the CUDA kernel's tensor-core route is held to (`bf16_output_limit`),
+grounded on the Pallas kernel's own bf16 rounding.
 
-Inputs from a numpy seed, float32. Tolerance: output and prompt mass within
-1e-5 absolute (float32 softmax computed blockwise on one side and densely
-on the other).
+Inputs from a numpy seed, float32 (rounded to bf16 for the limit test).
+Tolerance: output and prompt mass within 1e-5 absolute (float32 softmax
+computed blockwise on one side and densely on the other).
 """
 
 import jax.numpy as jnp
@@ -64,3 +66,72 @@ def test_non_cpu_tensor_never_falls_back():
     k = torch.empty((1, 8, 1, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfp.flash_prefill_with_prompt_mass(q, k, k, 2)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 limit of the CUDA kernel's tensor-core route, grounded here
+# ---------------------------------------------------------------------------
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _emulate_tensor_cores(q, k, v, plen: int, bn: int = 128):
+    """Mode (a) with the rounding of the CUDA kernel's bf16 route: float32
+    scores of the bf16 inputs, scaled by sm_scale * log2(e) after the
+    product; the online softmax over bn-key tiles; the unnormalised p
+    rounded to bf16 for the value product only; l and the prompt mass in
+    float32. Returns (out in bf16, prompt mass [B, S] head-averaged)."""
+    b, s, hq, d = q.shape
+    n_rep = hq // k.shape[2]
+    kf, vf = (x.float().repeat_interleave(n_rep, dim=2) for x in (k, v))
+    scale = 1.4426950408889634 / d ** 0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    pos = torch.arange(s)
+    scores = torch.where(pos[None, :] <= pos[:, None], scores, -torch.inf)
+    m = torch.full((b, hq, s), -torch.inf)
+    l, pm = torch.zeros(b, hq, s), torch.zeros(b, hq, s)
+    acc = torch.zeros(b, hq, s, d)
+    for k0 in range(0, s, bn):
+        st = scores[..., k0:k0 + bn]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(st - m_use[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pm = pm * alpha + p[..., :max(plen - k0, 0)].sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+            vf[:, k0:k0 + bn])
+        m = m_new
+    out = (acc / l[..., None]).transpose(1, 2).to(torch.bfloat16)
+    return out, (pm / l).mean(dim=1)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,plen", [
+    (1, 256, 2, 1, 64, 100),    # plen straddles a 128-key tile
+    (1, 192, 2, 2, 128, 128),   # Llama-2-7B's head_dim, plen on a tile edge
+])
+def test_bf16_limit_holds_the_tpu_kernels_rounding(b, s, hq, hkv, d, plen):
+    """bf16 attention on tensor cores rounds the probabilities to bf16
+    before the value product, as the JAX Pallas kernel does
+    (`p.astype(v.dtype)`). Both that kernel (interpret mode, bf16 inputs)
+    and a torch emulation of the CUDA kernel's rounding stay within
+    `bf16_output_limit` of the plain version on float32 copies, and both
+    break the old limit of two output ulps plus 1e-5, which is the derived
+    limit without its probability-rounding term. The emulation's prompt
+    mass keeps 1e-5 (float32 p, scores scaled after the product)."""
+    q32, k32, v32 = (_bf16(x).float() for x in _qkv(d + s, b, s, hq, hkv, d))
+    ref, pm_ref = tfp.prefill_attention_with_prompt_mass(q32, k32, v32, plen)
+    ref_abs = tfp.prefill_attention_with_prompt_mass(q32, k32, v32.abs(),
+                                                     plen)[0]
+    o_jax, _ = jfp.flash_prefill_with_prompt_mass(
+        *(jnp.asarray(x.numpy(), jnp.bfloat16) for x in (q32, k32, v32)),
+        plen, block_q=64, block_k=64, interpret=True)
+    o_jax = torch.from_numpy(np.array(o_jax.astype(jnp.float32)))
+    o_emu, pm_emu = _emulate_tensor_cores(*(x.to(torch.bfloat16)
+                                            for x in (q32, k32, v32)), plen)
+    for o in (o_jax, o_emu):
+        assert tfp.bf16_limit_share(o, ref, ref_abs) <= 1.0
+        assert tfp.bf16_limit_share(o, ref, torch.zeros_like(ref)) > 1.0
+    assert float((pm_emu - pm_ref).abs().max()) <= ATOL

@@ -12,7 +12,12 @@ within 1e-5 on rows that see a key, -inf on the others) and 1e-5
 (K2, also with the decode pool and G > 1 groups, where the codes are
 dequantized before their products on both sides); bf16 outputs
 per element within two bf16 ulps of |reference| plus 1e-5 (both sides
-round one float32 result to bf16); prompt mass within 1e-5. K3: float32
+round one float32 result to bf16), except K1's: its tensor cores take the
+probabilities rounded to bf16 (as the TPU kernel does), so a bf16 K1
+output is held to `bf16_output_limit` against the plain version on
+float32 copies, two ulps plus 2^-8 (sum_j p_j |v_j|) / l plus 1e-5
+(tests/test_torch_flash_prefill.py grounds it on the TPU kernel itself);
+prompt mass and lse within 1e-5 in both dtypes. K3: float32
 within 1e-4 of max|reference| (sums over K in another order); bf16 within
 two ulps plus that same float32 limit, which an output near zero after
 cancellation carries. K4: equal bit for bit (integer sums, one epilogue in
@@ -34,7 +39,7 @@ from realtime_kv_cache_compression_tpu_torch.ops.attention import (
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain, fused_decode_attention)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
-    POS_SENTINEL, flash_chunk_attention_with_prompt_mass,
+    POS_SENTINEL, bf16_limit_share, flash_chunk_attention_with_prompt_mass,
     flash_diagonal_pair_attention, flash_full_pair_attention,
     flash_pair_attention, flash_positioned_attention,
     flash_prefill_with_prompt_mass, pair_attention_plain,
@@ -53,6 +58,9 @@ from realtime_kv_cache_compression_tpu_torch.ops.selection import (
 pytestmark = pytest.mark.cuda
 
 TOL_K1_F32 = 1e-4
+# The float32 route's own accuracy (exp2 with the scale folded into q,
+# sums in another order): 2.15e-6 measured at d=128, 300 keys.
+TOL_K1_F32_EXACT = 4e-6
 TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
 TOL_LSE = 1e-5
@@ -87,6 +95,24 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
+def _k1_refs(plain, q, k, v, *args, **kw):
+    """`plain(q, k, v, ...)` on float32 copies, and its output with v
+    replaced by |v| (the sum_j p_j |v_j| / l of `bf16_output_limit`)."""
+    f = [t.float() for t in (q, k, v)]
+    return plain(*f, *args, **kw), plain(f[0], f[1], f[2].abs(), *args,
+                                         **kw)[0]
+
+
+def _assert_k1_out(o, o_ref, o_abs):
+    """A K1 output: bf16 within `bf16_output_limit`, float32 within
+    TOL_K1_F32 of the plain version on float32 inputs."""
+    if o.dtype == torch.bfloat16:
+        share = bf16_limit_share(o, o_ref, o_abs)
+        assert share <= 1.0, share
+    else:
+        assert float((o - o_ref).abs().max()) <= TOL_K1_F32
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hq,hkv,d,plens", [
     (1, 512, 32, 4, 64, None),
@@ -94,6 +120,7 @@ def _randn(gen, shape, dtype, device):
     (2, 200, 8, 2, 32, (64, 1)),
     (1, 129, 4, 1, 128, None),
     (1, 300, 8, 8, 128, (100,)),  # Llama-2-7B heads: d=128, n_rep = 1
+    (2, 1000, 32, 4, 64, (256, 300)),  # plen on a tile edge, straddling
 ])
 def test_k1_matches_plain(cuda, dtype, b, s, hq, hkv, d, plens):
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -101,29 +128,93 @@ def test_k1_matches_plain(cuda, dtype, b, s, hq, hkv, d, plens):
     k = _randn(gen, (b, s, hkv, d), dtype, cuda)
     v = _randn(gen, (b, s, hkv, d), dtype, cuda)
     pl = None if plens is None else torch.tensor(plens, device=cuda)
+    plen = 48 if plens is None else max(plens)
     before = flash_prefill_with_prompt_mass.launches
-    o, pm = flash_prefill_with_prompt_mass(q, k, v, 48, prompt_lens=pl)
+    o, pm = flash_prefill_with_prompt_mass(q, k, v, plen, prompt_lens=pl)
     torch.cuda.synchronize()
     assert flash_prefill_with_prompt_mass.launches == before + 1
-    o_ref, pm_ref = prefill_attention_with_prompt_mass(q, k, v, 48,
-                                                       prompt_lens=pl)
+    (o_ref, pm_ref), o_abs = _k1_refs(prefill_attention_with_prompt_mass,
+                                      q, k, v, plen, prompt_lens=pl)
     assert o.dtype == dtype and pm.shape == (b, s)
-    _assert_close(o, o_ref, TOL_K1_F32)
+    _assert_k1_out(o, o_ref, o_abs)
     assert float((pm - pm_ref).abs().max()) <= TOL_MASS
 
 
-def test_k1_reads_strided_views(cuda):
-    """q/k/v as column slices of one fused projection (non-contiguous)."""
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    qkv = _randn(gen, (2, 100, (8 + 2 + 2) * 32), torch.float32, cuda)
-    q = qkv[..., :256].reshape(2, 100, 8, 32)
-    k = qkv[..., 256:320].reshape(2, 100, 2, 32)
-    v = qkv[..., 320:].reshape(2, 100, 2, 32)
+def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device, pad=0):
+    """q, k, v as column slices of one fused projection [B, S, (Hq + 2 Hkv)
+    D + pad], as the main path's fused QKV hands them over."""
+    qkv = _randn(gen, (b, s, (hq + 2 * hkv) * d + pad), dtype, device)
+    q, k, v = qkv[..., :(hq + 2 * hkv) * d].split(
+        [hq * d, hkv * d, hkv * d], dim=-1)
+    return (q.unflatten(-1, (hq, d)), k.unflatten(-1, (hkv, d)),
+            v.unflatten(-1, (hkv, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (2, 100, 8, 2, 32),
+    (1, 333, 32, 4, 64),      # TinyLlama's heads
+    (2, 150, 8, 8, 128),      # Llama-2-7B's heads
+    (1, 77, 4, 2, 16),
+])
+def test_k1_reads_strided_views(cuda, dtype, b, s, hq, hkv, d):
+    """q/k/v as column slices of one fused projection (non-contiguous),
+    in modes (a) and (b) (the bf16 route reads them through TMA maps)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = _fused_qkv(gen, b, s, hq, hkv, d, dtype, cuda)
     assert not q.is_contiguous()
     o, pm = flash_prefill_with_prompt_mass(q, k, v, 20)
-    o_ref, pm_ref = prefill_attention_with_prompt_mass(q, k, v, 20)
-    _assert_close(o, o_ref, TOL_K1_F32)
+    (o_ref, pm_ref), o_abs = _k1_refs(prefill_attention_with_prompt_mass,
+                                      q, k, v, 20)
+    _assert_k1_out(o, o_ref, o_abs)
     assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+    c = s // 3
+    o, pm = flash_chunk_attention_with_prompt_mass(q[:, -c:], k, v, s - c,
+                                                   20)
+    (o_ref, pm_ref), o_abs = _k1_refs(chunk_attention_with_prompt_mass,
+                                      q[:, -c:], k, v, s - c, 20)
+    _assert_k1_out(o, o_ref, o_abs)
+    assert float((pm - pm_ref).abs().max()) <= TOL_MASS
+
+
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_k1_refuses_views_tma_cannot_read(cuda, fault):
+    """The bf16 route reads q/k/v by TMA: a base off 16 bytes or a row
+    stride that is not a multiple of 8 elements raises, never falls
+    back."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if fault == "base":
+        buf = _randn(gen, (1, 64 * 2 * 32 + 1), torch.bfloat16, cuda)
+        q = buf[:, 1:].reshape(1, 64, 2, 32)
+        k = v = q[:, :, :1]
+    else:
+        q, k, v = _fused_qkv(gen, 1, 64, 2, 1, 32, torch.bfloat16, cuda,
+                             pad=3)
+    before = flash_prefill_with_prompt_mass.launches
+    with pytest.raises(ValueError, match="TMA"):
+        flash_prefill_with_prompt_mass(q, k, v, 8)
+    assert flash_prefill_with_prompt_mass.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_float32_takes_the_exact_scalar_route(cuda, d):
+    """A float32 CUDA tensor runs the scalar-FMA kernel in float32 (no
+    TF32 tensor cores, whose 10-bit significands would miss by about
+    1e-3): within TOL_K1_F32_EXACT of the plain version in modes (a) and
+    (d)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = _randn(gen, (2, 300, 8, d), torch.float32, cuda)
+    k = _randn(gen, (2, 300, 2, d), torch.float32, cuda)
+    v = _randn(gen, (2, 300, 2, d), torch.float32, cuda)
+    o, pm = flash_prefill_with_prompt_mass(q, k, v, 100)
+    o_ref, pm_ref = prefill_attention_with_prompt_mass(q, k, v, 100)
+    assert float((o - o_ref).abs().max()) <= TOL_K1_F32_EXACT
+    assert float((pm - pm_ref).abs().max()) <= TOL_K1_F32_EXACT
+    pos = torch.randint(0, 500, (2, 300), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    o, _, _ = flash_positioned_attention(q, k, v, pos, 200, 100)
+    o_ref, _, _ = positioned_attention_plain(q, k, v, pos, 200, 100)
+    assert float((o - o_ref).abs().max()) <= TOL_K1_F32_EXACT
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -132,6 +223,12 @@ def test_k1_reads_strided_views(cuda):
     (2, 128, 512, 256, 32, 4, 64, (37, 100)),   # mid-buffer
     (2, 100, 512, 412, 8, 2, 32, None),         # last rows, ragged c
     (1, 96, 300, 150, 8, 8, 128, (40,)),        # d=128, n_rep = 1
+    # Ragged c and S_k, q_offset off the 128-row grid, plen on a tile edge
+    # (128) and straddling one (300), at every head_dim:
+    (2, 200, 777, 333, 8, 2, 16, (128, 300)),
+    (2, 200, 777, 333, 8, 2, 32, (128, 300)),
+    (2, 200, 777, 333, 32, 4, 64, (128, 300)),
+    (2, 200, 777, 333, 8, 8, 128, (128, 300)),
 ])
 def test_k1_chunk_mode_matches_plain(cuda, dtype, b, c, s, q_offset, hq, hkv,
                                      d, plens):
@@ -140,28 +237,30 @@ def test_k1_chunk_mode_matches_plain(cuda, dtype, b, c, s, q_offset, hq, hkv,
     k = _randn(gen, (b, s, hkv, d), dtype, cuda)
     v = _randn(gen, (b, s, hkv, d), dtype, cuda)
     pl = None if plens is None else torch.tensor(plens, device=cuda)
+    plen = 48 if plens is None else max(plens)
     before = flash_chunk_attention_with_prompt_mass.launches
-    o, pm = flash_chunk_attention_with_prompt_mass(q, k, v, q_offset, 48,
+    o, pm = flash_chunk_attention_with_prompt_mass(q, k, v, q_offset, plen,
                                                    prompt_lens=pl)
     torch.cuda.synchronize()
     assert flash_chunk_attention_with_prompt_mass.launches == before + 1
     # The plain version rounds probabilities to the value dtype before the
-    # value product, as the reference does; the kernel keeps them in
-    # float32, so bf16 is held against it on exact float32 copies.
-    o_ref, pm_ref = chunk_attention_with_prompt_mass(
-        q.float(), k.float(), v.float(), q_offset, 48, prompt_lens=pl)
+    # value product, as the reference does, so the kernel is held against
+    # it on exact float32 copies of the same inputs.
+    (o_ref, pm_ref), o_abs = _k1_refs(chunk_attention_with_prompt_mass,
+                                      q, k, v, q_offset, plen,
+                                      prompt_lens=pl)
     assert o.dtype == dtype and pm.shape == (b, c)
-    _assert_close(o, o_ref, TOL_K1_F32)
+    _assert_k1_out(o, o_ref, o_abs)
     assert float((pm - pm_ref).abs().max()) <= TOL_MASS
 
 
-def _assert_partial_close(part, ref):
-    """(o, lse, pm) of a kernel against its plain version: o as
-    `_assert_close` holds K1, pm within TOL_MASS, lse within TOL_LSE on
-    rows that see a key and -inf on both sides elsewhere."""
+def _assert_partial_close(part, ref, o_abs):
+    """(o, lse, pm) of a kernel against its plain version on float32
+    copies: o as `_assert_k1_out` holds K1, pm within TOL_MASS, lse within
+    TOL_LSE on rows that see a key and -inf on both sides elsewhere."""
     (o, lse, pm), (o_ref, lse_ref, pm_ref) = part, ref
-    assert o.dtype == o_ref.dtype and lse.shape == pm.shape == lse_ref.shape
-    _assert_close(o, o_ref, TOL_K1_F32)
+    assert lse.shape == pm.shape == lse_ref.shape
+    _assert_k1_out(o, o_ref, o_abs)
     assert float((pm - pm_ref).abs().max()) <= TOL_MASS
     sees = torch.isfinite(lse_ref)
     assert torch.equal(sees, torch.isfinite(lse))
@@ -177,11 +276,12 @@ def _assert_partial_close(part, ref):
     (2, 100, 300, 200, 8, 8, 128, "future keys"),     # d=128, n_rep = 1
     (2, 64, 256, 0, 32, 4, 64, "all invalid"),        # the first chunk
     (1, 130, 96, 64, 16, 2, 32, "future keys"),
+    (2, 70, 333, 500, 8, 2, 16, "future keys"),       # d=16, ragged N
 ])
 def test_k1_positioned_mode_matches_plain(cuda, dtype, b, c, n, q_offset,
                                           hq, hkv, d, layout):
     """Mode (d) over pool slots: scattered positions, invalid slots at
-    POS_SENTINEL in whole 64-key tiles and singly, keys later than some
+    POS_SENTINEL in whole 128-key tiles and singly, keys later than some
     rows of the chunk, a row that sees no key, an all-invalid pool."""
     gen = torch.Generator(device=cuda).manual_seed(n + q_offset)
     q = _randn(gen, (b, c, hq, d), dtype, cuda)
@@ -203,8 +303,9 @@ def test_k1_positioned_mode_matches_plain(cuda, dtype, b, c, n, q_offset,
     part = flash_positioned_attention(q, k, v, pos, q_offset, prompt_len)
     torch.cuda.synchronize()
     assert flash_positioned_attention.launches == before + 1
-    ref = positioned_attention_plain(q, k, v, pos, q_offset, prompt_len)
-    _assert_partial_close(part, ref)
+    assert part[0].dtype == dtype
+    _assert_partial_close(part, *_k1_refs(positioned_attention_plain, q, k,
+                                          v, pos, q_offset, prompt_len))
     if layout == "all invalid":
         assert not bool(torch.isfinite(part[1]).any())
 
@@ -215,6 +316,8 @@ def test_k1_positioned_mode_matches_plain(cuda, dtype, b, c, n, q_offset,
     (True, 1, 96, 96, 8, 8, 128, (96,)),
     (False, 2, 128, 200, 32, 4, 64, (5, 200)),   # mode (c), ragged S_k
     (False, 1, 100, 77, 8, 8, 128, (0,)),
+    (True, 2, 300, 300, 8, 2, 16, (128, 200)),   # plen on / across a tile
+    (False, 2, 190, 260, 8, 2, 32, (256, 130)),
 ])
 def test_k1_pair_modes_match_plain(cuda, dtype, causal, b, sq, sk, hq, hkv,
                                    d, plens):
@@ -229,7 +332,9 @@ def test_k1_pair_modes_match_plain(cuda, dtype, causal, b, sq, sk, hq, hkv,
     part = flash_pair_attention(q, k, v, plen, causal)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
-    _assert_partial_close(part, pair_attention_plain(q, k, v, plen, causal))
+    assert part[0].dtype == dtype
+    _assert_partial_close(part, *_k1_refs(pair_attention_plain, q, k, v,
+                                          plen, causal))
 
 
 def test_compressed_prefix_step_reads_no_device_value(cuda):
