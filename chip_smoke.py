@@ -5,15 +5,17 @@
 Builds the port's CUDA kernels (K1-K4) from
 `realtime_kv_cache_compression_tpu_torch/csrc`, one nvcc per source, all at
 once, and logs each K1 instance's registers, shared memory and spills
-(none allowed in the bf16 tensor-core instances, each of which must hold
-HGMMA where cuobjdump runs). Checks each kernel (K1 in its one-shot mode
-(a), chunked mode (b), positioned mode (d), the diagonal pair and the
-non-causal pair (c), K2 over tiers + ring and with the decode pool and
-scale groups) against its plain PyTorch version at the shapes of the
-paths below, in bf16 and float32, with its time, bound and library
-yardstick (K1: its share of the bound and its factor against SDPA), and
+(none allowed in the bf16 tensor-core instances, K1's at head_dim 16-256
+and K3's prefill tile, each of which must hold HGMMA where cuobjdump
+runs). Checks each kernel (K1 in its one-shot mode (a), chunked mode (b),
+positioned mode (d), the diagonal pair and the non-causal pair (c), K2
+over tiers + ring and with the decode pool and scale groups, at the heads
+of TinyLlama, Llama-2-7B, Gemma-2B and Gemma-7B; K3 and K4 at the 7B
+matmul shapes) against its plain PyTorch version, in bf16 and float32,
+with its time, bound and library yardstick (K1: its share of the bound and
+its factor against SDPA; K3 at M=1 also its device time per launch), and
 K1 mode (a) on the model's own activations (TinyLlama, 2 layers, full
-width, prompt 1024, bf16). Then it drives five paths, each with every
+width, prompt 1024, bf16). Then it drives six paths, each with every
 launch count set to 0 just before it and read just after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
@@ -41,11 +43,16 @@ launch count set to 0 just before it and read just after:
   plus the diagonal pair, merged), then 127 greedy steps through K2 over
   the chunk-packed tiers; counted once, timed REPEATS_NEW times beside the
   full-buffer `prefill_compressed_chunked` at the same shape, and a
-  profile.
+  profile;
+- Gemma-2B (18 layers, hidden 2048, 8 query heads over 1 kv head,
+  head_dim 256, vocab 256000, GeGLU, (1 + w) norms, scaled embeddings,
+  tied head), bf16 random weights from SEED, fused: TinyLlama's traffic
+  (prompt 4096, batch 1, 128 new tokens, tiers 8/4/2), counted once, timed
+  REPEATS_NEW times, the uncompressed arm, and a profile.
 
 Before the full runs, each path's kernel path is checked against the plain
-path in float32 at reduced depth (2 layers, full width): equal greedy
-tokens, for the chunked path also chunked against one-shot prefill, and
+path in float32 at reduced depth (2 layers, full width; Gemma-2B too): equal
+greedy tokens, for the chunked path also chunked against one-shot prefill, and
 for the compressed-prefix path equal kept positions and a single chunk
 against `prefill_compressed`.
 Any failed check exits nonzero. The last line is the device JSON; the line
@@ -291,11 +298,18 @@ def phase_environment() -> None:
         f"count {torch.cuda.device_count()}")
 
 
+# The tensor-core kernels phase_build holds to no spill and HGMMA: K1's
+# bf16 instances (3 modes x 5 head dims) and K3's bf16 prefill tile (one
+# instance per k-steps per group partial: 1, 2, 4).
+TC_KERNELS = {"flash_tc_kernel": 15, "int4_tc_kernel": 3}
+
+
 def phase_build() -> None:
     """Builds the kernels (one nvcc per source, in parallel), logs ptxas's
     registers, shared memory and spills, and every K1 instance's as the
-    runtime reports them; checks that no bf16 K1 instance spills and,
-    where cuobjdump is present, that each holds HGMMA (wgmma) instructions.
+    runtime reports them; checks that no tensor-core kernel (TC_KERNELS)
+    spills and, where cuobjdump is present, that each instance holds HGMMA
+    (wgmma) instructions.
     """
     import shutil
 
@@ -313,9 +327,10 @@ def phase_build() -> None:
             entry = line
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
-        if ("flash_tc_kernel" in entry and "spill" in line
+        tc = [k for k in TC_KERNELS if k in entry]
+        if (tc and "spill" in line
                 and " 0 bytes spill stores, 0 bytes spill loads" not in line):
-            spills.append(entry.split("flash_tc_kernel")[1][:12])
+            spills.append(entry.split(tc[0])[1][:12] or tc[0])
     for row in kernel_instances():
         log(f"  K1 {row['mode']} {row['dtype']} d={row['head_dim']}: "
             f"{row['regs']} registers, {row['local_bytes']} B local "
@@ -323,7 +338,7 @@ def phase_build() -> None:
             f"memory, {row['threads']} threads")
         if row["dtype"] == "bfloat16" and row["local_bytes"]:
             spills.append(f"{row['mode']} d={row['head_dim']}")
-    check(not spills, f"bf16 K1 instances spill: {spills}")
+    check(not spills, f"tensor-core instances spill: {spills}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(kl.path)],
@@ -337,14 +352,15 @@ def phase_build() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "flash_tc_kernel" in name:
+            if any(k in name for k in TC_KERNELS):
                 hgmma[name] = 0
         elif name in hgmma and "HGMMA" in line:
             hgmma[name] += 1
     for name, n in sorted(hgmma.items()):
         log(f"  SASS {name}: {n} HGMMA instructions")
-    check(len(hgmma) == 12 and all(hgmma.values()),
-          "every bf16 K1 instance (3 modes x 4 head dims) holds HGMMA")
+    found = {k: sum(k in name for name in hgmma) for k in TC_KERNELS}
+    check(found == TC_KERNELS and all(hgmma.values()),
+          f"every tensor-core instance {TC_KERNELS} holds HGMMA: {found}")
 
 
 def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device):
@@ -942,15 +958,37 @@ def _int4pack_library(w):
     return lambda x: torch._weight_int4pack_mm(x, w_pk, w.group_size, sz)
 
 
+def _device_us_per_call(fn, calls: int = 20, match: str = "") -> float:
+    """Mean device microseconds per call of `fn` by torch.profiler: the
+    kernels whose names hold `match` (every kernel with "") over `calls`
+    calls after a warm-up. The CUDA-event time of back-to-back M=1 calls
+    reads the host's enqueue as much as the card; this reads the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name)
+    check(us > 0, f"the profiler saw device time of '{match}' kernels")
+    return us / calls
+
+
 def phase_k3(device, layers: int, prefill_m: int = PROMPT,
              reps: int = 20) -> dict:
     """K3 against its plain version at every fused Llama-2-7B matmul shape,
     M=1 and M=prefill_m (compared on the first K3_CHECK_ROWS rows), bf16
-    and float32; timed in bf16 at both M with its bound, and
-    torch._weight_int4pack_mm on the same codes (bf16 scales) as the
-    library yardstick where it takes the shape."""
+    and float32, each call on the route its shape and type take (M=1 the
+    GEMV, bf16 M=prefill_m the tensor cores, float32 the scalar tile);
+    timed in bf16 at both M with its bound, and torch._weight_int4pack_mm
+    on the same codes (bf16 scales) as the library yardstick where it takes
+    the shape; at M=1 also the device time per launch of both."""
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
-        int4_matmul_plain, int4_matmul_tensor)
+        int4_matmul, int4_matmul_plain, int4_matmul_tensor)
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     worst, rows = 0.0, {1: [], prefill_m: []}
@@ -965,7 +1003,12 @@ def phase_k3(device, layers: int, prefill_m: int = PROMPT,
         for dtype in (torch.bfloat16, torch.float32):
             for m in (1, prefill_m):
                 x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+                before = dict(int4_matmul.route_launches)
                 out = int4_matmul_tensor(x, w)
+                route = ("gemv" if m == 1 else "tensor_core"
+                         if dtype == torch.bfloat16 else "tile")
+                check(int4_matmul.route_launches[route] == before[route] + 1,
+                      f"K3 M={m} {dtype} takes the {route} route")
                 r = min(m, K3_CHECK_ROWS)
                 ref = plain(x[:r])
                 tol = TOL_K3_REL * float(ref.float().abs().max())
@@ -993,15 +1036,33 @@ def phase_k3(device, layers: int, prefill_m: int = PROMPT,
                 cost = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         **bound(nbytes(x, w.q_packed, w.scale, out),
                                 2 * m * k * n, dtype)}
+                device_note = ""
+                if m == 1:
+                    cost["device_us"] = _device_us_per_call(
+                        lambda: int4_matmul_tensor(x, w), match="int4")
+                    cost["library_device_us"] = (
+                        None if lib_ms is None
+                        else _device_us_per_call(lambda: lib(x)))
+                    device_note = (
+                        f"; device us per launch: kernel "
+                        f"{cost['device_us']:.3f} (bound "
+                        f"{cost['bound_ms'] * 1e3:.3f}), library "
+                        f"{cost['library_device_us']}")
                 rows[m].append(cost)
                 log(f"K3 M={m} K={k} N={n} bf16: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
                     f"({cost['bound_by']}, {cost['bound_ms'] / ms:.3f} of "
-                    f"it reached); torch._weight_int4pack_mm {lib_note}")
+                    f"it reached); torch._weight_int4pack_mm {lib_note}"
+                    f"{device_note}")
     decode, prefill = (_per_forward(rows[m], layers) for m in (1, prefill_m))
+    device_us = {key: sum(r[key] for r in rows[1]) / len(rows[1])
+                 if all(r[key] is not None for r in rows[1]) else None
+                 for key in ("device_us", "library_device_us")}
     log(f"K3 per forward ({layers} layers x 4 matmuls): decode step "
-        f"{decode}; prefill {prefill}")
-    return {"max_abs_err": worst, **decode,
+        f"{decode}; prefill {prefill}, {prefill['bound_ms'] / prefill['ms']:.3f}"
+        f" of its bound; M=1 device us per launch, mean of the 4 shapes: "
+        f"{device_us}")
+    return {"max_abs_err": worst, **decode, "m1_device_us": device_us,
             "per_layer_m1": rows[1], "prefill": prefill}
 
 
@@ -1497,6 +1558,27 @@ def run_7b_arm(arm: str, device, mcfg) -> dict:
     return launches
 
 
+def run_gemma(device, mcfg) -> dict:
+    """Gemma-2B at full width and depth, bf16 random weights from SEED,
+    fused: the main run with its launch counts (K1 and K2 only: no
+    quantized weights), then a profile."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    torch.cuda.synchronize()
+    log(f"gemma-2b: init + fuse {time.perf_counter() - t0:.1f} s")
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1=mcfg.num_layers, K2=mcfg.num_layers * (NEW_TOKENS - 1))
+    run = phase_main("gemma-2b main run", device, mcfg, params, expect,
+                     repeats=REPEATS_NEW)
+    phase_profile("gemma-2b", mcfg, run)
+    launches = run["launches"]
+    del run, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _host_ms(fn, runs: int = 6) -> list:
     """Host milliseconds of `runs - 1` calls of `fn` after a warm-up, each
     between two synchronizes."""
@@ -1785,12 +1867,16 @@ def phase_prefix_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
     return readings["prefix"]["launches"]
 
 
-def run_all(device, tiny, big) -> list:
+def run_all(device, tiny, big, gemma, gemma7) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
-    line. `tiny` and `big` are the TinyLlama and Llama-2-7B configs."""
+    line. `tiny`, `big`, `gemma` and `gemma7` are the TinyLlama,
+    Llama-2-7B, Gemma-2B and Gemma-7B configs (Gemma-7B for its heads
+    only: 16 over 16 at head_dim 256)."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
 
     two = lambda cfg: dataclasses.replace(cfg, num_layers=2)  # noqa: E731
+    heads = lambda cfg: (cfg.num_heads, cfg.num_kv_heads,  # noqa: E731
+                         cfg.head_dim)
     t0 = time.perf_counter()
     phase_build()
     k1_tiny = phase_k1(device, (1, PROMPT, tiny.num_heads, tiny.num_kv_heads,
@@ -1812,9 +1898,21 @@ def run_all(device, tiny, big) -> list:
     k2 = phase_k2(device, two(big))
     k2p_tiny = phase_k2_pool(device, two(tiny), groups=(1, 2))
     k2p_big = phase_k2_pool(device, two(big), groups=(1, 4))
+    # head_dim 256: every K1 mode and K2 form at Gemma-2B's and Gemma-7B's
+    # heads.
+    g = {}
+    for name, cfg in (("gemma_2b", gemma), ("gemma_7b", gemma7)):
+        g[name] = {
+            "K1": phase_k1(device, (1, PROMPT) + heads(cfg)),
+            "K1b": phase_k1_chunk(device, heads(cfg)),
+            "K1prefix": phase_k1_prefix(device, cfg),
+            "K1c": phase_k1_full_pair(device, heads(cfg)),
+            "K2": phase_k2(device, two(cfg)),
+            "K2pool": phase_k2_pool(device, two(cfg), groups=(1, 4))}
     k3 = phase_k3(device, big.num_layers)
     k4 = phase_k4(device, big.num_layers)
     phase_parity(device, two(tiny))
+    phase_parity(device, two(gemma))
     for arm in ("int4", "w8a8"):
         phase_parity(device, two(big), arm, prompt=512, new_tokens=8)
     phase_parity_chunked(device, two(tiny))
@@ -1835,6 +1933,7 @@ def run_all(device, tiny, big) -> list:
     launches["tinyllama_prefix"] = phase_prefix_path(
         device, dataclasses.replace(tiny,
                                     max_position_embeddings=PROMPT + 512))
+    launches["gemma_2b"] = run_gemma(device, gemma)
     for arm in ("int4", "w8a8"):
         launches[f"llama2_7b_{arm}"] = run_7b_arm(arm, device, big)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -1867,17 +1966,34 @@ def run_all(device, tiny, big) -> list:
                    f"{PROMPT // CHUNK} chunks summed, one layer's prefill")
     pair_note = (f"B={PREFIX_BATCH} S_q=S_k={CHUNK}, Hq={{}} Hkv={{}} d={{}}, "
                  f"bf16")
-    k2_err = max(r["max_abs_err"] for r in (k2, k2_tiny, k2p_tiny, k2p_big))
+    k2_err = max(r["max_abs_err"] for r in (
+        k2, k2_tiny, k2p_tiny, k2p_big,
+        *(g[m][p] for m in g for p in ("K2", "K2pool"))))
+
+    g_cfgs = {"gemma_2b": gemma, "gemma_7b": gemma7}
+
+    def d256(part, note, pick=lambda r: r):
+        """The d=256 readings of one kernel at Gemma-2B's and Gemma-7B's
+        heads, with `note` formatted by the heads."""
+        return {m: {**pick(g[m][part]),
+                    "shape": note.format(*heads(g_cfgs[m]))} for m in g}
+
+    def worst(*results):
+        return max(r["max_abs_err"] for r in results)
+
+    k1_note = f"B=1 S={PROMPT} Hq={{}} Hkv={{}} d={{}}"
     kernels = [
-        entry("K1", k1, "llama2_7b_int4", {
+        entry("K1", {**k1, "max_abs_err": worst(
+            k1, k1_tiny, *(g[m]["K1"] for m in g))}, "llama2_7b_int4", {
             "mode": "a (square causal)",
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
                        "mass",
             "tinyllama": {**k1_tiny, "shape": "B=1 S=4096 Hq=32 Hkv=4 d=64"},
+            **d256("K1", k1_note),
             "model_activations_max_abs_err": k1_activations}),
-        entry("K1b", {**k1b_tiny, "max_abs_err": max(
-            k1b_tiny["max_abs_err"], k1b_big["max_abs_err"])},
+        entry("K1b", {**k1b_tiny, "max_abs_err": worst(
+            k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g))},
               "tinyllama_chunked", {
             "mode": "b (rectangular causal at q_offset, chunked prefill)",
             "shape": chunk_note.format(tiny.num_heads, tiny.num_kv_heads,
@@ -1885,9 +2001,10 @@ def run_all(device, tiny, big) -> list:
             "library": "scaled_dot_product_attention with a boolean "
                        "[c, S_k] causal mask, no prompt mass",
             "llama2_7b": {**k1b_big, "shape": chunk_note.format(
-                big.num_heads, big.num_kv_heads, big.head_dim)}}),
-        entry("K1c", {**k1c_tiny, "max_abs_err": max(
-            k1c_tiny["max_abs_err"], k1c_big["max_abs_err"])},
+                big.num_heads, big.num_kv_heads, big.head_dim)},
+            **d256("K1b", chunk_note)}),
+        entry("K1c", {**k1c_tiny, "max_abs_err": worst(
+            k1c_tiny, k1c_big, *(g[m]["K1c"] for m in g))},
               "tinyllama_prefix", {
             "mode": "c (non-causal pair, ring attention's off-diagonal "
                     "block; on no path the port runs yet)",
@@ -1896,10 +2013,11 @@ def run_all(device, tiny, big) -> list:
             "library": "scaled_dot_product_attention, no mask, no prompt "
                        "mass",
             "llama2_7b": {**k1c_big, "shape": pair_note.format(
-                big.num_heads, big.num_kv_heads, big.head_dim)}}),
-        entry("K1d", {**k1_prefix_tiny["positioned"], "max_abs_err": max(
-            k1_prefix_tiny["positioned"]["max_abs_err"],
-            k1_prefix_big["positioned"]["max_abs_err"])},
+                big.num_heads, big.num_kv_heads, big.head_dim)},
+            **d256("K1c", pair_note)}),
+        entry("K1d", {**k1_prefix_tiny["positioned"], "max_abs_err": worst(
+            k1_prefix_tiny["positioned"], k1_prefix_big["positioned"],
+            *(g[m]["K1prefix"]["positioned"] for m in g))},
               "tinyllama_prefix", {
             "mode": "d (positioned keys: compressed pools)",
             "shape": prefix_note.format(tiny.num_heads, tiny.num_kv_heads,
@@ -1909,10 +2027,11 @@ def run_all(device, tiny, big) -> list:
             "llama2_7b": {**k1_prefix_big["positioned"],
                           "shape": prefix_note.format(
                               big.num_heads, big.num_kv_heads,
-                              big.head_dim)}}),
-        entry("K1p", {**k1_prefix_tiny["pair"], "max_abs_err": max(
-            k1_prefix_tiny["pair"]["max_abs_err"],
-            k1_prefix_big["pair"]["max_abs_err"])}, "tinyllama_prefix", {
+                              big.head_dim)},
+            **d256("K1prefix", prefix_note, lambda r: r["positioned"])}),
+        entry("K1p", {**k1_prefix_tiny["pair"], "max_abs_err": worst(
+            k1_prefix_tiny["pair"], k1_prefix_big["pair"],
+            *(g[m]["K1prefix"]["pair"] for m in g))}, "tinyllama_prefix", {
             "mode": "diagonal pair (mode a with lse, local prompt length)",
             "shape": prefix_note.format(tiny.num_heads, tiny.num_kv_heads,
                                         tiny.head_dim),
@@ -1921,18 +2040,25 @@ def run_all(device, tiny, big) -> list:
             "llama2_7b": {**k1_prefix_big["pair"],
                           "shape": prefix_note.format(
                               big.num_heads, big.num_kv_heads,
-                              big.head_dim)}}),
+                              big.head_dim)},
+            **d256("K1prefix", prefix_note, lambda r: r["pair"])}),
         entry("K2", {**k2, "max_abs_err": k2_err}, "llama2_7b_int4", {
             "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, "
                      "tiers + ring, bf16",
             "tinyllama": k2_tiny,
+            **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
+                                          f"state, 8/4/2, tiers + ring, bf16"}
+               for m in g},
             "pool": {  # the decode-pool segment and G > 1 (chunked path)
                 "tinyllama": {**k2p_tiny, "shape": pool_note.format(
                     "TinyLlama", k2p_tiny["variant"])},
                 "llama2_7b": {**k2p_big, "shape": pool_note.format(
-                    "Llama-2-7B", k2p_big["variant"])}}}),
+                    "Llama-2-7B", k2p_big["variant"])},
+                **{m: {**g[m]["K2pool"], "shape": pool_note.format(
+                    m, g[m]["K2pool"]["variant"])} for m in g}}}),
         entry("K3", k3, "llama2_7b_int4", {
             "shape": shape_note.format(""), "prefill": k3["prefill"],
+            "m1_device_us_per_launch": k3["m1_device_us"],
             "library": "torch._weight_int4pack_mm, same codes, bf16 "
                        "scales"}),
         entry("K4", k4, "llama2_7b_w8a8", {
@@ -1949,6 +2075,8 @@ def main() -> int:
         return 1
     from realtime_kv_cache_compression_tpu_torch import (LLAMA2_7B,
                                                          TINYLLAMA_1_1B)
+    from realtime_kv_cache_compression_tpu_torch.config import (GEMMA_2B,
+                                                                GEMMA_7B)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1958,7 +2086,8 @@ def main() -> int:
                                     max_position_embeddings=PROMPT
                                     + NEW_TOKENS),
         dataclasses.replace(LLAMA2_7B,
-                            max_position_embeddings=PROMPT + NEW_TOKENS))
+                            max_position_embeddings=PROMPT + NEW_TOKENS),
+        GEMMA_2B, GEMMA_7B)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

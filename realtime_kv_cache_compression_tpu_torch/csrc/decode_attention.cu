@@ -28,7 +28,9 @@
 // axis of every pool is cut into splits of 128 tokens and the grid is
 // (splits, kv heads, batch): each block scores its tokens for all n_rep
 // query heads of its kv head, keeps a partial (m, l, acc) per head, and a
-// second small kernel merges the partials by log-sum-exp.
+// second small kernel merges the partials by log-sum-exp. head_dim 16 to
+// 256: up to 128 each thread of the value pass owns one channel, at 256
+// two (PvShape), so 128 threads cover every channel at every width.
 // Bound: bytes. Per kv head and token it reads D * bits / 8 code bytes of K
 // and of V plus 16 bytes of float32 scale and zero point, so at 2 bits and
 // D = 64 the scales weigh as much as the codes. Each token's code row is
@@ -94,20 +96,40 @@ __device__ __forceinline__ long long code_offset(const DecodeSegment& sg,
   return ((b * sg.rows + row) * H + h) * static_cast<long long>(D);
 }
 
+// Channels per thread and token groups of the PV pass (pass 3): up to
+// D = 128 one channel per thread and kThreads / D token groups summed in
+// shared memory; at D = 256 two channels per thread and one group.
+template <int D>
+struct PvShape {
+  static constexpr int kChan = D > kThreads ? D / kThreads : 1;
+  static constexpr int kDT = D / kChan;         // threads over one token
+  static constexpr int kGroups = kThreads / kDT;
+};
+
+// V scales and zero points per scale group and token, [kMaxG][kTile] each,
+// in dynamic shared memory (16 KB at D = 128 with G > 1, 32 KB at 256).
+template <int D, bool kGrouped>
+constexpr int scale_rows_bytes() {
+  return 2 * (kGrouped ? D / 8 : 1) * kTile * 4;
+}
+
 // kGrouped: G > 1 scale groups per head. The G = 1 instance keeps one V
 // scale row per block and the rank-1 arithmetic; only the grouped instance
-// holds [G][kTile] rows (16 KB at D = 128), so G = 1 occupancy is unchanged.
+// holds [G][kTile] rows, so G = 1 occupancy is unchanged.
 template <typename T, int D, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const DecodeParams p) {
-  constexpr int kGroups = kThreads / D;  // token groups in the PV pass
+  constexpr int kChan = PvShape<D>::kChan, kDT = PvShape<D>::kDT;
+  constexpr int kGroups = PvShape<D>::kGroups;  // token groups in the PV pass
   constexpr int kMaxG = kGrouped ? D / 8 : 1;  // groups of >= 8 channels
   __shared__ __align__(16) float sq[kMaxRep][D];
   __shared__ float sqsum[kMaxRep];
   __shared__ float sp[kMaxRep][kTile];   // scores, then p (* v_scale if G=1)
-  __shared__ float svzp[kMaxG][kTile];   // V zero points / scales per group
-  __shared__ float svsc[kMaxG][kTile];
-  __shared__ float sred[kMaxRep][kThreads];
+  extern __shared__ float s_scales[];    // V zero points / scales per group
+  float (*svzp)[kTile] = reinterpret_cast<float (*)[kTile]>(s_scales);
+  float (*svsc)[kTile] =
+      reinterpret_cast<float (*)[kTile]>(s_scales + kMaxG * kTile);
+  __shared__ float sred[kGroups > 1 ? kMaxRep : 1][kThreads];
   __shared__ float sm[kMaxRep], sl[kMaxRep], scorr[kMaxRep];
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -261,43 +283,61 @@ decode_split_kernel(const DecodeParams p) {
   }
   __syncthreads();
 
-  // Pass 3: weighted sum of values; thread (token group g, channel d).
+  // Pass 3: weighted sum of values; thread (token group g, channels
+  // d0 + c kDT).
+  const long long part = (static_cast<long long>(b) * H + h) * p.total_splits + split;
   {
-    const int d = tid % D, g = tid / D, cg = d >> p.gshift;
-    float acc[kMaxRep];
+    const int d0 = tid % kDT, g = tid / kDT;
+    float acc[kChan][kMaxRep];
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) acc[r] = 0.f;
+    for (int c = 0; c < kChan; ++c)
+#pragma unroll
+      for (int r = 0; r < kMaxRep; ++r) acc[c][r] = 0.f;
     for (int t = g; t < nt; t += kGroups) {
       const int tok = t0 + t;
-      float c;
-      if (raw) {
-        const T* vr = static_cast<const T*>(sg.v) +
-                      ((b * sg.rows + tok) * H + h) * static_cast<long long>(D);
-        c = to_f(vr[d]);
-      } else {
-        int shift;
-        const uint8_t byte = static_cast<const uint8_t*>(sg.v)[
-            code_offset(sg, b, h, H, D, tok, &shift) + d];
-        c = static_cast<float>((byte >> shift) & ((1u << sg.bits) - 1u));
+#pragma unroll
+      for (int c = 0; c < kChan; ++c) {
+        const int d = d0 + c * kDT, cg = d >> p.gshift;
+        float cv;
+        if (raw) {
+          const T* vr = static_cast<const T*>(sg.v) +
+                        ((b * sg.rows + tok) * H + h) * static_cast<long long>(D);
+          cv = to_f(vr[d]);
+        } else {
+          int shift;
+          const uint8_t byte = static_cast<const uint8_t*>(sg.v)[
+              code_offset(sg, b, h, H, D, tok, &shift) + d];
+          cv = static_cast<float>((byte >> shift) & ((1u << sg.bits) - 1u));
+        }
+        if (grouped) cv = (cv - svzp[cg][t]) * svsc[cg][t];
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r)
+          if (r < rep) acc[c][r] = fmaf(sp[r][t], cv, acc[c][r]);
       }
-      if (grouped) c = (c - svzp[cg][t]) * svsc[cg][t];
+    }
+    if constexpr (kGroups == 1) {  // each channel has one thread: no sum
+#pragma unroll
+      for (int c = 0; c < kChan; ++c)
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r)
+          if (r < rep)
+            p.part_acc[(part * rep + r) * D + d0 + c * kDT] =
+                acc[c][r] - scorr[r];
+    } else {
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r)
-        if (r < rep) acc[r] = fmaf(sp[r][t], c, acc[r]);
+        if (r < rep) sred[r][tid] = acc[0][r];
     }
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r)
-      if (r < rep) sred[r][tid] = acc[r];
   }
-  __syncthreads();
-
-  const long long part = (static_cast<long long>(b) * H + h) * p.total_splits + split;
-  for (int i = tid; i < rep * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    float s = 0.f;
+  if constexpr (kGroups > 1) {
+    __syncthreads();
+    for (int i = tid; i < rep * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      float s = 0.f;
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) s += sred[r][g * D + d];
-    p.part_acc[(part * rep + r) * D + d] = s - scorr[r];
+      for (int g = 0; g < kGroups; ++g) s += sred[r][g * D + d];
+      p.part_acc[(part * rep + r) * D + d] = s - scorr[r];
+    }
   }
   if (tid < rep) {
     p.part_m[part * rep + tid] = sm[tid];
@@ -330,25 +370,39 @@ __global__ void decode_merge_kernel(const DecodeParams p) {
       from_f<T>(L > 0.f ? O / L : 0.f);
 }
 
+template <typename T, int D, bool kGrouped>
+cudaError_t launch_instance(const DecodeParams& p, dim3 grid,
+                            cudaStream_t stream) {
+  constexpr int kBytes = scale_rows_bytes<D, kGrouped>();
+  // The static arrays and the scale rows pass 48 KB at D = 256 with
+  // G > 1: opt in to the dynamic size, once per instance.
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      decode_split_kernel<T, D, kGrouped>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (opt_in != cudaSuccess) return opt_in;
+  decode_split_kernel<T, D, kGrouped><<<grid, kThreads, kBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
-void launch_split(const DecodeParams& p, dim3 grid, cudaStream_t stream) {
-  if (p.G > 1)
-    decode_split_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(p);
-  else
-    decode_split_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(p);
+cudaError_t launch_split(const DecodeParams& p, dim3 grid,
+                         cudaStream_t stream) {
+  return p.G > 1 ? launch_instance<T, D, true>(p, grid, stream)
+                 : launch_instance<T, D, false>(p, grid, stream);
 }
 
 template <typename T>
 cudaError_t launch_typed(const DecodeParams& p, cudaStream_t stream) {
   const dim3 grid(p.total_splits, p.Hkv, p.B);
+  cudaError_t err;
   switch (p.D) {
-    case 16: launch_split<T, 16>(p, grid, stream); break;
-    case 32: launch_split<T, 32>(p, grid, stream); break;
-    case 64: launch_split<T, 64>(p, grid, stream); break;
-    case 128: launch_split<T, 128>(p, grid, stream); break;
+    case 16: err = launch_split<T, 16>(p, grid, stream); break;
+    case 32: err = launch_split<T, 32>(p, grid, stream); break;
+    case 64: err = launch_split<T, 64>(p, grid, stream); break;
+    case 128: err = launch_split<T, 128>(p, grid, stream); break;
+    case 256: err = launch_split<T, 256>(p, grid, stream); break;
     default: return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<T><<<p.B * p.Hkv * p.rep, p.D, 0, stream>>>(p);
   return cudaGetLastError();

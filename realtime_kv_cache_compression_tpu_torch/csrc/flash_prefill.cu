@@ -31,7 +31,7 @@ extern "C" int flash_prefill_launch(const FlashParams* p, void* stream) {
   }
 }
 
-// Registers, local memory and shared memory of instance `index` (0-7, see
+// Registers, local memory and shared memory of instance `index` (0-9, see
 // rkv::flash::instance_info) of `mode`.
 extern "C" int flash_prefill_instance_info(int mode, int index,
                                            FlashInstanceInfo* out) {

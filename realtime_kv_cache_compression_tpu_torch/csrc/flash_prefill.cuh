@@ -43,9 +43,10 @@
 // - float32 (the parity phases that hold greedy tokens and 1e-4 logits
 //   against the plain path): the scalar-FMA kernel below. Tensor cores
 //   would run float32 as TF32 (10-bit significands), which cannot hold
-//   those limits. One thread per query row, 128 rows per block, grid (row
-//   tiles, Hq, B); each thread keeps its scaled query row and output
-//   accumulator in registers; blocks stage K/V tiles in shared memory,
+//   those limits. One thread per query row, 128 rows per block (head_dim
+//   256: four threads per row, 32 rows per block), grid (row tiles, Hq,
+//   B); each thread keeps its scaled query row and output accumulator (its
+//   share of them) in registers; blocks stage K/V tiles in shared memory,
 //   which every thread reads by broadcast. Arithmetic is float32 scalar
 //   FMA in base 2: sm_scale * log2(e) is folded into q so the exponentials
 //   are exp2. Bound there: FMA issue and shared-memory reads.
@@ -84,18 +85,31 @@ struct FlashParams {
 namespace rkv {
 namespace flash {
 
-constexpr int kRows = 128;  // query rows per block == threads per block
+constexpr int kRows = 128;  // threads per block of the float32 route
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kPosSentinel = 1 << 30;  // POS_SENTINEL of the wrappers
 
 enum Mode : int { kCausal = 0, kFull = 1, kPositioned = 2 };
 
-// The float32 route: one thread per query row.
+// The float32 route: kLanes threads per query row (one up to head_dim 128;
+// four at 256, each holding 64 channels of q and of the accumulator, with
+// the dot products summed over the four by shuffles, so that a thread's
+// registers hold its share), kRows threads per block.
+template <int D>
+struct ScalarShape {
+  static constexpr int kLanes = D > 128 ? 4 : 1;
+  static constexpr int kRowsPerBlock = kRows / kLanes;
+  static constexpr int kDL = D / kLanes;  // channels per thread
+  // Keys per shared-memory tile: static K and V tiles stay below 48 KB.
+  static constexpr int kBN = D <= 64 ? 64 : D <= 128 ? 32 : 16;
+};
+
 template <int D, int MODE>
 __global__ void __launch_bounds__(kRows)
 flash_prefill_kernel(const FlashParams p) {
-  constexpr int BN = D <= 64 ? 64 : 32;  // keys per shared-memory tile
+  using SS = ScalarShape<D>;
+  constexpr int BN = SS::kBN, kLanes = SS::kLanes, kDL = SS::kDL;
   constexpr int SUB = 16;                // keys per register sub-tile
   __shared__ __align__(16) float sK[BN][D];
   __shared__ __align__(16) float sV[BN][D];
@@ -103,31 +117,40 @@ flash_prefill_kernel(const FlashParams p) {
 
   const int b = blockIdx.z, hq = blockIdx.y;
   const int hk = hq / (p.Hq / p.Hkv);
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * SS::kRowsPerBlock;
   // The local row indexes q, o, pm and lse; causality takes the global row
   // row + q_offset, with q_offset read where it is used (at d=128, where
   // the kernel spills, this keeps one register fewer live).
-  const int row = row0 + threadIdx.x;
+  const int row = row0 + threadIdx.x / kLanes;
+  const int lane_c = threadIdx.x % kLanes;  // this thread's channel share
+  // The kLanes threads of a row are neighbours in one warp: they take the
+  // same branches, and shuffle among themselves only.
+  const unsigned row_mask =
+      kLanes == 1 ? 0u
+                  : ((1u << kLanes) - 1u) << ((threadIdx.x % 32) & ~(kLanes - 1));
   const bool live = row < p.S_q;
 
   const float* q = static_cast<const float*>(p.q);
   const float* k = static_cast<const float*>(p.k);
   const float* v = static_cast<const float*>(p.v);
 
-  float qr[D];
-  float acc[D];
+  // Channel d = 4 (kLanes i + lane_c) + e of this thread's i-th float4, so
+  // the kLanes threads of a row read neighbouring 16-byte words.
+  float qr[kDL];
+  float acc[kDL];
   const float qscale = p.sm_scale * kLog2e;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? q[b * p.q_sb + row * p.q_ss + hq * p.q_sh + d] * qscale
+  for (int i = 0; i < kDL; ++i) {
+    const int d = 4 * (kLanes * (i / 4) + lane_c) + i % 4;
+    qr[i] = live ? q[b * p.q_sb + row * p.q_ss + hq * p.q_sh + d] * qscale
                  : 0.f;
-    acc[d] = 0.f;
+    acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f, pmass = 0.f;
   const int plen = p.plen[b];
   // Causal: keys past the block's last global row are unseen.
   const int kv_end = MODE == kCausal
-                         ? min(p.S_k, p.q_offset + row0 + kRows)
+                         ? min(p.S_k, p.q_offset + row0 + SS::kRowsPerBlock)
                          : p.S_k;
 
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
@@ -140,7 +163,7 @@ flash_prefill_kernel(const FlashParams p) {
         const int key = k0 + threadIdx.x;
         const int pos = key < p.S_k ? p.kpos[b * p.S_k + key] : kPosSentinel;
         sPos[threadIdx.x] = pos;
-        seen = pos <= p.q_offset + min(row0 + kRows, p.S_q) - 1;
+        seen = pos <= p.q_offset + min(row0 + SS::kRowsPerBlock, p.S_q) - 1;
       }
       if (!__syncthreads_or(seen)) continue;
     }
@@ -178,15 +201,18 @@ flash_prefill_kernel(const FlashParams p) {
         float dot = -INFINITY;
         if (visible) {
           dot = 0.f;
-          const float4* kr = reinterpret_cast<const float4*>(sK[j]);
+          const float4* kr = reinterpret_cast<const float4*>(sK[j]) + lane_c;
 #pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float4 kk = kr[d4];
+          for (int d4 = 0; d4 < kDL / 4; ++d4) {
+            const float4 kk = kr[kLanes * d4];
             dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
             dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
             dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
             dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
           }
+#pragma unroll
+          for (int o = 1; o < kLanes; o <<= 1)
+            dot += __shfl_xor_sync(row_mask, dot, o);
         }
         s[jj] = dot;
         mt = fmaxf(mt, dot);
@@ -202,7 +228,7 @@ flash_prefill_kernel(const FlashParams p) {
       l *= alpha;
       pmass *= alpha;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < kDL; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
         const float pj = exp2f(s[jj] - m_new);  // masked: exp2(-inf) = 0
@@ -214,10 +240,11 @@ flash_prefill_kernel(const FlashParams p) {
           prompt = k0 + j0 + jj < plen;
         }
         if (prompt) pmass += pj;
-        const float4* vr = reinterpret_cast<const float4*>(sV[j0 + jj]);
+        const float4* vr =
+            reinterpret_cast<const float4*>(sV[j0 + jj]) + lane_c;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vr[d4];
+        for (int d4 = 0; d4 < kDL / 4; ++d4) {
+          const float4 vv = vr[kLanes * d4];
           acc[4 * d4 + 0] = fmaf(pj, vv.x, acc[4 * d4 + 0]);
           acc[4 * d4 + 1] = fmaf(pj, vv.y, acc[4 * d4 + 1]);
           acc[4 * d4 + 2] = fmaf(pj, vv.z, acc[4 * d4 + 2]);
@@ -232,12 +259,17 @@ flash_prefill_kernel(const FlashParams p) {
     const float inv = l > 0.f ? 1.f / l : 1.f;
     float* o = static_cast<float*>(p.o);
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      o[b * p.o_sb + row * p.o_ss + hq * p.o_sh + d] = acc[d] * inv;
-    const long long stat = (static_cast<long long>(b) * p.Hq + hq) * p.S_q + row;
-    p.pm[stat] = pmass * inv;
-    // m is base 2; the lse is natural, -inf for a row that saw no key.
-    if (p.lse != nullptr) p.lse[stat] = m * kLn2 + logf(fmaxf(l, 1e-30f));
+    for (int i = 0; i < kDL; ++i) {
+      const int d = 4 * (kLanes * (i / 4) + lane_c) + i % 4;
+      o[b * p.o_sb + row * p.o_ss + hq * p.o_sh + d] = acc[i] * inv;
+    }
+    if (lane_c == 0) {
+      const long long stat =
+          (static_cast<long long>(b) * p.Hq + hq) * p.S_q + row;
+      p.pm[stat] = pmass * inv;
+      // m is base 2; the lse is natural, -inf for a row that saw no key.
+      if (p.lse != nullptr) p.lse[stat] = m * kLn2 + logf(fmaxf(l, 1e-30f));
+    }
   }
 }
 
@@ -252,6 +284,15 @@ namespace flash {
 // Launches mode MODE at the route of p.dtype and its head_dim; one source
 // per mode instantiates it (flash_prefill*.cu), so nvcc builds the modes
 // in parallel.
+template <int D, int MODE>
+cudaError_t launch_scalar(const FlashParams& p, cudaStream_t stream) {
+  const dim3 grid((p.S_q + ScalarShape<D>::kRowsPerBlock - 1) /
+                      ScalarShape<D>::kRowsPerBlock,
+                  p.Hq, p.B);
+  flash_prefill_kernel<D, MODE><<<grid, kRows, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int MODE>
 cudaError_t launch_mode(const FlashParams& p, cudaStream_t stream) {
   if (p.dtype == kBFloat16) {
@@ -260,56 +301,59 @@ cudaError_t launch_mode(const FlashParams& p, cudaStream_t stream) {
       case 32: return tc::launch<32, MODE>(p, stream);
       case 64: return tc::launch<64, MODE>(p, stream);
       case 128: return tc::launch<128, MODE>(p, stream);
+      case 256: return tc::launch<256, MODE>(p, stream);
       default: return cudaErrorInvalidValue;
     }
   }
   if (p.dtype != kFloat32) return cudaErrorInvalidValue;
-  const dim3 grid((p.S_q + kRows - 1) / kRows, p.Hq, p.B);
   switch (p.D) {
-    case 16: flash_prefill_kernel<16, MODE><<<grid, kRows, 0, stream>>>(p); break;
-    case 32: flash_prefill_kernel<32, MODE><<<grid, kRows, 0, stream>>>(p); break;
-    case 64: flash_prefill_kernel<64, MODE><<<grid, kRows, 0, stream>>>(p); break;
-    case 128: flash_prefill_kernel<128, MODE><<<grid, kRows, 0, stream>>>(p); break;
+    case 16: return launch_scalar<16, MODE>(p, stream);
+    case 32: return launch_scalar<32, MODE>(p, stream);
+    case 64: return launch_scalar<64, MODE>(p, stream);
+    case 128: return launch_scalar<128, MODE>(p, stream);
+    case 256: return launch_scalar<256, MODE>(p, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
-// What the build made of one instance of mode MODE: index 0-3 the float32
-// route at head_dim 16, 32, 64, 128, index 4-7 the bf16 tensor-core route.
-// Mirrored by a ctypes Structure in ops/cuda/flash_prefill.py.
+// What the build made of one instance of mode MODE: index 0-4 the float32
+// route at head_dim 16, 32, 64, 128, 256, index 5-9 the bf16 tensor-core
+// route. Mirrored by a ctypes Structure in ops/cuda/flash_prefill.py.
 struct FlashInstanceInfo {
   int bf16, head_dim, regs, local_bytes, static_smem, dynamic_smem, threads;
 };
 
-template <int MODE>
-cudaError_t instance_info(int index, FlashInstanceInfo* out) {
+constexpr int kInstanceDims = 5;
+
+template <int D, int MODE>
+cudaError_t fill_info(bool bf16, FlashInstanceInfo* out) {
   cudaFuncAttributes a;
-  cudaError_t err;
-  switch (index) {
-    case 0: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<16, MODE>); break;
-    case 1: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<32, MODE>); break;
-    case 2: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<64, MODE>); break;
-    case 3: err = cudaFuncGetAttributes(&a, flash_prefill_kernel<128, MODE>); break;
-    case 4: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<16, MODE>); break;
-    case 5: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<32, MODE>); break;
-    case 6: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<64, MODE>); break;
-    case 7: err = cudaFuncGetAttributes(&a, tc::flash_tc_kernel<128, MODE>); break;
-    default: return cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      bf16 ? cudaFuncGetAttributes(&a, tc::flash_tc_kernel<D, MODE>)
+           : cudaFuncGetAttributes(&a, flash_prefill_kernel<D, MODE>);
   if (err != cudaSuccess) return err;
-  static constexpr int kDims[4] = {16, 32, 64, 128};
-  static constexpr int kTcSmem[4] = {
-      tc::Layout<16, MODE>::kAlloc, tc::Layout<32, MODE>::kAlloc,
-      tc::Layout<64, MODE>::kAlloc, tc::Layout<128, MODE>::kAlloc};
-  out->bf16 = index >= 4;
-  out->head_dim = kDims[index % 4];
+  out->bf16 = bf16;
+  out->head_dim = D;
   out->regs = a.numRegs;
   out->local_bytes = static_cast<int>(a.localSizeBytes);
   out->static_smem = static_cast<int>(a.sharedSizeBytes);
-  out->dynamic_smem = index >= 4 ? kTcSmem[index % 4] : 0;
-  out->threads = index >= 4 ? tc::kThreads : kRows;
+  out->dynamic_smem = bf16 ? tc::Layout<D, MODE>::kAlloc : 0;
+  out->threads = bf16 ? tc::Layout<D, MODE>::kThreads : kRows;
   return cudaSuccess;
+}
+
+template <int MODE>
+cudaError_t instance_info(int index, FlashInstanceInfo* out) {
+  if (index < 0 || index >= 2 * kInstanceDims) return cudaErrorInvalidValue;
+  const bool bf16 = index >= kInstanceDims;
+  switch (index % kInstanceDims) {
+    case 0: return fill_info<16, MODE>(bf16, out);
+    case 1: return fill_info<32, MODE>(bf16, out);
+    case 2: return fill_info<64, MODE>(bf16, out);
+    case 3: return fill_info<128, MODE>(bf16, out);
+    case 4: return fill_info<256, MODE>(bf16, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Defined in flash_prefill_pair.cu and flash_prefill_positioned.cu.

@@ -2,11 +2,12 @@
 // staged by TMA. flash_prefill.cuh includes it and dispatches every bf16
 // launch here (its header says which dtype takes which route, and why).
 //
-// Block: 288 threads, 128 query rows of one query head. Warps 0-7 are two
-// consumer warpgroups of 64 rows each; warp 8 is the producer. The
+// Block: 288 threads, 128 query rows of one query head (head_dim 256: 160
+// threads, 64 rows; see Layout). Warps 0-7 are two consumer warpgroups of
+// 64 rows each; the last warp is the producer. The
 // producer issues one TMA copy of the block's Q tile (bf16, once) and then
 // walks the key tiles (kBN keys) through a ring of kStages = 2 K/V
-// stages guarded by mbarriers ("full": the copy landed; "empty": all 256
+// stages guarded by mbarriers ("full": the copy landed; "empty": all the
 // consumer threads are done with the stage), so the next tile's copy
 // overlaps this tile's products. It writes each stage's first key index
 // beside the tiles, and -1 after the last tile, so the consumers need no
@@ -14,7 +15,7 @@
 // and skips a tile the block's last row cannot see before its copy is
 // issued (block-uniform), and stages the positions for the consumers.
 //
-// Per tile a consumer warpgroup computes S = Q K^T with m64n128k16 wgmma
+// Per tile a consumer warpgroup computes S = Q K^T with m64n{kBN}k16 wgmma
 // (A and B from shared memory, K-major), scales the float32 scores by
 // sm_scale * log2(e) after the product (q is never pre-scaled or rounded,
 // so the prompt mass and lse keep float32 accuracy), applies the mask,
@@ -38,9 +39,10 @@
 // pm = 0 and lse = -inf.
 //
 // Shared memory: each TMA box is one swizzle span wide (head_dim 16: 32 B,
-// 32: 64 B, 64 and 128: 128 B, the latter as two boxes), and each wgmma
-// descriptor names the same swizzle: 8-row atoms of 256, 512 or 1024 B,
-// 1024-byte aligned. d=128: Q 32 KB + 2 stages x (K + V) 128 KB.
+// 32: 64 B, 64 and up: 128 B, as D / 64 boxes), and each wgmma descriptor
+// names the same swizzle (csrc/wgmma.cuh): 8-row atoms of 256, 512 or
+// 1024 B, 1024-byte aligned. d=128: Q 32 KB + 2 stages x (K + V) 128 KB;
+// d=256: 32 KB + 128 KB.
 // Grid (Hq, row tiles, B): the n_rep query heads of one kv head are
 // neighbours, so their K/V tiles meet in L2, and the row tiles run in
 // reverse, so the longest causal rows start first.
@@ -48,30 +50,38 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and the encoder's enums (types only)
-
 #include <cstdint>
+
+#include "wgmma.cuh"
 
 namespace rkv {
 namespace flash {
 namespace tc {
 
-constexpr int kRows = 128;            // query rows per block
-constexpr int kConsumerThreads = 256; // two warpgroups of 64 rows
-constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
-constexpr int kStages = 2;            // K/V ring depth
+constexpr int kStages = 2;  // K/V ring depth
 
 // Tile sizes and shared-memory layout of one instance (byte offsets from a
 // 1024-aligned base): Q [kSubs][kRows][kBoxD], K and V
 // [kStages][kSubs][kBN][kBoxD] (bf16, swizzled), key positions
 // [kStages][kBN], each stage's first key, and the mbarriers (Q,
-// full[kStages], empty[kStages]). kBN = 128 keys per tile, except 64 in
-// mode (d), whose per-key position tests would otherwise push the scores
-// and positions past the registers ptxas grants a 288-thread block (168)
-// and spill.
+// full[kStages], empty[kStages]).
+// - head_dim <= 128: kRows = 128 query rows, two consumer warpgroups and
+//   the producer warp (288 threads, which ptxas caps at 168 registers);
+//   kBN = 128 keys per tile, except 64 in mode (d), whose per-key position
+//   tests would otherwise push the scores and positions past those
+//   registers and spill.
+// - head_dim 256: O alone is 128 float32 registers a thread, and Q plus
+//   two stages of 128-key K and V tiles would pass the 227 KB of shared
+//   memory. So one consumer warpgroup of kRows = 64 rows and the producer
+//   warp (160 threads: up to 255 registers), 64-key tiles in every mode,
+//   four 128-byte boxes per row: Q 32 KB + 2 x (K + V) 128 KB. S = Q K^T is
+//   m64n64 over 16 k-steps, O += P V m64n256 (V MN-major as before).
 template <int D, int MODE>
 struct Layout {
-  static constexpr int kBN = MODE == kPositioned ? 64 : 128;
+  static constexpr int kRows = D > 128 ? 64 : 128;  // query rows per block
+  static constexpr int kConsumers = 2 * kRows;  // one warpgroup per 64 rows
+  static constexpr int kThreads = kConsumers + 32;  // + the producer warp
+  static constexpr int kBN = MODE == kPositioned || D > 128 ? 64 : 128;
   static constexpr int kSwBytes = D >= 64 ? 128 : 2 * D;  // one box row
   static constexpr int kBoxD = kSwBytes / 2;
   static constexpr int kSubs = D / kBoxD;
@@ -84,259 +94,13 @@ struct Layout {
   static constexpr int kBarOff = kTileOff + 16;
   static constexpr int kBytes = kBarOff + 8 * (1 + 2 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B.
-  static constexpr uint64_t kDescLayout =
-      kSwBytes == 128 ? 1 : kSwBytes == 64 ? 2 : 3;
-  static_assert(kBoxD % 16 == 0 && D % kBoxD == 0, "head_dim 16..128");
+  static_assert(kBoxD % 16 == 0 && D % kBoxD == 0 && D <= 256,
+                "head_dim 16..256");
   static_assert(kKVBytes % 1024 == 0 && kQBytes % 1024 == 0, "alignment");
+  static_assert(kAlloc <= 232448, "shared memory of one block");
 };
 
-// ---------------------------------------------------------------------------
-// PTX: shared addresses, mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed. A
-// wait that outlasts any real copy or tile (2^26 polls, each suspending
-// up to the hardware's time limit) traps, so a protocol fault fails the
-// launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (++polls == (1u << 26)) __trap();
-  } while (!done);
-}
-
-// One box of a 4-d tensor map [B][S][H][D] (coordinates innermost first)
-// into shared memory, completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving register reads or writes across a wgmma
-// fence or wait: the accumulators and the A fragments are read and
-// written asynchronously between the issue and the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
-}
-
-// K-major operand (Q or K: rows x head_dim, head_dim contiguous) at k-step
-// kk (head_dim 16 kk .. 16 kk + 15): boxes of `rows` rows lie one after the
-// other, and a k-step inside a box moves the start 32 bytes along the
-// swizzled row; 8-row atoms are kSwBytes * 8 apart.
-template <class L>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows,
-                                                int kk) {
-  constexpr int kSteps = L::kBoxD / 16;  // k-steps per box
-  const uint32_t addr =
-      base + (kk / kSteps) * rows * L::kSwBytes + (kk % kSteps) * 32;
-  return make_desc(addr, 16, 8 * L::kSwBytes, L::kDescLayout);
-}
-
-// V as the transposed B operand (keys x head_dim, head_dim contiguous:
-// MN-major) at k-step kk (keys 16 kk .. 16 kk + 15): 8-key atoms are
-// kSwBytes * 8 apart (the stride offset), head_dim boxes kBN * kSwBytes
-// apart (the leading offset, used at d=128 only).
-template <class L>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk) {
-  return make_desc(base + kk * 16 * L::kSwBytes, L::kBN * L::kSwBytes,
-                   8 * L::kSwBytes, L::kDescLayout);
-}
-
-// S = Q K^T, m64nNk16 with N = the key tile: A (64 query rows) and B (N
-// keys) from shared memory, both K-major (head_dim contiguous).
-// scale_d = 0 overwrites d.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O += P V, m64nNk16 with N = head_dim: A = P from registers (four bf16x2
-// per thread, the accumulator layout of S converted pairwise), B = V from
-// shared memory read transposed (keys x head_dim, head_dim contiguous:
-// MN-major, imm-trans-b = 1).
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+using namespace rkv::hopper;  // csrc/wgmma.cuh
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -348,22 +112,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D, MODE>::kThreads, 1)
 flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v) {
   using L = Layout<D, MODE>;
-  constexpr int kBN = L::kBN;
+  constexpr int kBN = L::kBN, kRows = L::kRows;
   extern __shared__ uint8_t smem_raw[];
   // The swizzle repeats every 1024 bytes and TMA and wgmma both read it
   // from the address bits, so every tile starts on a 1024-byte boundary.
@@ -385,13 +144,13 @@ flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerThreads);
+      mbar_init(&empty[s], L::kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == kConsumerThreads / 32) {
+  if (warp == L::kConsumers / 32) {
     // ---- producer warp ---------------------------------------------------
     const int rows_live = min(row0 + kRows, p.S_q);  // local rows < S_q
     const int q_last = p.q_offset + rows_live - 1;   // last live position
@@ -494,8 +253,8 @@ flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kBN>(s, kmajor_desc<L>(q_base, kRows, kk),
-                      kmajor_desc<L>(k_base, kBN, kk), kk > 0);
+        wgmma_ss<kBN, 0>(s, kmajor_desc<L::kSwBytes>(q_base, kRows, kk),
+                         kmajor_desc<L::kSwBytes>(k_base, kBN, kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -588,7 +347,7 @@ flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_rs_tb<D>(o, pr[kk], mnmajor_desc<L>(v_base, kk));
+        wgmma_rs_tb<D>(o, pr[kk], mnmajor_desc<L::kSwBytes>(v_base, kBN, kk));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -639,32 +398,6 @@ flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
 // Host: tensor maps and the launch
 // ---------------------------------------------------------------------------
 
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link
-// against libcuda); null where the driver does not offer it.
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A bf16 [B][S][H][D] view with element strides (sb, ss, sh, 1) as a 4-d
 // tensor map whose box is `rows` rows of one head, box_d elements wide.
 // Rows past S read as zeros. The wrapper has checked TMA's rules (16-byte
@@ -673,8 +406,6 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int D,
                               int H, int S, int B, long long sh, long long ss,
                               long long sb, int box_d, int rows,
                               CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
@@ -684,13 +415,8 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int D,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), 1,
                              static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(base), dims, strides, box, unit,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
+                           dims, strides, box, swizzle);
 }
 
 template <int D, int MODE>
@@ -702,7 +428,7 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
                           : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = encode_map(&tm_q, p.q, D, p.Hq, p.S_q, p.B, p.q_sh,
-                               p.q_ss, p.q_sb, L::kBoxD, kRows, swizzle);
+                               p.q_ss, p.q_sb, L::kBoxD, L::kRows, swizzle);
   if (err == cudaSuccess)
     err = encode_map(&tm_k, p.k, D, p.Hkv, p.S_k, p.B, p.k_sh, p.k_ss,
                      p.k_sb, L::kBoxD, L::kBN, swizzle);
@@ -715,8 +441,8 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
       flash_tc_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kAlloc);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid(p.Hq, (p.S_q + kRows - 1) / kRows, p.B);
-  flash_tc_kernel<D, MODE><<<grid, kThreads, L::kAlloc, stream>>>(
+  const dim3 grid(p.Hq, (p.S_q + L::kRows - 1) / L::kRows, p.B);
+  flash_tc_kernel<D, MODE><<<grid, L::kThreads, L::kAlloc, stream>>>(
       p, tm_q, tm_k, tm_v);
   return cudaGetLastError();
 }

@@ -339,10 +339,12 @@ class DecodeState:
     (+ decode pools when ccfg.decode_pool_blocks > 0), and the next
     position per row.
 
-    `ring_fill` is a host-side count of the tokens in every row's ring:
-    rings start empty after prefill and every row appends every step, so
-    all rows fill alike, and `decode_step` knows when to flush the rings
-    into the pools without reading a device value.
+    `ring_fill` holds a host-side count of the tokens in each row's ring
+    (the same in every layer), so that `decode_step` knows when a row's
+    ring is full and the rings must be flushed into the pools without
+    reading a device value. Rings start empty after prefill (an empty
+    tuple means every row at 0); a caller that admits rows at other fills
+    states them here.
     """
 
     caches: Tuple[CompressedLayerCache, ...]
@@ -350,7 +352,11 @@ class DecodeState:
     position: torch.Tensor  # [B] int32
     # One DecodePool per layer when ccfg.decode_pool_blocks > 0, else Nones.
     pools: Tuple[Optional[DecodePool], ...] = ()
-    ring_fill: int = 0
+    ring_fill: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if not self.ring_fill:
+            self.ring_fill = (0,) * self.position.shape[0]
 
 
 def _prefill_attention(q, k, v, prompt_len, use_flash, prompt_lens=None):
@@ -847,6 +853,19 @@ def prefill_compressed_prefix_chunked(
 # Decode
 # ---------------------------------------------------------------------------
 
+def ring_fill_step(ring_fill: Tuple[int, ...], capacity: int,
+                   pooled: bool) -> Tuple[bool, Tuple[int, ...]]:
+    """One decode step's host-side ring bookkeeping: whether the rings must
+    be flushed before the append (some row's ring is full and there are
+    pools), and each row's fill after it. A flush empties the full rows
+    only (`flush_recent` masks per row); every row then appends one token,
+    which a full ring without a pool drops."""
+    full = [n >= capacity for n in ring_fill]
+    flush = pooled and any(full)
+    return flush, tuple(min((0 if flush and f else n) + 1, capacity)
+                        for f, n in zip(full, ring_fill))
+
+
 def decode_step(
     params: Params,
     token: torch.Tensor,
@@ -857,10 +876,11 @@ def decode_step(
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step over the compressed caches. token: [B] ids.
     use_fused=None runs K2 on CUDA inputs. With decode pools, full rings
-    are first flushed into the pools (`flush_recent`; the state's host-side
-    `ring_fill` says when), so the ring never overflows. The state's rings
-    and pools are updated in place; returns (logits [B, V], the state with
-    position + 1)."""
+    are first flushed into the pools (`flush_recent`, which flushes the
+    full rows only; the state's host-side per-row `ring_fill` says when any
+    row is full), so no ring overflows. The state's rings and pools are
+    updated in place; returns (logits [B, V], the state with position + 1).
+    """
     if use_fused is None:
         use_fused = token.is_cuda
     h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg)[:, None]
@@ -869,7 +889,8 @@ def decode_step(
                            cfg.rope_scaling)
     pools = state.pools or (None,) * len(state.caches)
     capacity = state.recents[0].capacity if state.recents else 0
-    flush = pools[0] is not None and state.ring_fill >= capacity
+    flush, ring_fill = ring_fill_step(state.ring_fill, capacity,
+                                      pools[0] is not None)
     for layer, cache, recent, pool in zip(params["layers"], state.caches,
                                           state.recents, pools):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
@@ -887,9 +908,8 @@ def decode_step(
                                           dtype=q.dtype, pool=pool)
         h = _attn_out(layer, h, attn, cfg)
     logits = logits_from_hidden(params, h[:, 0], cfg)
-    fill = 0 if flush else state.ring_fill
     state = dataclasses.replace(state, position=state.position + 1,
-                                ring_fill=min(fill + 1, capacity))
+                                ring_fill=ring_fill)
     return logits, state
 
 

@@ -35,9 +35,9 @@ ENTRIES = ("flash_prefill_launch", "decode_attention_launch",
 # dtype codes shared with csrc/common.cuh.
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
-# Small-M route of the matmul kernels (csrc/int4_matmul.cu and
-# csrc/int8_matmul.cu, kSmallM and kGemvThreads): up to SMALL_M rows, a
-# split-K GEMV whose blocks cover GEMV_COLUMNS columns (256 threads x 4).
+# Small-M route of K4 (csrc/int8_matmul.cu, kSmallM and kGemvThreads): up
+# to SMALL_M rows, a split-K GEMV whose blocks cover GEMV_COLUMNS columns
+# (256 threads x 4).
 SMALL_M = 8
 GEMV_COLUMNS = 1024
 

@@ -12,7 +12,8 @@ D * bits / 8 code bytes for K and for V, plus 16 bytes of float32 scale
 and zero point per scale group; at 2 bits, D = 64 and one group the scales
 weigh as much as the codes. With G > 1 groups each block keeps the V
 scales of its 128 tokens in shared memory as [G][128] rows (16 KB at
-G = 16), and every code is dequantized in registers before its products.
+G = 16, 32 KB at G = 32 and head_dim 256), and every code is dequantized
+in registers before its products.
 The TPU kernel walks all pools in one program per batch row; on a GPU that
 is one busy SM, so this kernel splits every pool into 128-token ranges over
 a (split, kv head, batch) grid and merges the partial softmax states by
@@ -37,7 +38,7 @@ from ...config import HIGH, LOW, MID, CompressionConfig
 from ..attention import attention_over_tokens
 from . import _build
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _SPLIT_TOKENS = 128  # kTile in csrc/decode_attention.cu
 _MAX_REP = 16
 _MAX_SEGMENTS = 5  # kMaxSegments: HIGH, MID, LOW, decode pool, ring

@@ -32,8 +32,9 @@ Two routes, by dtype, both hand-written kernels:
   tensor maps of their strided views, so each needs a 16-byte aligned base
   and strides that are multiples of 8 elements (the column slices of the
   fused QKV projection are); `_check` refuses any other view.
-- float32: the scalar-FMA kernel (one thread per query row), which the
-  float32 parity phases need: tensor cores would round float32 to TF32.
+- float32: the scalar-FMA kernel (one thread per query row; four at
+  head_dim 256), which the float32 parity phases need: tensor cores would
+  round float32 to TF32.
 
 A CPU tensor takes the plain version: `ops.attention.
 prefill_attention_with_prompt_mass` or `chunk_attention_with_prompt_mass`
@@ -54,7 +55,7 @@ from ..attention import (chunk_attention_with_prompt_mass,
                          prefill_attention_with_prompt_mass)
 from . import _build
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _CAUSAL, _FULL, _POSITIONED = 0, 1, 2  # Mode in csrc/flash_prefill.cuh
 
 # Position of an invalid pool slot: above every query position, so it is
@@ -117,7 +118,7 @@ class InstanceInfo(ctypes.Structure):
 
 
 def kernel_instances() -> list:
-    """What the build made of each K1 instance (3 modes x 2 routes x 4
+    """What the build made of each K1 instance (3 modes x 2 routes x 5
     head dims): registers, local memory (spill) bytes, static and dynamic
     shared memory, threads per block. Builds the library if needed; needs
     a CUDA device."""
@@ -127,7 +128,7 @@ def kernel_instances() -> list:
     rows = []
     for mode, name in ((_CAUSAL, "causal"), (_FULL, "full"),
                        (_POSITIONED, "positioned")):
-        for index in range(8):
+        for index in range(2 * len(_HEAD_DIMS)):
             info = InstanceInfo()
             err = fn(mode, index, ctypes.addressof(info))
             if err:

@@ -3,9 +3,18 @@
 Replaces the TPU kernel `_kernel` of the JAX package's
 `ops/pallas/int4_matmul.py`. The CUDA source is `csrc/int4_matmul.cu`: the
 codes are unpacked inside the kernel, so the weights cross device memory at
-their packed 0.5 bytes per element. Small M (decode) is a split-K GEMV bound
-by those bytes; large M (prefill) is a float32 shared-memory tile bound by
-FMA throughput (tensor cores are later work).
+their packed 0.5 bytes per element. Three routes, picked here by shape and
+type (`_route`, counted in `int4_matmul.route_launches`):
+
+- "gemv", M <= 8 (decode), any type: a split-K GEMV bound by the packed
+  bytes, its splits summed in the same launch by the last block of each
+  column tile (scratch from `_gemv_scratch`, cached per device and stream);
+- "tensor_core", M > 8 in bf16 where TMA can read the operands and each
+  64-row step of packed rows holds whole scale groups (`_tensor_core_ok`):
+  wgmma tiles bound by operations;
+- "tile", every other M > 8 (float32, the parity phases' exact route, and
+  the shapes the tensor-core route does not take): a float32
+  shared-memory tile.
 
 A CPU tensor takes the plain version, the JAX package's off-TPU grouped form
 (`llama._matmul` for `Int4Tensor`); a CUDA tensor launches the kernel or
@@ -26,9 +35,23 @@ class Int4MatmulParams(ctypes.Structure):
     """Mirror of `Int4MatmulParams` in csrc/int4_matmul.cu."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "q", "scale", "out",
-                                                "partial")]
+                                                "partial", "ticket")]
                 + [(n, ctypes.c_int) for n in ("M", "N", "KH", "gs", "hi_off",
-                                               "split", "dtype")])
+                                               "split", "route", "dtype")])
+
+
+# Route, kSmallM and kMaxRange in csrc/int4_matmul.cu.
+ROUTES = {"gemv": 0, "tile": 1, "tensor_core": 2}
+SMALL_M = 8            # the GEMV route's rows, at most
+GEMV_MAX_ROWS = 512    # packed rows a GEMV block stages x for, at most
+GEMV_BLOCKS = 264      # two GEMV blocks per SM of the H100's 132: one wave
+GEMV_MIN_ROWS = 64     # packed rows per GEMV block, at least (8 per warp)
+
+
+def gemv_block_cols(m: int) -> int:
+    """Columns one GEMV block covers at m rows (GemvShape in the source:
+    32 threads x 16 columns at m <= 2, x 32 / MT above, MT = 4 or 8)."""
+    return 32 * (16 if m <= 2 else 32 // (4 if m <= 4 else 8))
 
 
 def _groups(kh: int, n_g: int) -> Tuple[int, int]:
@@ -78,10 +101,57 @@ def _check(x, q_packed, scale) -> None:
                          f"{tuple(q_packed.shape)}, {tuple(scale.shape)}")
     if min(x.shape + q_packed.shape) == 0:
         raise ValueError("int4 matmul: empty operand")
-    for t in (x, q_packed, scale):
-        if not t.is_contiguous() or t.data_ptr() % 4:
-            raise ValueError("int4 matmul: operands must be contiguous and "
-                             "4-byte aligned")
+    # x is read by element; the codes and scales by 16-byte vectors.
+    for t, align in ((x, 4), (q_packed, 16), (scale, 16)):
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError("int4 matmul: operands must be contiguous, x "
+                             "4-byte and q_packed / scale 16-byte aligned")
+
+
+def _tensor_core_ok(x, q_packed, gs: int) -> bool:
+    """Whether the tensor-core route takes this call: bf16 x with more
+    than SMALL_M rows; TMA's rules (16-byte aligned bases, rows of x and of
+    the codes a multiple of 16 bytes, and the high half's first column of
+    x on a 16-byte boundary: K % 16 == 0, N % 16 == 0); and each 64-row
+    step of packed rows in one scale group, or holding whole groups of 16
+    or 32 rows."""
+    kh, n = q_packed.shape
+    return (x.dtype == torch.bfloat16 and x.shape[0] > SMALL_M
+            and x.shape[1] % 16 == 0 and n % 16 == 0
+            and x.data_ptr() % 16 == 0 and q_packed.data_ptr() % 16 == 0
+            and (gs == kh or gs % 64 == 0 or gs in (16, 32)))
+
+
+def _route(x, q_packed, gs: int) -> str:
+    if x.shape[0] <= SMALL_M:
+        return "gemv"
+    return "tensor_core" if _tensor_core_ok(x, q_packed, gs) else "tile"
+
+
+def gemv_split(m: int, n: int, kh: int) -> int:
+    """Blocks over K of the GEMV route: at most GEMV_BLOCKS blocks in all
+    (one wave), each at least GEMV_MIN_ROWS packed rows and at most
+    GEMV_MAX_ROWS."""
+    tiles = -(-n // gemv_block_cols(m))
+    split = max(1, min(GEMV_BLOCKS // tiles, kh // GEMV_MIN_ROWS))
+    return max(split, -(-kh // GEMV_MAX_ROWS))
+
+
+# GEMV scratch per (device, stream): float32 partials, grown as needed,
+# and int32 tickets per column tile, which every call leaves at zero.
+_SCRATCH = {}
+
+
+def _gemv_scratch(device, stream: int, partial: int, tickets: int):
+    key = (device, stream)
+    part, tick = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < partial:
+        part = torch.empty(max(partial, 1), dtype=torch.float32,
+                           device=device)
+    if tick is None or tick.numel() < tickets:
+        tick = torch.zeros(tickets, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (part, tick)
+    return part, tick
 
 
 def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
@@ -94,24 +164,29 @@ def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     (m, _), (kh, n) = x.shape, q_packed.shape
     gs, hi_off = _groups(kh, scale.shape[0])
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    split, partial = 0, None
-    if m <= _build.SMALL_M:
-        split = _build.split_k(n, kh)
-        partial = torch.empty((split, m, n), dtype=torch.float32,
-                              device=x.device)
+    route = _route(x, q_packed, gs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    split, partial, ticket = 0, None, None
+    if route == "gemv":
+        split = gemv_split(m, n, kh)
+        if split > 1:
+            partial, ticket = _gemv_scratch(x.device, stream, split * m * n,
+                                            -(-n // gemv_block_cols(m)))
     p = Int4MatmulParams(
         x=x.data_ptr(), q=q_packed.data_ptr(), scale=scale.data_ptr(),
         out=out.data_ptr(),
-        partial=0 if partial is None else partial.data_ptr(),
+        partial=None if partial is None else partial.data_ptr(),
+        ticket=None if ticket is None else ticket.data_ptr(),
         M=m, N=n, KH=kh, gs=gs, hi_off=hi_off, split=split,
-        dtype=_build.dtype_code(x.dtype))
-    _build.launch("int4_matmul_launch", p,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+        route=ROUTES[route], dtype=_build.dtype_code(x.dtype))
+    _build.launch("int4_matmul_launch", p, stream)
     int4_matmul.launches += 1
+    int4_matmul.route_launches[route] += 1
     return out
 
 
 int4_matmul.launches = 0
+int4_matmul.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def int4_matmul_tensor(x: torch.Tensor, w) -> torch.Tensor:

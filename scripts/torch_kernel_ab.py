@@ -22,6 +22,10 @@ Per tree, on the earlier paths (no decode pool, one scale group):
   at positions drawn from SEED, the rest invalid (summed); the diagonal
   pair over each chunk's own keys (summed); mode (c), B=2, S_q = S_k =
   1024;
+- K3 at the four fused Llama-2-7B matmul shapes (int4, groups of 128,
+  bf16 x): one decode step's 128 calls at M=1 (ms, CUDA events) and the
+  mean device us per call of the int4 kernels (torch.profiler), and one
+  prefill's 128 calls at M=4096 (ms);
 - TinyLlama at full depth, prompt 4096, 127 decode steps: TTFT and decode
   tok/s, medians of 3 timed runs after a warm-up.
 Prints one JSON line per tree and a table at the end.
@@ -117,6 +121,35 @@ def measure(tree: str) -> dict:
         res["k1c"] = cuda_ms(
             lambda: flash_full_pair_attention(q, k, v, plen_c), 10)
         return res
+
+    # K3: per forward of Llama-2-7B, 32 layers x the four fused matmuls.
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_tensor_int4
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul \
+        import int4_matmul_tensor
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    step_ms = prefill_ms = 0.0
+    device_us = []
+    for k, n in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)):
+        w = quantize_tensor_int4(torch.randn((k, n), generator=gen,
+                                             device=dev) * k ** -0.5,
+                                 group_size=128)
+        x1, xp = (torch.randn((m, k), generator=gen, device=dev)
+                  .to(torch.bfloat16) for m in (1, PROMPT))
+        step_ms += 32 * cuda_ms(lambda: int4_matmul_tensor(x1, w), 50)
+        prefill_ms += 32 * cuda_ms(lambda: int4_matmul_tensor(xp, w), 3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                int4_matmul_tensor(x1, w)
+            torch.cuda.synchronize()
+        device_us.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and "int4" in e.name) / 20)
+        del w, x1, xp
+    out["k3_decode_step_ms"] = step_ms
+    out["k3_m1_device_us"] = sum(device_us) / len(device_us)
+    out["k3_prefill_ms"] = prefill_ms
+    torch.cuda.empty_cache()
 
     width = {"tinyllama": TINYLLAMA_1_1B, "llama2_7b": LLAMA2_7B}
     for name, base in width.items():
@@ -217,6 +250,7 @@ def main(argv) -> int:
             "k2_llama2_7b_split_us", "k1_tinyllama_ms", "k1_llama2_7b_ms",
             *(f"{m}_{w}_ms" for m in ("k1b", "k1d", "k1p", "k1c")
               for w in ("tinyllama", "llama2_7b")),
+            "k3_decode_step_ms", "k3_m1_device_us", "k3_prefill_ms",
             "tinyllama_ttft_ms", "tinyllama_decode_tok_s")
     for i, r in enumerate(rows):
         cells = []

@@ -76,6 +76,8 @@ def _state(seed, ccfg_kw, b=2, s=96, hq=4, hkv=2, d=32, ring=8, n_recent=3):
     ("mha_d16_empty_ring", {}, dict(hq=4, hkv=4, d=16, n_recent=0)),
     ("threshold_full_ring", dict(tier_mode="threshold"),
      dict(ring=4, n_recent=4)),
+    ("gemma_d256_groups", dict(quant_group_size=64),
+     dict(hq=2, hkv=1, d=256)),
 ])
 def test_plain_k2_matches_pallas(name, ccfg_kw, shape):
     (qj, cache_j, rec_j, qpos_j, cj,

@@ -7,6 +7,10 @@ bytes, scales, zero points, positions, validity and `write_block` must be
 identical (JAX runs eagerly, as its jitted zero point may differ by one
 ulp, ROADMAP Queue 3), the dequantized pool within 1e-6.
 
+Rows at different ring fills: the port's host-side per-row bookkeeping
+(`ring_fill_step`, run by `decode_step`) decides when to flush; the pools
+stay identical to JAX's flush-and-append every step.
+
 Whole decode: 2 layers, ring 8, 2 pool blocks, past R * (W + 1) = 24
 steps, 4- and 16-bit pools, one and two scale groups per head: the port's
 greedy tokens equal JAX's `decode_loop(use_fused=False)` (the plain decode
@@ -96,6 +100,54 @@ def test_flush_recent_matches_jax_over_a_wrap(bits, group_size, dtype):
                                    t.float().numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("fills", [(5, 0), (0, 7)])
+def test_rows_at_different_ring_fills_match_jax(fills):
+    """Rows whose rings hold different counts (`fills`, as a server that
+    admits rows at other times would state them in `DecodeState.ring_fill`)
+    through 3 R + 1 steps. The port decides each step's flush from its
+    host-side per-row fills (`ring_fill_step`, what `decode_step` runs),
+    the JAX package flushes and appends every step (its `decode_step`).
+    Same rings and appended K/V on both sides (numpy): pool bytes, scales,
+    positions, validity and `write_block` identical after every step,
+    ring lengths equal to the host fills, and each row flushes on its own
+    steps."""
+    mj = rj.tiny_test_model(num_kv_heads=2, head_dim=16)
+    mt = rt.tiny_test_model(num_kv_heads=2, head_dim=16)
+    cj, ct = _cfgs(4, 8, num_layers=mj.num_layers)
+    b = len(fills)
+    rng = np.random.default_rng(sum(fills))
+    ring = {"k": rng.normal(size=(b, RING, 2, 16)).astype(np.float32),
+            "v": rng.normal(size=(b, RING, 2, 16)).astype(np.float32),
+            "positions": np.tile(np.arange(RING, dtype=np.int32), (b, 1)),
+            "length": np.array(fills, np.int32)}
+    rec_j = jk.RecentCache(**{f: jnp.asarray(a) for f, a in ring.items()})
+    rec_t = tk.RecentCache(**{f: torch.from_numpy(a.copy())
+                              for f, a in ring.items()})
+    pool_j = jk.init_decode_pool(b, RING, cj, mj)
+    pool_t = tk.init_decode_pool(b, RING, ct, mt, device="cpu")
+    host, flushed = tuple(fills), []
+    for step in range(3 * RING + 1):
+        flush, host = tl.ring_fill_step(host, RING, pooled=True)
+        if flush:
+            flushed.append(step)
+            tk.flush_recent(rec_t, pool_t, ct, mt)
+        rec_j, pool_j = jk.flush_recent(rec_j, pool_j, cj, mj)
+        kv = rng.normal(size=(2, b, 1, 2, 16)).astype(np.float32) * 3
+        pos = np.full((b, 1), 100 + step, np.int32)
+        rec_j = jk.append_recent(rec_j, jnp.asarray(kv[0]),
+                                 jnp.asarray(kv[1]), jnp.asarray(pos))
+        tk.append_recent(rec_t, torch.from_numpy(kv[0]),
+                         torch.from_numpy(kv[1]), torch.from_numpy(pos))
+        _assert_pools_equal(pool_j, pool_t)
+        assert list(host) == rec_t.length.tolist() == np.asarray(
+            rec_j.length).tolist()
+    # Each row flushes when its own ring is full: row r at steps
+    # RING - fills[r], then every RING steps.
+    assert flushed == sorted({RING - f + RING * i for f in fills
+                              for i in range(4)
+                              if RING - f + RING * i <= 3 * RING})
+
+
 @pytest.fixture(scope="module")
 def model():
     jcfg = rj.tiny_test_model(num_layers=2)
@@ -127,7 +179,7 @@ def test_pooled_decode_tokens_equal_jax(model, bits, group_size):
     np.testing.assert_array_equal(np.asarray(toks_j), toks_t.numpy())
     # Past the wrap: both blocks valid, block 1 next (flushes at steps
     # 8, 16, 24), the ring holds the last 4 tokens.
-    assert state.ring_fill == STEPS - 3 * RING
+    assert state.ring_fill == (STEPS - 3 * RING,) * 2
     np.testing.assert_array_equal(np.asarray(pool_j.write_block),
                                   state.pools[1].write_block.numpy())
     np.testing.assert_array_equal(np.asarray(pool_j.positions),

@@ -33,6 +33,7 @@ def _qkv(seed, b, s, hq, hkv, d):
     (1, 200, 4, 4, 32, 40, False),    # MHA, S not a tile multiple
     (2, 96, 8, 1, 16, 24, True),      # 8:1 GQA, per-row prompt lengths
     (2, 130, 4, 2, 16, 26, True),     # ragged S and per-row lengths
+    (1, 96, 2, 1, 256, 24, True),     # Gemma's head_dim
 ])
 def test_plain_k1_matches_pallas(b, s, hq, hkv, d, plen, ragged):
     q, k, v = _qkv(s + hq, b, s, hq, hkv, d)
@@ -135,3 +136,44 @@ def test_bf16_limit_holds_the_tpu_kernels_rounding(b, s, hq, hkv, d, plen):
         assert tfp.bf16_limit_share(o, ref, ref_abs) <= 1.0
         assert tfp.bf16_limit_share(o, ref, torch.zeros_like(ref)) > 1.0
     assert float((pm_emu - pm_ref).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("mode", ["b", "c", "d", "pair"])
+def test_plain_k1_modes_at_head_dim_256(mode):
+    """Gemma's head_dim (256) in modes (b), (c), (d) and the diagonal pair
+    (mode (a) is a case of test_plain_k1_matches_pallas): the plain
+    versions the port's wrappers run on CPU tensors against the Pallas
+    kernel in interpret mode. (b): a 32-row chunk at q_offset 48 over 96 keys; (c) and the
+    diagonal pair: a 64-row block with a local prompt length of 20; (d):
+    keys at shuffled positions, a quarter invalid. Same tolerance (1e-5)
+    for o, prompt mass and, on rows that see a key, lse."""
+    b, hq, hkv, d, s, plen = 1, 2, 1, 256, 96, 24
+    q, k, v = _qkv(d + len(mode), b, s, hq, hkv, d)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    qj, kj, vj = (jnp.asarray(x) for x in (q, k, v))
+    blocks = dict(block_q=32, block_k=64, interpret=True)
+    if mode == "b":
+        outs_j = jfp.flash_chunk_attention_with_prompt_mass(
+            qj[:, 48:80], kj, vj, 48, plen, **blocks)
+        outs_t = tfp.flash_chunk_attention_with_prompt_mass(
+            qt[:, 48:80], kt, vt, 48, plen)
+    elif mode in ("c", "pair"):
+        causal = mode == "pair"
+        outs_j = jfp.flash_pair_attention(qj[:, :64], kj[:, :64], vj[:, :64],
+                                          jnp.int32(20), causal, **blocks)
+        outs_t = tfp.flash_pair_attention(qt[:, :64], kt[:, :64], vt[:, :64],
+                                          20, causal)
+    else:
+        rng = np.random.default_rng(5)
+        pos = rng.permutation(s).astype(np.int32)
+        pos[rng.random(s) < 0.25] = tfp.POS_SENTINEL
+        outs_j = jfp.flash_positioned_attention(
+            qj[:, 64:], kj, vj, jnp.asarray(pos[None]), 64, plen, **blocks)
+        outs_t = tfp.flash_positioned_attention(
+            qt[:, 64:], kt, vt, torch.from_numpy(pos[None]), 64, plen)
+    for a, t in zip(outs_j, outs_t, strict=True):
+        a, t = np.asarray(a), t.numpy()
+        assert a.shape == t.shape
+        seen = np.isfinite(a)
+        np.testing.assert_array_equal(seen, np.isfinite(t))
+        np.testing.assert_allclose(a[seen], t[seen], atol=ATOL)

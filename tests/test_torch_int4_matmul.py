@@ -85,3 +85,29 @@ def test_group_layout_is_checked():
         t4._groups(100, 6)  # 3 groups do not split 100 rows
     with pytest.raises(ValueError, match="whole groups"):
         t4._groups(256, 3)  # odd: the halves cannot share the rows
+
+
+@pytest.mark.parametrize("m,k,n,group_size,dtype,route", [
+    (1, 4096, 12288, 128, torch.bfloat16, "gemv"),
+    (8, 11008, 4096, 128, torch.float32, "gemv"),
+    (9, 4096, 4096, 128, torch.bfloat16, "tensor_core"),
+    (4096, 1088, 1040, 32, torch.bfloat16, "tensor_core"),  # 32-row groups
+    (200, 1104, 528, 128, torch.bfloat16, "tensor_core"),   # one group
+    (200, 1096, 528, 128, torch.bfloat16, "tile"),  # K/2 % 8: off 16 bytes
+    (200, 512, 72, 64, torch.bfloat16, "tile"),     # N % 16 != 0
+    (4096, 4096, 4096, 128, torch.float32, "tile"),  # float32: exact route
+])
+def test_route_by_shape_and_type(m, k, n, group_size, dtype, route):
+    """The wrapper's dispatch by shape and type (what a CUDA tensor would
+    launch), and the GEMV's splits: one wave of at most GEMV_BLOCKS blocks
+    where GEMV_MAX_ROWS packed rows per block allow it, each block at
+    most GEMV_MAX_ROWS rows."""
+    w = tq.quantize_tensor_int4(torch.zeros((k, n)), group_size=group_size)
+    gs, _ = t4._groups(k // 2, w.scale.shape[0])
+    x = torch.zeros((m, k), dtype=dtype)
+    assert t4._route(x, w.q_packed, gs) == route
+    split = t4.gemv_split(m, n, k // 2)
+    assert -(-(k // 2) // split) <= t4.GEMV_MAX_ROWS
+    tiles = -(-n // t4.gemv_block_cols(m))
+    assert (tiles * split <= t4.GEMV_BLOCKS
+            or split == -(-(k // 2) // t4.GEMV_MAX_ROWS))

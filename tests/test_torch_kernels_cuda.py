@@ -121,6 +121,8 @@ def _assert_k1_out(o, o_ref, o_abs):
     (1, 129, 4, 1, 128, None),
     (1, 300, 8, 8, 128, (100,)),  # Llama-2-7B heads: d=128, n_rep = 1
     (2, 1000, 32, 4, 64, (256, 300)),  # plen on a tile edge, straddling
+    (1, 333, 8, 1, 256, (100,)),  # Gemma-2B heads: d=256, n_rep = 8
+    (2, 200, 4, 4, 256, (64, 130)),  # Gemma-7B's d=256 at n_rep = 1
 ])
 def test_k1_matches_plain(cuda, dtype, b, s, hq, hkv, d, plens):
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -156,6 +158,7 @@ def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device, pad=0):
     (1, 333, 32, 4, 64),      # TinyLlama's heads
     (2, 150, 8, 8, 128),      # Llama-2-7B's heads
     (1, 77, 4, 2, 16),
+    (1, 300, 8, 1, 256),      # Gemma-2B's heads
 ])
 def test_k1_reads_strided_views(cuda, dtype, b, s, hq, hkv, d):
     """q/k/v as column slices of one fused projection (non-contiguous),
@@ -196,7 +199,7 @@ def test_k1_refuses_views_tma_cannot_read(cuda, fault):
     assert flash_prefill_with_prompt_mass.launches == before
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_k1_float32_takes_the_exact_scalar_route(cuda, d):
     """A float32 CUDA tensor runs the scalar-FMA kernel in float32 (no
     TF32 tensor cores, whose 10-bit significands would miss by about
@@ -229,6 +232,7 @@ def test_k1_float32_takes_the_exact_scalar_route(cuda, d):
     (2, 200, 777, 333, 8, 2, 32, (128, 300)),
     (2, 200, 777, 333, 32, 4, 64, (128, 300)),
     (2, 200, 777, 333, 8, 8, 128, (128, 300)),
+    (2, 200, 777, 333, 8, 1, 256, (128, 300)),
 ])
 def test_k1_chunk_mode_matches_plain(cuda, dtype, b, c, s, q_offset, hq, hkv,
                                      d, plens):
@@ -277,6 +281,8 @@ def _assert_partial_close(part, ref, o_abs):
     (2, 64, 256, 0, 32, 4, 64, "all invalid"),        # the first chunk
     (1, 130, 96, 64, 16, 2, 32, "future keys"),
     (2, 70, 333, 500, 8, 2, 16, "future keys"),       # d=16, ragged N
+    (2, 100, 300, 200, 8, 1, 256, "future keys"),     # Gemma-2B heads
+    (2, 128, 700, 1024, 4, 4, 256, "invalid tiles"),  # d=256, n_rep = 1
 ])
 def test_k1_positioned_mode_matches_plain(cuda, dtype, b, c, n, q_offset,
                                           hq, hkv, d, layout):
@@ -318,6 +324,8 @@ def test_k1_positioned_mode_matches_plain(cuda, dtype, b, c, n, q_offset,
     (False, 1, 100, 77, 8, 8, 128, (0,)),
     (True, 2, 300, 300, 8, 2, 16, (128, 200)),   # plen on / across a tile
     (False, 2, 190, 260, 8, 2, 32, (256, 130)),
+    (True, 2, 150, 150, 8, 1, 256, (64, 100)),   # d=256
+    (False, 1, 100, 170, 4, 4, 256, (30,)),
 ])
 def test_k1_pair_modes_match_plain(cuda, dtype, causal, b, sq, sk, hq, hkv,
                                    d, plens):
@@ -414,6 +422,8 @@ def _decode_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, n_recent, seed):
     ("8/4/2", dict(b=1, s=260, hq=16, hkv=1, d=128, ring=4, n_recent=2)),
     ("8/4/2", dict(b=1, s=700, hq=8, hkv=8, d=128, ring=8, n_recent=3)),
     ("16/8/4", dict(b=2, s=90, hq=2, hkv=2, d=16, ring=4, n_recent=3)),
+    ("8/4/2", dict(b=2, s=700, hq=8, hkv=1, d=256, ring=8, n_recent=5)),
+    ("16/8/4", dict(b=1, s=300, hq=4, hkv=4, d=256, ring=4, n_recent=2)),
 ])
 def test_k2_matches_plain(cuda, dtype, tiers, shape):
     ccfg = {"8/4/2": rt.CompressionConfig(num_layers=4),
@@ -465,6 +475,10 @@ def _pooled_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, steps, seed):
     (4, 32, dict(b=1, s=500, hq=8, hkv=8, d=128)),      # G = 4, n_rep = 1
     (8, 8, dict(b=1, s=260, hq=16, hkv=1, d=128)),      # G = 16
     (16, 0, dict(b=2, s=90, hq=2, hkv=2, d=16)),
+    (4, 0, dict(b=2, s=700, hq=8, hkv=1, d=256)),       # Gemma-2B, G = 1
+    (4, 64, dict(b=2, s=700, hq=8, hkv=1, d=256)),      # G = 4
+    (16, 64, dict(b=1, s=300, hq=4, hkv=4, d=256)),     # G = 4, n_rep = 1
+    (8, 8, dict(b=1, s=260, hq=4, hkv=4, d=256)),       # G = 32
 ])
 def test_k2_pool_and_groups_match_plain(cuda, dtype, pool_bits, group_size,
                                         shape):
@@ -574,7 +588,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     (9, 100, 40, 128),       # single group, ragged K/2 edge
     (1, 100, 37, 128),       # single group, M=1, odd N
     (5, 11008, 256, 128),    # w_down's K: 43 groups per half
-    (300, 4096, 640, 128),   # tiled over several tiles
+    (300, 4096, 640, 128),   # over several tiles (bf16: tensor cores)
 ])
 def test_k3_matches_plain(cuda, dtype, m, k, n, group_size):
     gen = torch.Generator(device=cuda).manual_seed(k + n)
@@ -589,6 +603,69 @@ def test_k3_matches_plain(cuda, dtype, m, k, n, group_size):
     assert out.dtype == dtype and out.shape == (m, n)
     tol = TOL_K3_REL * float(ref.float().abs().max())
     _assert_close(out, ref, tol, floor=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,group_size,bf16_route", [
+    (1, 1088, 4096, 32, "gemv"),           # 32-row groups, K/2 = 544
+    (5, 1152, 1040, 64, "gemv"),           # ragged N past 8 column tiles
+    (8, 11008, 4096, 128, "gemv"),         # M = 8, w_down's K
+    (9, 4096, 4096, 128, "tensor_core"),   # M = 9: one ragged row tile
+    (200, 1088, 1040, 32, "tensor_core"),  # K/2 = 544 (not 64 k), gs 32
+    (200, 4096, 1040, 64, "tensor_core"),  # gs 64, ragged N
+    (200, 1104, 528, 128, "tensor_core"),  # one group of 552 rows
+    (130, 11008, 4096, 128, "tensor_core"),  # w_down: 43 groups per half
+    (200, 1096, 528, 128, "tile"),         # K/2 % 8 != 0: x's high half
+                                           # starts off TMA's 16 bytes
+    (200, 512, 72, 64, "tile"),            # N % 16 != 0
+])
+def test_k3_routes_match_plain(cuda, dtype, m, k, n, group_size, bf16_route):
+    """Every route at ragged M, N and K/2 and every group size the
+    tensor-core route takes (16 / 32-row groups, 64-row multiples, one
+    group), against the plain version; the route taken is counted: M <= 8
+    the GEMV in both types, M > 8 the tensor cores in bf16 where the shape
+    allows, else (and in float32) the scalar tile."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    w = quantize_tensor_int4(_randn(gen, (k, n), torch.float32, cuda)
+                             * k ** -0.5, group_size=group_size)
+    x = _randn(gen, (m, k), dtype, cuda)
+    route = bf16_route if dtype == torch.bfloat16 or m <= 8 else "tile"
+    before = dict(int4_matmul.route_launches)
+    out = int4_matmul(x, w.q_packed, w.scale)
+    torch.cuda.synchronize()
+    assert {r: c - before[r] for r, c in
+            int4_matmul.route_launches.items()} == {
+                r: int(r == route) for r in before}
+    ref = int4_matmul_plain(x, w.q_packed, w.scale)
+    tol = TOL_K3_REL * float(ref.float().abs().max())
+    _assert_close(out, ref, tol, floor=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_gemv_scratch_gives_the_same_bits_on_every_call(cuda, dtype):
+    """The GEMV sums its K splits in the launch through cached scratch
+    (partials and tickets that every call leaves at zero): consecutive
+    calls, and calls on two streams in turn, give bit-identical results,
+    and the same as a fresh process would (the plain version's limit)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = quantize_tensor_int4(_randn(gen, (4096, 12288), torch.float32, cuda)
+                             * 4096 ** -0.5)
+    x = _randn(gen, (1, 4096), dtype, cuda)
+    first = int4_matmul(x, w.q_packed, w.scale)
+    outs = [int4_matmul(x, w.q_packed, w.scale) for _ in range(3)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for i in range(4):
+        stream = streams[i % 2]
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(int4_matmul(x, w.q_packed, w.scale))
+        torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert all(torch.equal(o.view(bits), first.view(bits)) for o in outs)
+    ref = int4_matmul_plain(x, w.q_packed, w.scale)
+    tol = TOL_K3_REL * float(ref.float().abs().max())
+    _assert_close(first, ref, tol, floor=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -259,3 +259,41 @@ def test_unported_paths_raise(runs):
     with pytest.raises(NotImplementedError):
         tl.init_params(0, dataclasses.replace(tcfg, num_experts=4),
                        device="cpu")
+
+
+def test_gemma_switches_and_head_dim_256_match_jax():
+    """A tiny config with Gemma's switches (GeGLU with tanh GELU, (1 + w)
+    norms, embeddings scaled by sqrt(hidden), tied head) and its head_dim
+    of 256, 2 layers, 2 query heads over 1 kv head: prefill_compressed +
+    decode_loop in both packages (JAX jitted, plain paths). Greedy tokens
+    equal for 8 steps, prefill logits within ATOL_LOGITS, kept positions
+    and validity identical and packed codes under MAX_CODE_FLIPS, as for
+    the Llama config above."""
+    kw = dict(num_layers=LAYERS, num_heads=2, num_kv_heads=1, head_dim=256,
+              tie_word_embeddings=True, hidden_act="gelu_tanh",
+              rms_norm_offset=1.0, scale_embeddings=True)
+    jcfg, tcfg = rj.tiny_test_model(**kw), rt.tiny_test_model(**kw)
+    jcc = rj.CompressionConfig(num_layers=LAYERS)
+    tcc = rt.CompressionConfig(num_layers=LAYERS)
+    jp = jl.init_params(jax.random.PRNGKey(2), jcfg)
+    tp = tl.params_from_jax(numpy_tree(jp), device="cpu")
+    ids = np.random.default_rng(2).integers(0, jcfg.vocab_size, (BATCH, 96))
+    steps = 8
+
+    def run_j(p, i):
+        logits, state, _ = jl.prefill_compressed(
+            p, i, jcfg, jcc, max_decode_len=steps + 1, use_flash=False)
+        toks, _ = jl.decode_loop(p, jnp.argmax(logits, -1), state, steps,
+                                 jcfg, jcc, use_fused=False)
+        return logits, state.caches, toks
+
+    j_logits, j_caches, j_toks = jax.jit(run_j)(jp, jnp.asarray(ids))
+    t_logits, t_state, _ = tl.prefill_compressed(
+        tp, torch.from_numpy(ids), tcfg, tcc, max_decode_len=steps + 1)
+    t_caches = t_state.caches
+    t_toks, _ = tl.decode_loop(tp, torch.argmax(t_logits, -1), t_state,
+                               steps, tcfg, tcc)
+    np.testing.assert_allclose(np.asarray(j_logits), t_logits.numpy(),
+                               atol=ATOL_LOGITS)
+    np.testing.assert_array_equal(np.asarray(j_toks), t_toks.numpy())
+    assert_caches_match(j_caches, t_caches, tcc)
