@@ -5,18 +5,22 @@
 Builds the port's CUDA kernels (K1-K4) from
 `realtime_kv_cache_compression_tpu_torch/csrc`, one nvcc per source, all at
 once, and logs each K1 instance's registers, shared memory and spills
-(none allowed in the bf16 tensor-core instances, K1's at head_dim 16-256
-and K3's prefill tile, each of which must hold HGMMA where cuobjdump
-runs). Checks each kernel (K1 in its one-shot mode (a), chunked mode (b),
-positioned mode (d), the diagonal pair and the non-causal pair (c), K2
-over tiers + ring and with the decode pool and scale groups, at the heads
-of TinyLlama, Llama-2-7B, Gemma-2B and Gemma-7B; K3 and K4 at the 7B
-matmul shapes) against its plain PyTorch version, in bf16 and float32,
-with its time, bound and library yardstick (K1: its share of the bound and
-its factor against SDPA; K3 at M=1 also its device time per launch), and
-K1 mode (a) on the model's own activations (TinyLlama, 2 layers, full
-width, prompt 1024, bf16). Then it drives six paths, each with every
-launch count set to 0 just before it and read just after:
+(none allowed in the tensor-core instances: K1's bf16 ones at head_dim
+16-256, K3's prefill tile and K4's, each of which must hold wgmma
+instructions, HGMMA or IGMMA for int8, where cuobjdump runs) and the stack
+frame of every K2 instance. Checks each kernel (K1 in its one-shot mode
+(a), chunked mode (b), positioned mode (d), the diagonal pair and the
+non-causal pair (c), K2 over tiers + ring and with the decode pool and
+scale groups, at the heads of TinyLlama, Llama-2-7B, Gemma-2B and
+Gemma-7B, with its device time per call (one launch: the splits merge
+inside it); K3 and K4 at the 7B matmul shapes, each on the route its shape
+takes) against its plain PyTorch version, in bf16 and float32, with its
+time, bound and library yardstick (K1: its share of the bound and its
+factor against SDPA; K3 and K4 at M=1 also the GEMV's device time per
+launch; K4's yardstick torch._int_mm on the weights as kept and on a
+K-major copy), and K1 mode (a) on the model's own activations (TinyLlama,
+2 layers, full width, prompt 1024, bf16). Then it drives six paths, each
+with every launch count set to 0 just before it and read just after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
@@ -28,7 +32,8 @@ launch count set to 0 just before it and read just after:
   same prompt, tiers and generation, counted once and timed REPEATS_7B
   times, the uncompressed arm, and a profile;
 - the same model under `quantize_params(bits=8, act_quant=True)`: every
-  layer matmul and lm_head through K4;
+  layer matmul and lm_head through K4, counted by route (the prefill's 128
+  layer matmuls on the int8 tensor cores, every M=1 call on the GEMV);
 - TinyLlama again on the ragged, chunked, long-generation path: batch 2
   with lengths (4096, 3000) right-padded to 4096,
   `prefill_compressed_chunked` in 4 chunks of 1024 (K1 mode (b)), then 383
@@ -298,18 +303,22 @@ def phase_environment() -> None:
         f"count {torch.cuda.device_count()}")
 
 
-# The tensor-core kernels phase_build holds to no spill and HGMMA: K1's
-# bf16 instances (3 modes x 5 head dims) and K3's bf16 prefill tile (one
-# instance per k-steps per group partial: 1, 2, 4).
-TC_KERNELS = {"flash_tc_kernel": 15, "int4_tc_kernel": 3}
+# The tensor-core kernels phase_build holds to no spill and wgmma in SASS
+# (HGMMA for bf16, IGMMA for int8): K1's bf16 instances (3 modes x 5 head
+# dims), K3's bf16 prefill tile (one instance per k-steps per group
+# partial: 1, 2, 4) and K4's int8 prefill tile (float32 and bf16 output).
+TC_KERNELS = {"flash_tc_kernel": 15, "int4_tc_kernel": 3,
+              "int8_tc_kernel": 2}
 
 
 def phase_build() -> None:
     """Builds the kernels (one nvcc per source, in parallel), logs ptxas's
     registers, shared memory and spills, and every K1 instance's as the
     runtime reports them; checks that no tensor-core kernel (TC_KERNELS)
-    spills and, where cuobjdump is present, that each instance holds HGMMA
-    (wgmma) instructions.
+    spills and, where cuobjdump is present, that each instance holds wgmma
+    instructions (HGMMA, IGMMA); logs each K2 instance's stack frame and
+    spills (its parameter struct is __grid_constant__, so a runtime
+    segment index reads it in place).
     """
     import shutil
 
@@ -321,12 +330,14 @@ def phase_build() -> None:
     kl = _build.load_library()
     log(f"build: {kl.path.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, one process per source, {kl.build_seconds:.1f} s)")
-    entry, spills = "", []
+    entry, spills, k2_frames = "", [], []
     for line in kl.ptxas_log.splitlines():
         if "Compiling" in line:
             entry = line
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+        if "decode_attention_kernel" in entry and "stack frame" in line:
+            k2_frames.append(line.strip())
         tc = [k for k in TC_KERNELS if k in entry]
         if (tc and "spill" in line
                 and " 0 bytes spill stores, 0 bytes spill loads" not in line):
@@ -339,13 +350,15 @@ def phase_build() -> None:
         if row["dtype"] == "bfloat16" and row["local_bytes"]:
             spills.append(f"{row['mode']} d={row['head_dim']}")
     check(not spills, f"tensor-core instances spill: {spills}")
+    log(f"  K2 instances: {len(k2_frames)}; stack frames / spills: "
+        f"{sorted(set(k2_frames))}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(kl.path)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
     except (OSError, subprocess.SubprocessError) as e:
-        log(f"cuobjdump not run ({e}): HGMMA not checked")
+        log(f"cuobjdump not run ({e}): wgmma not checked")
         return
     hgmma = {}
     name = None
@@ -354,13 +367,13 @@ def phase_build() -> None:
             name = line.split("Function :")[1].strip()
             if any(k in name for k in TC_KERNELS):
                 hgmma[name] = 0
-        elif name in hgmma and "HGMMA" in line:
+        elif name in hgmma and "GMMA" in line:
             hgmma[name] += 1
     for name, n in sorted(hgmma.items()):
-        log(f"  SASS {name}: {n} HGMMA instructions")
+        log(f"  SASS {name}: {n} HGMMA/IGMMA instructions")
     found = {k: sum(k in name for name in hgmma) for k in TC_KERNELS}
     check(found == TC_KERNELS and all(hgmma.values()),
-          f"every tensor-core instance {TC_KERNELS} holds HGMMA: {found}")
+          f"every tensor-core instance {TC_KERNELS} holds wgmma: {found}")
 
 
 def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device):
@@ -540,9 +553,14 @@ def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
                           **bound(cache_storage_bytes(cache) + ring_bytes
                                   + 2 * nbytes(q),
                                   4 * mcfg.num_heads * mcfg.head_dim * n_keys,
-                                  torch.bfloat16)}
+                                  torch.bfloat16),
+                          "device_us": _device_us_per_call(
+                              lambda: fused_decode_attention(
+                                  q, cache, recent, q_pos, ccfg),
+                              match="decode")}
                 log(f"K2 {name} {dtype} layer 0 ({n_keys} keys): kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{ms:.4f} ms per call, device {timing['device_us']:.3f}"
+                    f" us per call, plain {plain_ms:.4f} ms, bound "
                     f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
         del params
     return {"max_abs_err": worst, **timing}
@@ -901,10 +919,15 @@ def phase_k2_pool(device, mcfg, groups, prompt: int = PROMPT,
                                   + 2 * n_ring * nbytes(recent.k[0, 0])
                                   + 2 * nbytes(q),
                                   4 * mcfg.num_heads * mcfg.head_dim * n_keys,
-                                  torch.bfloat16)}
+                                  torch.bfloat16),
+                          "device_us": _device_us_per_call(
+                              lambda: fused_decode_attention(
+                                  q, cache, recent, q_pos, ccfg, pool=pool),
+                              match="decode")}
                 log(f"K2 pool {bits}-bit G={g} {dtype} layer 0 ({n_keys} "
-                    f"keys): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {timing['bound_ms']:.4f} ms "
+                    f"keys): kernel {ms:.4f} ms per call, device "
+                    f"{timing['device_us']:.3f} us per call, plain "
+                    f"{plain_ms:.4f} ms, bound {timing['bound_ms']:.4f} ms "
                     f"({timing['bound_by']})")
         del params
     return {"max_abs_err": worst, **timing}
@@ -962,18 +985,36 @@ def _device_us_per_call(fn, calls: int = 20, match: str = "") -> float:
     """Mean device microseconds per call of `fn` by torch.profiler: the
     kernels whose names hold `match` (every kernel with "") over `calls`
     calls after a warm-up. The CUDA-event time of back-to-back M=1 calls
-    reads the host's enqueue as much as the card; this reads the card."""
+    reads the host's enqueue as much as the card; this reads the card.
+    The calls sit inside an idle margin of `pad` seconds at each end of
+    the session: the profiler keeps only device events it places inside
+    its window, and a session of a millisecond or two came back empty now
+    and then after many sessions in one process (as if the card's clock
+    had drifted off the host's). A session that records none of the
+    kernels is run again with a ten times wider margin, up to three in
+    all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and match in e.name)
+    us = 0.0
+    for attempt, pad in enumerate((0.1, 1.0, 10.0)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name)
+        if us > 0:
+            break
+        other = [e.name[:40] for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        log(f"profiler session {attempt + 1} (margin {pad} s) recorded no "
+            f"'{match}' kernel; {len(other)} other device events "
+            f"{other[:3]}")
     check(us > 0, f"the profiler saw device time of '{match}' kernels")
     return us / calls
 
@@ -1070,63 +1111,111 @@ def phase_k4(device, layers: int, prefill_m: int = PROMPT,
              reps: int = 20) -> dict:
     """K4 against its plain version at every fused Llama-2-7B matmul shape
     and lm_head, M=1 and M=prefill_m, bf16 and float32 outputs: equal bit
-    for bit. Timed in bf16 at both M with its bound, and torch._int_mm plus
-    the same scaling as the library yardstick where it takes the shape."""
+    for bit, each call on the route its shape takes (M=1 the GEMV, M >
+    SMALL_M the int8 tensor cores at these shapes). Timed in bf16 at both M
+    with its bound; at M=1 also the GEMV's device time per launch. The
+    library yardstick is torch._int_mm plus the same scaling, timed on the
+    weights as the port keeps them ([K, N], N-contiguous) and on a K-major
+    copy made once outside the timing (passed as its transposed view, the
+    layout cuBLAS's int8 tensor-core kernels want); library_ms is the
+    faster of the two."""
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.int8_matmul import (
         int8_matmul, int8_matmul_plain)
 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     worst, rows = 0.0, {1: [], prefill_m: []}
-    lm_head = {}
+    lm_head, routes = {}, {}
     for k, n in SHAPES_7B + (LM_HEAD_7B,):
         w = _int8_weight(gen, k, n, device)
+        w_t = w.q.t().contiguous()  # K-major copy for the yardstick only
         for m in (1, prefill_m):
             x_q = torch.randint(-127, 128, (m, k), generator=gen,
                                 device=device, dtype=torch.int8)
             x_s = torch.rand((m,), generator=gen, device=device) / 127 + 1e-4
+            route = "gemv" if m == 1 else "tc"
             for dtype in (torch.bfloat16, torch.float32):
+                before = dict(int8_matmul.route_launches)
                 out = int8_matmul(x_q, w.q, x_s, w.scale, out_dtype=dtype)
+                check(int8_matmul.route_launches[route] == before[route] + 1,
+                      f"K4 M={m} K={k} N={n} {dtype} takes the {route} "
+                      f"route")
                 ref = int8_matmul_plain(x_q, w.q, x_s, w.scale,
                                         out_dtype=dtype)
                 bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
                 same = torch.equal(out.view(bits), ref.view(bits))
                 err = max_err(out, ref)
                 worst = max(worst, err)
-                log(f"K4 M={m} K={k} N={n} {str(dtype)[6:]}: bit-equal "
-                    f"{same}, max abs err {err:.3e}")
+                log(f"K4 M={m} K={k} N={n} {str(dtype)[6:]} ({route}): "
+                    f"bit-equal {same}, max abs err {err:.3e}")
                 check(same, f"K4 M={m} K={k} N={n} {dtype} bit for bit")
                 del ref
+            routes[f"M={m} K={k} N={n}"] = route
+            reps_m = reps if m == 1 else 3
             ms, plain_ms = kernel_and_plain_ms(
                 lambda: int8_matmul(x_q, w.q, x_s, w.scale),
-                lambda: int8_matmul_plain(x_q, w.q, x_s, w.scale),
-                reps if m == 1 else 3)
-            lib = lambda: (torch._int_mm(x_q, w.q).float()  # noqa: E731
-                           * x_s[:, None] * w.scale[None, :]).bfloat16()
-            try:
-                lib()
-                lib_ms = cuda_ms(lib, reps if m == 1 else 3)[1]
-                lib_note = f"{lib_ms:.4f} ms"
-            except RuntimeError as e:  # the yardstick only; never the port
-                lib_ms, lib_note = None, f"refused ({str(e)[:80]})"
-            cost = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                lambda: int8_matmul_plain(x_q, w.q, x_s, w.scale), reps_m)
+            lib_ms = {}
+            for layout, b_op in (("[K, N]", w.q), ("K-major", w_t.t())):
+                lib = lambda: (  # noqa: E731
+                    torch._int_mm(x_q, b_op).float() * x_s[:, None]
+                    * w.scale[None, :]).bfloat16()
+                try:
+                    lib()
+                    lib_ms[layout] = cuda_ms(lib, reps_m)[1]
+                except RuntimeError as e:  # the yardstick only; never the port
+                    lib_ms[layout] = f"refused ({str(e)[:60]})"
+            timed = [v for v in lib_ms.values() if isinstance(v, float)]
+            cost = {"ms": ms, "plain_ms": plain_ms,
+                    "library_ms": min(timed) if timed else None,
+                    "library_ms_by_layout": lib_ms, "route": route,
                     **bound(nbytes(x_q, w.q, x_s, w.scale) + m * n * 2,
                             2 * m * k * n, torch.int8)}
+            device_note = ""
+            if m == 1:
+                cost["device_us"] = _device_us_per_call(
+                    lambda: int8_matmul(x_q, w.q, x_s, w.scale),
+                    match="int8")
+                device_note = (f"; device us per launch {cost['device_us']:.3f}"
+                               f" (bound {cost['bound_ms'] * 1e3:.3f})")
             if (k, n) == LM_HEAD_7B:
                 lm_head[m] = cost
             else:
                 rows[m].append(cost)
-            log(f"K4 M={m} K={k} N={n} bf16: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+            log(f"K4 M={m} K={k} N={n} bf16 ({route}): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
                 f"({cost['bound_by']}, {cost['bound_ms'] / ms:.3f} of it "
-                f"reached); torch._int_mm + scaling {lib_note}")
+                f"reached); torch._int_mm + scaling {lib_ms}{device_note}")
+        del w, w_t
     # lm_head runs at M=1 in decode and in prefill (last position only).
     decode = _per_forward(rows[1], layers, lm_head[1])
     prefill = _per_forward(rows[prefill_m], layers, lm_head[1])
+    lib_layouts = {
+        layout: (None if any(not isinstance(r["library_ms_by_layout"][layout],
+                                            float) for r in rows[prefill_m])
+                 else layers * sum(r["library_ms_by_layout"][layout]
+                                   for r in rows[prefill_m]))
+        for layout in ("[K, N]", "K-major")}
+    # library_ms of the prefill: the faster layout's layer matmuls (128
+    # calls at M=prefill_m); lm_head's one M=1 call has no library call
+    # (torch._int_mm refuses M=1) and is left out of it, so the kernel's
+    # own time over the same 128 calls stands beside it.
+    timed = [v for v in lib_layouts.values() if v is not None]
+    prefill["library_ms"] = min(timed) if timed else None
+    prefill["ms_layer_matmuls"] = layers * sum(r["ms"]
+                                               for r in rows[prefill_m])
+    gemv = [r["device_us"] for r in rows[1]] + [lm_head[1]["device_us"]]
+    device_us = {"mean_4_shapes": sum(gemv[:4]) / 4, "lm_head": gemv[4],
+                 "bound_mean_4_shapes": sum(r["bound_ms"] for r in rows[1])
+                 * 1e3 / 4}
     log(f"K4 per forward ({layers} layers x 4 matmuls + lm_head): decode "
-        f"step {decode}; prefill {prefill}; lm_head at M={prefill_m} "
-        f"(not on the path) {lm_head[prefill_m]}")
+        f"step {decode}; prefill {prefill}, {prefill['bound_ms'] / prefill['ms']:.3f}"
+        f" of its bound; library per prefill by weight layout (layer "
+        f"matmuls) {lib_layouts}; GEMV device us per launch {device_us}; "
+        f"lm_head at M={prefill_m} (not on the path) {lm_head[prefill_m]}")
     return {"max_abs_err": worst, **decode, "per_layer_m1": rows[1],
-            "lm_head_m1": lm_head[1], "prefill": prefill}
+            "lm_head_m1": lm_head[1], "prefill": prefill,
+            "prefill_library_by_layout": lib_layouts,
+            "m1_device_us": device_us, "routes": routes}
 
 
 def _quantized(params, arm: str):
@@ -1393,16 +1482,23 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    routed = [key for key in KERNELS
+              if hasattr(wrapper(key), "route_launches")]
     for key in KERNELS:
         wrapper(key).launches = 0
+    for key in routed:
+        wrapper(key).route_launches = dict.fromkeys(
+            wrapper(key).route_launches, 0)
     logits, state, stats = prefill()
     toks, state = llama.decode_loop(params, torch.argmax(logits, -1), state,
                                     n_steps, mcfg, ccfg)
     torch.cuda.synchronize()
     launches = {key: wrapper(key).launches for key in KERNELS}
+    routes = {key: dict(wrapper(key).route_launches) for key in routed}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     summary = summarize_layer_stats(stats)
-    log(f"{label} launches: {launches} (expect {expect})")
+    log(f"{label} launches: {launches} (expect {expect}); by route "
+        f"{routes}")
     check(launches == expect, f"{label}: launches per kernel")
     check(toks.shape == (1, n_steps) and bool(torch.isfinite(logits).all()),
           f"{label}: output shape and finite logits")
@@ -1442,8 +1538,8 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
             rate_u.append(n_steps / (dec_ms / 1e3))
     log(f"{label} (uncompressed arm), {repeats} timed runs: TTFT ms "
         f"{_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
-    return {"launches": launches, "params": params, "ids": ids,
-            "ccfg": ccfg}
+    return {"launches": launches, "routes": routes, "params": params,
+            "ids": ids, "ccfg": ccfg}
 
 
 def _device_busy_ms(prof) -> float:
@@ -1532,9 +1628,11 @@ def phase_profile(label: str, mcfg, main_run, decode_steps: int = 10,
         f"{_spread(times[1:])}")
 
 
-def run_7b_arm(arm: str, device, mcfg) -> dict:
+def run_7b_arm(arm: str, device, mcfg):
     """Llama-2-7B bf16 random weights from SEED, quantized for `arm`, fused;
-    the main run with its launch counts, then a profile."""
+    the main run with its launch counts, overall and by route (the prefill's
+    128 layer matmuls on the tensor cores, every M=1 call on the GEMV), then
+    a profile. Returns (launches, launches by route)."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
 
     t0 = time.perf_counter()
@@ -1546,16 +1644,23 @@ def run_7b_arm(arm: str, device, mcfg) -> dict:
     expect = {key: 0 for key in KERNELS}
     expect.update(K1=n_layers, K2=n_layers * n_steps)
     if arm == "int4":
-        expect["K3"] = 4 * n_layers * (1 + n_steps)
+        key, tc = "K3", "tensor_core"
+        expect[key] = 4 * n_layers * (1 + n_steps)
+        gemv = 4 * n_layers * n_steps  # lm_head is int8 weight-only
     else:
-        expect["K4"] = (4 * n_layers + 1) * (1 + n_steps)
+        key, tc = "K4", "tc"
+        expect[key] = (4 * n_layers + 1) * (1 + n_steps)
+        gemv = (4 * n_layers + 1) * n_steps + 1  # + lm_head at prefill
     run = phase_main(f"llama2-7b {arm} main run", device, mcfg, params,
                      expect, repeats=REPEATS_7B)
+    routes = run["routes"][key]
+    check(routes == {"gemv": gemv, tc: 4 * n_layers, "tile": 0},
+          f"llama2-7b {arm}: {key} launches by route {routes}")
     phase_profile(f"llama2-7b {arm}", mcfg, run)
     launches = run["launches"]
     del run, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, routes
 
 
 def run_gemma(device, mcfg) -> dict:
@@ -1934,8 +2039,10 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
         device, dataclasses.replace(tiny,
                                     max_position_embeddings=PROMPT + 512))
     launches["gemma_2b"] = run_gemma(device, gemma)
+    routes = {}
     for arm in ("int4", "w8a8"):
-        launches[f"llama2_7b_{arm}"] = run_7b_arm(arm, device, big)
+        launches[f"llama2_7b_{arm}"], routes[arm] = run_7b_arm(arm, device,
+                                                               big)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     def entry(key, result, path, extra=None):
@@ -2045,6 +2152,8 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
         entry("K2", {**k2, "max_abs_err": k2_err}, "llama2_7b_int4", {
             "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, "
                      "tiers + ring, bf16",
+            "kernels_per_call": 1,
+            "device_us_per_call": k2["device_us"],
             "tinyllama": k2_tiny,
             **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
                                           f"state, 8/4/2, tiers + ring, bf16"}
@@ -2058,13 +2167,24 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
                     m, g[m]["K2pool"]["variant"])} for m in g}}}),
         entry("K3", k3, "llama2_7b_int4", {
             "shape": shape_note.format(""), "prefill": k3["prefill"],
+            "launches_by_route": routes["int4"],
             "m1_device_us_per_launch": k3["m1_device_us"],
             "library": "torch._weight_int4pack_mm, same codes, bf16 "
                        "scales"}),
         entry("K4", k4, "llama2_7b_w8a8", {
-            "shape": shape_note.format(" + lm_head"),
+            "shape": shape_note.format(" + lm_head") + (
+                f"; prefill: {big.num_layers} layers x 4 matmuls at M="
+                f"{PROMPT} + lm_head at M=1, its library_ms the "
+                f"{big.num_layers} x 4 layer matmuls alone (beside "
+                f"ms_layer_matmuls)"),
             "prefill": k4["prefill"],
-            "library": "torch._int_mm + scaling (refuses M=1)"}),
+            "prefill_library_ms_by_weight_layout":
+                k4["prefill_library_by_layout"],
+            "m1_device_us_per_launch": k4["m1_device_us"],
+            "routes": k4["routes"],
+            "launches_by_route": routes["w8a8"],
+            "library": "torch._int_mm + scaling, the faster of the [K, N] "
+                       "weights and a K-major copy (refuses M=1)"}),
     ]
     return kernels
 

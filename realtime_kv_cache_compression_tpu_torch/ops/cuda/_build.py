@@ -23,6 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_ROOT = _PACKAGE.parent / "build" / "cuda_kernels"
@@ -34,12 +36,6 @@ ENTRIES = ("flash_prefill_launch", "decode_attention_launch",
 
 # dtype codes shared with csrc/common.cuh.
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-
-# Small-M route of K4 (csrc/int8_matmul.cu, kSmallM and kGemvThreads): up
-# to SMALL_M rows, a split-K GEMV whose blocks cover GEMV_COLUMNS columns
-# (256 threads x 4).
-SMALL_M = 8
-GEMV_COLUMNS = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,12 +126,25 @@ def launch(name: str, params: ctypes.Structure, stream: int) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
 
 
-def split_k(n: int, k: int) -> int:
-    """K splits of the small-M route over N columns and K reduction rows:
-    about four blocks per SM of the H100's 132, each at least 64 rows of
-    k."""
-    col_blocks = -(-n // GEMV_COLUMNS)
-    return max(1, min(-(-528 // col_blocks), k // 64))
+# Scratch of the kernels that sum split partials inside one launch (K2,
+# and K3's and K4's GEMVs), per (device, stream): float32 partials (K4's
+# GEMV writes int32 in the same bytes), grown as needed, and int32 tickets,
+# which every launch leaves at zero. Launches on one stream run in order,
+# so the kernels share it.
+_SCRATCH = {}
+
+
+def scratch(device, stream: int, floats: int, tickets: int):
+    """(partials of at least `floats` float32, zero tickets of at least
+    `tickets` int32) for launches on `stream`."""
+    key = (device, stream)
+    part, tick = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if tick is None or tick.numel() < tickets:
+        tick = torch.zeros(tickets, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (part, tick)
+    return part, tick
 
 
 def dtype_code(dtype) -> int:

@@ -7,18 +7,18 @@ the tier pools, the quantized (or raw 16-bit) decode pool, the recent ring,
 and one or more scale groups per head (any group size of at least 8 that
 divides head_dim). The CUDA source is `csrc/decode_attention.cu`.
 
-Bound on the H100: bytes. Per kv head and stored token the kernel reads
-D * bits / 8 code bytes for K and for V, plus 16 bytes of float32 scale
-and zero point per scale group; at 2 bits, D = 64 and one group the scales
-weigh as much as the codes. With G > 1 groups each block keeps the V
-scales of its 128 tokens in shared memory as [G][128] rows (16 KB at
-G = 16, 32 KB at G = 32 and head_dim 256), and every code is dequantized
-in registers before its products.
-The TPU kernel walks all pools in one program per batch row; on a GPU that
-is one busy SM, so this kernel splits every pool into 128-token ranges over
-a (split, kv head, batch) grid and merges the partial softmax states by
-log-sum-exp in a second small kernel. At the main path's sizes a layer's
-cache is about a megabyte, so launch latency, not bandwidth, sets its time.
+Bound on the H100: bytes, and at the main path's sizes (0.3-13 MB per
+layer) the launch and the chain of dependent loads in a block. The grid is
+(splits, kv heads, batch): `_plan_splits` cuts every segment into ranges
+of whole tiles, as few tiles a split as keep a layer within TARGET_BLOCKS
+blocks (at most MAX_SPLITS_PER_HEAD per batch row and kv head); a block
+stages its rows tile by tile into shared memory (`_tile_rows`, within the
+limits the library reports through `decode_attention_limits`), reads
+each packed byte row once for all the tokens it holds, and the last block
+of each (batch row, kv head) merges the splits' partial softmax states by
+log-sum-exp in the same launch. Its scratch (partials and tickets) is
+cached per device and stream (`_build.scratch`); a call allocates only
+its output.
 
 A CPU tensor takes the plain version, `decode_attention_plain`
 (dequantize the tiers and the pool, then `attention_over_tokens`). A CUDA
@@ -28,6 +28,7 @@ tensor launches the kernel or raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,9 +40,29 @@ from ..attention import attention_over_tokens
 from . import _build
 
 _HEAD_DIMS = (16, 32, 64, 128, 256)
-_SPLIT_TOKENS = 128  # kTile in csrc/decode_attention.cu
 _MAX_REP = 16
 _MAX_SEGMENTS = 5  # kMaxSegments: HIGH, MID, LOW, decode pool, ring
+# The split plan: blocks a layer aims at, splits per (row, kv head).
+TARGET_BLOCKS = 264     # two blocks per SM of the H100's 132
+MAX_SPLITS_PER_HEAD = 32
+
+
+class DecodeLimits(ctypes.Structure):
+    """Mirror of `DecodeLimits` in csrc/decode_attention.cu: a tile's
+    tokens, bytes of K rows (and of V rows) and tokens x scale groups (G >
+    1), each at most; splits per (batch row, kv head) the kernel takes."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "tile_tokens", "tile_bytes", "grouped_scales", "max_splits")]
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_limits() -> DecodeLimits:
+    """The limits the built kernel holds tiles and splits to. Builds the
+    library if needed."""
+    lim = DecodeLimits()
+    _build.load_library().lib.decode_attention_limits(ctypes.byref(lim))
+    return lim
 
 
 class DecodeSegment(ctypes.Structure):
@@ -53,7 +74,7 @@ class DecodeSegment(ctypes.Structure):
                 + [("rows", ctypes.c_longlong)]
                 + [(n, ctypes.c_int) for n in (
                     "n", "bits", "chunk", "rows_per_chunk", "split_start",
-                    "n_splits")])
+                    "n_splits", "rows_per_split", "tile_rows")])
 
 
 class DecodeParams(ctypes.Structure):
@@ -61,7 +82,8 @@ class DecodeParams(ctypes.Structure):
 
     _fields_ = ([("seg", DecodeSegment * _MAX_SEGMENTS)]
                 + [(n, ctypes.c_void_p) for n in (
-                    "q", "q_pos", "part_acc", "part_m", "part_l", "out")]
+                    "q", "q_pos", "part_acc", "part_m", "part_l", "ticket",
+                    "out")]
                 + [(n, ctypes.c_int) for n in (
                     "n_seg", "total_splits", "B", "Hkv", "rep", "D",
                     "dtype", "G", "gshift")]
@@ -101,11 +123,22 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.is_contiguous() and t.data_ptr() % 16 == 0
 
 
+def _tile_rows(bits: int, row_bytes: int, groups: int,
+               lim: DecodeLimits) -> int:
+    """Byte rows of a segment one tile holds: at most lim.tile_tokens
+    tokens (8 / bits per packed row), lim.tile_bytes of K rows, and, with
+    G > 1 scale groups, lim.grouped_scales tokens x groups."""
+    per = 1 if bits == 16 else 8 // bits
+    tokens = (lim.tile_tokens if bits == 16 or groups == 1
+              else min(lim.tile_tokens, lim.grouped_scales // groups))
+    return max(1, min(tokens // per, lim.tile_bytes // row_bytes))
+
+
 def _segment(seg: DecodeSegment, k, v, scales, pos, valid, length, n, bits,
-             chunk, split_start, dev, q_dtype, groups: int) -> int:
-    """Fill one segment; returns its number of splits. Packed segments'
-    scales must be float32 [B, n, H, groups]."""
-    b = pos.shape[0]
+             chunk, dev, q_dtype, groups: int) -> None:
+    """Fill one segment but its splits. Packed segments' scales must be
+    float32 [B, n, H, groups]."""
+    b, d = pos.shape[0], k.shape[-1]
     for t in (k, v, pos) + tuple(s for s in scales if s is not None):
         _require(t.device == dev, "every tensor must be on q's device")
         _require(_aligned(t), "tensors must be contiguous and 16-byte "
@@ -115,7 +148,9 @@ def _segment(seg: DecodeSegment, k, v, scales, pos, valid, length, n, bits,
     if bits == 16:
         _require(k.dtype == q_dtype and v.dtype == q_dtype,
                  "raw 16-bit segments must have q's dtype")
-        rows_per_chunk = chunk
+        # One token per row: the whole segment is one chunk.
+        chunk = rows_per_chunk = n
+        row_bytes = d * k.element_size()
     else:
         _require(k.dtype == torch.uint8 and v.dtype == torch.uint8,
                  "packed codes must be uint8")
@@ -128,6 +163,7 @@ def _segment(seg: DecodeSegment, k, v, scales, pos, valid, length, n, bits,
             _require(s.dtype == torch.float32 and s.shape == (
                 b, n, k.shape[2], groups), f"scales must be float32 "
                                            f"[B, N, H, {groups}]")
+        row_bytes = d
     seg.k, seg.v = k.data_ptr(), v.data_ptr()
     if scales[0] is not None:
         (seg.k_scale, seg.k_zp, seg.v_scale,
@@ -144,9 +180,31 @@ def _segment(seg: DecodeSegment, k, v, scales, pos, valid, length, n, bits,
     seg.rows = k.shape[1]
     seg.n, seg.bits, seg.chunk = n, bits, chunk
     seg.rows_per_chunk = rows_per_chunk
-    seg.split_start = split_start
-    seg.n_splits = -(-n // _SPLIT_TOKENS)
-    return seg.n_splits
+    seg.tile_rows = _tile_rows(bits, row_bytes, groups, kernel_limits())
+
+
+def _plan_splits(segs, b: int, hkv: int) -> int:
+    """Cut the segments into splits of at most k whole tiles each (ranges
+    of byte rows; a tile holds at most `tile_rows` rows of one chunk):
+    the least k that keeps the splits per (batch row, kv head) within
+    TARGET_BLOCKS / (B Hkv), at most MAX_SPLITS_PER_HEAD (or one per
+    segment). Every block then walks about the same number of tiles, which
+    sets its time. Sets each segment's split_start, rows_per_split and
+    n_splits; returns the total."""
+    target = max(len(segs), min(MAX_SPLITS_PER_HEAD,
+                                TARGET_BLOCKS // (b * hkv)))
+    units = [min(seg.tile_rows, seg.rows_per_chunk) for seg in segs]
+    tiles = [-(-seg.rows // u) for seg, u in zip(segs, units)]
+    k = max(1, -(-sum(tiles) // target))
+    while sum(-(-t // k) for t in tiles) > target:
+        k += 1
+    start = 0
+    for seg, unit, n_tiles in zip(segs, units, tiles):
+        seg.rows_per_split = k * unit
+        seg.n_splits = -(-n_tiles // k)
+        seg.split_start = start
+        start += seg.n_splits
+    return start
 
 
 def _scale_groups(cache: CompressedLayerCache, pool, d: int) -> int:
@@ -191,52 +249,53 @@ def fused_decode_attention(q: torch.Tensor, cache: CompressedLayerCache,
     q = q.contiguous()
     qp = q_pos.reshape(b).to(torch.int32).contiguous()
     p = DecodeParams()
-    n_seg = splits = 0
+    segs = []
     for tier, t in zip((HIGH, MID, LOW), cache.tiers):
         if t.capacity == 0:
             continue
         bits = cfg.tier_bits(tier)
         chunk = t.chunk or cfg.tier_chunk(t.capacity) or t.capacity
-        splits += _segment(
-            p.seg[n_seg], t.k_stored, t.v_stored,
+        segs.append(p.seg[len(segs)])
+        _segment(
+            segs[-1], t.k_stored, t.v_stored,
             (None,) * 4 if bits == 16 else (t.k_scale, t.k_zp, t.v_scale,
                                             t.v_zp),
-            t.positions, t.valid, None, t.capacity, bits, chunk, splits,
-            dev, q.dtype, groups)
-        n_seg += 1
+            t.positions, t.valid, None, t.capacity, bits, chunk, dev,
+            q.dtype, groups)
     if pool is not None and pool.n_blocks:
         # Each block was packed on its own: the chunk is the block.
-        splits += _segment(
-            p.seg[n_seg], pool.k_stored, pool.v_stored,
+        segs.append(p.seg[len(segs)])
+        _segment(
+            segs[-1], pool.k_stored, pool.v_stored,
             (None,) * 4 if pool.bits == 16 else (
                 pool.k_scale, pool.k_zp, pool.v_scale, pool.v_zp),
             pool.positions, pool.valid, None, pool.capacity, pool.bits,
-            pool.block_tokens, splits, dev, q.dtype, groups)
-        n_seg += 1
+            pool.block_tokens, dev, q.dtype, groups)
     if recent.capacity:
-        splits += _segment(
-            p.seg[n_seg], recent.k, recent.v, (None,) * 4, recent.positions,
-            None, recent.length, recent.capacity, 16, recent.capacity,
-            splits, dev, q.dtype, groups)
-        n_seg += 1
-    _require(n_seg > 0, "nothing to attend over")
+        segs.append(p.seg[len(segs)])
+        _segment(
+            segs[-1], recent.k, recent.v, (None,) * 4, recent.positions,
+            None, recent.length, recent.capacity, 16, recent.capacity, dev,
+            q.dtype, groups)
+    _require(segs, "nothing to attend over")
+    splits = _plan_splits(segs, b, hkv)
     rep = hq // hkv
-    part_acc = torch.empty((b, hkv, splits, rep, d), dtype=torch.float32,
-                           device=dev)
-    part_m = torch.empty((b, hkv, splits, rep), dtype=torch.float32,
-                         device=dev)
-    part_l = torch.empty_like(part_m)
+    rep_inst = 1 << (rep - 1).bit_length()  # the kernel instance's n_rep
+    n_part = b * hkv * splits * rep_inst
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part, ticket = _build.scratch(dev, stream, n_part * (d + 2), b * hkv)
     out = torch.empty_like(q)
     p.q, p.q_pos, p.out = q.data_ptr(), qp.data_ptr(), out.data_ptr()
-    p.part_acc, p.part_m = part_acc.data_ptr(), part_m.data_ptr()
-    p.part_l = part_l.data_ptr()
-    p.n_seg, p.total_splits, p.B, p.Hkv, p.rep, p.D = (n_seg, splits, b, hkv,
-                                                       rep, d)
+    p.part_acc = part.data_ptr()
+    p.part_m = p.part_acc + 4 * n_part * d
+    p.part_l = p.part_m + 4 * n_part
+    p.ticket = ticket.data_ptr()
+    p.n_seg, p.total_splits, p.B, p.Hkv, p.rep, p.D = (len(segs), splits, b,
+                                                       hkv, rep, d)
     p.dtype = _build.dtype_code(q.dtype)
     p.G, p.gshift = groups, (d // groups).bit_length() - 1
     p.sm_scale = 1.0 / d ** 0.5
-    _build.launch("decode_attention_launch", p,
-                  torch.cuda.current_stream(dev).cuda_stream)
+    _build.launch("decode_attention_launch", p, stream)
     fused_decode_attention.launches += 1
     return out
 

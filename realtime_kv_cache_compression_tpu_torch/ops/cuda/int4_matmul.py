@@ -8,7 +8,8 @@ type (`_route`, counted in `int4_matmul.route_launches`):
 
 - "gemv", M <= 8 (decode), any type: a split-K GEMV bound by the packed
   bytes, its splits summed in the same launch by the last block of each
-  column tile (scratch from `_gemv_scratch`, cached per device and stream);
+  column tile (scratch from `_build.scratch`, cached per device and
+  stream);
 - "tensor_core", M > 8 in bf16 where TMA can read the operands and each
   64-row step of packed rows holds whole scale groups (`_tensor_core_ok`):
   wgmma tiles bound by operations;
@@ -137,23 +138,6 @@ def gemv_split(m: int, n: int, kh: int) -> int:
     return max(split, -(-kh // GEMV_MAX_ROWS))
 
 
-# GEMV scratch per (device, stream): float32 partials, grown as needed,
-# and int32 tickets per column tile, which every call leaves at zero.
-_SCRATCH = {}
-
-
-def _gemv_scratch(device, stream: int, partial: int, tickets: int):
-    key = (device, stream)
-    part, tick = _SCRATCH.get(key, (None, None))
-    if part is None or part.numel() < partial:
-        part = torch.empty(max(partial, 1), dtype=torch.float32,
-                           device=device)
-    if tick is None or tick.numel() < tickets:
-        tick = torch.zeros(tickets, dtype=torch.int32, device=device)
-    _SCRATCH[key] = (part, tick)
-    return part, tick
-
-
 def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """[M, K] x (half-split packed [K/2, N] uint8, [n_g, N] float32 group
@@ -170,8 +154,8 @@ def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
     if route == "gemv":
         split = gemv_split(m, n, kh)
         if split > 1:
-            partial, ticket = _gemv_scratch(x.device, stream, split * m * n,
-                                            -(-n // gemv_block_cols(m)))
+            partial, ticket = _build.scratch(x.device, stream, split * m * n,
+                                             -(-n // gemv_block_cols(m)))
     p = Int4MatmulParams(
         x=x.data_ptr(), q=q_packed.data_ptr(), scale=scale.data_ptr(),
         out=out.data_ptr(),

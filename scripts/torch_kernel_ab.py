@@ -9,11 +9,15 @@ trees are measured in the order given, each in a fresh process that
 imports the package from that tree and builds its kernels there, so list
 them as A B B A to spread drift over both. Needs one CUDA device.
 
-Per tree, on the earlier paths (no decode pool, one scale group):
+Per tree:
 - K2 over tiers + ring on layer 0 of 2-layer 4096-token states at
-  TinyLlama's and Llama-2-7B's widths, bf16, 8/4/2 tiers after 5 decode
-  steps: ms per wrapper call (CUDA events over back-to-back calls) and
-  device us per split-kernel launch (torch.profiler);
+  TinyLlama's, Llama-2-7B's and Gemma-2B's (head_dim 256) widths, bf16,
+  8/4/2 tiers after 5 decode steps: ms per wrapper call (CUDA events over
+  back-to-back calls), device us per call (every kernel of the call, by
+  torch.profiler) and kernels per call;
+- K2 with the decode pool and G > 1 scale groups (4-bit pool of 4 blocks
+  over a 64-token ring, B=2 with lengths 4096 and 3000, after 200 steps)
+  at TinyLlama's (G=2) and Llama-2-7B's (G=4) widths: device us per call;
 - K1 mode (a), B=1 S=4096, bf16, at both widths: ms per call;
 - K1's other modes at chip_smoke.py's shapes, bf16, at both widths: mode
   (b), B=2, chunks of 1024 over a 4096-key buffer at offsets 0-3072 (ms
@@ -26,6 +30,9 @@ Per tree, on the earlier paths (no decode pool, one scale group):
   bf16 x): one decode step's 128 calls at M=1 (ms, CUDA events) and the
   mean device us per call of the int4 kernels (torch.profiler), and one
   prefill's 128 calls at M=4096 (ms);
+- K4 (W8A8) at the same shapes, bf16 output: the mean device us per call
+  of the int8 kernels at M=1 (every kernel of the call) and one prefill's
+  128 calls at M=4096 (ms);
 - TinyLlama at full depth, prompt 4096, 127 decode steps: TTFT and decode
   tok/s, medians of 3 timed runs after a warm-up.
 Prints one JSON line per tree and a table at the end.
@@ -59,6 +66,7 @@ def measure(tree: str) -> dict:
 
     from realtime_kv_cache_compression_tpu_torch import (
         LLAMA2_7B, TINYLLAMA_1_1B, CompressionConfig)
+    from realtime_kv_cache_compression_tpu_torch.config import GEMMA_2B
     from realtime_kv_cache_compression_tpu_torch.models import llama
     from realtime_kv_cache_compression_tpu_torch.ops.cuda import _build
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
@@ -151,7 +159,41 @@ def measure(tree: str) -> dict:
     out["k3_prefill_ms"] = prefill_ms
     torch.cuda.empty_cache()
 
-    width = {"tinyllama": TINYLLAMA_1_1B, "llama2_7b": LLAMA2_7B}
+    def device_us_per_call(call, calls=100):
+        """(device us per call, kernels per call) of `call`."""
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return (sum(e.time_range.elapsed_us() for e in ev) / calls,
+                len(ev) / calls)
+
+    # K4: per forward of Llama-2-7B W8A8, 32 layers x the four matmuls.
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.int8_matmul \
+        import int8_matmul
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    prefill_ms, device_us = 0.0, []
+    for k, n in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)):
+        w_q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device=dev) / 127 + 1e-4
+        x1, xp = (torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                                dtype=torch.int8) for m in (1, PROMPT))
+        s1, sp = (torch.rand((m,), generator=gen, device=dev) / 127 + 1e-4
+                  for m in (1, PROMPT))
+        prefill_ms += 32 * cuda_ms(lambda: int8_matmul(xp, w_q, sp, ws), 3)
+        device_us.append(device_us_per_call(lambda: int8_matmul(x1, w_q, s1, ws),
+                                   20)[0])
+        del w_q, x1, xp
+    out["k4_m1_device_us"] = sum(device_us) / len(device_us)
+    out["k4_prefill_ms"] = prefill_ms
+    torch.cuda.empty_cache()
+
+    width = {"tinyllama": TINYLLAMA_1_1B, "llama2_7b": LLAMA2_7B,
+             "gemma_2b": GEMMA_2B}
     for name, base in width.items():
         mcfg = dataclasses.replace(base, num_layers=2,
                                    max_position_embeddings=PROMPT
@@ -172,17 +214,35 @@ def measure(tree: str) -> dict:
         k2 = lambda: fused_decode_attention(  # noqa: E731
             q, cache, recent, q_pos, ccfg)
         out[f"k2_{name}_ms"] = [cuda_ms(k2, 200) for _ in range(3)]
-        k2()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(100):
-                k2()
-            torch.cuda.synchronize()
-        split = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and "decode_split_kernel" in e.name]
-        out[f"k2_{name}_split_us"] = (sum(split) / len(split)
-                                      if split else None)
+        (out[f"k2_{name}_device_us"],
+         out[f"k2_{name}_kernels"]) = device_us_per_call(k2)
+        del state, cache, recent
+        if name != "gemma_2b":
+            # The decode pool and G > 1 groups at the chunked path's batch.
+            groups = 2 if name == "tinyllama" else 4
+            pccfg = CompressionConfig(
+                num_layers=2, quant_group_size=mcfg.head_dim // groups,
+                decode_pool_blocks=4, decode_pool_bits=4)
+            lengths = torch.tensor([PROMPT, 3000], device=dev)
+            ids2 = torch.randint(0, mcfg.vocab_size, (2, PROMPT),
+                                 generator=gen, device=dev)
+            logits, state, _ = llama.prefill_compressed(
+                params, ids2, mcfg, pccfg, max_decode_len=64,
+                lengths=lengths)
+            _, state = llama.decode_loop(params, torch.argmax(logits, -1),
+                                         state, 200, mcfg, pccfg)
+            q2 = torch.randn((2, 1, mcfg.num_heads, mcfg.head_dim),
+                             generator=gen, device=dev).to(torch.bfloat16)
+            q2_pos = state.position[:, None]
+            c2, r2, p2 = state.caches[0], state.recents[0], state.pools[0]
+            out[f"k2_pool_{name}_device_us"] = device_us_per_call(
+                lambda: fused_decode_attention(  # noqa: E731
+                    q2, c2, r2, q2_pos, pccfg, pool=p2))[0]
+            del state, c2, r2, p2
+        if name == "gemma_2b":
+            del params
+            torch.cuda.empty_cache()
+            continue
         qkv = torch.randn((1, PROMPT, (mcfg.num_heads + 2
                                        * mcfg.num_kv_heads) * mcfg.head_dim),
                           generator=gen, device=dev).to(torch.bfloat16)
@@ -195,7 +255,7 @@ def measure(tree: str) -> dict:
             lambda: flash_prefill_with_prompt_mass(qq, kk, vv, plen), 10)
         out.update({f"{key}_{name}_ms": ms for key, ms in
                     k1_modes(mcfg, plen, gen).items()})
-        del params, state, cache, recent, qkv
+        del params, qkv
         torch.cuda.empty_cache()
 
     mcfg = dataclasses.replace(TINYLLAMA_1_1B,
@@ -235,7 +295,7 @@ def main(argv) -> int:
     rows = []
     for tree in argv:
         res = subprocess.run([sys.executable, __file__, "--measure", tree],
-                             capture_output=True, text=True, timeout=900)
+                             capture_output=True, text=True, timeout=1200)
         sys.stderr.write(res.stderr[-4000:])
         line = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
         if res.returncode or not line:
@@ -246,11 +306,14 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    keys = ("k2_tinyllama_ms", "k2_tinyllama_split_us", "k2_llama2_7b_ms",
-            "k2_llama2_7b_split_us", "k1_tinyllama_ms", "k1_llama2_7b_ms",
+    keys = (*(f"k2_{w}_{m}" for w in ("tinyllama", "llama2_7b", "gemma_2b")
+              for m in ("ms", "device_us", "kernels")),
+            "k2_pool_tinyllama_device_us", "k2_pool_llama2_7b_device_us",
+            "k1_tinyllama_ms", "k1_llama2_7b_ms",
             *(f"{m}_{w}_ms" for m in ("k1b", "k1d", "k1p", "k1c")
               for w in ("tinyllama", "llama2_7b")),
             "k3_decode_step_ms", "k3_m1_device_us", "k3_prefill_ms",
+            "k4_m1_device_us", "k4_prefill_ms",
             "tinyllama_ttft_ms", "tinyllama_decode_tok_s")
     for i, r in enumerate(rows):
         cells = []

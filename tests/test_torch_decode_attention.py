@@ -101,3 +101,61 @@ def test_unported_arguments_raise():
         tda.fused_decode_attention(q_meta, four, rec_t, qpos_t, ct)
     with pytest.raises(ValueError, match="CUDA"):
         tda.fused_decode_attention(q_meta, cache_t, rec_t, qpos_t, ct)
+
+
+@pytest.mark.parametrize("d,elem,groups", [(64, 2, 1), (128, 2, 4),
+                                           (256, 4, 32), (16, 4, 2)])
+def test_tiles_fit_the_kernels_shared_memory(d, elem, groups):
+    """A tile holds at most lim.tile_tokens tokens, lim.tile_bytes of K
+    rows and, with G > 1, lim.grouped_scales tokens x groups, for every
+    segment kind. The limits a CUDA call plans by come from the built
+    library (`kernel_limits`); here two sets stand in for them, the
+    kernel's (kTileTokens, kTileBytes, kGroupedScales, kMaxSplits in the
+    CUDA source) and a tighter one."""
+    for lim in (tda.DecodeLimits(256, 16384, 1024, 64),
+                tda.DecodeLimits(64, 4096, 256, 16)):
+        for bits in (2, 4, 8, 16):
+            per = 1 if bits == 16 else 8 // bits
+            row_bytes = d * elem if bits == 16 else d
+            rows = tda._tile_rows(bits, row_bytes, groups, lim)
+            assert rows >= 1 and per * rows <= lim.tile_tokens
+            assert rows * row_bytes <= lim.tile_bytes
+            if bits != 16:
+                assert per * rows * groups <= lim.grouped_scales
+
+
+@pytest.mark.parametrize("b,hkv,d", [(1, 4, 64), (1, 32, 128), (1, 1, 256),
+                                     (2, 4, 64), (64, 32, 128)])
+def test_split_plan_covers_every_row_in_whole_tiles(b, hkv, d):
+    """Tiers 8/4/2 in chunks of 128 tokens (capacities of a 4096-token
+    prefill) and a 128-token bf16 ring: the splits cover each segment's
+    rows once, cut only between whole tiles, hold about the same number of
+    tiles, and stay within TARGET_BLOCKS / (B Hkv) per (row, kv head) (at
+    most MAX_SPLITS_PER_HEAD, at least one per segment)."""
+    lim = tda.DecodeLimits(256, 16384, 1024, 64)  # the kernel's
+    segs = []
+    for bits, tokens in ((8, 1024), (4, 2048), (2, 1024), (16, 128)):
+        seg = tda.DecodeSegment()
+        per = 1 if bits == 16 else 8 // bits
+        chunk = tokens if bits == 16 else 128
+        seg.rows, seg.bits = tokens // per, bits
+        seg.rows_per_chunk = chunk // per
+        seg.tile_rows = tda._tile_rows(bits, 2 * d if bits == 16 else d, 1,
+                                       lim)
+        segs.append(seg)
+    splits = tda._plan_splits(segs, b, hkv)
+    target = max(len(segs), min(tda.MAX_SPLITS_PER_HEAD,
+                                tda.TARGET_BLOCKS // (b * hkv)))
+    assert len(segs) <= splits <= min(lim.max_splits, target)
+    start, tiles = 0, set()
+    for seg in segs:
+        unit = min(seg.tile_rows, seg.rows_per_chunk)
+        assert seg.split_start == start
+        assert seg.rows_per_split % unit == 0
+        assert (seg.n_splits - 1) * seg.rows_per_split < seg.rows
+        assert seg.n_splits * seg.rows_per_split >= seg.rows
+        tiles.add(seg.rows_per_split // unit)
+        start += seg.n_splits
+    assert start == splits and len(tiles) == 1
+    if target > len(segs):
+        assert splits > target // 2

@@ -97,7 +97,30 @@ def test_split_k_fills_the_card_and_keeps_whole_ranges():
     # Llama-2-7B decode shapes: (K, N) of wqkv, wo, w_gateup, w_down, lm_head.
     for k, n in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
                  (4096, 32000)):
-        split = _build.split_k(n, k)
-        assert 1 <= split <= k // 64
-        assert -(-n // 1024) * split >= 264 or split == k // 64
-    assert _build.split_k(8, 16) == 1
+        for m in (1, 8):
+            split = t8.gemv_split(m, n, k)
+            tiles = -(-n // t8.gemv_block_cols(m))
+            assert -(-k // split) <= t8.GEMV_MAX_ROWS
+            assert (tiles * split <= t8.GEMV_BLOCKS
+                    or split == -(-k // t8.GEMV_MAX_ROWS))
+            assert (tiles * split > t8.GEMV_BLOCKS // 2
+                    or split == k // t8.GEMV_MIN_ROWS)
+    assert t8.gemv_split(1, 8, 16) == 1
+
+
+@pytest.mark.parametrize("m,k,n,route", [
+    (1, 4096, 12288, "gemv"),
+    (8, 11008, 4096, "gemv"),
+    (9, 4096, 4096, "tc"),        # one ragged row tile
+    (4096, 11008, 22016, "tc"),   # w_gateup at prefill length
+    (200, 1104, 528, "tc"),
+    (200, 1096, 528, "tile"),     # K % 16 != 0: TMA cannot read x's rows
+    (200, 512, 72, "tile"),       # N % 16 != 0: no 16-byte W rows
+])
+def test_route_by_shape_and_type(m, k, n, route):
+    """The wrapper's dispatch (what a CUDA tensor would launch): by shape
+    alone, the same route for bf16 and float32 outputs, since the int32
+    sums are exact on every route."""
+    x_q = torch.zeros((m, k), dtype=torch.int8)
+    w_q = torch.zeros((k, n), dtype=torch.int8)
+    assert t8._route(x_q, w_q) == route

@@ -37,7 +37,7 @@ from realtime_kv_cache_compression_tpu_torch.models.quantized_params import (
 from realtime_kv_cache_compression_tpu_torch.ops.attention import (
     chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
-    decode_attention_plain, fused_decode_attention)
+    decode_attention_plain, fused_decode_attention, kernel_limits)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
     POS_SENTINEL, bf16_limit_share, flash_chunk_attention_with_prompt_mass,
     flash_diagonal_pair_attention, flash_full_pair_attention,
@@ -497,6 +497,113 @@ def test_k2_pool_and_groups_match_plain(cuda, dtype, pool_bits, group_size,
     _assert_close(out, ref, TOL_K2_F32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (12, 4), (8, 1),
+                                    (32, 2), (16, 1)])
+@pytest.mark.parametrize("group_size", [0, 16])
+def test_k2_matches_plain_at_every_n_rep_instance(cuda, dtype, hq, hkv,
+                                                  group_size):
+    """n_rep is a template parameter of the kernel (instances 1, 2, 4, 8,
+    16; n_rep 3 takes the 4 instance with one head unread), at G = 1 and
+    G = 4 (16-channel groups at d = 64), tiers, decode pool and ring."""
+    ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=group_size,
+                                decode_pool_blocks=2, decode_pool_bits=4)
+    q, cache, recent, pool, q_pos = _pooled_state(
+        cuda, dtype, ccfg, b=2, s=500, hq=hq, hkv=hkv, d=64, ring=8,
+        steps=30, seed=hq + hkv)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
+    ref = decode_attention_plain(q, cache, recent, q_pos, ccfg, pool=pool)
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_close(out, ref, TOL_K2_F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_gives_the_same_bits_on_every_call(cuda, dtype):
+    """K2 merges its splits in the launch through cached scratch (partials
+    and tickets that every call leaves at zero), in split order:
+    consecutive calls, and calls on two streams in turn, give identical
+    bits."""
+    ccfg = rt.CompressionConfig(num_layers=4)
+    q, cache, recent, q_pos = _decode_state(
+        cuda, dtype, ccfg, b=2, s=2000, hq=32, hkv=4, d=64, ring=16,
+        n_recent=5, seed=3)
+    first = fused_decode_attention(q, cache, recent, q_pos, ccfg)
+    outs = [fused_decode_attention(q, cache, recent, q_pos, ccfg)
+            for _ in range(3)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for i in range(4):
+        stream = streams[i % 2]
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(fused_decode_attention(q, cache, recent, q_pos,
+                                               ccfg))
+        torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert all(torch.equal(o.view(bits), first.view(bits)) for o in outs)
+    _assert_close(first, decode_attention_plain(q, cache, recent, q_pos,
+                                                ccfg), TOL_K2_F32)
+
+
+def test_k2_call_is_one_kernel_launch(cuda):
+    """One `fused_decode_attention` call launches one kernel on the card
+    (the splits merge in the same launch) and allocates only its output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=32,
+                                decode_pool_blocks=2, decode_pool_bits=4)
+    q, cache, recent, pool, q_pos = _pooled_state(
+        cuda, torch.bfloat16, ccfg, b=2, s=700, hq=32, hkv=4, d=64, ring=8,
+        steps=30, seed=5)
+    fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 5, kernels
+    assert all("decode_attention_kernel" in name for name in kernels)
+
+
+def test_k2_plans_by_the_kernels_limits(cuda):
+    """The wrapper plans tiles and splits by the limits the built library
+    reports (kTileTokens, kTileBytes, kGroupedScales, kMaxSplits), kept in
+    the CUDA source alone."""
+    lim = kernel_limits()
+    assert (lim.tile_tokens, lim.tile_bytes, lim.grouped_scales,
+            lim.max_splits) == (256, 16384, 1024, 64)
+
+
+@pytest.mark.parametrize("width", [
+    dict(hidden_size=512, num_heads=8, num_kv_heads=2, head_dim=64),
+    dict(hidden_size=512, num_heads=4, num_kv_heads=4, head_dim=128)])
+def test_decode_step_reads_no_device_value(cuda, width):
+    """A decode step (rope, ring append, K2, MLP, logits) under the sync
+    debug mode: the wrapper plans its splits on the host and reads no
+    device value, so the host never waits for the card."""
+    mcfg = rt.tiny_test_model(num_layers=2, intermediate_size=512, **width)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.fuse_params(llama.init_params(0, mcfg, cuda))
+    ids = torch.randint(0, mcfg.vocab_size, (1, 300), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=8)
+    tok = torch.argmax(logits, -1)
+    llama.decode_step(params, tok, state, mcfg, ccfg)  # warm-up: scratch
+    torch.cuda.synchronize()
+    before = fused_decode_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, state = llama.decode_step(params, tok, state, mcfg, ccfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused_decode_attention.launches == before + mcfg.num_layers
+    assert bool(torch.isfinite(logits).all())
+
+
 def test_pooled_chunked_kernel_path_tokens_equal_plain_path_f32(cuda):
     """Ragged chunked prefill (K1 mode b) + decode past a pool wrap with
     G = 2 (K2 with pool), kernels vs plain versions on the card."""
@@ -687,6 +794,70 @@ def test_k4_matches_plain_bit_for_bit(cuda, dtype, m, k, n):
     ref = int8_matmul_plain(x_q, w_q, xs, ws, out_dtype=dtype)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(out.view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,route", [
+    (1, 4096, 12288, "gemv"),     # wqkv at decode
+    (1, 11008, 4096, "gemv"),     # w_down's K
+    (5, 300, 130, "gemv"),        # ragged K and N: byte loads
+    (8, 4096, 22016, "gemv"),
+    (9, 4096, 4096, "tc"),        # one ragged row tile
+    (17, 4096, 528, "tc"),        # ragged N tile (528 = 2 x 256 + 16)
+    (130, 11008, 4096, "tc"),     # w_down: 86 k-slabs, ragged M
+    (4096, 4096, 4096, "tc"),     # prefill length
+    (200, 1040, 272, "tc"),       # K = 8 slabs + 16: zero-filled slab tail
+    (130, 1096, 528, "tile"),     # K % 16 != 0: TMA cannot read x
+    (200, 512, 72, "tile"),       # N % 16 != 0
+])
+def test_k4_routes_equal_plain_bit_for_bit(cuda, dtype, m, k, n, route):
+    """Every route, ragged M, N and K, against the plain version bit for
+    bit in both output types (int32 sums are exact on every route); the
+    route taken is counted."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x_q = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    xs = torch.rand((m,), generator=gen, device=cuda) / 127 + 1e-4
+    ws = torch.rand((n,), generator=gen, device=cuda) / 127 + 1e-4
+    before = dict(int8_matmul.route_launches)
+    out = int8_matmul(x_q, w_q, xs, ws, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert {r: c - before[r] for r, c in
+            int8_matmul.route_launches.items()} == {
+                r: int(r == route) for r in before}
+    ref = int8_matmul_plain(x_q, w_q, xs, ws, out_dtype=dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_gemv_scratch_gives_the_same_bits_on_every_call(cuda, dtype):
+    """The GEMV sums its K splits in the launch through cached scratch
+    (int32 partials and tickets that every call leaves at zero):
+    consecutive calls, and calls on two streams in turn, give the plain
+    version's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x_q = torch.randint(-127, 128, (2, 4096), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (4096, 12288), generator=gen,
+                        device=cuda, dtype=torch.int8)
+    xs = torch.rand((2,), generator=gen, device=cuda) / 127 + 1e-4
+    ws = torch.rand((12288,), generator=gen, device=cuda) / 127 + 1e-4
+    outs = [int8_matmul(x_q, w_q, xs, ws, out_dtype=dtype)
+            for _ in range(3)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for i in range(4):
+        stream = streams[i % 2]
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(int8_matmul(x_q, w_q, xs, ws, out_dtype=dtype))
+        torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ref = int8_matmul_plain(x_q, w_q, xs, ws, out_dtype=dtype).view(bits)
+    assert all(torch.equal(o.view(bits), ref) for o in outs)
 
 
 def test_k3_k4_take_leading_dims(cuda):
