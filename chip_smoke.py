@@ -19,13 +19,16 @@ time, bound and library yardstick (K1: its share of the bound and its
 factor against SDPA; K3 and K4 at M=1 also the GEMV's device time per
 launch; K4's yardstick torch._int_mm on the weights as kept and on a
 K-major copy), and K1 mode (a) on the model's own activations (TinyLlama,
-2 layers, full width, prompt 1024, bf16). Then it drives six paths, each
-with every launch count set to 0 just before it and read just after:
+2 layers, full width, prompt 1024, bf16). Then it drives these paths,
+each with every launch count set to 0 just before it and read just after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
   tokens, tiers 8/4/2, counted once and timed REPEATS times, plus the
-  uncompressed arm and a torch.profiler breakdown;
+  uncompressed arm and a torch.profiler breakdown; then the sampled decode
+  on the same prefill (temperature 0.8, top-k 50, top-p 0.9, repetition
+  penalty 1.1; 127 steps through K2), with its counts and logprobs checked,
+  top-k 1 held to the greedy tokens, and its tok/s beside greedy;
 - Llama-2-7B (32 layers, hidden 4096, 32/32 heads, d=128), bf16 random
   weights quantized with `quantize_params_streaming(bits=4)` and fused:
   every layer matmul through K3, embed and lm_head int8 weight-only; the
@@ -40,8 +43,7 @@ with every launch count set to 0 just before it and read just after:
   greedy steps over a 64-token ring and a decode pool of 4 blocks at 4
   bits, with 2 scale groups per head (K2 with the pool), so every layer
   flushes its ring 5 times and wraps the pool; counted once, timed
-  REPEATS_NEW times, the uncompressed arm with the same lengths, and a
-  profile;
+  twice, the uncompressed arm with the same lengths, and a profile;
 - TinyLlama on the compressed-prefix chunked path: batch 2 uniform rows
   of 4096, `prefill_compressed_prefix_chunked` in 4 chunks of 1024 (each
   chunk attends over the compressed pools of the earlier ones: K1 mode (d)
@@ -49,6 +51,13 @@ with every launch count set to 0 just before it and read just after:
   the chunk-packed tiers; counted once, timed REPEATS_NEW times beside the
   full-buffer `prefill_compressed_chunked` at the same shape, and a
   profile;
+- TinyLlama with query-guided importance (`importance_source` "query"
+  and "both", window automatic: 256 at 4096, mass pooled over 20 keys)
+  beside the prompt-scored arm: the one-shot prefill (K1 mode (a)) and
+  127 greedy steps (K2) at batch 1, and the chunked prefill (K1 mode (b),
+  window query rows buffered across chunks) at batch 2 with lengths (4096,
+  3000), each arm counted once and timed REPEATS_NEW times in turns, the
+  query mass alone per layer, and a profile of the query-scored prefill;
 - Gemma-2B (18 layers, hidden 2048, 8 query heads over 1 kv head,
   head_dim 256, vocab 256000, GeGLU, (1 + w) norms, scaled embeddings,
   tied head), bf16 random weights from SEED, fused: TinyLlama's traffic
@@ -59,7 +68,10 @@ Before the full runs, each path's kernel path is checked against the plain
 path in float32 at reduced depth (2 layers, full width; Gemma-2B too): equal
 greedy tokens, for the chunked path also chunked against one-shot prefill, and
 for the compressed-prefix path equal kept positions and a single chunk
-against `prefill_compressed`.
+against `prefill_compressed`; for query-guided scoring ("query", "both")
+equal kept positions and tokens, and chunked against one-shot prefill up
+to a near-tie swap. `select_tokens` with the exact greedy scan is timed
+beside the default prefix at S=4096.
 Any failed check exits nonzero. The last line is the device JSON; the line
 before it lists every kernel.
 
@@ -140,7 +152,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 SEED = 0
 PROMPT = 4096
 NEW_TOKENS = 128
-REPEATS = 5
+REPEATS = 3  # the query path's prompt-scored arm times the same run 3 more
 REPEATS_7B = 2
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
@@ -161,6 +173,13 @@ SWAP_TOL = 1e-5       # chunked vs one-shot: a kept-token swap at a tier
 # experiments/chunked_prefix_quality.py): B uniform rows of PROMPT tokens
 # in chunks of CHUNK, no decode pool.
 PREFIX_BATCH = 2
+# Query-guided importance: the observation window automatic (W = T/16,
+# 256 at T = 4096), its mass max-pooled over 20 keys (2 * payload + 4 at
+# payload 8, as experiments/quality_demo.py sets it).
+QUERY_POOL = 20
+QUERY_SOURCES = ("prompt", "query", "both")
+# The sampled decode (top_k 1 at this temperature must give greedy tokens).
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, repetition_penalty=1.1)
 
 
 def log(msg: str) -> None:
@@ -1273,10 +1292,12 @@ def phase_parity(device, mcfg, arm: str = "raw", prompt: int = 1024,
                                f"({arm})")
 
 
-def _kept_swaps(caches_a, caches_b, masses, ccfg, lengths, s) -> list:
+def _kept_swaps(caches_a, caches_b, masses, ccfg, lengths, s,
+                qmasses=None) -> list:
     """Per layer, the tokens kept (per tier and row) by one prefill and not
-    the other, with their importance scores from `masses`: [(layer, tier,
-    row, tokens, scores)]."""
+    the other, with their importance scores from `masses` (and `qmasses`,
+    the query masses, under query-guided scoring): [(layer, tier, row,
+    tokens, scores, paired)]."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
     from realtime_kv_cache_compression_tpu_torch.ops.importance import (
         importance_scores)
@@ -1284,8 +1305,10 @@ def _kept_swaps(caches_a, caches_b, masses, ccfg, lengths, s) -> list:
     plens = llama._prompt_lens(lengths, ccfg, ccfg.prompt_length(s))
     swaps = []
     for li, (ca, cb) in enumerate(zip(caches_a, caches_b)):
-        scores = importance_scores(masses[li], li, s, ccfg.prompt_length(s),
-                                   ccfg, lengths=lengths, prompt_lens=plens)
+        scores = importance_scores(
+            masses[li], li, s, ccfg.prompt_length(s), ccfg, lengths=lengths,
+            prompt_lens=plens,
+            query_mass=None if qmasses is None else qmasses[li])
         for ti, (ta, tb) in enumerate(zip(ca.tiers, cb.tiers)):
             for r in range(lengths.shape[0]):
                 ka = set(ta.positions[r][ta.valid[r]].tolist())
@@ -1359,10 +1382,11 @@ def phase_parity_chunked(device, mcfg, prompt: int = 1024,
 
 
 def _recording_compress(compress_layer_kv, records):
-    """`compress_layer_kv` that records each call's layer, offset, mass and
-    min-max (for the swap rule's scores), then compresses."""
+    """`compress_layer_kv` that records each call's layer, offset, mass,
+    min-max and query mass (for the swap rule's scores), then compresses."""
     def compress(k, v, mass, li, ccfg, mcfg, **kw):
-        records[(li, kw.get("shard_offset", 0))] = (mass, kw.get("minmax"))
+        records[(li, kw.get("shard_offset", 0))] = (
+            mass, kw.get("minmax"), kw.get("query_mass"))
         return compress_layer_kv(k, v, mass, li, ccfg, mcfg, **kw)
     return compress
 
@@ -1417,7 +1441,7 @@ def phase_parity_prefix(device, mcfg, prompt: int = 1024, chunk: int = 256,
                 scores = []
                 for t in toks_x:
                     off = t // chunk * chunk
-                    mass, mm = records[(li, off)]
+                    mass, mm, _ = records[(li, off)]
                     scores.append(float(importance_scores(
                         mass, li, chunk, plen, ccfg, position_offset=off,
                         total_len=prompt, minmax=mm)[r, t - off]))
@@ -1451,6 +1475,93 @@ def phase_parity_prefix(device, mcfg, prompt: int = 1024, chunk: int = 256,
         f"max err {max_err(lg1, lg2):.3e}, kept positions identical {same}")
     check(max_err(lg1, lg2) <= TOL_LOGITS and same,
           "single-chunk prefix path equals prefill_compressed")
+
+
+def _query_ccfg(num_layers: int, source: str):
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    return CompressionConfig(num_layers=num_layers, importance_source=source,
+                             query_window=0, query_mass_pool=QUERY_POOL)
+
+
+def _kept_positions(caches) -> list:
+    """Per layer, tier and row, the sorted kept positions."""
+    return [[[sorted(t.positions[r][t.valid[r]].tolist())
+              for r in range(t.positions.shape[0])] for t in c.tiers]
+            for c in caches]
+
+
+def phase_parity_query(device, mcfg, prompt: int = 1024,
+                       lengths=(1024, 700), chunk: int = 256,
+                       steps: int = 16):
+    """Query-guided scoring in float32 at reduced depth (full width), for
+    "query" and "both", ragged rows: the kernel path (K1 mode (a), K2)
+    against the plain path, both on the card: equal greedy tokens and
+    equal kept positions per layer, tier and row. Then the chunked prefill
+    (kernel path, chunks of `chunk`, window rows buffered in `q_tails`)
+    against the one-shot prefill: equal tokens, and equal kept positions
+    except a swap at a tier boundary between tokens whose scores (from the
+    recorded prompt and query masses) lie within SWAP_TOL."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    ids = torch.randint(0, mcfg.vocab_size, (len(lengths), prompt),
+                        generator=gen, device=device)
+    lens = torch.tensor(lengths, device=device)
+    for source in QUERY_SOURCES[1:]:
+        ccfg = _query_ccfg(mcfg.num_layers, source)
+        runs = {}
+        for kernels in (True, False):
+            logits, state, _ = llama.prefill_compressed(
+                params, ids, mcfg, ccfg, max_decode_len=steps, lengths=lens,
+                use_flash=kernels)
+            kept = _kept_positions(state.caches)
+            toks, _ = llama.decode_loop(params, torch.argmax(logits, -1),
+                                        state, steps, mcfg, ccfg,
+                                        use_fused=kernels)
+            runs[kernels] = (logits, kept, toks.cpu())
+        (lk, kk, tk), (lp, kp, tp) = runs[True], runs[False]
+        log(f"parity {source} f32 ({mcfg.num_layers} layers, hidden "
+            f"{mcfg.hidden_size}, lengths {lengths}, W "
+            f"{ccfg.query_window_for(prompt)}, pool {QUERY_POOL}): prefill "
+            f"logits max err {max_err(lk, lp):.3e}; kept positions equal "
+            f"{kk == kp}; tokens kernel {tk.tolist()} plain {tp.tolist()}")
+        check(kk == kp, f"{source}: kept positions of kernel and plain paths")
+        check(torch.equal(tk, tp), f"{source}: greedy tokens of kernel and "
+                                   f"plain paths")
+
+        records = {}
+        original = llama.compress_layer_kv
+        llama.compress_layer_kv = _recording_compress(original, records)
+        try:
+            logits, state, _ = llama.prefill_compressed_chunked(
+                params, ids, mcfg, ccfg, chunk_size=chunk,
+                max_decode_len=steps, lengths=lens)
+        finally:
+            llama.compress_layer_kv = original
+        masses = [records[(li, 0)][0] for li in range(mcfg.num_layers)]
+        qmasses = [records[(li, 0)][2] for li in range(mcfg.num_layers)]
+        one_shot = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                            max_decode_len=steps,
+                                            lengths=lens)[1]
+        swaps = _kept_swaps(state.caches, one_shot.caches, masses, ccfg,
+                            lens, prompt, qmasses)
+        for li, ti, r, toks_x, scores, paired in swaps:
+            spread = max(scores) - min(scores)
+            log(f"{source} chunked vs one-shot: layer {li} tier {ti} row {r} "
+                f"swaps tokens {toks_x} (scores {scores}, spread "
+                f"{spread:.3e})")
+            check(paired and spread <= SWAP_TOL,
+                  f"{source}: chunked vs one-shot kept positions (boundary "
+                  f"swap rule)")
+        toks, _ = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                    steps, mcfg, ccfg)
+        log(f"{source} chunked (chunk {chunk}) vs one-shot prefill: logits "
+            f"max err {max_err(logits, lk):.3e}, {len(swaps)} boundary "
+            f"swaps, tokens equal {torch.equal(toks.cpu(), tk)}")
+        check(torch.equal(toks.cpu(), tk), f"{source}: greedy tokens of "
+                                           f"chunked and one-shot prefill")
 
 
 def _spread(xs) -> str:
@@ -1972,6 +2083,292 @@ def phase_prefix_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
     return readings["prefix"]["launches"]
 
 
+def _counted_run(label: str, prefill, decode, expect: dict):
+    """One prefill and decode with every launch count set to 0 just before
+    and read just after, held to `expect`; returns (logits, prefill stats,
+    tokens, launches, peak MB, the prefill's kept positions, the decode's
+    ms by CUDA events)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in KERNELS:
+        wrapper(key).launches = 0
+    logits, state, stats = prefill()
+    (toks, state), dec_ms = cuda_ms(lambda: decode(logits, state))
+    launches = {key: wrapper(key).launches for key in KERNELS}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    log(f"{label} launches: {launches} (expect {expect})")
+    check(launches == expect, f"{label}: launches per kernel")
+    check(bool(torch.isfinite(logits).all()), f"{label}: finite logits")
+    return (logits, stats, toks, launches, peak_mb,
+            _kept_positions(state.caches), dec_ms)
+
+
+def phase_query_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
+    """Query-guided importance at full width and depth, beside the
+    prompt-scored arm: `importance_source` "prompt", "query" and "both"
+    (window automatic, W = 256 at T = PROMPT; pool QUERY_POOL), on the
+    one-shot path (prompt PROMPT, batch 1, NEW_TOKENS - 1 greedy steps;
+    K1 mode (a), K2) and the chunked path (batch 2 with LENGTHS
+    right-padded to PROMPT, chunks of CHUNK; K1 mode (b), K2). Each arm is
+    counted once (launches held exactly; kept ratio, byte savings, peak
+    memory), then timed `repeats` times with the arms in turns (TTFT, and
+    on the one-shot path decode tok/s; the chunked form's decode tok/s is
+    its counted run's); the query mass alone is timed per layer on the
+    host clock after a sync; a profile of the query-scored one-shot
+    prefill. Returns the launches per path."""
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        summarize_layer_stats)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.attention import (
+        query_attention_mass, window_attention_mass)
+
+    layers, n = mcfg.num_layers, NEW_TOKENS - 1
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    ids1 = torch.randint(0, mcfg.vocab_size, (1, PROMPT), generator=gen,
+                         device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    ids2 = torch.randint(0, mcfg.vocab_size, (len(LENGTHS), PROMPT),
+                         generator=gen, device=device)
+    lengths = torch.tensor(LENGTHS, device=device)
+    forms = {
+        "one-shot": (ids1, dict(), {"K1": layers}),
+        "chunked": (ids2, dict(lengths=lengths),
+                    {"K1b": layers * PROMPT // CHUNK}),
+    }
+    launches = {}
+    for form, (ids, kw, k1) in forms.items():
+        b = ids.shape[0]
+        arms = {}
+        for source in QUERY_SOURCES:
+            ccfg = _query_ccfg(layers, source)
+            if form == "one-shot":
+                prefill = (lambda c=ccfg: llama.prefill_compressed(
+                    params, ids, mcfg, c, max_decode_len=NEW_TOKENS))
+            else:
+                prefill = (lambda c=ccfg: llama.prefill_compressed_chunked(
+                    params, ids, mcfg, c, chunk_size=CHUNK,
+                    max_decode_len=NEW_TOKENS, **kw))
+            decode = (lambda lo, st, c=ccfg: llama.decode_loop(
+                params, torch.argmax(lo, -1), st, n, mcfg, c))
+            label = f"tinyllama {source} {form}"
+            expect = {key: 0 for key in KERNELS}
+            expect.update(k1, K2=layers * n)
+            logits, stats, toks, counted, peak, kept, dec_ms = _counted_run(
+                label, prefill, decode, expect)
+            check(toks.shape == (b, n), f"{label}: output shape")
+            if source == "prompt":
+                kept_prompt = kept
+            else:
+                shared = sum(len(set(x) & set(y)) for lx, ly in zip(
+                    kept, kept_prompt) for tx, ty in zip(lx, ly)
+                    for x, y in zip(tx, ty))
+                total = sum(len(x) for lx in kept for tx in lx for x in tx)
+                log(f"{label}: {shared / total:.4f} of the kept (position, "
+                    f"tier) pairs are the prompt-scored arm's")
+            summary = summarize_layer_stats(stats)
+            check(0.0 < summary["avg_compression_ratio"] < 1.0,
+                  f"{label}: kept ratio in (0, 1)")
+            if source != "prompt":
+                suffix = "" if form == "one-shot" else "_chunked"
+                launches[f"tinyllama_{source}{suffix}"] = counted
+            arms[source] = dict(prefill=prefill, decode=decode, ttft=[],
+                                rate=[b * n / (dec_ms / 1e3)],
+                                summary=summary, peak=peak)
+        # The arms in turns, the order reversed each time. The chunked
+        # form times its prefill only: its decode tok/s is the counted
+        # run's (one reading), which keeps the script near half its limit.
+        timed_decode = form == "one-shot"
+        for i in range(repeats):
+            order = QUERY_SOURCES if i % 2 == 0 else QUERY_SOURCES[::-1]
+            for source in order:
+                arm = arms[source]
+                (logits, state, _), ms = cuda_ms(arm["prefill"])
+                arm["ttft"].append(ms)
+                if timed_decode:
+                    _, dec_ms = cuda_ms(lambda: arm["decode"](logits, state))
+                    arm["rate"].append(b * n / (dec_ms / 1e3))
+                del state
+        for source in QUERY_SOURCES:
+            arm = arms[source]
+            rates = arm["rate"][1:] if timed_decode else arm["rate"]
+            log(f"tinyllama {source} {form} (B={b}): TTFT ms "
+                f"{_spread(arm['ttft'])}; decode tok/s (all rows"
+                f"{'' if timed_decode else ', the counted run'}) "
+                f"{_spread(rates)}; kept_ratio "
+                f"{arm['summary']['avg_compression_ratio']:.4f}, "
+                f"byte_savings {arm['summary']['avg_memory_savings']:.4f}, "
+                f"peak memory {arm['peak']:.1f} MB")
+        del arms
+
+    # The query mass alone, one layer, on each form's shapes.
+    w = _query_ccfg(layers, "query").query_window_for(PROMPT)
+    dt = llama.model_dtype(mcfg)
+    hq, hkv, d = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    q = torch.randn((1, PROMPT, hq, d), generator=gen, device=device).to(dt)
+    k = torch.randn((1, PROMPT, hkv, d), generator=gen, device=device).to(dt)
+    one = _host_ms(lambda: query_attention_mass(q, k, w, pool=QUERY_POOL))
+    b = len(LENGTHS)
+    tails = torch.randn((b, w, hq, d), generator=gen, device=device).to(dt)
+    k_buf = torch.randn((b, PROMPT, hkv, d), generator=gen,
+                        device=device).to(dt)
+    tail_pos = llama._tail_positions(b, w, PROMPT, lengths, device)
+    key_ok = torch.arange(PROMPT, device=device)[None] < lengths[:, None]
+    fin = _host_ms(lambda: window_attention_mass(
+        tails, tail_pos.clamp(min=0), tail_pos >= 0, k_buf, key_ok,
+        pool=QUERY_POOL))
+    log(f"query mass alone, one layer, W={w}, pool {QUERY_POOL}: one-shot "
+        f"(B=1, S={PROMPT}) host ms {_spread(one)}; chunked finish (B={b}) "
+        f"host ms {_spread(fin)}; per prefill over {layers} layers "
+        f"{sorted(one)[len(one) // 2] * layers:.3f} / "
+        f"{sorted(fin)[len(fin) // 2] * layers:.3f} ms")
+    del q, k, tails, k_buf
+
+    ccfg = _query_ccfg(layers, "query")
+    _profile_window("tinyllama query", "one-shot prefill",
+                    lambda: llama.prefill_compressed(
+                        params, ids1, mcfg, ccfg, max_decode_len=NEW_TOKENS))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_exact_greedy(device, s: int = PROMPT, layer: int = 1) -> None:
+    """`select_tokens` with selection_mode "exact_greedy" (a sequential
+    scan, one step per sorted column) against the default "topk_prefix" on
+    one layer's scores at S=`s`, B=1, host ms after a sync (the first call
+    of each is the warm-up)."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.ops.importance import (
+        importance_scores)
+    from realtime_kv_cache_compression_tpu_torch.ops.quantization import (
+        assign_precision)
+    from realtime_kv_cache_compression_tpu_torch.ops.selection import (
+        select_tokens)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    mass = torch.rand((1, s), generator=gen, device=device)
+    times, kept = {}, {}
+    for mode in ("topk_prefix", "exact_greedy"):
+        ccfg = CompressionConfig(num_layers=22, selection_mode=mode)
+        scores = importance_scores(mass, layer, s, ccfg.prompt_length(s),
+                                   ccfg)
+        labels, _ = assign_precision(scores, ccfg)
+        times[mode] = _host_ms(
+            lambda: select_tokens(scores, labels, layer, ccfg), runs=4)
+        kept[mode] = int(select_tokens(scores, labels, layer,
+                                       ccfg).kept_mask.sum())
+    log(f"select_tokens, one layer, B=1, S={s}: topk_prefix host ms "
+        f"{_spread(times['topk_prefix'])}; exact_greedy host ms "
+        f"{_spread(times['exact_greedy'])}; kept {kept}")
+
+
+def phase_sampled(label: str, device, mcfg, main_run,
+                  repeats: int = 2) -> dict:
+    """The sampled decode on the main run's prefill (its params, prompt and
+    compression): SAMPLING for NEW_TOKENS - 1 steps through K2, counted
+    (launches held exactly; the returned counts a bincount of the first and
+    emitted tokens; every logprob finite and <= 0); top_k 1 at the same
+    temperature, no penalty, against greedy (equal tokens up to an exact
+    tie of two logits); greedy `decode_loop` against `decode_step` +
+    argmax (equal tokens); then greedy and sampled
+    decode timed `repeats` times each, in turns, and a profile of 10
+    sampled steps. Returns the sampled run's launches."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.sampling import (
+        SamplingParams)
+
+    params, ids, ccfg = main_run["params"], main_run["ids"], main_run["ccfg"]
+    layers, n = mcfg.num_layers, NEW_TOKENS - 1
+    sampling = SamplingParams(**SAMPLING)
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    prefill = lambda: llama.prefill_compressed(  # noqa: E731
+        params, ids, mcfg, ccfg, max_decode_len=NEW_TOKENS)
+
+    def sampled(logits, state, sp=sampling, **kw):
+        return llama.decode_loop(params, torch.argmax(logits, -1), state, n,
+                                 mcfg, ccfg, generator=gen, sampling=sp, **kw)
+
+    out = {}
+
+    def counted_decode(logits, state):
+        out["first"] = torch.argmax(logits, -1)
+        toks, state, out["counts"], out["lps"] = sampled(
+            logits, state, return_counts=True, return_logprobs=True)
+        return toks, state
+
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1=layers, K2=layers * n)
+    toks, launches = _counted_run(f"{label} sampled", prefill,
+                                  counted_decode, expect)[2:4]
+    emitted = torch.cat([out["first"][:, None], toks], 1)
+    bincount = torch.stack([torch.bincount(row, minlength=mcfg.vocab_size)
+                            for row in emitted]).to(torch.int32)
+    lps = out["lps"]
+    log(f"{label} sampled {SAMPLING}: tokens {toks[0, :16].tolist()}...; "
+        f"distinct {int(emitted.unique().numel())} of {n + 1}; logprobs "
+        f"min {float(lps.min()):.3f} max {float(lps.max()):.3f}")
+    check(torch.equal(out["counts"], bincount),
+          f"{label}: counts equal a bincount of the first and emitted tokens")
+    check(bool(torch.isfinite(lps).all()) and bool((lps <= 0).all()),
+          f"{label}: logprobs finite and <= 0")
+
+    # top_k 1 without penalties is greedy, except where two logits tie
+    # exactly (bf16 logits; top-k keeps every tied maximum, as the
+    # reference's does): up to the first differing step both runs saw the
+    # same logits, so the two tokens there must have equal logprobs.
+    logits, state, _ = prefill()
+    greedy, _, lp_greedy = llama.decode_loop(
+        params, torch.argmax(logits, -1), state, n, mcfg, ccfg,
+        return_logprobs=True)
+    logits, state, _ = prefill()
+    top1, _, lp_top1 = sampled(
+        logits, state, SamplingParams(temperature=SAMPLING["temperature"],
+                                      top_k=1), return_logprobs=True)
+    differ = (top1 != greedy)[0].nonzero()
+    first = int(differ[0]) if len(differ) else None
+    tie = first is not None and bool(lp_top1[0, first] == lp_greedy[0, first])
+    log(f"{label}: top_k 1 at temperature {SAMPLING['temperature']} vs "
+        f"greedy, tokens equal {first is None}"
+        + ("" if first is None else f"; first differing step {first}, "
+           f"logprobs {float(lp_top1[0, first])} / "
+           f"{float(lp_greedy[0, first])} (an exact tie: {tie})"))
+    check(first is None or tie, f"{label}: top_k 1 gives greedy tokens up "
+                                f"to an exact tie")
+    # Greedy `decode_loop` against the loop it was before sampling came:
+    # `decode_step`, then argmax, n times.
+    logits, state, _ = prefill()
+    tok, manual = torch.argmax(logits, -1), []
+    for _ in range(n):
+        step_logits, state = llama.decode_step(params, tok, state, mcfg, ccfg)
+        tok = torch.argmax(step_logits, -1)
+        manual.append(tok)
+    check(torch.equal(torch.stack(manual, 1), greedy),
+          f"{label}: greedy decode_loop equals decode_step + argmax")
+
+    rates = {"greedy": [], "sampled": []}
+    for i in range(repeats):
+        order = ("greedy", "sampled") if i % 2 == 0 else ("sampled",
+                                                          "greedy")
+        for arm in order:
+            logits, state, _ = prefill()
+            if arm == "greedy":
+                fn = lambda: llama.decode_loop(  # noqa: E731
+                    params, torch.argmax(logits, -1), state, n, mcfg, ccfg)
+            else:
+                fn = lambda: sampled(logits, state)  # noqa: E731
+            _, ms = cuda_ms(fn)
+            rates[arm].append(n / (ms / 1e3))
+    log(f"{label} decode tok/s, {repeats} timed runs each, in turns: greedy "
+        f"{_spread(rates['greedy'])}; sampled {_spread(rates['sampled'])}")
+    logits, state, _ = prefill()
+    _profile_window(label, "sampled decode 10 steps",
+                    lambda: llama.decode_loop(
+                        params, torch.argmax(logits, -1), state, 10, mcfg,
+                        ccfg, generator=gen, sampling=sampling))
+    return launches
+
+
 def run_all(device, tiny, big, gemma, gemma7) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
     line. `tiny`, `big`, `gemma` and `gemma7` are the TinyLlama,
@@ -1983,6 +2380,10 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     heads = lambda cfg: (cfg.num_heads, cfg.num_kv_heads,  # noqa: E731
                          cfg.head_dim)
     t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"elapsed {time.perf_counter() - t0:.1f} s: {what} done")
+
     phase_build()
     k1_tiny = phase_k1(device, (1, PROMPT, tiny.num_heads, tiny.num_kv_heads,
                                 tiny.head_dim))
@@ -2014,14 +2415,19 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
             "K1c": phase_k1_full_pair(device, heads(cfg)),
             "K2": phase_k2(device, two(cfg)),
             "K2pool": phase_k2_pool(device, two(cfg), groups=(1, 4))}
+    mark("K1 and K2 phases")
     k3 = phase_k3(device, big.num_layers)
     k4 = phase_k4(device, big.num_layers)
+    mark("K3 and K4 phases")
     phase_parity(device, two(tiny))
     phase_parity(device, two(gemma))
     for arm in ("int4", "w8a8"):
         phase_parity(device, two(big), arm, prompt=512, new_tokens=8)
     phase_parity_chunked(device, two(tiny))
     phase_parity_prefix(device, two(tiny))
+    phase_parity_query(device, two(tiny))
+    phase_exact_greedy(device)
+    mark("float32 parity phases")
     n_steps = NEW_TOKENS - 1
     tiny_run = phase_main(
         "tinyllama main run", device, tiny,
@@ -2029,16 +2435,25 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
         {**{key: 0 for key in KERNELS}, "K1": tiny.num_layers,
          "K2": tiny.num_layers * n_steps})
     phase_profile("tinyllama", tiny, tiny_run)
-    launches = {"tinyllama": tiny_run["launches"]}
+    launches = {"tinyllama": tiny_run["launches"],
+                "tinyllama_sampled": phase_sampled("tinyllama", device, tiny,
+                                                   tiny_run)}
     del tiny_run
     torch.cuda.empty_cache()
+    mark("tinyllama main and sampled runs")
     launches["tinyllama_chunked"] = phase_chunked_path(
         device, dataclasses.replace(tiny,
-                                    max_position_embeddings=PROMPT + 512))
+                                    max_position_embeddings=PROMPT + 512),
+        repeats=2)
+    mark("tinyllama chunked pooled run")
     launches["tinyllama_prefix"] = phase_prefix_path(
         device, dataclasses.replace(tiny,
                                     max_position_embeddings=PROMPT + 512))
+    mark("tinyllama compressed-prefix run")
+    launches.update(phase_query_path(device, tiny))
+    mark("tinyllama query-guided runs")
     launches["gemma_2b"] = run_gemma(device, gemma)
+    mark("gemma-2b run")
     routes = {}
     for arm in ("int4", "w8a8"):
         launches[f"llama2_7b_{arm}"], routes[arm] = run_7b_arm(arm, device,

@@ -10,8 +10,10 @@ along the slot axis: `empty_layer_cache` preallocates them for the
 compressed-prefix chunked prefill and `update_cache_chunk` writes one
 chunk's pools in place; `concat_layer_caches` and
 `compress_layer_kv_chunked` are the single-device chunked-selection policy.
-Sequence-sharded compression (`axis_name`) is not ported yet (ROADMAP
-Queue 1, item 18).
+`query_mass` feeds query-guided importance (`importance_source` "query" /
+"both"). `summarize_layer_stats` and `summarize_layer_stats_per_row` bring
+the per-layer stats to the host in one transfer. Sequence-sharded
+compression (`axis_name`) is not ported yet (ROADMAP Queue 1, item 18).
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ from ..ops.quantization import (assign_precision, dequantize_tier,
                                 memory_report, quantize_tier)
 from ..ops.selection import select_tokens
 from .kv_cache import CompressedLayerCache, TierCache, model_dtype
+
+
+def identify_prompt_length(seq_len: int, cfg: CompressionConfig) -> int:
+    """Static prompt prefix length for a sequence of seq_len tokens."""
+    return cfg.prompt_length(seq_len)
 
 
 def _gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -49,6 +56,7 @@ def compress_layer_kv(
     total_len: int = None,
     minmax: tuple = None,
     chunk_lengths: torch.Tensor = None,
+    query_mass: torch.Tensor = None,
 ) -> Tuple[CompressedLayerCache, Dict[str, torch.Tensor]]:
     """Compress one layer's prefill K/V into packed tier pools.
 
@@ -65,7 +73,10 @@ def compress_layer_kv(
     chunk (the tier's capacity when it packed as one chunk), so chunks'
     pools concatenate along the slot axis; a chunk shorter than total_len
     selects locally (no anchor growth of the HIGH tier). chunk_lengths: [B]
-    global true lengths, required with minmax on ragged rows.
+    global true lengths, required with minmax on ragged rows. query_mass:
+    optional [B, S] observation-window mass
+    (`ops/attention.query_attention_mass`) for the alpha term when
+    cfg.importance_source is "query" or "both".
     Returns (cache, stats): the layer's `CompressedLayerCache` and a dict of
     per-row statistics with the reference's keys. Sequence sharding
     (`axis_name`) is not ported yet (ROADMAP Queue 1, item 18).
@@ -76,7 +87,7 @@ def compress_layer_kv(
         raise ValueError("chunked-minmax ragged compression needs "
                          "chunk_lengths (global per-row true lengths)")
     total = total_len if total_len is not None else seq_len
-    prompt_len = cfg.prompt_length(total)
+    prompt_len = identify_prompt_length(total, cfg)
     group_size = cfg.quant_group_size or head_dim
     store_dtype = model_dtype(model_cfg)
 
@@ -85,7 +96,7 @@ def compress_layer_kv(
         prompt_mass, layer_idx, seq_len, prompt_len, cfg,
         lengths=chunk_lengths if chunk_lengths is not None else lengths,
         prompt_lens=prompt_lens, position_offset=shard_offset,
-        total_len=total, minmax=minmax)
+        total_len=total, minmax=minmax, query_mass=query_mass)
     labels, prec_stats = assign_precision(scores, cfg)
     # A chunk covering the whole sequence is the plain path, exactly.
     local_window = sharded and seq_len != total
@@ -378,3 +389,22 @@ def summarize_layer_stats(layer_stats: List[Dict[str, torch.Tensor]]
     ki = {k: i for i, k in enumerate(keys)}
     return _build_summary(stacked[:, :, 0], stacked[:, :, 1], ki,
                           len(layer_stats))
+
+
+def summarize_layer_stats_per_row(layer_stats: List[Dict[str, torch.Tensor]],
+                                  batch: int) -> List[Dict[str, float]]:
+    """Per-row summaries (a stat with one value for the batch is given to
+    every row), from one [L, K, B] float32 transfer to the host."""
+    if not layer_stats:
+        return [{} for _ in range(batch)]
+    keys = tuple(sorted(layer_stats[0].keys()))
+    rows = []
+    for s in layer_stats:
+        vals = [torch.as_tensor(s[k]).float() for k in keys]
+        rows.append(torch.stack([
+            (x.reshape(-1)[:batch] if x.dim() else x).expand(batch)
+            for x in vals]))
+    arr = torch.stack(rows).cpu().numpy().astype(np.float32)  # [L, K, B]
+    ki = {k: i for i, k in enumerate(keys)}
+    return [_build_summary(arr[:, :, b], arr[:, :, b], ki, len(layer_stats))
+            for b in range(batch)]

@@ -7,13 +7,15 @@ with static slot capacity, codes packed sub-byte along the token axis
 original token positions for exact RoPE and causality. Decode attends over
 the pools plus an uncompressed ring of decode-time tokens (`RecentCache`)
 and, for generations longer than the ring, the quantized decode pool
-(`DecodePool`) that full rings flush into.
+(`DecodePool`) that full rings flush into. `cache_storage_bytes` and
+`layer_cache_report` count the bytes a layer's pools hold against the dense
+cache's (`uncompressed_kv_bytes`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -273,3 +275,23 @@ def cache_storage_bytes(cache: CompressedLayerCache) -> int:
                     t.v_zp, t.positions, t.valid):
             total += arr.numel() * arr.element_size()
     return total
+
+
+def uncompressed_kv_bytes(batch: int, seq_len: int, model_cfg: ModelConfig,
+                          bytes_per_el: int = 2) -> int:
+    """Bytes a dense bf16 K/V cache would hold for the same tokens."""
+    return (2 * batch * seq_len * model_cfg.num_kv_heads * model_cfg.head_dim
+            * bytes_per_el)
+
+
+def layer_cache_report(cache: CompressedLayerCache, batch: int, seq_len: int,
+                       model_cfg: ModelConfig) -> Dict[str, float]:
+    """One layer's allocated storage against the dense cache's."""
+    compressed = cache_storage_bytes(cache)
+    original = uncompressed_kv_bytes(batch, seq_len, model_cfg)
+    return {
+        "compressed_bytes": compressed,
+        "original_bytes": original,
+        "allocated_ratio": compressed / original,
+        "allocated_savings": 1.0 - compressed / original,
+    }

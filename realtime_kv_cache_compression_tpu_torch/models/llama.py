@@ -8,10 +8,15 @@ prompt chunk by chunk and compresses once at the end; both take ragged
 right-padded batches (`lengths`). `prefill_compressed_prefix_chunked`
 compresses each chunk as soon as its attention completes, so later chunks
 attend over the compressed pools of earlier ones (uniform batches).
-`decode_loop` decodes greedily over those pools plus an uncompressed
-recent ring and, with `decode_pool_blocks > 0`, a quantized decode pool
-that full rings flush into, so a generation may outlive the ring. The
-baseline arm is `prefill_uncompressed` + `decode_loop_uncompressed`.
+With `importance_source` "query" or "both" the prefills also score each
+layer by the observation-window mass of its last queries (the chunked
+prefill buffers those query rows in `q_tails`). `decode_loop` decodes over
+those pools plus an uncompressed recent ring and, with
+`decode_pool_blocks > 0`, a quantized decode pool that full rings flush
+into, so a generation may outlive the ring; greedily, or sampled
+(`ops/sampling.py`: temperature, top-k, top-p, min-p and penalties, noise
+from a `torch.Generator`). The baseline arm is `prefill_uncompressed` +
+`decode_loop_uncompressed`.
 
 Kernels: with `use_flash` the prefill attention runs K1
 (ops/cuda/flash_prefill.py: mode (a) one-shot, mode (b) per chunk, mode
@@ -25,7 +30,7 @@ act-quant `QuantizedTensor` K4 (ops/cuda/int8_matmul.py). The reference's
 rings, the decode pools (and the baseline arm's dense cache) in place, as
 chunked prefill does its K/V buffers.
 
-Not ported yet: sampling, query-guided importance, MoE (and its
+Not ported yet: beam search, speculative decoding, MoE (and its
 quantized experts) and the other model families' options beyond the
 config fields themselves.
 """
@@ -49,7 +54,8 @@ from ..config import CompressionConfig, ModelConfig
 from ..ops.attention import (attention_over_tokens,
                              chunk_attention_with_prompt_mass,
                              positioned_attention_with_prompt_mass,
-                             prefill_attention_with_prompt_mass)
+                             prefill_attention_with_prompt_mass,
+                             query_attention_mass, window_attention_mass)
 from ..ops.cuda.decode_attention import (decode_attention_plain,
                                          fused_decode_attention)
 from ..ops.cuda.flash_prefill import (flash_chunk_attention_with_prompt_mass,
@@ -57,6 +63,8 @@ from ..ops.cuda.flash_prefill import (flash_chunk_attention_with_prompt_mass,
                                       flash_prefill_with_prompt_mass)
 from ..ops.cuda.int4_matmul import int4_matmul_tensor
 from ..ops.cuda.int8_matmul import dynamic_int8_matmul
+from ..ops.sampling import (SamplingParams, init_counts, sample_logits,
+                            update_counts)
 from .quantized_params import Int4Tensor, QuantizedTensor
 
 Params = Dict[str, Any]
@@ -419,8 +427,12 @@ def prefill_compressed(
     input_ids: [B, S]. lengths: optional [B] true lengths of right-padded
     ragged rows: padding is never stored, per-row prompt lengths follow the
     true lengths, and the logits and decode positions are each row's last
-    true position. use_flash=None runs K1 on CUDA inputs. Returns (logits
-    for the last position [B, V], decode state, per-layer stats).
+    true position. use_flash=None runs K1 on CUDA inputs. With
+    ccfg.importance_source "query" or "both", each layer's RoPE'd q and k
+    (those K1 took) also give the observation-window mass of the last
+    `ccfg.query_window_for(S)` queries, ending at each row's true length on
+    ragged rows. Returns (logits for the last position [B, V], decode
+    state, per-layer stats).
     """
     if use_flash is None:
         use_flash = input_ids.is_cuda
@@ -432,6 +444,9 @@ def prefill_compressed(
         lengths = lengths.to(h.device)
         token_valid = positions < lengths[:, None]
         prompt_lens = _prompt_lens(lengths, ccfg, prompt_len)
+    need_qmass = ccfg.importance_source != "prompt"
+    q_lengths = (token_valid.sum(dim=-1)
+                 if need_qmass and token_valid is not None else None)
     caches, recents, pools, all_stats = [], [], [], []
     for layer_idx, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
@@ -440,9 +455,14 @@ def prefill_compressed(
         k = apply_rope(k, cos, sin)
         attn, prompt_mass = _prefill_attention(q, k, v, prompt_len,
                                                use_flash, prompt_lens)
+        qmass = (query_attention_mass(q, k, ccfg.query_window_for(s),
+                                      lengths=q_lengths,
+                                      pool=ccfg.query_mass_pool)
+                 if need_qmass else None)
         cache, stats = compress_layer_kv(k, v, prompt_mass, layer_idx, ccfg,
                                          cfg, token_valid=token_valid,
-                                         prompt_lens=prompt_lens)
+                                         prompt_lens=prompt_lens,
+                                         query_mass=qmass)
         caches.append(cache)
         all_stats.append(stats)
         recent, pool = _decode_buffers(b, max_decode_len, cfg, ccfg,
@@ -501,38 +521,52 @@ class ChunkedPrefillState:
     """Carry between prefill chunks: per-layer K/V buffers filled up to
     `offset`, the per-layer prompt-mass side channel, and the hidden state
     at each row's final position (captured by the chunk that holds it).
-    `offset` is a host int: the chunk loop runs on the host."""
+    With query-guided importance (ccfg.importance_source != "prompt"),
+    `q_tails` buffers each layer's observation-window query rows (the last
+    W true positions of each row), so that the finish computes the query
+    mass over the complete K buffers. `offset` is a host int: the chunk
+    loop runs on the host."""
 
     k_bufs: Tuple[torch.Tensor, ...]   # per layer [B, S, H_kv, D]
     v_bufs: Tuple[torch.Tensor, ...]
     masses: Tuple[torch.Tensor, ...]   # per layer [B, S] float32
     last_h: torch.Tensor               # [B, hidden]
     offset: int = 0
+    q_tails: Tuple[torch.Tensor, ...] = ()  # per layer [B, W, H_q, D]
 
 
 def prefill_chunked_init(batch: int, seq_len: int, cfg: ModelConfig,
                          ccfg: Optional[CompressionConfig] = None,
                          device="cuda") -> ChunkedPrefillState:
     """Zero-initialised chunked-prefill carry for a [batch, seq_len]
-    bucket, on `device`. Query-guided importance (the reference's
-    observation-window `q_tails`) is not ported yet (ROADMAP Queue 1,
-    items 3 and 5)."""
-    if ccfg is not None and ccfg.importance_source != "prompt":
-        raise NotImplementedError(
-            "query-guided importance (q_tails) is not ported yet (ROADMAP "
-            "Queue 1, items 3 and 5)")
+    bucket, on `device`. `ccfg` matters only when it selects query-guided
+    importance: the carry then holds the per-layer window query buffers
+    (`q_tails`, W = ccfg.query_window_for(seq_len))."""
     dtype = model_dtype(cfg)
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     kv = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    q_tails = ()
+    if ccfg is not None and ccfg.importance_source != "prompt":
+        tail = (batch, ccfg.query_window_for(seq_len), cfg.num_heads,
+                cfg.head_dim)
+        q_tails = tuple(zeros(tail) for _ in range(cfg.num_layers))
     return ChunkedPrefillState(
         k_bufs=tuple(zeros(kv) for _ in range(cfg.num_layers)),
         v_bufs=tuple(zeros(kv) for _ in range(cfg.num_layers)),
         masses=tuple(zeros((batch, seq_len), torch.float32)
                      for _ in range(cfg.num_layers)),
-        last_h=zeros((batch, cfg.hidden_size)))
+        last_h=zeros((batch, cfg.hidden_size)), q_tails=q_tails)
+
+
+def _tail_positions(b: int, w: int, s: int, lengths, device) -> torch.Tensor:
+    """[B, W] global positions of the observation-window slots: slot t of
+    row r holds the query at len_r - W + t (negative: no such query)."""
+    lens = (lengths.to(device=device, dtype=torch.int32) if lengths is not None
+            else torch.full((b,), s, dtype=torch.int32, device=device))
+    return lens[:, None] - w + torch.arange(w, device=device)[None]
 
 
 def prefill_chunked_step(
@@ -548,8 +582,10 @@ def prefill_chunked_step(
 
     Writes the chunk's K/V and prompt mass into the state's buffers in
     place, attends the chunk over the position-ordered buffers (K1 mode (b)
-    with use_flash, which defaults to on for CUDA inputs), and captures the
-    hidden state of rows whose last true position lies in this chunk.
+    with use_flash, which defaults to on for CUDA inputs), captures the
+    hidden state of rows whose last true position lies in this chunk, and
+    with `q_tails` the window query rows whose positions lie in it (from
+    the host offset and the device lengths: no device value is read).
     Per-row softmax over the buffer equals full-sequence causal attention,
     so caches and logits match the one-shot `prefill_compressed`. Returns
     the state with `offset` advanced by c.
@@ -571,6 +607,13 @@ def prefill_chunked_step(
     positions = (off + torch.arange(c, device=chunk_ids.device))[None]
     cos, sin = rope_tables(positions.expand(b, c), cfg.head_dim,
                            cfg.rope_theta, cfg.rope_scaling)
+    if st.q_tails:
+        w_win = st.q_tails[0].shape[1]
+        tail_pos = _tail_positions(b, w_win, s_total, lengths, h.device)
+        t_in_chunk = ((tail_pos >= off) & (tail_pos < off + c))[
+            :, :, None, None]
+        t_idx = torch.clamp(tail_pos - off, 0, c - 1).long()[
+            :, :, None, None].expand(b, w_win, cfg.num_heads, cfg.head_dim)
     for li, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, x, cfg)
@@ -582,6 +625,10 @@ def prefill_chunked_step(
         attn, mass_c = attend(q, k_buf, v_buf, off, prompt_len,
                               prompt_lens=prompt_lens)
         st.masses[li][:, off:off + c] = mass_c
+        if st.q_tails:
+            q_tail = st.q_tails[li]
+            q_tail.copy_(torch.where(t_in_chunk, torch.gather(q, 1, t_idx),
+                                     q_tail))
         h = _attn_out(layer, h, attn, cfg)
 
     # Capture the hidden state at each row's final position if it falls in
@@ -607,7 +654,9 @@ def prefill_chunked_finish(
 
     Compression runs once over the complete K/V and prompt mass, as the
     one-shot prefill's per-layer `compress_layer_kv` does: chunking changes
-    when the attention runs, not what is compressed."""
+    when the attention runs, not what is compressed. With `q_tails` the
+    query mass of the buffered window rows is computed here, over the
+    complete K buffers."""
     b, s = st.masses[0].shape
     dev = st.last_h.device
     token_valid = prompt_lens = None
@@ -615,11 +664,21 @@ def prefill_chunked_finish(
         lengths = lengths.to(dev)
         token_valid = torch.arange(s, device=dev)[None] < lengths[:, None]
         prompt_lens = _prompt_lens(lengths, ccfg, ccfg.prompt_length(s))
+    if st.q_tails:
+        tail_pos = _tail_positions(b, st.q_tails[0].shape[1], s, lengths, dev)
+        key_ok = (token_valid if token_valid is not None
+                  else torch.ones((b, s), dtype=torch.bool, device=dev))
     caches, recents, pools, all_stats = [], [], [], []
     for li in range(cfg.num_layers):
+        qmass = None
+        if st.q_tails:
+            qmass = window_attention_mass(
+                st.q_tails[li], torch.clamp(tail_pos, min=0), tail_pos >= 0,
+                st.k_bufs[li], key_ok, pool=ccfg.query_mass_pool)
         cache, stats = compress_layer_kv(
             st.k_bufs[li], st.v_bufs[li], st.masses[li], li, ccfg, cfg,
-            token_valid=token_valid, prompt_lens=prompt_lens)
+            token_valid=token_valid, prompt_lens=prompt_lens,
+            query_mass=qmass)
         caches.append(cache)
         all_stats.append(stats)
         recent, pool = _decode_buffers(b, max_decode_len, cfg, ccfg, dev)
@@ -921,22 +980,60 @@ def decode_loop(
     cfg: ModelConfig,
     ccfg: CompressionConfig,
     use_fused: Optional[bool] = None,
-) -> Tuple[torch.Tensor, DecodeState]:
-    """n_steps of greedy decode. With decode pools (ccfg.decode_pool_blocks
-    > 0) any n_steps is supported: full rings flush into the quantized pool,
-    and past ring * (blocks + 1) decode tokens the oldest pool block is
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    sampling: Optional[SamplingParams] = None,
+    counts: Optional[torch.Tensor] = None,
+    return_counts: bool = False,
+    return_logprobs: bool = False,
+):
+    """n_steps of decode. With decode pools (ccfg.decode_pool_blocks > 0)
+    any n_steps is supported: full rings flush into the quantized pool, and
+    past ring * (blocks + 1) decode tokens the oldest pool block is
     overwritten (the prefill tiers are never evicted). Without pools the
     recent rings must hold n_steps tokens (appends past a full ring are
-    dropped). Returns (tokens [B, n_steps], state)."""
-    tok, toks = first_token, []
+    dropped).
+
+    temperature 0 is greedy; above 0 samples, with noise from `generator`
+    (a torch.Generator on the tokens' device; required, else ValueError).
+    `sampling` (ops/sampling.SamplingParams) supersedes `temperature` and
+    adds top-k / top-p / min-p filters and repetition / presence /
+    frequency penalties. Penalties read per-row occurrence counts carried
+    across steps: `counts` ([B, vocab] int32, every token generated so far
+    included) continues an earlier generation; without it the count starts
+    from `first_token`. Returns (tokens [B, n_steps], state), then the
+    final counts with `return_counts`, then with `return_logprobs` the
+    log-softmax of the raw logits at each emitted token [B, n_steps]
+    (float32; whatever the temperature, filters and penalties)."""
+    if sampling is None:
+        sampling = SamplingParams(temperature=temperature)
+    if not sampling.is_greedy and generator is None:
+        raise ValueError("sampling (temperature > 0) requires a generator")
+    track_counts = sampling.uses_penalties or return_counts
+    if track_counts and counts is None:
+        counts = init_counts(first_token.shape[0], cfg.vocab_size,
+                             first_token)
+    tok, toks, lps = first_token, [], []
     for _ in range(n_steps):
         logits, state = decode_step(params, tok, state, cfg, ccfg,
                                     use_fused=use_fused)
-        tok = torch.argmax(logits, dim=-1)
+        tok = sample_logits(logits, generator, sampling,
+                            counts=counts if track_counts else None)
+        if track_counts:
+            counts = update_counts(counts, tok)
+        if return_logprobs:
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            lps.append(torch.gather(lp, 1, tok[:, None])[:, 0])
         toks.append(tok)
-    if not toks:
-        return first_token.new_zeros((first_token.shape[0], 0)), state
-    return torch.stack(toks, dim=1), state
+    b = first_token.shape[0]
+    result = [torch.stack(toks, dim=1) if toks
+              else first_token.new_zeros((b, 0)), state]
+    if return_counts:
+        result.append(counts)
+    if return_logprobs:
+        result.append(torch.stack(lps, dim=1) if lps else torch.zeros(
+            (b, 0), dtype=torch.float32, device=first_token.device))
+    return tuple(result)
 
 
 def decode_step_uncompressed(
@@ -1000,16 +1097,27 @@ def generate(
     use_flash: Optional[bool] = None,
     use_fused_decode: Optional[bool] = None,
     eos_token_id: Optional[int] = None,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    sampling: Optional[SamplingParams] = None,
 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """Greedy generation with compressed KV. Returns (generated ids
-    [B, max_new_tokens], per-layer prefill compression stats); tokens after
-    a row's first EOS are set to EOS."""
+    """Generation with compressed KV: greedy, or sampled when temperature
+    > 0 (`sampling` adds the filters and penalties of `decode_loop`; a
+    sampled run without a `generator` draws from one seeded with 0 on the
+    prompt's device). Returns (generated ids [B, max_new_tokens], per-layer
+    prefill compression stats); tokens after a row's first EOS are set to
+    EOS."""
+    if sampling is None:
+        sampling = SamplingParams(temperature=temperature)
+    if not sampling.is_greedy and generator is None:
+        generator = torch.Generator(device=input_ids.device).manual_seed(0)
     logits, state, stats = prefill_compressed(
         params, input_ids, cfg, ccfg, max_decode_len=max_new_tokens,
         use_flash=use_flash)
-    tok = torch.argmax(logits, dim=-1)
+    tok = sample_logits(logits, generator, sampling)
     rest, _ = decode_loop(params, tok, state, max_new_tokens - 1, cfg, ccfg,
-                          use_fused=use_fused_decode)
+                          use_fused=use_fused_decode, generator=generator,
+                          sampling=sampling)
     out = torch.cat([tok[:, None], rest], dim=1)
     if eos_token_id is not None:
         is_eos = (out == eos_token_id).to(torch.int32)

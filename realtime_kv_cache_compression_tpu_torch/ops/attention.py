@@ -6,7 +6,10 @@ are the plain versions the CUDA kernels are checked against (flash prefill:
 for its chunked mode; fused decode: dequantize, then
 `attention_over_tokens`), the uncompressed arm's decode attention, and
 `positioned_attention_with_prompt_mass`, the compressed-prefix chunked
-prefill's dense arm (`use_flash=False`).
+prefill's dense arm (`use_flash=False`). `query_attention_mass` and
+`window_attention_mass` give the observation-window mass of query-guided
+importance (`importance_source` "query" / "both"); they are plain code in
+the reference too, with no kernel behind them.
 Logits and accumulation are float32 as in the reference: bf16 operands are
 widened before the products, and probabilities are cast to the value dtype
 before the value product, like the reference's bf16 einsums with
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -142,6 +146,81 @@ def chunk_attention_with_prompt_mass(
     out = torch.einsum("bhrqk,bkhd->bqhrd", attn.to(v_buf.dtype).float(),
                        v_buf.float())
     return out.reshape(b, c, hq, d).to(q.dtype), prompt_mass
+
+
+def query_attention_mass(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    window: int,
+    lengths: Optional[torch.Tensor] = None,
+    pool: int = 0,
+) -> torch.Tensor:
+    """Observation-window mass: the attention each key receives from the
+    last `window` prefill queries (importance_source "query" / "both").
+
+    q: [B, S, H_q, D] and k: [B, S, H_kv, D], both RoPE'd; lengths:
+    optional [B] true lengths of right-padded rows, whose windows then end
+    at their true lengths (rows before position 0, when a length is below
+    the window, are masked out); pool: max-pool width over key positions
+    (0 or 1: none). Returns [B, S] float32: per key column, the mean over
+    heads of the softmax summed over the window rows.
+    """
+    b, s = q.shape[:2]
+    w = min(window, s)
+    if lengths is None:
+        q_w = q[:, s - w:]
+        q_pos = torch.arange(s - w, s, device=q.device)[None].expand(b, w)
+        row_ok = torch.ones((b, w), dtype=torch.bool, device=q.device)
+        key_ok = torch.ones((b, s), dtype=torch.bool, device=q.device)
+    else:
+        idx = lengths[:, None] - w + torch.arange(w, device=q.device)[None]
+        row_ok = idx >= 0
+        idx = torch.clamp(idx, 0, s - 1)
+        q_w = torch.gather(q, 1, idx.long()[:, :, None, None].expand(
+            b, w, *q.shape[2:]))
+        q_pos = idx
+        key_ok = torch.arange(s, device=q.device)[None] < lengths[:, None]
+    return window_attention_mass(q_w, q_pos, row_ok, k, key_ok, pool=pool)
+
+
+def window_attention_mass(
+    q_w: torch.Tensor,
+    q_pos: torch.Tensor,
+    row_ok: torch.Tensor,
+    k: torch.Tensor,
+    key_ok: torch.Tensor,
+    pool: int = 0,
+) -> torch.Tensor:
+    """Core of `query_attention_mass` over an already-gathered window (the
+    chunked prefill buffers the window's query rows across chunks and calls
+    this at finish).
+
+    q_w: [B, W, H_q, D] window queries at positions q_pos [B, W]; row_ok:
+    [B, W] bool, the rows that exist; k: [B, S, H_kv, D] all keys; key_ok:
+    [B, S] bool validity; pool: max-pool width over key positions. The
+    pool pads as the reference's stride-1 "SAME" window does: (pool - 1)
+    // 2 columns below and the rest above (asymmetric for an even width),
+    and padding columns are zeroed after it.
+    """
+    b, w, hq, d = q_w.shape
+    s, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d)))
+    q5 = q_w.reshape(b, w, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", q5.float(), k.float()) * scale
+    mask = key_ok[:, None, :] & (torch.arange(s, device=k.device)[None, None]
+                                 <= q_pos[:, :, None])          # [B, W, S]
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), NEG_INF, device=k.device))
+    attn = torch.softmax(logits, dim=-1)                        # [B,h,r,W,S]
+    attn = torch.where(row_ok[:, None, None, :, None], attn,
+                       torch.zeros((), device=k.device))
+    mass = attn.mean(dim=(1, 2)).sum(dim=1)                     # [B, S]
+    if pool and pool > 1:
+        lo = (pool - 1) // 2
+        padded = F.pad(mass[:, None], (lo, pool - 1 - lo), value=-torch.inf)
+        mass = F.max_pool1d(padded, pool, stride=1)[:, 0]
+        mass = torch.where(key_ok, mass, torch.zeros((), device=k.device))
+    return mass
 
 
 def positioned_attention_with_prompt_mass(

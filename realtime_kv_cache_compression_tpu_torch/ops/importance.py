@@ -9,8 +9,11 @@ with min-max normalisation of the prompt mass per batch row, the
 floor and the sink anchors, for uniform and ragged rows (true `lengths` and
 per-row `prompt_lens`), and for a chunk of a longer sequence scored at its
 global positions against its caller's min-max (`position_offset`,
-`total_len`, `minmax`). The query-window sources ("query", "both") and the
-sequence-sharded `axis_name` are not ported yet.
+`total_len`, `minmax`). With `importance_source` "query" the min-max
+normalised observation-window mass (`ops/attention.query_attention_mass`)
+replaces the prompt mass in the alpha term, and with "both" their
+elementwise max does. `cumulative_scores` is the running mean over layers.
+The sequence-sharded `axis_name` is not ported yet.
 """
 
 from __future__ import annotations
@@ -68,13 +71,14 @@ def importance_scores(
     total_len: the global length T for the bias and relevance denominators
     (default seq_len). minmax: optional ([B, 1] row_min, [B, 1] row_max)
     that replaces the mass's own min-max, as a chunk is scored against its
-    caller's range. Returns [B, S] float32. The query-mass and sharded
-    (`axis_name`) arguments raise until ROADMAP items 5 and 18 port them.
+    caller's range. query_mass: optional [B, S] observation-window mass,
+    used when cfg.importance_source is "query" (it replaces the normalised
+    prompt mass) or "both" (the elementwise max of the two normalised
+    masses); it normalises over the valid tokens and is refused with
+    `minmax` (the chunked prefill scores it at finish over full buffers).
+    Returns [B, S] float32. The sharded `axis_name` raises until ROADMAP
+    item 18 ports it.
     """
-    if cfg.importance_source != "prompt" or query_mass is not None:
-        raise NotImplementedError(
-            "importance_source 'query'/'both' is not ported yet (ROADMAP "
-            "Queue 1, items 3 and 5)")
     if axis_name is not None:
         raise NotImplementedError(
             "sequence-sharded importance is not ported yet (ROADMAP Queue 1, "
@@ -83,6 +87,7 @@ def importance_scores(
     mass = prompt_mass.float()
     total = total_len if total_len is not None else seq_len
     gpos = torch.arange(seq_len, device=dev)[None, :] + position_offset
+    valid = None if lengths is None else gpos < lengths[:, None]
     if minmax is not None:
         row_min, row_max = minmax
         denom = row_max - row_min
@@ -92,8 +97,17 @@ def importance_scores(
                                                  torch.ones_like(denom)),
             torch.zeros_like(mass))
     else:
-        valid = None if lengths is None else gpos < lengths[:, None]
         normalized = minmax_normalize(mass, valid=valid)
+    if cfg.importance_source != "prompt" and query_mass is not None:
+        if minmax is not None:
+            raise NotImplementedError(
+                "query-guided importance is not supported on the "
+                "chunked-selection (minmax-override) path; the chunked "
+                "prefill scores the query mass at finish over full buffers "
+                "(models/llama.py prefill_chunked_finish)")
+        normalized_q = minmax_normalize(query_mass.float(), valid=valid)
+        normalized = (normalized_q if cfg.importance_source == "query"
+                      else torch.maximum(normalized, normalized_q))
     w_l = cfg.layer_weights[layer_idx]
     term1 = cfg.alpha * normalized * w_l
     recency = cfg.position_bias_mode == "recency"
@@ -145,3 +159,12 @@ def importance_scores(
         scores = torch.where(gpos < cfg.sink_tokens,
                              scores + 2.0 + cfg.theta_h - ramp, scores)
     return scores
+
+
+def cumulative_scores(per_layer_scores: torch.Tensor) -> torch.Tensor:
+    """Running mean over layers: [L, B, S] → out[l] = mean(scores[0..l]),
+    the divisor the true number of layers present."""
+    csum = torch.cumsum(per_layer_scores, dim=0)
+    denom = torch.arange(1, per_layer_scores.shape[0] + 1, dtype=csum.dtype,
+                         device=csum.device)
+    return csum / denom[:, None, None]

@@ -203,9 +203,24 @@ def dequantize_tier(stored: torch.Tensor, scale: torch.Tensor,
     return dequantize(codes.float(), scale, zero_point, dtype)
 
 
+def max_roundtrip_error(scale: torch.Tensor) -> torch.Tensor:
+    """Upper bound on |x - dequantize(quantize(x))|: scale / 2."""
+    return scale / 2.0
+
+
 # ---------------------------------------------------------------------------
 # Memory accounting — real bytes, not estimates
 # ---------------------------------------------------------------------------
+
+def storage_bytes(shape_tokens: int, head_dim: int, num_kv_heads: int,
+                  bits: int, group_size: int, scale_bytes: int = 4) -> int:
+    """Bytes that K and V codes plus their scales and zero points take for
+    `shape_tokens` tokens."""
+    d = head_dim * num_kv_heads
+    code_bytes = (shape_tokens * d * 2 if bits == 16
+                  else shape_tokens * d * bits // 8)
+    param_bytes = shape_tokens * (d // group_size) * scale_bytes * 2
+    return 2 * code_bytes + 2 * param_bytes
 
 def memory_report(labels: torch.Tensor, valid: torch.Tensor,
                   cfg: CompressionConfig, head_dim: int,

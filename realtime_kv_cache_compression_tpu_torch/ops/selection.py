@@ -1,14 +1,16 @@
 """Budgeted selective token propagation with static tier capacities (PyTorch).
 
-Port of the JAX package's `ops/selection.py`, `selection_mode="topk_prefix"`:
-sort by importance (stable, descending), keep the maximal prefix whose
-cumulative byte cost fits the layer budget, cap the count at the exact token
-limit, fall back to the top max(1, S * fallback_frac) tokens when nothing
-fits, and bucket the survivors into per-tier slot arrays of static capacity
-(quantile or threshold tier mode, with demotion when a threshold-mode pool
-is full). Original token positions ride along with every slot. Ragged rows
-(`token_valid`) take their budget from their true length; a local chunk of a
-longer sequence (`total_len`) keeps uniform capacities.
+Port of the JAX package's `ops/selection.py`: sort by importance (stable,
+descending), keep the maximal prefix whose cumulative byte cost fits the
+layer budget (`selection_mode="topk_prefix"`), or skip each token that does
+not fit and go on scanning (`"exact_greedy"`, a sequential scan), cap the
+count at the exact token limit, fall back to the top max(1, S *
+fallback_frac) tokens when nothing fits, and bucket the survivors into
+per-tier slot arrays of static capacity (quantile or threshold tier mode,
+with demotion when a threshold-mode pool is full). Original token
+positions ride along with every slot. Ragged rows (`token_valid`) take
+their budget from their true length; a local chunk of a longer sequence
+(`total_len`) keeps uniform capacities.
 """
 
 from __future__ import annotations
@@ -38,6 +40,26 @@ class Selection:
     stats: Dict[str, torch.Tensor]
 
 
+def _greedy_exact(sorted_costs: torch.Tensor, budget) -> torch.Tensor:
+    """Skip-and-continue greedy over the columns in sorted order: a token is
+    taken when it still fits what is left of the budget (a float, or [B, 1]
+    per row). One step per column, as the reference's scan; off the default
+    path."""
+    b, s = sorted_costs.shape
+    dev = sorted_costs.device
+    budget = (budget.reshape(b) if torch.is_tensor(budget) else
+              torch.full((b,), budget, dtype=torch.float32, device=dev))
+    spent = torch.zeros((b,), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), device=dev)
+    takes = []
+    for j in range(s):
+        cost = sorted_costs[:, j]
+        take = spent + cost <= budget
+        spent = spent + torch.where(take, cost, zero)
+        takes.append(take)
+    return torch.stack(takes, dim=1)
+
+
 def select_tokens(
     scores: torch.Tensor,
     labels: torch.Tensor,
@@ -59,13 +81,8 @@ def select_tokens(
     grow the HIGH tier for anchors (`tier_capacities(grow_for_anchors=
     False)`), so every chunk's capacities stay uniform: anchors are still
     selected (their boost), but get the HIGH tier only as far as it holds
-    them. `selection_mode="exact_greedy"` (ROADMAP item 4) is not ported
-    yet.
+    them.
     """
-    if cfg.selection_mode == "exact_greedy":
-        raise NotImplementedError(
-            "selection_mode='exact_greedy' is not ported yet (ROADMAP "
-            "Queue 1, item 4)")
     dev = scores.device
     batch, seq_len = scores.shape
     ratio = cfg.layer_ratio(layer_idx)
@@ -92,7 +109,10 @@ def select_tokens(
 
     order = torch.argsort(-scores, dim=-1, stable=True)            # [B, S]
     sorted_costs = torch.gather(costs, 1, order)
-    sel_sorted = torch.cumsum(sorted_costs, dim=-1) <= budget
+    if cfg.selection_mode == "exact_greedy":
+        sel_sorted = _greedy_exact(sorted_costs, budget)
+    else:
+        sel_sorted = torch.cumsum(sorted_costs, dim=-1) <= budget
 
     rank = torch.arange(seq_len, device=dev)[None, :]
     none_selected = sel_sorted.sum(dim=-1, keepdim=True) == 0
@@ -206,3 +226,17 @@ def select_tokens(
         kept_mask=kept_mask,
         stats=stats,
     )
+
+
+def estimate_compression_ratio(layer_idx: int, original_length: int,
+                               cfg: CompressionConfig) -> Dict[str, float]:
+    """Static estimate of the cumulative keep ratio through layer_idx."""
+    cumulative = 1.0
+    for layer in range(layer_idx + 1):
+        cumulative *= cfg.layer_ratio(layer)
+    return {
+        "layer_ratio": cfg.layer_ratio(layer_idx),
+        "cumulative_ratio": cumulative,
+        "estimated_length": int(original_length * cumulative),
+        "compression_factor": 1.0 / cumulative,
+    }

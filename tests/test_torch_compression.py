@@ -38,11 +38,12 @@ _j_compress = jax.jit(jc.compress_layer_kv, static_argnums=(3, 4, 5))
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
-def _j_select(mass, layer, cfg):
+def _j_select(mass, layer, cfg, valid=None):
     s = mass.shape[1]
     scores = ji.importance_scores(mass, layer, s, cfg.prompt_length(s), cfg)
     labels, _ = jq.assign_precision(scores, cfg)
-    return scores, labels, js.select_tokens(scores, labels, layer, cfg)
+    return scores, labels, js.select_tokens(scores, labels, layer, cfg,
+                                            token_valid=valid)
 
 CASES = {
     "default": {},
@@ -79,12 +80,25 @@ def test_importance_scores(case, layer):
 
 
 def test_importance_unported_paths_raise():
+    """Sequence sharding (`axis_name`) is not ported. A query source given
+    no query mass scores by the prompt mass, as the reference does; the
+    query paths themselves are held in tests/test_torch_query_importance.py."""
     ct = rt.CompressionConfig(importance_source="query")
-    with pytest.raises(NotImplementedError):
-        ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, ct)
+    mass = torch.from_numpy(_mass(0, s=8))
+    assert torch.equal(ti.importance_scores(mass, 0, 8, 1, ct),
+                       ti.importance_scores(mass, 0, 8, 1,
+                                            rt.CompressionConfig()))
     with pytest.raises(NotImplementedError):
         ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, rt.CompressionConfig(),
                              axis_name="seq")
+
+
+def test_cumulative_scores_match_jax():
+    per_layer = np.random.default_rng(5).random((4, 2, 24)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        ti.cumulative_scores(torch.from_numpy(per_layer)).numpy(),
+        np.asarray(ji.cumulative_scores(jnp.asarray(per_layer))), rtol=1e-6)
 
 
 @pytest.mark.parametrize("layer", [0, 3])
@@ -108,12 +122,45 @@ def test_select_tokens_on_jax_scores(case, layer):
                                    err_msg=key)
 
 
-def test_selection_unported_paths_raise():
-    ct = rt.CompressionConfig(selection_mode="exact_greedy")
-    with pytest.raises(NotImplementedError):
-        ts.select_tokens(torch.rand(1, 16), torch.zeros(1, 16,
-                                                        dtype=torch.int32),
-                         0, ct)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_selection_unported_paths_raise(ragged):
+    """No selection mode is left unported: `exact_greedy` (skip what does
+    not fit, keep scanning), refused before, now selects exactly what the
+    reference's scan selects on its scores and labels. With 16-bit HIGH
+    tokens (cost 2) the budget binds before the token limit, and the scan
+    takes a cheaper token where the prefix stops."""
+    kw = dict(num_layers=4, selection_mode="exact_greedy",
+              tier_mode="threshold", theta_h=0.45, theta_m=0.2,
+              high_precision_bits=16, medium_precision_bits=8,
+              low_precision_bits=2)
+    cj, ct = rj.CompressionConfig(**kw), rt.CompressionConfig(**kw)
+    mass = _mass(20, s=64)
+    valid = (np.arange(64)[None] < np.array([[64], [41]])) if ragged else None
+    scores, labels, sel_j = _j_select(
+        jnp.asarray(mass), 1, cj,
+        None if valid is None else jnp.asarray(valid))
+    sel_t = ts.select_tokens(torch.from_numpy(np.array(scores)),
+                             torch.from_numpy(np.array(labels)), 1, ct,
+                             token_valid=None if valid is None
+                             else torch.from_numpy(valid))
+    for a, b in zip(sel_j.indices + sel_j.valid, sel_t.indices + sel_t.valid):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(np.asarray(sel_j.kept_mask),
+                                  sel_t.kept_mask.numpy())
+    prefix = ts.select_tokens(torch.from_numpy(np.array(scores)),
+                              torch.from_numpy(np.array(labels)), 1,
+                              rt.CompressionConfig(**{
+                                  **kw, "selection_mode": "topk_prefix"}),
+                              token_valid=None if valid is None
+                              else torch.from_numpy(valid))
+    assert bool((sel_t.kept_mask.sum(-1) > prefix.kept_mask.sum(-1)).all())
+
+
+def test_estimate_compression_ratio_matches_jax():
+    for cj, ct in (_cfgs("default"), _cfgs("anchor_16_8_4")):
+        for layer in range(4):
+            assert (ts.estimate_compression_ratio(layer, 4096, ct)
+                    == js.estimate_compression_ratio(layer, 4096, cj))
 
 
 @pytest.mark.parametrize("case,layers", [
@@ -163,6 +210,30 @@ def test_compress_layer_kv_end_to_end(case, layers):
         tc.summarize_layer_stats(stats_t)
 
 
+def test_prompt_length_and_per_row_summaries_match_jax():
+    """`identify_prompt_length`, and `summarize_layer_stats_per_row` over
+    the same (JAX) per-layer stats: equal floats per row."""
+    ct, cj = rt.CompressionConfig(num_layers=4), rj.CompressionConfig(
+        num_layers=4)
+    for s in (1, 7, 160, 4096):
+        assert tc.identify_prompt_length(s, ct) == \
+            jc.compressor.identify_prompt_length(s, cj)
+    rng = np.random.default_rng(6)
+    b, s = 2, 160
+    k, v = (rng.normal(size=(b, s, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    mass = rng.random((b, s)).astype(np.float32)
+    stats_j = [_j_compress(jnp.asarray(k), jnp.asarray(v), jnp.asarray(mass),
+                           layer, cj, rj.tiny_test_model())[1]
+               for layer in (0, 3)]
+    stats_t = [{key: torch.from_numpy(np.array(val))
+                for key, val in st.items()} for st in stats_j]
+    want = jc.summarize_layer_stats_per_row(stats_j, b)
+    got = tc.summarize_layer_stats_per_row(stats_t, b)
+    assert got == want and got[0] != got[1]
+    assert tc.summarize_layer_stats_per_row([], b) == [{}, {}]
+
+
 def test_recent_ring_append_and_drop():
     from realtime_kv_cache_compression_tpu.compression import kv_cache as jk
     from realtime_kv_cache_compression_tpu_torch.compression import (
@@ -194,3 +265,10 @@ def test_recent_ring_append_and_drop():
         jnp.asarray(mass), 0, rj.CompressionConfig(num_layers=4),
         rj.tiny_test_model())
     assert tk.cache_storage_bytes(cache_t) == jk.cache_storage_bytes(cache_j)
+    for batch, seq in ((2, 160), (1, 4096)):
+        assert (tk.layer_cache_report(cache_t, batch, seq,
+                                      rt.tiny_test_model())
+                == jk.layer_cache_report(cache_j, batch, seq,
+                                         rj.tiny_test_model()))
+        assert (tk.uncompressed_kv_bytes(batch, seq, mt, 4)
+                == jk.uncompressed_kv_bytes(batch, seq, mj, 4))

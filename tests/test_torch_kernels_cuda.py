@@ -35,7 +35,8 @@ from realtime_kv_cache_compression_tpu_torch.models import llama
 from realtime_kv_cache_compression_tpu_torch.models.quantized_params import (
     params_to, quantize_params, quantize_tensor, quantize_tensor_int4)
 from realtime_kv_cache_compression_tpu_torch.ops.attention import (
-    chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass)
+    chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass,
+    query_attention_mass)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain, fused_decode_attention, kernel_limits)
 from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill import (
@@ -52,6 +53,8 @@ from realtime_kv_cache_compression_tpu_torch.ops.importance import (
     importance_scores)
 from realtime_kv_cache_compression_tpu_torch.ops.quantization import (
     assign_precision)
+from realtime_kv_cache_compression_tpu_torch.ops.sampling import (
+    SamplingParams)
 from realtime_kv_cache_compression_tpu_torch.ops.selection import (
     select_tokens)
 
@@ -639,6 +642,135 @@ def test_kernel_path_tokens_equal_plain_path_f32(cuda):
                            use_flash=kern, use_fused_decode=kern)[0]
             for kern in (True, False)]
     assert torch.equal(outs[0], outs[1])
+
+
+def _small_model(cuda, num_layers=2):
+    mcfg = rt.tiny_test_model(num_layers=num_layers, hidden_size=256,
+                              num_heads=8, num_kv_heads=2, head_dim=32,
+                              intermediate_size=512)
+    return mcfg, llama.init_params(0, mcfg, cuda)
+
+
+@pytest.mark.parametrize("source", ["query", "both"])
+def test_query_guided_kernel_path_tokens_equal_plain_path_f32(cuda, source):
+    """Query-guided scoring (window 32, even pool 6) on ragged rows: the
+    kernel path (K1, K2) keeps the plain path's positions and greedy
+    tokens, one-shot and chunked."""
+    mcfg, params = _small_model(cuda)
+    ccfg = rt.CompressionConfig(num_layers=2, importance_source=source,
+                                query_window=32, query_mass_pool=6)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    lengths = torch.tensor([256, 170], device=cuda)
+    for chunked in (False, True):
+        outs = []
+        for kern in (True, False):
+            if chunked:
+                logits, state, _ = llama.prefill_compressed_chunked(
+                    params, ids, mcfg, ccfg, chunk_size=64, max_decode_len=12,
+                    lengths=lengths, use_flash=kern)
+            else:
+                logits, state, _ = llama.prefill_compressed(
+                    params, ids, mcfg, ccfg, max_decode_len=12,
+                    lengths=lengths, use_flash=kern)
+            kept = [t.positions[t.valid].tolist() for c in state.caches
+                    for t in c.tiers]
+            toks, _ = llama.decode_loop(params, torch.argmax(logits, -1),
+                                        state, 10, mcfg, ccfg, use_fused=kern)
+            outs.append((kept, toks))
+        assert outs[0][0] == outs[1][0]
+        assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_query_guided_scoring_reads_no_device_value(cuda, ragged):
+    """The query mass (window 256 at S=4096, even pool 20), query-guided
+    scores and selection make no host read of a device value."""
+    ccfg = rt.CompressionConfig(num_layers=4, importance_source="both",
+                                query_mass_pool=20)
+    b, s, hq, hkv, d = 2, 4096, 8, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, s, hkv, d), generator=gen, device=cuda).bfloat16()
+    mass = torch.rand((b, s), generator=gen, device=cuda)
+    lengths = torch.tensor([s, 3000], device=cuda) if ragged else None
+    token_valid = plens = None
+    if ragged:
+        token_valid = torch.arange(s, device=cuda)[None] < lengths[:, None]
+        plens = llama._prompt_lens(lengths, ccfg, ccfg.prompt_length(s))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        qmass = query_attention_mass(q, k, ccfg.query_window_for(s),
+                                     lengths=lengths,
+                                     pool=ccfg.query_mass_pool)
+        scores = importance_scores(mass, 1, s, ccfg.prompt_length(s), ccfg,
+                                   lengths=lengths, prompt_lens=plens,
+                                   query_mass=qmass)
+        labels, _ = assign_precision(scores, ccfg)
+        sel = select_tokens(scores, labels, 1, ccfg, token_valid=token_valid,
+                            prompt_lens=plens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sel.kept_mask.shape == (b, s)
+
+
+def test_chunked_q_tails_step_reads_no_device_value(cuda):
+    """One chunked-prefill step that captures window query rows into
+    `q_tails` (ragged rows: the positions come from the host offset and the
+    device lengths) reads no device value."""
+    mcfg, params = _small_model(cuda)
+    ccfg = rt.CompressionConfig(num_layers=2, importance_source="query",
+                                query_window=96)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(3))
+    lengths = torch.tensor([256, 170], device=cuda)
+    st = llama.prefill_chunked_init(2, 256, mcfg, ccfg, device=cuda)
+    for off in (0, 64):
+        st = llama.prefill_chunked_step(params, ids[:, off:off + 64], st,
+                                        mcfg, ccfg, lengths=lengths)
+    torch.cuda.synchronize()
+    before = flash_chunk_attention_with_prompt_mass.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = llama.prefill_chunked_step(params, ids[:, 128:192], st, mcfg,
+                                        ccfg, lengths=lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert st.offset == 192
+    assert flash_chunk_attention_with_prompt_mass.launches == before + 2
+    assert bool(st.q_tails[0].abs().sum(dim=(2, 3)).gt(0).any())
+
+
+def test_sampled_decode_step_reads_no_device_value(cuda):
+    """A sampled decode step (penalties, top-k, top-p, min-p, Gumbel noise
+    from a CUDA generator, counts and logprobs) reads no device value."""
+    mcfg, params = _small_model(cuda)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.fuse_params(params)
+    ids = torch.randint(0, mcfg.vocab_size, (1, 300), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=8)
+    tok = torch.argmax(logits, -1)
+    sampling = SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
+                              min_p=0.01, repetition_penalty=1.1)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    toks, state, counts = llama.decode_loop(  # warm-up: scratch, allocator
+        params, tok, state, 1, mcfg, ccfg, generator=gen, sampling=sampling,
+        return_counts=True)
+    torch.cuda.synchronize()
+    before = fused_decode_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, state, counts, lps = llama.decode_loop(
+            params, toks[:, -1], state, 1, mcfg, ccfg, generator=gen,
+            sampling=sampling, counts=counts, return_counts=True,
+            return_logprobs=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused_decode_attention.launches == before + mcfg.num_layers
+    assert int(counts.sum()) == 3 and bool((lps <= 0).all())
 
 
 @pytest.mark.parametrize("ragged", [False, True])

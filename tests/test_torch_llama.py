@@ -246,16 +246,15 @@ def test_rope_rmsnorm_building_blocks(scaling):
 
 
 def test_unported_paths_raise(runs):
-    """Ragged batches and the decode pool are ported; query-guided
-    importance (one-shot and chunked) and MoE still raise."""
-    tp, tcfg, tcc = runs["tp"], runs["tcfg"], runs["tcc"]
-    ids = torch.from_numpy(runs["ids"])
+    """Ragged batches, the decode pool and query-guided importance (one-shot
+    and chunked: tests/test_torch_query_importance.py) are ported; the
+    compressed-prefix prefill refuses query-guided scoring, as the
+    reference does, and MoE still raises."""
+    tcfg, tcc = runs["tcfg"], runs["tcc"]
     query = dataclasses.replace(tcc, importance_source="query")
-    with pytest.raises(NotImplementedError, match="item"):
-        tl.prefill_compressed(tp, ids, tcfg, query,
-                              lengths=torch.tensor([PROMPT, PROMPT - 3]))
-    with pytest.raises(NotImplementedError, match="item"):
-        tl.prefill_compressed_chunked(tp, ids, tcfg, query, chunk_size=32)
+    with pytest.raises(ValueError, match="prompt"):
+        tl.prefill_chunked_compressed_init(BATCH, PROMPT, 32, tcfg, query,
+                                           device="cpu")
     with pytest.raises(NotImplementedError):
         tl.init_params(0, dataclasses.replace(tcfg, num_experts=4),
                        device="cpu")

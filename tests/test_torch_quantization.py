@@ -117,3 +117,15 @@ def test_assign_precision_costs_and_memory_report():
             for key in mj:
                 np.testing.assert_allclose(np.asarray(mj[key]),
                                            mt[key].numpy(), rtol=1e-6)
+
+
+def test_roundtrip_bound_and_storage_bytes_match_jax():
+    scale = np.random.default_rng(9).random((3, 8, 2, 4)).astype(np.float32)
+    _eq(jq.max_roundtrip_error(jnp.asarray(scale)),
+        tq.max_roundtrip_error(torch.from_numpy(scale)))
+    for bits in (2, 4, 8, 16):
+        for group_size in (64, 16):
+            args = (4096, 64, 4, bits, group_size)
+            assert tq.storage_bytes(*args) == jq.storage_bytes(*args)
+            assert tq.storage_bytes(*args, scale_bytes=2) == \
+                jq.storage_bytes(*args, scale_bytes=2)
