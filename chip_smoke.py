@@ -29,6 +29,22 @@ each with every launch count set to 0 just before it and read just after:
   on the same prefill (temperature 0.8, top-k 50, top-p 0.9, repetition
   penalty 1.1; 127 steps through K2), with its counts and logprobs checked,
   top-k 1 held to the greedy tokens, and its tok/s beside greedy;
+- TinyLlama again, on the rest of the generation surface, with the main
+  run's params: beam search (README's call: W=4, 64 new tokens, EOS 2;
+  one prefill at B=1 through K1, then every step one K2 launch per layer
+  at B·W rows), counted once, `num_beams=1` held to `generate`, K2 held
+  against its plain version on every layer of the 4-row state after 6
+  beam steps and their gathers, timed in turns with greedy `generate`
+  (ms per token, TTFT, peak memory, the beam reindexing alone, a profile
+  of 10 beam steps); speculative
+  decoding over a prompt whose second half repeats its first (128 steps,
+  4 drafts: `decode_loop` through K2, speculative with oracle drafts and
+  with prompt lookup, where the plain verify forward replaces K2, and the
+  adaptive controller with adversarial drafts, whose plain chunks run
+  K2), each arm counted and timed in turns (forwards, tokens per forward,
+  ms per token, the verify forward alone, bf16 agreement with
+  `decode_loop`); and `forward_logits` (SDPA route against the plain
+  route and against `prefill_uncompressed`'s last logits);
 - Llama-2-7B (32 layers, hidden 4096, 32/32 heads, d=128), bf16 random
   weights quantized with `quantize_params_streaming(bits=4)` and fused:
   every layer matmul through K3, embed and lm_head int8 weight-only; the
@@ -70,8 +86,15 @@ greedy tokens, for the chunked path also chunked against one-shot prefill, and
 for the compressed-prefix path equal kept positions and a single chunk
 against `prefill_compressed`; for query-guided scoring ("query", "both")
 equal kept positions and tokens, and chunked against one-shot prefill up
-to a near-tie swap. `select_tokens` with the exact greedy scan is timed
-beside the default prefix at S=4096.
+to a near-tie swap; for beam search (B=1, W=4, with and without an EOS
+the model emits) equal sequences and scores within 1e-4 relative; for
+speculative decoding (prompt lookup, oracle and the adaptive controller
+with adversarial drafts, without and with a decode pool that flushes
+twice) the tokens, positions, rings and pool validity of `decode_loop`
+through K2, and `extend_prefill` against teacher-forced `decode_step`s
+with its input state unchanged; for `forward_logits` the SDPA route
+against the plain one. `select_tokens` with the exact greedy scan is
+timed beside the default prefix at S=4096.
 Any failed check exits nonzero. The last line is the device JSON; the line
 before it lists every kernel.
 
@@ -152,7 +175,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 SEED = 0
 PROMPT = 4096
 NEW_TOKENS = 128
-REPEATS = 3  # the query path's prompt-scored arm times the same run 3 more
+REPEATS = 3  # the query path's prompt-scored arm times the same run twice more
 REPEATS_7B = 2
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
@@ -166,7 +189,7 @@ POOL_BLOCKS = 4
 POOL_BITS = 4
 GROUP_SIZE = 32       # 2 scale groups per head at d=64
 DECODE_STEPS = 383    # flushes at steps 64, 128, ..., 320: 5 per layer
-REPEATS_NEW = 3
+REPEATS_NEW = 2
 SWAP_TOL = 1e-5       # chunked vs one-shot: a kept-token swap at a tier
                       # boundary passes only between near-equal scores
 # The compressed-prefix path (the chunk = T/4 layout of
@@ -180,6 +203,14 @@ QUERY_POOL = 20
 QUERY_SOURCES = ("prompt", "query", "both")
 # The sampled decode (top_k 1 at this temperature must give greedy tokens).
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, repetition_penalty=1.1)
+BEAM_WIDTH = 4
+BEAM_NEW_TOKENS = 64
+BEAM_EOS = 2          # README's beam_search call
+TOL_SCORE_REL = 1e-4  # float32 beam scores, kernel vs plain path
+SPEC_STEPS = 128
+N_DRAFT = 4
+SPEC_CHUNK = 16       # adaptive_speculative_decode's default chunk
+BEAM_K2_STEPS = 6     # beam steps (gathers) before the 4-row K2 check
 
 
 def log(msg: str) -> None:
@@ -2369,6 +2400,471 @@ def phase_sampled(label: str, device, mcfg, main_run,
     return launches
 
 
+def phase_parity_beam(device, mcfg, prompt: int = 1024,
+                      new_tokens: int = 16) -> None:
+    """Beam search in float32 at reduced depth (full width), B=1,
+    W=BEAM_WIDTH, without EOS and with an EOS the model emits (the best
+    first token: its beam freezes at step 0 and survives): the kernel path
+    (K1, K2 at B·W rows) against the plain path on the card, every beam's
+    sequence equal and its score within TOL_SCORE_REL."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import (beam_search,
+                                                                llama)
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.init_params(SEED, mcfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
+                        device=device)
+    eos = None
+    for what in ("no EOS", "EOS"):
+        runs = [beam_search.beam_search(
+            params, ids, mcfg, ccfg, num_beams=BEAM_WIDTH,
+            max_new_tokens=new_tokens, eos_token_id=eos, use_flash=kernels,
+            use_fused_decode=kernels, return_all_beams=True)[:2]
+            for kernels in (True, False)]
+        (seq_k, score_k), (seq_p, score_p) = runs
+        rel = float(((score_k - score_p).abs() / score_p.abs()).max())
+        log(f"beam parity f32 ({what}{'' if eos is None else f' {eos}'}, "
+            f"W={BEAM_WIDTH}, {new_tokens} tokens, {mcfg.num_layers} layers, "
+            f"prompt {prompt}): best beam {seq_k[0, 0].tolist()}; scores "
+            f"kernel {score_k[0].tolist()} plain {score_p[0].tolist()}, max "
+            f"rel err {rel:.3e}")
+        check(torch.equal(seq_k, seq_p), f"beam ({what}): sequences of the "
+                                         f"kernel and plain paths")
+        check(rel <= TOL_SCORE_REL, f"beam ({what}): scores within "
+                                    f"{TOL_SCORE_REL}")
+        eos = int(seq_k[0, 0, 0])
+    check(eos in seq_k[0, :, 0].tolist(), "beam: the EOS beam survives")
+
+
+def _spec_proposers(ref: torch.Tensor, n_steps: int, vocab: int):
+    """An oracle proposer (the reference tokens at the count) and an
+    adversarial one (the last token + 1), as proposer(last2, count, out)."""
+    def oracle(last2, count, out):
+        cols = count[:, None] + torch.arange(N_DRAFT, device=ref.device)[None]
+        return torch.gather(ref, 1, cols.clamp(max=n_steps - 1))
+
+    def adversarial(last2, count, out):
+        return ((last2[:, 1:2] + 1) % vocab).expand(-1, N_DRAFT)
+
+    return oracle, adversarial
+
+
+def phase_parity_speculative(device, mcfg, prompt: int = 1024,
+                             n_steps: int = 40, pooled_steps: int = 150,
+                             suffix: int = 64) -> None:
+    """Speculative decoding in float32 at reduced depth (full width), B=1:
+    `decode_loop` through K2 against `speculative_decode_loop` with prompt
+    lookup and with an oracle proposer (the reference tokens), and
+    `adaptive_speculative_decode` with an adversarial one: equal tokens,
+    positions, ring fills and ring lengths; the oracle in ceil(n_steps /
+    (N_DRAFT + 1)) forwards. Again over a RING-token ring and a
+    POOL_BLOCKS-block POOL_BITS-bit pool for `pooled_steps` steps (two
+    flushes): the pools' validity, positions and write blocks equal too.
+    Then `extend_prefill` of a `suffix`-token suffix against teacher-forced
+    plain `decode_step`s over it: last logits within TOL_LOGITS, ring
+    positions and lengths equal, ring values within TOL_LOGITS, and the
+    input state's tensors unchanged, byte for byte."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import (llama,
+                                                                speculative)
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    layers = mcfg.num_layers
+    params = llama.init_params(SEED, mcfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
+                        device=device)
+
+    def arms(ccfg, steps, ring, what):
+        logits, state, _ = llama.prefill_compressed(
+            params, ids, mcfg, ccfg, max_decode_len=ring)
+        first = torch.argmax(logits, -1)
+        copy = llama.clone_decode_state
+        ref, ref_state = llama.decode_loop(params, first, copy(state), steps,
+                                           mcfg, ccfg)
+        oracle, adversarial = _spec_proposers(ref, steps, mcfg.vocab_size)
+        out = {
+            "lookup": speculative.speculative_decode_loop(
+                params, first, copy(state), steps, mcfg, ccfg, ids,
+                n_draft=N_DRAFT),
+            "oracle": speculative.speculative_decode_loop(
+                params, first, copy(state), steps, mcfg, ccfg, ids,
+                n_draft=N_DRAFT, proposer=oracle),
+            "adaptive": speculative.adaptive_speculative_decode(
+                params, first, copy(state), steps, mcfg, ccfg, ids,
+                n_draft=N_DRAFT, chunk=SPEC_CHUNK, proposer=adversarial)}
+        for name, (toks, st, stats) in out.items():
+            shown = {k: v for k, v in stats.items() if k != "arms"}
+            log(f"speculative parity f32 ({what}, {name}, {steps} steps, "
+                f"{layers} layers, prompt {prompt}): tokens equal "
+                f"{torch.equal(toks, ref)}, {shown}")
+            check(torch.equal(toks, ref), f"speculative ({what}, {name}): "
+                                          f"tokens of decode_loop")
+            check(torch.equal(st.position, ref_state.position)
+                  and st.ring_fill == ref_state.ring_fill
+                  and all(torch.equal(a.length, b.length) for a, b in zip(
+                      st.recents, ref_state.recents)),
+                  f"speculative ({what}, {name}): positions and rings")
+            for a, b in zip(st.pools, ref_state.pools):
+                check(a is None or all(torch.equal(getattr(a, f),
+                                                   getattr(b, f))
+                                       for f in ("valid", "positions",
+                                                 "write_block")),
+                      f"speculative ({what}, {name}): pool validity, "
+                      f"positions and write blocks")
+        return out
+
+    out = arms(CompressionConfig(num_layers=layers), n_steps,
+               n_steps + N_DRAFT + 1, "tiers + ring")
+    iters = out["oracle"][2]["iterations"]
+    check(iters == -(-n_steps // (N_DRAFT + 1)),
+          f"speculative: the oracle's {iters} forwards")
+    pooled = CompressionConfig(num_layers=layers,
+                               decode_pool_blocks=POOL_BLOCKS,
+                               decode_pool_bits=POOL_BITS)
+    out = arms(pooled, pooled_steps, RING, f"ring {RING}, pool "
+               f"{POOL_BLOCKS} x {POOL_BITS}-bit")
+    check(bool(out["lookup"][1].pools[0].valid[:, :2 * RING].all()),
+          "speculative: two ring flushes into the pool")
+
+    ccfg = CompressionConfig(num_layers=layers)
+    _, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                           max_decode_len=2 * suffix)
+    tokens = torch.randint(0, mcfg.vocab_size, (1, suffix), generator=gen,
+                           device=device)
+    before = [t.clone() for t in llama.decode_state_tensors(state)]
+    last, ext = speculative.extend_prefill(
+        params, state, tokens, torch.full((1,), suffix, device=device), mcfg,
+        ccfg)
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        before, llama.decode_state_tensors(state), strict=True))
+    st = llama.clone_decode_state(state)
+    for i in range(suffix):
+        step_logits, st = llama.decode_step(params, tokens[:, i], st, mcfg,
+                                            ccfg, use_fused=False)
+    ring_err = max(max_err(getattr(a, f), getattr(b, f))
+                   for a, b in zip(ext.recents, st.recents)
+                   for f in ("k", "v"))
+    log(f"extend_prefill f32 ({suffix} tokens over prompt {prompt}): last "
+        f"logits vs teacher-forced decode_step max err "
+        f"{max_err(last, step_logits):.3e}, ring values max err "
+        f"{ring_err:.3e}; input state unchanged {unchanged}")
+    check(unchanged, "extend_prefill: the input state's tensors unchanged")
+    check_close(last, step_logits, TOL_LOGITS,
+                "extend_prefill vs teacher-forced decode_step: last logits")
+    check(ring_err <= TOL_LOGITS and ext.ring_fill == st.ring_fill
+          and all(torch.equal(a.positions, b.positions)
+                  and torch.equal(a.length, b.length)
+                  for a, b in zip(ext.recents, st.recents))
+          and torch.equal(ext.position, st.position),
+          "extend_prefill: rings and positions of the decode steps")
+
+
+def _zero_counts() -> None:
+    for key in KERNELS:
+        wrapper(key).launches = 0
+
+
+def phase_beam_path(label: str, device, mcfg, main_run,
+                    repeats: int = 3) -> dict:
+    """Beam search at full width and depth on the main run's params and
+    prompt (PROMPT, B=1): README's call, W=BEAM_WIDTH, BEAM_NEW_TOKENS new
+    tokens, eos_token_id BEAM_EOS. Counted once (K1 once per layer for the
+    one prefill at B rows, K2 once per layer and step at B·W rows; peak
+    memory); `num_beams=1` against `generate` (equal tokens: same kernels,
+    same shapes); then beam and greedy `generate` of the same length timed
+    `repeats` times in turns (ms per generated token; TTFT as the call
+    with one new token); K2 at this path's shape: the B·W-row state after
+    BEAM_K2_STEPS beam steps, each with its gather, every layer against
+    the plain version on the same q, tiers and ring (bf16 limit as in
+    phase_k2); the reindexing of the rings and positions alone and the
+    top-W sort per step; a profile of 10 beam steps. Returns the launches
+    per path and K2's worst error at the beam shape."""
+    from realtime_kv_cache_compression_tpu_torch.models import (beam_search,
+                                                                llama)
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import decode_attention_plain, fused_decode_attention
+
+    params, ids, ccfg = main_run["params"], main_run["ids"], main_run["ccfg"]
+    layers, n, w = mcfg.num_layers, BEAM_NEW_TOKENS, BEAM_WIDTH
+
+    def beam(tokens=n, width=w):
+        return beam_search.beam_search(params, ids, mcfg, ccfg,
+                                       num_beams=width, max_new_tokens=tokens,
+                                       eos_token_id=BEAM_EOS)
+
+    def greedy(tokens=n):
+        return llama.generate(params, ids, mcfg, ccfg, max_new_tokens=tokens,
+                              eos_token_id=BEAM_EOS)
+
+    peaks = {}
+    for arm, fn in (("greedy", greedy), ("beam", beam)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[arm] = torch.cuda.max_memory_allocated() / 2**20
+    seqs, scores, _ = out
+    launches = {key: wrapper(key).launches for key in KERNELS}
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1=layers, K2=layers * (n - 1))
+    log(f"{label} beam launches: {launches} (expect {expect}); best beam "
+        f"{seqs[0, :16].tolist()}..., score {float(scores[0]):.4f}; peak "
+        f"memory beam {peaks['beam']:.1f} MB, greedy generate "
+        f"{peaks['greedy']:.1f} MB")
+    check(launches == expect, f"{label} beam: launches per kernel")
+    check(seqs.shape == (1, n) and bool(torch.isfinite(scores).all()),
+          f"{label} beam: output shape and finite score")
+    one = beam(width=1)[0]
+    check(torch.equal(one, greedy()[0]),
+          f"{label}: beam_search(num_beams=1) equals generate")
+
+    ms = {"beam": [], "greedy": []}
+    ttft = {"beam": [], "greedy": []}
+    for i in range(repeats):
+        order = ("beam", "greedy") if i % 2 == 0 else ("greedy", "beam")
+        for arm in order:
+            fn = beam if arm == "beam" else greedy
+            ms[arm].append(cuda_ms(fn)[1] / n)
+            ttft[arm].append(cuda_ms(lambda: fn(1))[1])
+    log(f"{label} beam (W={w}) vs greedy generate, {n} tokens, {repeats} "
+        f"timed runs each, in turns: ms per generated token beam "
+        f"{_spread(ms['beam'])}, greedy {_spread(ms['greedy'])}; TTFT ms "
+        f"beam {_spread(ttft['beam'])}, greedy {_spread(ttft['greedy'])}")
+
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=n)
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    # The search's own steps (B=1, no EOS), so each ring has been gathered
+    # by its parents before K2 reads it.
+    scores, tokens = beam_search._top(torch.log_softmax(logits.float(), -1),
+                                      w)
+    st, parents = beam_search._expand_beams(state, w), []
+    for _ in range(BEAM_K2_STEPS):
+        step_logits, st = llama.decode_step(params, tokens.reshape(w), st,
+                                            mcfg, ccfg)
+        total = scores[:, :, None] + torch.log_softmax(
+            step_logits.float(), -1).reshape(1, w, -1)
+        scores, flat = beam_search._top(total.reshape(1, -1), w)
+        tokens, parent = flat % mcfg.vocab_size, flat[0] // mcfg.vocab_size
+        parents.append(parent.tolist())
+        st = beam_search._gather_beams(st, parent)
+    q = torch.randn((w, 1, mcfg.num_heads, mcfg.head_dim), generator=gen,
+                    device=device).to(llama.model_dtype(mcfg))
+    q_pos = st.position[:, None]
+    errs, shares = [], []
+    for cache, recent, pool in zip(st.caches, st.recents,
+                                   st.pools or (None,) * layers):
+        out = fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
+        ref = decode_attention_plain(q, cache, recent, q_pos, ccfg, pool=pool)
+        errs.append(max_err(out, ref))
+        shares.append(bf16_share(out, ref))
+    ring = st.recents[0]
+    rows_differ = not all(torch.equal(ring.k[0], ring.k[r])
+                          for r in range(1, w))
+    log(f"{label} K2 at the beam shape ({w} rows after {BEAM_K2_STEPS} beam "
+        f"steps, parents per step {parents}; ring {int(ring.length[0])}/"
+        f"{ring.capacity}, rows' rings differ {rows_differ}; bf16), each of "
+        f"{layers} layers against its plain version on the same q, tiers "
+        f"and ring: max abs err {max(errs):.3e} (layer "
+        f"{errs.index(max(errs))}), worst element at {max(shares):.3f} of "
+        f"its limit ({BF16_ULPS} bf16 ulps + {BF16_FLOOR:.3e})")
+    check(max(shares) <= 1.0, f"{label} K2 at the beam shape: every layer "
+                              f"within the bf16 limit")
+    check(rows_differ, f"{label} K2 at the beam shape: the beams' rings "
+                       f"differ")
+    del st, out, ref
+
+    expanded = beam_search._expand_beams(state, w)
+    parent = torch.randint(0, w, (w,), generator=gen, device=device)
+    total = torch.randn((1, w * mcfg.vocab_size), generator=gen,
+                        device=device)
+    _, gather_ms = cuda_ms(lambda: beam_search._gather_beams(expanded,
+                                                             parent), 20)
+    gather_host = _host_ms(lambda: beam_search._gather_beams(expanded,
+                                                             parent))
+    _, sort_ms = cuda_ms(lambda: beam_search._top(total, w), 20)
+    log(f"{label} beam reindexing alone per step ({layers} layers' rings "
+        f"and positions at {w} rows): {gather_ms:.4f} ms by CUDA events "
+        f"over 20 calls, host ms {_spread(gather_host)}; top-{w} sort over "
+        f"{w * mcfg.vocab_size} totals {sort_ms:.4f} ms")
+    _profile_window(label, "beam search 10 steps",
+                    lambda: beam_search._search(params, logits, state, mcfg,
+                                                ccfg, w, 11, 1.0, BEAM_EOS,
+                                                None))
+    return {f"{label}_beam": launches}, {
+        "max_abs_err": max(errs),
+        "shape": f"{w} rows (B=1 x W={w}) of a {PROMPT}-token "
+                 f"{mcfg.num_layers}-layer state after {BEAM_K2_STEPS} beam "
+                 f"steps with their gathers, 8/4/2, tiers + ring, bf16, "
+                 f"every layer"}
+
+
+def _first_divergence(ref: torch.Tensor, toks: torch.Tensor):
+    """Index of the first step where `toks` leaves `ref` (row 0), or
+    None."""
+    differ = (toks[0] != ref[0]).nonzero()
+    return int(differ[0]) if len(differ) else None
+
+
+def phase_speculative_path(label: str, device, mcfg, main_run,
+                           repeats: int = 1) -> dict:
+    """Speculative decoding at full width and depth on the main run's
+    params: a PROMPT-token prompt whose second half repeats its first (a
+    span for prompt lookup to copy), B=1, SPEC_STEPS steps, N_DRAFT drafts,
+    rings of SPEC_STEPS + N_DRAFT + 1. Arms: `decode_loop` (K2), and
+    `speculative_decode_loop` with oracle drafts (decode_loop's tokens) and
+    with prompt lookup, and `adaptive_speculative_decode` (chunks of
+    SPEC_CHUNK) with adversarial drafts (the last token + 1). Each arm
+    counted once and timed (launches held exactly: K1 once per layer for
+    its prefill; K2 0 in the speculative arms, once per layer and plain
+    token in the adaptive arm), then timed again, `repeats` runs in all,
+    the arms in turns: forwards, tokens per forward, ms per emitted token.
+    The oracle drafts decode_loop's tokens: once bf16 parts the arm from
+    them at a near tie (the step is reported), its drafts mostly fail.
+    The verify forward alone (N_DRAFT + 1 tokens). bf16 agreement with
+    decode_loop, reported: the common prefix and, at the first divergence,
+    the gap in decode_loop's log-probabilities between its token and the
+    arm's. Returns the launches per path."""
+    from realtime_kv_cache_compression_tpu_torch.models import (llama,
+                                                                speculative)
+
+    params, ccfg = main_run["params"], main_run["ccfg"]
+    half = PROMPT // 2
+    ids = torch.cat([main_run["ids"][:, :half]] * 2, dim=1)
+    layers, n, ring = mcfg.num_layers, SPEC_STEPS, SPEC_STEPS + N_DRAFT + 1
+    prefill = lambda: llama.prefill_compressed(  # noqa: E731
+        params, ids, mcfg, ccfg, max_decode_len=ring)
+    ref = None
+
+    def arms():
+        oracle, adversarial = _spec_proposers(ref, n, mcfg.vocab_size)
+        return {
+            "decode_loop": lambda f, s: (*llama.decode_loop(
+                params, f, s, n, mcfg, ccfg), {"forwards": n}),
+            "oracle": lambda f, s: speculative.speculative_decode_loop(
+                params, f, s, n, mcfg, ccfg, ids, n_draft=N_DRAFT,
+                proposer=oracle),
+            "lookup": lambda f, s: speculative.speculative_decode_loop(
+                params, f, s, n, mcfg, ccfg, ids, n_draft=N_DRAFT),
+            "adaptive": lambda f, s: speculative.adaptive_speculative_decode(
+                params, f, s, n, mcfg, ccfg, ids, n_draft=N_DRAFT,
+                chunk=SPEC_CHUNK, proposer=adversarial)}
+
+    def run(decode):
+        logits, state, _ = prefill()
+        (toks, _, stats), ms = cuda_ms(
+            lambda: decode(torch.argmax(logits, -1), state))
+        return toks, stats, ms
+
+    launches, results, ms = {}, {}, {}
+    for arm in ("decode_loop", "oracle", "lookup", "adaptive"):
+        torch.cuda.synchronize()
+        _zero_counts()
+        toks, stats, t = run(arms()[arm])
+        torch.cuda.synchronize()
+        count = {key: wrapper(key).launches for key in KERNELS}
+        if arm == "decode_loop":
+            ref = toks
+        plain = {"decode_loop": n, "adaptive": SPEC_CHUNK * stats.get(
+            "plain_chunks", 0)}.get(arm, 0)
+        expect = {key: 0 for key in KERNELS}
+        expect.update(K1=layers, K2=layers * plain)
+        log(f"{label} speculative {arm} launches: {count} (expect {expect})")
+        check(count == expect, f"{label} speculative {arm}: launches per "
+                               f"kernel")
+        check(toks.shape == (1, n), f"{label} speculative {arm}: shape")
+        launches[f"{label}_speculative_{arm}"] = count
+        results[arm], ms[arm] = (toks, stats), [t / n]
+    for i in range(1, repeats):
+        order = list(results)[::-1 if i % 2 else 1]
+        for arm in order:
+            ms[arm].append(run(arms()[arm])[2] / n)
+
+    # decode_loop's log-probabilities, teacher-forced, at each arm's first
+    # divergence from it.
+    firsts = {arm: _first_divergence(ref, toks)
+              for arm, (toks, _) in results.items()}
+    needed = max((i for i in firsts.values() if i is not None), default=-1)
+    lp_rows = {}
+    if needed >= 0:
+        logits, state, _ = prefill()
+        tok = torch.argmax(logits, -1)
+        for i in range(needed + 1):
+            step_logits, state = llama.decode_step(params, tok, state, mcfg,
+                                                   ccfg)
+            lp_rows[i] = torch.log_softmax(step_logits.float(), -1)[0]
+            tok = ref[:, i]
+    for arm, (toks, stats) in results.items():
+        forwards = stats.get("forwards", stats.get("iterations"))
+        i = firsts[arm]
+        gap = ("none" if i is None else
+               f"{float(lp_rows[i][ref[0, i]] - lp_rows[i][toks[0, i]]):.4e}"
+               f" at step {i}")
+        shown = {k: v for k, v in stats.items() if k != "arms"}
+        log(f"{label} speculative {arm} (bf16, {n} steps, n_draft "
+            f"{N_DRAFT}): forwards {forwards}, tokens per forward "
+            f"{n / forwards:.3f}, ms per emitted token {_spread(ms[arm])}; "
+            f"common prefix with decode_loop {n if i is None else i} of "
+            f"{n}, logprob gap at the first divergence {gap}; {shown}"
+            + (f"; arms {stats['arms']}" if "arms" in stats else ""))
+
+    logits, state, _ = prefill()
+    block = torch.cat([torch.argmax(logits, -1)[:, None],
+                       ref[:, :N_DRAFT]], dim=1)
+    speculative.verify_forward(params, block, state, mcfg, ccfg)
+    _, verify_ms = cuda_ms(lambda: speculative.verify_forward(
+        params, block, state, mcfg, ccfg), 5)
+    log(f"{label} verify_forward alone ({N_DRAFT + 1} tokens, {layers} "
+        f"layers over a {PROMPT}-token compressed state): {verify_ms:.3f} ms")
+    return launches
+
+
+def phase_forward_logits(device, mcfg, main_run, prompt: int = 1024) -> None:
+    """`forward_logits`: at full width and depth in bf16 on the main run's
+    params and prompt, the SDPA route against the plain route and the last
+    position against `prefill_uncompressed`'s logits (errors reported,
+    and each route's time); at reduced depth in float32 (prompt `prompt`),
+    both within TOL_LOGITS."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    params, ids = main_run["params"], main_run["ids"]
+    routes = {}
+    for flash in (True, False):  # a warm-up, then 2 timed calls
+        llama.forward_logits(params, ids, mcfg, use_flash=flash)
+        routes[flash] = cuda_ms(lambda: llama.forward_logits(
+            params, ids, mcfg, use_flash=flash), 2)
+    (sdpa, sdpa_ms), (plain, plain_ms) = routes[True], routes[False]
+    last, _ = llama.prefill_uncompressed(params, ids, mcfg)
+    log(f"forward_logits bf16 ({mcfg.num_layers} layers, S={ids.shape[1]}): "
+        f"SDPA route {sdpa_ms:.3f} ms, plain route {plain_ms:.3f} ms per "
+        f"call; SDPA "
+        f"vs plain max err {max_err(sdpa, plain):.3e} (max|logit| "
+        f"{float(plain.float().abs().max()):.3e}); last position vs "
+        f"prefill_uncompressed max err {max_err(sdpa[:, -1], last):.3e}")
+    check(sdpa.shape == (1, ids.shape[1], mcfg.vocab_size)
+          and bool(torch.isfinite(sdpa).all()),
+          "forward_logits bf16: shape and finite logits")
+    del sdpa, plain, last, routes
+
+    mcfg = dataclasses.replace(mcfg, num_layers=2, dtype="float32")
+    params = llama.init_params(SEED, mcfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
+                        device=device)
+    sdpa = llama.forward_logits(params, ids, mcfg, use_flash=True)
+    check_close(sdpa, llama.forward_logits(params, ids, mcfg,
+                                           use_flash=False), TOL_LOGITS,
+                "forward_logits f32 (2 layers): SDPA vs plain route")
+    check_close(sdpa[:, -1], llama.prefill_uncompressed(params, ids, mcfg)[0],
+                TOL_LOGITS, "forward_logits f32 (2 layers): last position "
+                            "vs prefill_uncompressed")
+
+
 def run_all(device, tiny, big, gemma, gemma7) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
     line. `tiny`, `big`, `gemma` and `gemma7` are the TinyLlama,
@@ -2427,6 +2923,8 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     phase_parity_prefix(device, two(tiny))
     phase_parity_query(device, two(tiny))
     phase_exact_greedy(device)
+    phase_parity_beam(device, two(tiny))
+    phase_parity_speculative(device, two(tiny))
     mark("float32 parity phases")
     n_steps = NEW_TOKENS - 1
     tiny_run = phase_main(
@@ -2438,9 +2936,16 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     launches = {"tinyllama": tiny_run["launches"],
                 "tinyllama_sampled": phase_sampled("tinyllama", device, tiny,
                                                    tiny_run)}
+    mark("tinyllama main and sampled runs")
+    beam_launches, k2_beam = phase_beam_path("tinyllama", device, tiny,
+                                             tiny_run)
+    launches.update(beam_launches)
+    launches.update(phase_speculative_path("tinyllama", device, tiny,
+                                           tiny_run))
+    phase_forward_logits(device, tiny, tiny_run)
     del tiny_run
     torch.cuda.empty_cache()
-    mark("tinyllama main and sampled runs")
+    mark("tinyllama beam, speculative and forward_logits runs")
     launches["tinyllama_chunked"] = phase_chunked_path(
         device, dataclasses.replace(tiny,
                                     max_position_embeddings=PROMPT + 512),
@@ -2489,7 +2994,7 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     pair_note = (f"B={PREFIX_BATCH} S_q=S_k={CHUNK}, Hq={{}} Hkv={{}} d={{}}, "
                  f"bf16")
     k2_err = max(r["max_abs_err"] for r in (
-        k2, k2_tiny, k2p_tiny, k2p_big,
+        k2, k2_tiny, k2p_tiny, k2p_big, k2_beam,
         *(g[m][p] for m in g for p in ("K2", "K2pool"))))
 
     g_cfgs = {"gemma_2b": gemma, "gemma_7b": gemma7}
@@ -2570,6 +3075,7 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
             "kernels_per_call": 1,
             "device_us_per_call": k2["device_us"],
             "tinyllama": k2_tiny,
+            "beam": k2_beam,  # the beam path's B·W rows
             **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
                                           f"state, 8/4/2, tiers + ring, bf16"}
                for m in g},

@@ -103,17 +103,22 @@ def init_recent_cache(batch: int, max_decode_len: int,
 
 
 def append_recent(cache: RecentCache, k_new: torch.Tensor,
-                  v_new: torch.Tensor, pos_new: torch.Tensor) -> RecentCache:
+                  v_new: torch.Tensor, pos_new: torch.Tensor,
+                  gate: Optional[torch.Tensor] = None) -> RecentCache:
     """Append one decode step's K/V ([B, 1, H, D]) into the ring, in place.
 
     A full ring (length == capacity) drops the append and keeps its length,
-    as in the reference; it never overwrites the last slot. The ring's
+    as in the reference; it never overwrites the last slot. `gate` ([B]
+    bool) also drops the append for False rows (speculative decoding
+    commits only the accepted prefix of a draft block). The ring's
     tensors are updated in place (a decode step touches one slot per row)
     and the same cache object is returned.
     """
     cap = cache.capacity
     bidx = torch.arange(cache.k.shape[0], device=cache.k.device)
     drop = cache.length >= cap                                     # [B]
+    if gate is not None:
+        drop = drop | ~gate
     idx = torch.clamp(cache.length, max=cap - 1).long()
     keep = drop[:, None, None]
     cache.k[bidx, idx] = torch.where(keep, cache.k[bidx, idx],

@@ -16,7 +16,9 @@ those pools plus an uncompressed recent ring and, with
 into, so a generation may outlive the ring; greedily, or sampled
 (`ops/sampling.py`: temperature, top-k, top-p, min-p and penalties, noise
 from a `torch.Generator`). The baseline arm is `prefill_uncompressed` +
-`decode_loop_uncompressed`.
+`decode_loop_uncompressed`. `forward_logits` gives the logits at every
+position without a cache (scoring); `models/beam_search.py` and
+`models/speculative.py` build on `prefill_compressed` and `decode_step`.
 
 Kernels: with `use_flash` the prefill attention runs K1
 (ops/cuda/flash_prefill.py: mode (a) one-shot, mode (b) per chunk, mode
@@ -30,9 +32,8 @@ act-quant `QuantizedTensor` K4 (ops/cuda/int8_matmul.py). The reference's
 rings, the decode pools (and the baseline arm's dense cache) in place, as
 chunked prefill does its K/V buffers.
 
-Not ported yet: beam search, speculative decoding, MoE (and its
-quantized experts) and the other model families' options beyond the
-config fields themselves.
+Not ported yet: MoE (and its quantized experts) and the other model
+families' options beyond the config fields themselves.
 """
 
 from __future__ import annotations
@@ -367,6 +368,40 @@ class DecodeState:
             self.ring_fill = (0,) * self.position.shape[0]
 
 
+def _map_tensors(obj, fn):
+    """A copy of the dataclass `obj` with fn applied to each tensor field
+    (other fields kept)."""
+    fields = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return dataclasses.replace(obj, **{
+        name: fn(v) for name, v in fields.items()
+        if isinstance(v, torch.Tensor)})
+
+
+def clone_decode_state(state: DecodeState) -> DecodeState:
+    """A copy of `state` that decoding may update without changing `state`:
+    the recent rings, decode pools and positions are copied (decode writes
+    them in place); the compressed tier caches are shared, since nothing
+    writes them after the prefill."""
+    copy = lambda t: t.clone()  # noqa: E731
+    return dataclasses.replace(
+        state, recents=tuple(_map_tensors(r, copy) for r in state.recents),
+        pools=tuple(p if p is None else _map_tensors(p, copy)
+                    for p in state.pools),
+        position=state.position.clone())
+
+
+def decode_state_tensors(state: DecodeState) -> List[torch.Tensor]:
+    """Every tensor of `state`, tier caches included, in a fixed order
+    (to compare two states, or one state before and after a call, byte for
+    byte)."""
+    parts = (*(t for c in state.caches for t in c.tiers), *state.recents,
+             *(p for p in state.pools if p is not None))
+    return [state.position] + [
+        v for part in parts for v in (getattr(part, f.name) for f in
+                                      dataclasses.fields(part))
+        if isinstance(v, torch.Tensor)]
+
+
 def _prefill_attention(q, k, v, prompt_len, use_flash, prompt_lens=None):
     if use_flash:
         return flash_prefill_with_prompt_mass(q, k, v, prompt_len,
@@ -510,6 +545,36 @@ def prefill_uncompressed(
         h = _attn_out(layer, h, attn, cfg)
     logits = logits_from_hidden(params, _last_hidden(h, lengths), cfg)
     return logits, (torch.stack(ks), torch.stack(vs))
+
+
+def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
+                   use_flash: Optional[bool] = None) -> torch.Tensor:
+    """Logits at every position [B, S, V] (no KV cache; scoring).
+
+    With use_flash (None: on CUDA inputs) the attention is PyTorch's
+    `scaled_dot_product_attention` (causal), as the reference calls a
+    library flash kernel there and none of its own; otherwise the plain
+    `prefill_attention_with_prompt_mass`. The reference right-pads to a
+    multiple of its library kernel's 128-token blocks (exact under
+    causality); SDPA takes any length, so nothing is padded here.
+    """
+    if use_flash is None:
+        use_flash = input_ids.is_cuda
+    h, _, cos, sin = _prefill_start(params, input_ids, cfg)
+    for layer in params["layers"]:
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if use_flash:
+            attn = torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=cfg.head_dim ** -0.5,
+                enable_gqa=True).transpose(1, 2)
+        else:
+            attn, _ = prefill_attention_with_prompt_mass(q, k, v, 1)
+        h = _attn_out(layer, h, attn, cfg)
+    return logits_from_hidden(params, h, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ import realtime_kv_cache_compression_tpu_torch as rt
 from realtime_kv_cache_compression_tpu_torch.compression import (
     append_recent, compress_layer_kv, flush_recent, init_decode_pool,
     init_recent_cache)
-from realtime_kv_cache_compression_tpu_torch.models import llama
+from realtime_kv_cache_compression_tpu_torch.models import (
+    beam_search, llama, speculative)
 from realtime_kv_cache_compression_tpu_torch.models.quantized_params import (
     params_to, quantize_params, quantize_tensor, quantize_tensor_int4)
 from realtime_kv_cache_compression_tpu_torch.ops.attention import (
@@ -771,6 +772,101 @@ def test_sampled_decode_step_reads_no_device_value(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert fused_decode_attention.launches == before + mcfg.num_layers
     assert int(counts.sum()) == 3 and bool((lps <= 0).all())
+
+
+def test_beam_step_reads_no_device_value(cuda):
+    """A beam search of one step at B·W = 4 (the first expansion, one
+    `decode_step` at 4 rows, the reindexing of rings and positions, EOS
+    freezing and the final ranking) launches K2 once per layer and reads
+    no device value."""
+    mcfg, params = _small_model(cuda)
+    params = llama.fuse_params(params)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    ids = torch.randint(0, mcfg.vocab_size, (1, 300), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(6))
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=4)
+    eos = int(torch.argmax(logits, -1))
+
+    def run():
+        return beam_search._search(params, logits, state, mcfg, ccfg, 4, 2,
+                                   1.0, eos, None)
+
+    run()  # warm-up: scratch at 4 rows
+    torch.cuda.synchronize()
+    before = fused_decode_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seqs, scores = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused_decode_attention.launches == before + mcfg.num_layers
+    assert seqs.shape == (1, 4, 2) and bool(torch.isfinite(scores).all())
+    assert eos in seqs[0, :, 0].tolist()  # the frozen beam survives
+
+
+def _pooled_decode_state(cuda, steps):
+    """A fused 2-layer model and a B=2 state over an 8-token ring and a
+    4-bit decode pool, after `steps` decode steps."""
+    mcfg, params = _small_model(cuda)
+    params = llama.fuse_params(params)
+    ccfg = rt.CompressionConfig(num_layers=2, decode_pool_blocks=2,
+                                decode_pool_bits=4)
+    ids = torch.randint(0, mcfg.vocab_size, (2, 300), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7))
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=8)
+    _, state = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                 steps, mcfg, ccfg)
+    return mcfg, params, ccfg, state
+
+
+def test_verify_and_commit_read_no_device_value(cuda):
+    """`verify_forward` of a 5-token block, then `commit_block` with a
+    host-known keep (5, 3) from ring fill 6: both rings fill at j = 1 and
+    flush at j = 2, inside the commit. No device value is read."""
+    mcfg, params, ccfg, state = _pooled_decode_state(cuda, 6)
+    tokens = torch.randint(0, mcfg.vocab_size, (2, 5), device=cuda,
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(8))
+    keep = torch.tensor([5, 3], dtype=torch.int32, device=cuda)
+    warm = llama.clone_decode_state(state)  # warm-up: allocator, scratch
+    speculative.commit_block(
+        warm, speculative.verify_forward(params, tokens, warm, mcfg, ccfg)[1],
+        keep, mcfg, ccfg, host_keep=(5, 3))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, blocks = speculative.verify_forward(params, tokens, state,
+                                                    mcfg, ccfg)
+        state = speculative.commit_block(state, blocks, keep, mcfg, ccfg,
+                                         host_keep=(5, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.ring_fill == (3, 1)
+    assert state.recents[1].length.tolist() == [3, 1]
+    assert bool(state.pools[0].valid[:, :8].all())
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_extend_prefill_leaves_its_input_state_unchanged(cuda):
+    """A 12-token ragged suffix over an 8-token ring at fill 3 (rows flush
+    inside the commit): the input state's tensors are byte-identical after
+    the call, and the returned state has moved on."""
+    mcfg, params, ccfg, state = _pooled_decode_state(cuda, 3)
+    suffix = torch.randint(0, mcfg.vocab_size, (2, 12), device=cuda,
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(9))
+    before = [t.clone() for t in llama.decode_state_tensors(state)]
+    last, new = speculative.extend_prefill(
+        params, state, suffix, torch.tensor([12, 9], device=cuda), mcfg, ccfg)
+    for a, b in zip(before, llama.decode_state_tensors(state), strict=True):
+        assert torch.equal(a, b)
+    assert state.ring_fill == (3, 3) and new.ring_fill == (7, 4)
+    assert torch.equal(new.position, state.position + torch.tensor(
+        [12, 9], dtype=state.position.dtype, device=cuda))
+    assert last.shape == (2, mcfg.vocab_size)
+    assert bool(torch.isfinite(last).all())
 
 
 @pytest.mark.parametrize("ragged", [False, True])

@@ -245,6 +245,33 @@ def test_rope_rmsnorm_building_blocks(scaling):
                                    b.float().numpy(), rtol=1e-2, atol=1e-5)
 
 
+def test_forward_logits_match_jax(runs):
+    """All-position logits, plain attention in both packages, within 1e-5;
+    the last position is the uncompressed prefill's."""
+    jp, tp, ids = runs["jp"], runs["tp"], runs["ids"]
+    want = jax.jit(lambda p, i: jl.forward_logits(
+        p, i, runs["jcfg"], use_flash=False))(jp, jnp.asarray(ids))
+    got = tl.forward_logits(tp, torch.from_numpy(ids), runs["tcfg"])
+    assert got.shape == (BATCH, PROMPT, runs["tcfg"].vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    last, _ = tl.prefill_uncompressed(tp, torch.from_numpy(ids),
+                                      runs["tcfg"])
+    np.testing.assert_allclose(got[:, -1].numpy(), last.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_forward_logits_sdpa_route_matches_plain(runs):
+    """use_flash runs `scaled_dot_product_attention` (the reference's
+    library flash call) at any length: S = 130 is past one of the
+    reference's 128-token pad blocks."""
+    ids = torch.from_numpy(runs["ids"][:, :130])
+    plain = tl.forward_logits(runs["tp"], ids, runs["tcfg"], use_flash=False)
+    sdpa = tl.forward_logits(runs["tp"], ids, runs["tcfg"], use_flash=True)
+    np.testing.assert_allclose(sdpa.numpy(), plain.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_unported_paths_raise(runs):
     """Ragged batches, the decode pool and query-guided importance (one-shot
     and chunked: tests/test_torch_query_importance.py) are ported; the

@@ -34,6 +34,26 @@ def jax_tree(tree):
                                   tree)
 
 
+def state_to_jax(state):
+    """The port's `DecodeState` (CPU tensors) as the JAX package's, so both
+    packages decode from one prefill."""
+    from realtime_kv_cache_compression_tpu.compression import kv_cache as jk
+    from realtime_kv_cache_compression_tpu.models import llama as jl
+
+    def conv(obj, cls):
+        return cls(**{f: (jax.numpy.asarray(v.numpy())
+                          if isinstance(v, torch.Tensor) else v)
+                      for f, v in vars(obj).items()})
+
+    return jl.DecodeState(
+        caches=tuple(jk.CompressedLayerCache(tiers=tuple(
+            conv(t, jk.TierCache) for t in c.tiers)) for c in state.caches),
+        recents=tuple(conv(r, jk.RecentCache) for r in state.recents),
+        position=jax.numpy.asarray(state.position.numpy()),
+        pools=tuple(None if p is None else conv(p, jk.DecodePool)
+                    for p in state.pools))
+
+
 def to_torch(x) -> torch.Tensor:
     a = np.array(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no torch numpy type
