@@ -12,9 +12,12 @@ frame of every K2 instance. Checks each kernel (K1 in its one-shot mode
 (a), chunked mode (b), positioned mode (d), the diagonal pair and the
 non-causal pair (c), K2 over tiers + ring and with the decode pool and
 scale groups, at the heads of TinyLlama, Llama-2-7B, Gemma-2B and
-Gemma-7B, with its device time per call (one launch: the splits merge
-inside it); K3 and K4 at the 7B matmul shapes, each on the route its shape
-takes) against its plain PyTorch version, in bf16 and float32, with its
+Gemma-7B, and both at Qwen2-7B's (28 over 4, n_rep 7; K1 also at
+Qwen2-0.5B's 14 over 2), with its device time per call (one launch: the
+splits merge inside it); K3 and K4 at the 7B matmul shapes, each on the
+route its shape takes; K3's expert-indexed GEMV at Mixtral-8x7B's expert
+shapes, the expert ids on the device, one kernel per call and no host
+read) against its plain PyTorch version, in bf16 and float32, with its
 time, bound and library yardstick (K1: its share of the bound and its
 factor against SDPA; K3 and K4 at M=1 also the GEMV's device time per
 launch; K4's yardstick torch._int_mm on the weights as kept and on a
@@ -78,7 +81,21 @@ each with every launch count set to 0 just before it and read just after:
   head_dim 256, vocab 256000, GeGLU, (1 + w) norms, scaled embeddings,
   tied head), bf16 random weights from SEED, fused: TinyLlama's traffic
   (prompt 4096, batch 1, 128 new tokens, tiers 8/4/2), counted once, timed
-  REPEATS_NEW times, the uncompressed arm, and a profile.
+  REPEATS_NEW times, the uncompressed arm, and a profile;
+- Qwen2-0.5B (24 layers, 14 query heads over 2, d=64, q/k/v biases, tied
+  head), bf16 random weights from SEED written as HF-named safetensors
+  shards with an index and a config.json (the port's writer), read back
+  by `config_from_hf` (the preset, field by field) and
+  `load_hf_checkpoint` (every tensor bit-equal), then TinyLlama's traffic
+  from the loaded params, counted, timed, the uncompressed arm and a
+  profile, its tokens equal to the in-memory params';
+- Mixtral-8x7B int4 at full width and depth (32 layers, 8 experts, top
+  2), built layer by layer (a one-layer bf16 init from SEED + i, then
+  `quantize_params_streaming(bits=4)`): TinyLlama's traffic, counted by
+  kernel and by K3 route (unfused attention on the tensor cores and the
+  GEMV, every routed expert projection on the expert GEMV), timed
+  REPEATS_MIXTRAL times, the uncompressed arm and a profile; then a
+  checkpoint round trip of its layer 0, embedding and head, bit-equal.
 
 Before the full runs, each path's kernel path is checked against the plain
 path in float32 at reduced depth (2 layers, full width; Gemma-2B too): equal
@@ -93,7 +110,8 @@ with adversarial drafts, without and with a decode pool that flushes
 twice) the tokens, positions, rings and pool validity of `decode_loop`
 through K2, and `extend_prefill` against teacher-forced `decode_step`s
 with its input state unchanged; for `forward_logits` the SDPA route
-against the plain one. `select_tokens` with the exact greedy scan is
+against the plain one; for Mixtral int4 (2 layers) the prefill logits and
+the tokens up to the first near tie (phase_parity_mixtral). `select_tokens` with the exact greedy scan is
 timed beside the default prefix at S=4096.
 Any failed check exits nonzero. The last line is the device JSON; the line
 before it lists every kernel.
@@ -175,8 +193,15 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 SEED = 0
 PROMPT = 4096
 NEW_TOKENS = 128
-REPEATS = 3  # the query path's prompt-scored arm times the same run twice more
-REPEATS_7B = 2
+# Timed runs per path after its counted run. Each earlier path's count was
+# cut by one (TinyLlama 3 -> 2, the others 2 -> 1, the uncompressed arms
+# to one timed run, beam search's turns 3 -> 2) when Mixtral and Qwen2
+# joined, to keep the script well inside its time limit; every check
+# stays. Mixtral's main run keeps 2.
+REPEATS = 2
+REPEATS_7B = 1
+REPEATS_MIXTRAL = 2
+BASELINE_REPEATS = 1  # the uncompressed arm's timed runs in phase_main
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
 LM_HEAD_7B = (4096, 32000)
@@ -189,7 +214,7 @@ POOL_BLOCKS = 4
 POOL_BITS = 4
 GROUP_SIZE = 32       # 2 scale groups per head at d=64
 DECODE_STEPS = 383    # flushes at steps 64, 128, ..., 320: 5 per layer
-REPEATS_NEW = 2
+REPEATS_NEW = 1
 SWAP_TOL = 1e-5       # chunked vs one-shot: a kept-token swap at a tier
                       # boundary passes only between near-equal scores
 # The compressed-prefix path (the chunk = T/4 layout of
@@ -211,6 +236,13 @@ SPEC_STEPS = 128
 N_DRAFT = 4
 SPEC_CHUNK = 16       # adaptive_speculative_decode's default chunk
 BEAM_K2_STEPS = 6     # beam steps (gathers) before the 4-row K2 check
+# Mixtral-8x7B's routed-expert shapes (K, N): gate and up, then down.
+SHAPES_EXPERT = ((4096, 14336), (14336, 4096))
+MIXTRAL_PARITY_PROMPT = 512
+MIXTRAL_PARITY_TOKENS = 6
+# Written by the Qwen2-from-disk and checkpoint phases (git-ignored).
+QWEN2_DIR = "build/qwen2_0_5b_checkpoint"
+CKPT_DIR = "build/mixtral_layer0_checkpoint"
 
 
 def log(msg: str) -> None:
@@ -1031,24 +1063,21 @@ def _int4pack_library(w):
     return lambda x: torch._weight_int4pack_mm(x, w_pk, w.group_size, sz)
 
 
-def _device_us_per_call(fn, calls: int = 20, match: str = "") -> float:
-    """Mean device microseconds per call of `fn` by torch.profiler: the
-    kernels whose names hold `match` (every kernel with "") over `calls`
-    calls after a warm-up. The CUDA-event time of back-to-back M=1 calls
-    reads the host's enqueue as much as the card; this reads the card.
-    The calls sit inside an idle margin of `pad` seconds at each end of
-    the session: the profiler keeps only device events it places inside
-    its window, and a session of a millisecond or two came back empty now
-    and then after many sessions in one process (as if the card's clock
-    had drifted off the host's). A session that records none of the
-    kernels is run again with a ten times wider margin, up to three in
-    all."""
+def _profiled_kernels(fn, calls: int, enough, what: str) -> list:
+    """(name, device us) of every kernel torch.profiler records over
+    `calls` calls of `fn` after a warm-up, from the first session whose
+    events satisfy `enough`. The calls sit inside an idle margin of `pad`
+    seconds at each end of the session: the profiler keeps only device
+    events it places inside its window, and a session of a millisecond or
+    two came back empty now and then after many sessions in one process
+    (as if the card's clock had drifted off the host's), or with some of
+    its kernels. A session that does not satisfy `enough` is run again
+    with a ten times wider margin, up to three in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    us = 0.0
     for attempt, pad in enumerate((0.1, 1.0, 10.0)):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
@@ -1056,34 +1085,57 @@ def _device_us_per_call(fn, calls: int = 20, match: str = "") -> float:
                 fn()
             torch.cuda.synchronize()
             time.sleep(pad)
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and match in e.name)
-        if us > 0:
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if enough(events):
             break
-        other = [e.name[:40] for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        log(f"profiler session {attempt + 1} (margin {pad} s) recorded no "
-            f"'{match}' kernel; {len(other)} other device events "
-            f"{other[:3]}")
+        log(f"profiler session {attempt + 1} (margin {pad} s) recorded "
+            f"{len(events)} device events, not {what}: "
+            f"{[n[:40] for n, _ in events[:3]]}")
+    return events
+
+
+def _device_us_per_call(fn, calls: int = 20, match: str = "") -> float:
+    """Mean device microseconds per call of `fn` by torch.profiler: the
+    kernels whose names hold `match` (every kernel with "") over `calls`
+    calls after a warm-up. The CUDA-event time of back-to-back M=1 calls
+    reads the host's enqueue as much as the card; this reads the card."""
+    events = _profiled_kernels(
+        fn, calls, lambda ev: any(match in n and t > 0 for n, t in ev),
+        f"'{match}' kernels")
+    us = sum(t for n, t in events if match in n)
     check(us > 0, f"the profiler saw device time of '{match}' kernels")
     return us / calls
 
 
-def phase_k3(device, layers: int, prefill_m: int = PROMPT,
+def _kernels_per_call(fn, calls: int = 5) -> int:
+    """Device kernels one call of `fn` launches (profiler, over `calls`
+    calls after a warm-up)."""
+    events = _profiled_kernels(
+        fn, calls, lambda ev: len(ev) >= calls and len(ev) % calls == 0,
+        f"a multiple of {calls} kernels")
+    check(len(events) % calls == 0,
+          f"{len(events)} device kernels over {calls} calls")
+    return len(events) // calls
+
+
+def phase_k3(device, layers: int, shapes=SHAPES_7B, prefill_m: int = PROMPT,
              reps: int = 20) -> dict:
-    """K3 against its plain version at every fused Llama-2-7B matmul shape,
-    M=1 and M=prefill_m (compared on the first K3_CHECK_ROWS rows), bf16
-    and float32, each call on the route its shape and type take (M=1 the
-    GEMV, bf16 M=prefill_m the tensor cores, float32 the scalar tile);
-    timed in bf16 at both M with its bound, and torch._weight_int4pack_mm
-    on the same codes (bf16 scales) as the library yardstick where it takes
-    the shape; at M=1 also the device time per launch of both."""
+    """K3 against its plain version at every per-layer matmul shape (K, N)
+    of `shapes` (default Llama-2-7B's fused ones; a shape listed twice is
+    measured once and counted twice per layer), M=1 and M=prefill_m
+    (compared on the first K3_CHECK_ROWS rows), bf16 and float32, each
+    call on the route its shape and type take (M=1 the GEMV, bf16
+    M=prefill_m the tensor cores, float32 the scalar tile); timed in bf16
+    at both M with its bound, and torch._weight_int4pack_mm on the same
+    codes (bf16 scales) as the library yardstick where it takes the shape;
+    at M=1 also the device time per launch of both."""
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
         int4_matmul, int4_matmul_plain, int4_matmul_tensor)
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    worst, rows = 0.0, {1: [], prefill_m: []}
-    for k, n in SHAPES_7B:
+    worst, costs = 0.0, {}
+    for k, n in dict.fromkeys(shapes):
         w = _int4_weight(gen, k, n, device)
         plain = lambda x: int4_matmul_plain(  # noqa: E731
             x, w.q_packed, w.scale)
@@ -1139,20 +1191,21 @@ def phase_k3(device, layers: int, prefill_m: int = PROMPT,
                         f"{cost['device_us']:.3f} (bound "
                         f"{cost['bound_ms'] * 1e3:.3f}), library "
                         f"{cost['library_device_us']}")
-                rows[m].append(cost)
+                costs[m, k, n] = cost
                 log(f"K3 M={m} K={k} N={n} bf16: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
                     f"({cost['bound_by']}, {cost['bound_ms'] / ms:.3f} of "
                     f"it reached); torch._weight_int4pack_mm {lib_note}"
                     f"{device_note}")
+    rows = {m: [costs[m, k, n] for k, n in shapes] for m in (1, prefill_m)}
     decode, prefill = (_per_forward(rows[m], layers) for m in (1, prefill_m))
     device_us = {key: sum(r[key] for r in rows[1]) / len(rows[1])
                  if all(r[key] is not None for r in rows[1]) else None
                  for key in ("device_us", "library_device_us")}
-    log(f"K3 per forward ({layers} layers x 4 matmuls): decode step "
-        f"{decode}; prefill {prefill}, {prefill['bound_ms'] / prefill['ms']:.3f}"
-        f" of its bound; M=1 device us per launch, mean of the 4 shapes: "
-        f"{device_us}")
+    log(f"K3 per forward ({layers} layers x {len(shapes)} matmuls): decode "
+        f"step {decode}; prefill {prefill}, "
+        f"{prefill['bound_ms'] / prefill['ms']:.3f} of its bound; M=1 device "
+        f"us per launch, mean of the {len(shapes)} matmuls: {device_us}")
     return {"max_abs_err": worst, **decode, "m1_device_us": device_us,
             "per_layer_m1": rows[1], "prefill": prefill}
 
@@ -1632,8 +1685,9 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
         wrapper(key).route_launches = dict.fromkeys(
             wrapper(key).route_launches, 0)
     logits, state, stats = prefill()
-    toks, state = llama.decode_loop(params, torch.argmax(logits, -1), state,
-                                    n_steps, mcfg, ccfg)
+    first = torch.argmax(logits, -1)
+    toks, state = llama.decode_loop(params, first, state, n_steps, mcfg,
+                                    ccfg)
     torch.cuda.synchronize()
     launches = {key: wrapper(key).launches for key in KERNELS}
     routes = {key: dict(wrapper(key).route_launches) for key in routed}
@@ -1667,7 +1721,7 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
         a, (0, 0, 0, 0, 0, new_tokens))
     pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
     ttft_u, rate_u = [], []
-    for i in range(repeats + 1):  # the first is a warm-up of 2 steps
+    for i in range(BASELINE_REPEATS + 1):  # the first: a warm-up, 2 steps
         (lo, (ks, vs)), ms = cuda_ms(
             lambda: llama.prefill_uncompressed(params, ids, mcfg))
         tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
@@ -1678,10 +1732,11 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
         if i:
             ttft_u.append(ms)
             rate_u.append(n_steps / (dec_ms / 1e3))
-    log(f"{label} (uncompressed arm), {repeats} timed runs: TTFT ms "
-        f"{_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
+    log(f"{label} (uncompressed arm), {BASELINE_REPEATS} timed runs: TTFT "
+        f"ms {_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
     return {"launches": launches, "routes": routes, "params": params,
-            "ids": ids, "ccfg": ccfg}
+            "ids": ids, "ccfg": ccfg,
+            "tokens": torch.cat([first[:, None], toks], 1).cpu()}
 
 
 def _device_busy_ms(prof) -> float:
@@ -1789,14 +1844,16 @@ def run_7b_arm(arm: str, device, mcfg):
         key, tc = "K3", "tensor_core"
         expect[key] = 4 * n_layers * (1 + n_steps)
         gemv = 4 * n_layers * n_steps  # lm_head is int8 weight-only
+        other = {"gemv_expert": 0}
     else:
         key, tc = "K4", "tc"
         expect[key] = (4 * n_layers + 1) * (1 + n_steps)
         gemv = (4 * n_layers + 1) * n_steps + 1  # + lm_head at prefill
+        other = {}
     run = phase_main(f"llama2-7b {arm} main run", device, mcfg, params,
                      expect, repeats=REPEATS_7B)
     routes = run["routes"][key]
-    check(routes == {"gemv": gemv, tc: 4 * n_layers, "tile": 0},
+    check(routes == {"gemv": gemv, tc: 4 * n_layers, "tile": 0, **other},
           f"llama2-7b {arm}: {key} launches by route {routes}")
     phase_profile(f"llama2-7b {arm}", mcfg, run)
     launches = run["launches"]
@@ -1822,6 +1879,339 @@ def run_gemma(device, mcfg) -> dict:
     phase_profile("gemma-2b", mcfg, run)
     launches = run["launches"]
     del run, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _expert_weight(gen, e, k, n, device):
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_expert_tensor_int4
+    w = torch.randn((e, k, n), generator=gen, device=device) * k ** -0.5
+    return quantize_expert_tensor_int4(w, group_size=128)
+
+
+def phase_k3_expert(device, num_experts: int = 8, reps: int = 20) -> dict:
+    """K3's expert-indexed GEMV at Mixtral-8x7B's expert shapes (gate/up
+    4096 x 14336, down 14336 x 4096, 8 experts, groups of 128): bf16 and
+    float32 x at M=1 and M=2, the expert ids on the device (every expert,
+    the last included), each call against `int4_matmul_plain` on that
+    expert's codes and scales, one kernel per call (profiler) and no host
+    read (sync debug mode). bf16 M=1 timed with its bound (one expert's
+    codes and scales read once), the device time per launch, and
+    torch._weight_int4pack_mm on that expert's codes repacked (bf16
+    scales) as the library yardstick."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul import (
+        int4_matmul, int4_matmul_expert, int4_matmul_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    ids = torch.arange(num_experts, dtype=torch.int32, device=device)
+    worst, rows = 0.0, []
+    for k, n in SHAPES_EXPERT:
+        w = _expert_weight(gen, num_experts, k, n, device)
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in (1, 2):
+                x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+                before = int4_matmul.route_launches["gemv_expert"]
+                int4_matmul_expert(x, w.q_packed, w.scale, ids, 0)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    outs = [int4_matmul_expert(x, w.q_packed, w.scale, ids,
+                                               slot)
+                            for slot in range(num_experts)]
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                check(int4_matmul.route_launches["gemv_expert"]
+                      == before + 1 + num_experts,
+                      "K3 expert calls take the gemv_expert route")
+                for e in (0, num_experts - 1):
+                    ref = int4_matmul_plain(x, w.q_packed[e], w.scale[e])
+                    tol = TOL_K3_REL * float(ref.float().abs().max())
+                    worst = max(worst, check_close(
+                        outs[e], ref, tol, f"K3 expert {e} M={m} K={k} N={n} "
+                        f"{str(dtype)[6:]}", floor=tol))
+                per_call = _kernels_per_call(lambda: int4_matmul_expert(
+                    x, w.q_packed, w.scale, ids, num_experts - 1))
+                check(per_call == 1, f"K3 expert call: {per_call} kernels")
+                if dtype != torch.bfloat16 or m != 1:
+                    continue
+                e = num_experts - 1
+                one = w.expert(e)
+                ms, plain_ms = kernel_and_plain_ms(
+                    lambda: int4_matmul_expert(x, w.q_packed, w.scale, ids,
+                                               e),
+                    lambda: int4_matmul_plain(x, one.q_packed, one.scale),
+                    reps)
+                try:
+                    lib = _int4pack_library(one)
+                    lib(x)
+                    lib_ms = cuda_ms(lambda: lib(x), reps)[1]
+                    lib_us = _device_us_per_call(lambda: lib(x))
+                except RuntimeError as err:  # the yardstick only
+                    lib, lib_ms, lib_us = None, None, None
+                    log(f"torch._weight_int4pack_mm refused ({str(err)[:80]})")
+                cost = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        **bound(nbytes(x, one.q_packed, one.scale, outs[e])
+                                + 4, 2 * m * k * n, dtype),
+                        "device_us": _device_us_per_call(
+                            lambda: int4_matmul_expert(
+                                x, w.q_packed, w.scale, ids, e),
+                            match="int4"),
+                        "library_device_us": lib_us}
+                rows.append(cost)
+                log(f"K3 expert M=1 K={k} N={n} bf16: kernel {ms:.4f} ms, "
+                    f"device {cost['device_us']:.3f} us per launch, "
+                    f"{cost['bound_ms'] * 1e3 / cost['device_us']:.3f} of "
+                    f"its bound {cost['bound_ms'] * 1e3:.3f} us "
+                    f"({cost['bound_by']}); plain {plain_ms:.4f} ms; "
+                    f"torch._weight_int4pack_mm {lib_ms} ms, device {lib_us}"
+                    f" us")
+        del w
+    # One routed expert's three projections: gate and up, then down.
+    per_expert = {key: (None if any(r[key] is None for r in rows)
+                        else 2 * rows[0][key] + rows[1][key])
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "device_us", "library_device_us")}
+    log(f"K3 expert per routed expert (gate, up, down at M=1): "
+        f"{per_expert}")
+    return {"max_abs_err": worst, **per_expert, "bound_by": "bytes",
+            "per_shape_m1": rows}
+
+
+def _mixtral_int4(device, mcfg):
+    """Mixtral at full width, int4, built layer by layer: layer i from a
+    one-layer bf16 init seeded SEED + i, quantized by
+    `quantize_params_streaming(bits=4, group_size=128)` and its bf16 freed
+    before the next (the whole bf16 tree would not fit the card); embed,
+    lm_head and the final norm from layer 0's init. Then `fuse_params`
+    (MoE layers stay unfused)."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_params_streaming
+
+    one = dataclasses.replace(mcfg, num_layers=1)
+    params = None
+    for i in range(mcfg.num_layers):
+        q = quantize_params_streaming(llama.init_params(SEED + i, one, device),
+                                      bits=4, group_size=128)
+        if params is None:
+            params = q
+        else:
+            params["layers"].append(q["layers"][0])
+        del q
+        torch.cuda.empty_cache()
+    return llama.fuse_params(params)
+
+
+def _greedy_logits(params, ids, mcfg, ccfg, steps: int):
+    """Prefill + `steps` greedy decode steps, one at a time: (tokens
+    [steps + 1], logits per step [steps + 1, V]) on the host."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=steps + 1)
+    out = [logits.float().cpu()]
+    for _ in range(steps):
+        logits, state = llama.decode_step(params, torch.argmax(logits, -1),
+                                          state, mcfg, ccfg)
+        out.append(logits.float().cpu())
+    logits = torch.cat(out)
+    return torch.argmax(logits, -1), logits
+
+
+def phase_parity_mixtral(device, mcfg, prompt: int = MIXTRAL_PARITY_PROMPT,
+                         steps: int = MIXTRAL_PARITY_TOKENS - 1) -> None:
+    """Mixtral int4 at 2 layers and full width in float32, kernel path (K1,
+    K2, K3 on the tensor cores / GEMV / expert GEMV) against the plain path
+    (CPU tensors: every wrapper's plain version). The routed experts' GEMV
+    takes bf16 x on both (as the reference casts it), and the two round
+    the same float32 sums in another order, so their logits differ by
+    bf16 ulps of the expert outputs; the prefill (N = prompt > 16 rows,
+    the ragged strategy) dequantizes the experts on both paths and runs
+    no bf16 GEMV. Rule: the prefill logits within TOL_LOGITS; tokens
+    equal up to the first step whose plain top-2 logits lie within twice
+    the largest logit error measured so far (a near tie), where they may
+    part."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import params_to, quantize_params_streaming
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(quantize_params_streaming(
+        llama.init_params(SEED, mcfg, device), bits=4, group_size=128))
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ids = torch.randint(0, mcfg.vocab_size, (1, prompt), generator=gen,
+                        device=device)
+    k_toks, k_logits = _greedy_logits(params, ids, mcfg, ccfg, steps)
+    p_toks, p_logits = _greedy_logits(params_to(params, "cpu"), ids.cpu(),
+                                      mcfg, ccfg, steps)
+    err0 = max_err(k_logits[0], p_logits[0])
+    log(f"parity mixtral int4 f32 (2 layers, prompt {prompt}): prefill "
+        f"logits max err {err0:.3e} (tol {TOL_LOGITS:.0e}); tokens "
+        f"kernel {k_toks.tolist()} plain {p_toks.tolist()}")
+    check(err0 <= TOL_LOGITS, "mixtral f32 prefill logits")
+    err, held = err0, 0
+    for t in range(steps + 1):
+        top2 = torch.topk(p_logits[t], 2).values
+        gap = float(top2[0] - top2[1])
+        if gap < 2 * err:
+            log(f"parity mixtral: step {t} is a near tie (plain top-2 gap "
+                f"{gap:.3e} < 2 x {err:.3e}); tokens held to step {t - 1}")
+            break
+        check(int(k_toks[t]) == int(p_toks[t]),
+              f"mixtral f32 token {t} (top-2 gap {gap:.3e}, err {err:.3e})")
+        err = max(err, max_err(k_logits[t], p_logits[t]))
+        held = t + 1
+    log(f"parity mixtral: {held} of {steps + 1} tokens held equal; logit "
+        f"error up to {err:.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_mixtral(device, mcfg) -> dict:
+    """Mixtral-8x7B int4 at full width and depth (built layer by layer):
+    the main run with its launch counts, overall and by K3 route (the
+    prefill's 128 unfused attention matmuls on the tensor cores; in decode
+    4 attention GEMVs per layer and 6 expert GEMVs per layer and token),
+    then a profile, then a checkpoint round trip of layer 0 with the
+    embedding, head and final norm. Returns the launches."""
+    from realtime_kv_cache_compression_tpu_torch.models import checkpoint
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import params_bytes
+
+    t0 = time.perf_counter()
+    params = _mixtral_int4(device, mcfg)
+    torch.cuda.synchronize()
+    log(f"mixtral-8x7b int4: init + quantize layer by layer "
+        f"{time.perf_counter() - t0:.1f} s, params "
+        f"{params_bytes(params) / 2**20:.1f} MB")
+    n_layers, n_steps = mcfg.num_layers, NEW_TOKENS - 1
+    k = mcfg.num_experts_per_tok
+    routes = {"tensor_core": 4 * n_layers, "gemv": 4 * n_layers * n_steps,
+              "tile": 0, "gemv_expert": 3 * k * n_layers * n_steps}
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1=n_layers, K2=n_layers * n_steps,
+                  K3=sum(routes.values()))
+    run = phase_main("mixtral-8x7b int4 main run", device, mcfg, params,
+                     expect, repeats=REPEATS_MIXTRAL)
+    check(run["routes"]["K3"] == routes,
+          f"mixtral: K3 launches by route {run['routes']['K3']}")
+    phase_profile("mixtral-8x7b int4", mcfg, run)
+    launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+
+    # Checkpoint round trip: layer 0, embed, lm_head, final norm.
+    tree = {"embed": params["embed"], "lm_head": params["lm_head"],
+            "final_norm": params["final_norm"],
+            "layers": [params["layers"][0]]}
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(CKPT_DIR, tree)
+    t_save = time.perf_counter() - t0
+    back = checkpoint.load_checkpoint(CKPT_DIR, template=tree, device=device)
+    t_load = time.perf_counter() - t0 - t_save
+    checkpoint.check_like(back, tree, exact=True)  # raises where unequal
+    log(f"checkpoint round trip (mixtral layer 0 + embed + head, "
+        f"{params_bytes(tree) / 2**20:.1f} MB): "
+        f"bit-equal; save {t_save:.1f} s, load {t_load:.1f} s")
+    del params, tree, back
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _qwen2_config_json(mcfg) -> dict:
+    """Qwen2's config.json fields, from the preset."""
+    return {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+            "vocab_size": mcfg.vocab_size, "hidden_size": mcfg.hidden_size,
+            "intermediate_size": mcfg.intermediate_size,
+            "num_hidden_layers": mcfg.num_layers,
+            "num_attention_heads": mcfg.num_heads,
+            "num_key_value_heads": mcfg.num_kv_heads,
+            "max_position_embeddings": mcfg.max_position_embeddings,
+            "rope_theta": mcfg.rope_theta, "rms_norm_eps": mcfg.rms_norm_eps,
+            "tie_word_embeddings": mcfg.tie_word_embeddings,
+            "hidden_act": mcfg.hidden_act, "torch_dtype": mcfg.dtype}
+
+
+def run_qwen2_from_disk(device, mcfg) -> dict:
+    """Qwen2-0.5B at full width: bf16 params from SEED written as HF-named
+    [out, in] tensors into two safetensors shards with an index, plus a
+    config.json made from the preset (the port's writer), then
+    `config_from_hf` (equal to the preset field by field) and
+    `load_hf_checkpoint` (every tensor bit-equal to its source); the main
+    path from the loaded params counted, timed and profiled, and its greedy
+    tokens equal to the in-memory params'. Returns the launches."""
+    import os
+
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.models.checkpoint import (
+        check_like)
+    from realtime_kv_cache_compression_tpu_torch.models.tensor_files import (
+        INDEX_NAME, save_tensors)
+    from realtime_kv_cache_compression_tpu_torch.models.weights import (
+        config_from_hf, hf_tensors, load_hf_checkpoint)
+
+    params = llama.init_params(SEED, mcfg, device)
+    tensors = hf_tensors(params, mcfg)
+    os.makedirs(QWEN2_DIR, exist_ok=True)
+    half = mcfg.num_layers // 2
+    shards = {"model-00001-of-00002.safetensors": {},
+              "model-00002-of-00002.safetensors": {}}
+    first, second = shards
+    for name, t in tensors.items():
+        later = name == "model.norm.weight" or (
+            name.startswith("model.layers.")
+            and int(name.split(".")[2]) >= half)
+        shards[second if later else first][name] = t
+    t0 = time.perf_counter()
+    for fn, part in shards.items():
+        save_tensors(os.path.join(QWEN2_DIR, fn), part,
+                     metadata={"format": "pt"})
+    with open(os.path.join(QWEN2_DIR, INDEX_NAME), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes(*tensors.values())},
+                   "weight_map": {n: fn for fn, part in shards.items()
+                                  for n in part}}, f)
+    with open(os.path.join(QWEN2_DIR, "config.json"), "w") as f:
+        json.dump(_qwen2_config_json(mcfg), f)
+    t_write = time.perf_counter() - t0
+    got_cfg = config_from_hf(QWEN2_DIR)
+    diff = {f.name: (getattr(got_cfg, f.name), getattr(mcfg, f.name))
+            for f in dataclasses.fields(mcfg)
+            if getattr(got_cfg, f.name) != getattr(mcfg, f.name)}
+    check(not diff, f"config_from_hf gives the preset back: {diff}")
+    t0 = time.perf_counter()
+    loaded = load_hf_checkpoint(QWEN2_DIR, device=device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check_like(loaded, params, exact=True)  # raises where unequal
+    log(f"qwen2-0.5b from disk: {len(tensors)} tensors, "
+        f"{nbytes(*tensors.values()) / 2**20:.1f} MB in 2 shards, written "
+        f"{t_write:.1f} s, loaded {t_load:.1f} s; config field for field "
+        f"and every tensor bit-equal")
+    del tensors
+    expect = {key: 0 for key in KERNELS}
+    expect.update(K1=mcfg.num_layers,
+                  K2=mcfg.num_layers * (NEW_TOKENS - 1))
+    run = phase_main("qwen2-0.5b (loaded) main run", device, mcfg,
+                     llama.fuse_params(loaded), expect, repeats=REPEATS_NEW)
+    # The same prompt (phase_main's) through the in-memory params.
+    p, ccfg = llama.fuse_params(params), run["ccfg"]
+    n_new = run["tokens"].shape[1]
+    logits, state, _ = llama.prefill_compressed(p, run["ids"], mcfg, ccfg,
+                                                max_decode_len=n_new)
+    tok = torch.argmax(logits, -1)
+    rest, _ = llama.decode_loop(p, tok, state, n_new - 1, mcfg, ccfg)
+    toks = torch.cat([tok[:, None], rest], 1).cpu()
+    check(torch.equal(toks, run["tokens"]),
+          "qwen2: loaded and in-memory tokens equal")
+    log(f"qwen2-0.5b: {toks.shape[1]} greedy tokens of the loaded params "
+        f"equal the in-memory params'")
+    del params, p, state
+    phase_profile("qwen2-0.5b", mcfg, run)
+    launches = run["launches"]
+    del run, loaded
     torch.cuda.empty_cache()
     return launches
 
@@ -2569,7 +2959,7 @@ def _zero_counts() -> None:
 
 
 def phase_beam_path(label: str, device, mcfg, main_run,
-                    repeats: int = 3) -> dict:
+                    repeats: int = 2) -> dict:
     """Beam search at full width and depth on the main run's params and
     prompt (PROMPT, B=1): README's call, W=BEAM_WIDTH, BEAM_NEW_TOKENS new
     tokens, eos_token_id BEAM_EOS. Counted once (K1 once per layer for the
@@ -2865,11 +3255,14 @@ def phase_forward_logits(device, mcfg, main_run, prompt: int = 1024) -> None:
                             "vs prefill_uncompressed")
 
 
-def run_all(device, tiny, big, gemma, gemma7) -> list:
+def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
+            qwen2_7b) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
-    line. `tiny`, `big`, `gemma` and `gemma7` are the TinyLlama,
-    Llama-2-7B, Gemma-2B and Gemma-7B configs (Gemma-7B for its heads
-    only: 16 over 16 at head_dim 256)."""
+    line. `tiny`, `big`, `gemma`, `gemma7`, `mixtral`, `qwen2` and
+    `qwen2_7b` are the TinyLlama, Llama-2-7B, Gemma-2B, Gemma-7B,
+    Mixtral-8x7B, Qwen2-0.5B and Qwen2-7B configs (Gemma-7B for its heads
+    only: 16 over 16 at head_dim 256; Qwen2-7B for its heads and 2 layers:
+    28 over 4 at head_dim 128)."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
 
     two = lambda cfg: dataclasses.replace(cfg, num_layers=2)  # noqa: E731
@@ -2911,8 +3304,21 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
             "K1c": phase_k1_full_pair(device, heads(cfg)),
             "K2": phase_k2(device, two(cfg)),
             "K2pool": phase_k2_pool(device, two(cfg), groups=(1, 4))}
+    # The new runs' heads: n_rep 7 at Qwen2-0.5B's (14/2 at d=64) and
+    # Qwen2-7B's (28/4 at d=128), n_rep 4 at Mixtral-8x7B's (32/8 at
+    # d=128).
+    q2 = {name: {"K1": phase_k1(device, (1, PROMPT) + heads(cfg)),
+                 "K2": phase_k2(device, two(cfg))}
+          for name, cfg in (("qwen2_0_5b", qwen2), ("qwen2_7b", qwen2_7b),
+                            ("mixtral_8x7b", mixtral))}
     mark("K1 and K2 phases")
+    k3_expert = phase_k3_expert(device, mixtral.num_experts)
     k3 = phase_k3(device, big.num_layers)
+    # Mixtral's unfused attention matmuls: wq, wk, wv, wo.
+    h, qd = mixtral.hidden_size, mixtral.num_heads * mixtral.head_dim
+    kvd = mixtral.num_kv_heads * mixtral.head_dim
+    k3_mixtral = phase_k3(device, mixtral.num_layers,
+                          shapes=((h, qd), (h, kvd), (h, kvd), (qd, h)))
     k4 = phase_k4(device, big.num_layers)
     mark("K3 and K4 phases")
     phase_parity(device, two(tiny))
@@ -2925,6 +3331,7 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     phase_exact_greedy(device)
     phase_parity_beam(device, two(tiny))
     phase_parity_speculative(device, two(tiny))
+    phase_parity_mixtral(device, two(mixtral))
     mark("float32 parity phases")
     n_steps = NEW_TOKENS - 1
     tiny_run = phase_main(
@@ -2948,8 +3355,7 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     mark("tinyllama beam, speculative and forward_logits runs")
     launches["tinyllama_chunked"] = phase_chunked_path(
         device, dataclasses.replace(tiny,
-                                    max_position_embeddings=PROMPT + 512),
-        repeats=2)
+                                    max_position_embeddings=PROMPT + 512))
     mark("tinyllama chunked pooled run")
     launches["tinyllama_prefix"] = phase_prefix_path(
         device, dataclasses.replace(tiny,
@@ -2963,6 +3369,11 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     for arm in ("int4", "w8a8"):
         launches[f"llama2_7b_{arm}"], routes[arm] = run_7b_arm(arm, device,
                                                                big)
+    mark("llama2-7b runs")
+    launches["qwen2_0_5b_loaded"] = run_qwen2_from_disk(device, qwen2)
+    mark("qwen2-0.5b run from disk")
+    launches["mixtral_8x7b_int4"] = run_mixtral(device, mixtral)
+    mark("mixtral-8x7b run and checkpoint round trip")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     def entry(key, result, path, extra=None):
@@ -2995,9 +3406,12 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
                  f"bf16")
     k2_err = max(r["max_abs_err"] for r in (
         k2, k2_tiny, k2p_tiny, k2p_big, k2_beam,
-        *(g[m][p] for m in g for p in ("K2", "K2pool"))))
+        *(g[m][p] for m in g for p in ("K2", "K2pool")),
+        *(q2[m]["K2"] for m in q2)))
 
     g_cfgs = {"gemma_2b": gemma, "gemma_7b": gemma7}
+    q2_cfgs = {"qwen2_0_5b": qwen2, "qwen2_7b": qwen2_7b,
+               "mixtral_8x7b": mixtral}
 
     def d256(part, note, pick=lambda r: r):
         """The d=256 readings of one kernel at Gemma-2B's and Gemma-7B's
@@ -3011,13 +3425,16 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
     k1_note = f"B=1 S={PROMPT} Hq={{}} Hkv={{}} d={{}}"
     kernels = [
         entry("K1", {**k1, "max_abs_err": worst(
-            k1, k1_tiny, *(g[m]["K1"] for m in g))}, "llama2_7b_int4", {
+            k1, k1_tiny, *(g[m]["K1"] for m in g),
+            *(q2[m]["K1"] for m in q2))}, "llama2_7b_int4", {
             "mode": "a (square causal)",
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
                        "mass",
             "tinyllama": {**k1_tiny, "shape": "B=1 S=4096 Hq=32 Hkv=4 d=64"},
             **d256("K1", k1_note),
+            **{m: {**q2[m]["K1"], "shape": k1_note.format(*heads(q2_cfgs[m]))}
+               for m in q2},
             "model_activations_max_abs_err": k1_activations}),
         entry("K1b", {**k1b_tiny, "max_abs_err": worst(
             k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g))},
@@ -3079,6 +3496,9 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
             **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
                                           f"state, 8/4/2, tiers + ring, bf16"}
                for m in g},
+            **{m: {**q2[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
+                                           f"state, 8/4/2, tiers + ring, bf16"}
+               for m in q2},
             "pool": {  # the decode-pool segment and G > 1 (chunked path)
                 "tinyllama": {**k2p_tiny, "shape": pool_note.format(
                     "TinyLlama", k2p_tiny["variant"])},
@@ -3086,12 +3506,34 @@ def run_all(device, tiny, big, gemma, gemma7) -> list:
                     "Llama-2-7B", k2p_big["variant"])},
                 **{m: {**g[m]["K2pool"], "shape": pool_note.format(
                     m, g[m]["K2pool"]["variant"])} for m in g}}}),
-        entry("K3", k3, "llama2_7b_int4", {
+        entry("K3", {**k3, "max_abs_err": worst(k3, k3_mixtral, k3_expert)},
+              "llama2_7b_int4", {
             "shape": shape_note.format(""), "prefill": k3["prefill"],
+            "mixtral_attention": {  # unfused wq, wk, wv, wo
+                **{f: k3_mixtral[f] for f in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "m1_device_us", "prefill")},
+                "shape": f"one decode step's calls ({mixtral.num_layers} "
+                         f"layers x wq {h}x{qd}, wk and wv {h}x{kvd}, wo "
+                         f"{qd}x{h}) at M=1, bf16; prefill at M={PROMPT}"},
             "launches_by_route": routes["int4"],
             "m1_device_us_per_launch": k3["m1_device_us"],
             "library": "torch._weight_int4pack_mm, same codes, bf16 "
-                       "scales"}),
+                       "scales",
+            "expert": {  # the expert-indexed GEMV (route gemv_expert)
+                **{f: k3_expert[f] for f in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_us", "library_device_us")},
+                "per_shape_m1": k3_expert["per_shape_m1"],
+                "replaces": f"{JAX_PKG}/ops/moe.py:160 (`_moe_dynslice`'s "
+                            f"call of the Pallas `_kernel`, "
+                            f"{JAX_PKG}/ops/pallas/int4_matmul.py:46)",
+                "launches": launches["mixtral_8x7b_int4"]["K3"],
+                "launches_gemv_expert": 3 * mixtral.num_experts_per_tok
+                * mixtral.num_layers * (NEW_TOKENS - 1),
+                "shape": "one routed expert's gate, up and down at M=1, "
+                         "Mixtral-8x7B (4096 x 14336, 14336 x 4096, groups "
+                         "of 128), bf16"}}),
         entry("K4", k4, "llama2_7b_w8a8", {
             "shape": shape_note.format(" + lm_head") + (
                 f"; prefill: {big.num_layers} layers x 4 matmuls at M="
@@ -3116,8 +3558,8 @@ def main() -> int:
         return 1
     from realtime_kv_cache_compression_tpu_torch import (LLAMA2_7B,
                                                          TINYLLAMA_1_1B)
-    from realtime_kv_cache_compression_tpu_torch.config import (GEMMA_2B,
-                                                                GEMMA_7B)
+    from realtime_kv_cache_compression_tpu_torch.config import (
+        GEMMA_2B, GEMMA_7B, MIXTRAL_8X7B, QWEN2_0_5B, QWEN2_7B)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3128,7 +3570,12 @@ def main() -> int:
                                     + NEW_TOKENS),
         dataclasses.replace(LLAMA2_7B,
                             max_position_embeddings=PROMPT + NEW_TOKENS),
-        GEMMA_2B, GEMMA_7B)
+        GEMMA_2B, GEMMA_7B,
+        dataclasses.replace(MIXTRAL_8X7B,
+                            max_position_embeddings=PROMPT + NEW_TOKENS),
+        dataclasses.replace(QWEN2_0_5B,
+                            max_position_embeddings=PROMPT + NEW_TOKENS),
+        QWEN2_7B)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

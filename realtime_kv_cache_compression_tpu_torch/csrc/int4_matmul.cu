@@ -39,6 +39,17 @@
 //    once, writes y and resets the ticket: deterministic, one launch, no
 //    epilogue kernel. The scratch (partials and tickets, zero between
 //    calls) is the wrapper's, cached per device and stream.
+//    Expert-indexed form (`expert_ids` set; route "gemv_expert" in the
+//    wrapper): the same GEMV over one expert of an [E, K/2, N] code stack
+//    and its [E, n_g, N] scales, the expert id read by each block from
+//    device memory (expert_ids[slot]), so routed MoE decode needs no host
+//    read and no copy of the expert. It replaces the Pallas `_kernel`
+//    launched per routed expert and projection by `_moe_dynslice`
+//    (realtime_kv_cache_compression_tpu/ops/moe.py:156-162, through
+//    `int4_matmul_tensor(..., wt.expert(e))`). Bound: one expert's codes
+//    and scales once; at Mixtral-8x7B's 4096 x 14336 (and 14336 x 4096)
+//    with groups of 128, 29.36 MB of codes + 1.84 MB of scales, about
+//    9.3 us at 3.35 TB/s.
 //  - kTensorCore, M > 8, bf16 (prefill), where TMA can read the operands
 //    (N % 16 == 0, K % 16 == 0, 16-byte aligned) and every 64-row step of
 //    packed rows holds whole groups or lies in one (n_g == 1, gs % 64 ==
@@ -74,6 +85,13 @@ struct Int4MatmulParams {
   int split;       // kGemv: blocks over K
   int route;       // Route
   int dtype;
+  // kGemv over one expert of a stack (null on every other call): q and
+  // scale point at expert 0, and the block offsets them by expert
+  // expert_ids[slot], read from device memory, times the strides.
+  const int* expert_ids;
+  long long q_estride, s_estride;  // bytes of codes / floats of scales
+  int slot;
+  int n_experts;
 };
 
 enum Route : int { kGemv = 0, kTile = 1, kTensorCore = 2 };
@@ -182,6 +200,14 @@ int4_gemv_kernel(const Int4MatmulParams p) {
   const int p1 = min(p.KH, p0 + range);
   const int K = 2 * p.KH;
   const T* x = static_cast<const T*>(p.x);
+  const uint8_t* q = p.q;
+  const float* scale = p.scale;
+  if (p.expert_ids != nullptr) {
+    const int e = p.expert_ids[p.slot];
+    if (e < 0 || e >= p.n_experts) __trap();  // a router fault, never data
+    q += e * p.q_estride;
+    scale += e * p.s_estride;
+  }
 
   const int wrange = (p1 - p0 + kGemvWarps - 1) / kGemvWarps;
   const int w0 = p0 + warp * wrange;
@@ -192,7 +218,7 @@ int4_gemv_kernel(const Int4MatmulParams p) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (r0 + u < end) {
-        load_codes<C>(p.q + static_cast<long long>(r0 + u) * p.N, n, p.N,
+        load_codes<C>(q + static_cast<long long>(r0 + u) * p.N, n, p.N,
                       vec, w[u]);
       } else {
 #pragma unroll
@@ -270,8 +296,8 @@ int4_gemv_kernel(const Int4MatmulParams p) {
       }
       r = g_end;
       float slo[C], shi[C];
-      load_scales<C>(p.scale, g, n, p.N, vec4, slo);
-      load_scales<C>(p.scale, g + p.hi_off, n, p.N, vec4, shi);
+      load_scales<C>(scale, g, n, p.N, vec4, slo);
+      load_scales<C>(scale, g + p.hi_off, n, p.N, vec4, shi);
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -687,14 +713,18 @@ extern "C" int int4_matmul_launch(const Int4MatmulParams* p, void* stream) {
     case kGemv:
       if (p->M > kSmallM || p->split <= 0 ||
           (p->KH + p->split - 1) / p->split > kMaxRange ||
-          (p->split > 1 && (p->partial == nullptr || p->ticket == nullptr)))
+          (p->split > 1 && (p->partial == nullptr || p->ticket == nullptr)) ||
+          (p->expert_ids != nullptr &&
+           (p->n_experts <= 0 || p->q_estride % 16 || p->s_estride % 4)))
         return cudaErrorInvalidValue;
       break;
     case kTile:
-      if (p->M <= kSmallM) return cudaErrorInvalidValue;
+      if (p->M <= kSmallM || p->expert_ids != nullptr)
+        return cudaErrorInvalidValue;
       break;
     case kTensorCore:
-      if (p->M <= kSmallM || p->dtype != rkv::kBFloat16 || p->N % 16 ||
+      if (p->M <= kSmallM || p->expert_ids != nullptr ||
+          p->dtype != rkv::kBFloat16 || p->N % 16 ||
           p->KH % 8 ||
           !(p->gs == p->KH || p->gs % tc::kTK == 0 || p->gs == 16 ||
             p->gs == 32))

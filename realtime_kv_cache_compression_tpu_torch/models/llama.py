@@ -19,6 +19,9 @@ from a `torch.Generator`). The baseline arm is `prefill_uncompressed` +
 `decode_loop_uncompressed`. `forward_logits` gives the logits at every
 position without a cache (scoring); `models/beam_search.py` and
 `models/speculative.py` build on `prefill_compressed` and `decode_step`.
+Mixtral-style layers carry a "moe" dict in place of the dense MLP
+(`ops/moe.py`); `models/weights.py` loads HF checkpoints of every family
+into this tree.
 
 Kernels: with `use_flash` the prefill attention runs K1
 (ops/cuda/flash_prefill.py: mode (a) one-shot, mode (b) per chunk, mode
@@ -27,13 +30,11 @@ with `use_fused` the decode attention runs K2 (ops/cuda/decode_attention.py).
 Both default to on for CUDA tensors; on CPU tensors the wrappers take
 their plain versions. Quantized weights (models/quantized_params.py)
 dispatch in `_matmul`: `Int4Tensor` runs K3 (ops/cuda/int4_matmul.py),
-act-quant `QuantizedTensor` K4 (ops/cuda/int8_matmul.py). The reference's
+act-quant `QuantizedTensor` K4 (ops/cuda/int8_matmul.py); int4 expert
+stacks run K3's expert-indexed GEMV in decode (ops/moe.py). The reference's
 `lax.scan` decode is a Python loop here, and decode updates the recent
 rings, the decode pools (and the baseline arm's dense cache) in place, as
 chunked prefill does its K/V buffers.
-
-Not ported yet: MoE (and its quantized experts) and the other model
-families' options beyond the config fields themselves.
 """
 
 from __future__ import annotations
@@ -64,9 +65,11 @@ from ..ops.cuda.flash_prefill import (flash_chunk_attention_with_prompt_mass,
                                       flash_prefill_with_prompt_mass)
 from ..ops.cuda.int4_matmul import int4_matmul_tensor
 from ..ops.cuda.int8_matmul import dynamic_int8_matmul
+from ..ops.moe import moe_mlp
 from ..ops.sampling import (SamplingParams, init_counts, sample_logits,
                             update_counts)
-from .quantized_params import Int4Tensor, QuantizedTensor
+from .quantized_params import (Int4ExpertTensor, Int4Tensor,
+                               QuantizedExpertTensor, QuantizedTensor)
 
 Params = Dict[str, Any]
 
@@ -78,9 +81,9 @@ Params = Dict[str, Any]
 def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
     """Random-init params with the reference's keys, shapes and
     N(0, 1) * fan_in**-0.5 scale, drawn from a torch.Generator seeded with
-    `seed` on `device` (other numbers than jax.random's)."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+    `seed` on `device` (other numbers than jax.random's). MoE configs
+    (cfg.num_experts > 0) get a "moe" dict per layer: router `gate` [H, E]
+    and expert stacks `w_gate` / `w_up` [E, H, I], `w_down` [E, I, H]."""
     dtype = model_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, qd, kvd, i = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
@@ -100,9 +103,15 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Params:
             "wq": dense(h, (h, qd)), "wk": dense(h, (h, kvd)),
             "wv": dense(h, (h, kvd)), "wo": dense(qd, (qd, h)),
             "input_norm": ones(), "post_norm": ones(),
-            "w_gate": dense(h, (h, i)), "w_up": dense(h, (h, i)),
-            "w_down": dense(i, (i, h)),
         }
+        if cfg.num_experts:  # Mixtral-style sparse MLP (ops/moe.py)
+            e = cfg.num_experts
+            layer["moe"] = {
+                "gate": dense(h, (h, e)), "w_gate": dense(h, (e, h, i)),
+                "w_up": dense(h, (e, h, i)), "w_down": dense(i, (e, i, h))}
+        else:
+            layer.update(w_gate=dense(h, (h, i)), w_up=dense(h, (h, i)),
+                         w_down=dense(i, (i, h)))
         if cfg.qkv_bias:
             layer.update(bq=dense(h, (qd,)), bk=dense(h, (kvd,)),
                          bv=dense(h, (kvd,)))
@@ -127,21 +136,24 @@ def params_from_jax(tree, device="cuda") -> Params:
     """A JAX params tree (leaves as numpy arrays) → the port's params, with
     the same keys, shapes, dtypes and values. Quantized leaves are known by
     their fields (the JAX package is not imported): `q`, `scale`, `axis`,
-    `act_quant` make a `QuantizedTensor`; `q_packed`, `scale`, `in_dim` an
-    `Int4Tensor`."""
+    `act_quant` make a `QuantizedTensor`, `q` and `scale` alone a
+    `QuantizedExpertTensor`; `q_packed`, `scale`, `in_dim` an `Int4Tensor`,
+    or with 3-d codes an `Int4ExpertTensor`."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
-    if all(hasattr(tree, f) for f in ("q", "scale", "axis", "act_quant")):
-        return QuantizedTensor(q=_to_torch(tree.q, device),
-                               scale=_to_torch(tree.scale, device),
-                               axis=int(tree.axis),
-                               act_quant=bool(tree.act_quant))
     if all(hasattr(tree, f) for f in ("q_packed", "scale", "in_dim")):
-        return Int4Tensor(q_packed=_to_torch(tree.q_packed, device),
-                          scale=_to_torch(tree.scale, device),
-                          in_dim=int(tree.in_dim))
+        cls = Int4ExpertTensor if np.ndim(tree.q_packed) == 3 else Int4Tensor
+        return cls(q_packed=_to_torch(tree.q_packed, device),
+                   scale=_to_torch(tree.scale, device),
+                   in_dim=int(tree.in_dim))
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        q, scale = _to_torch(tree.q, device), _to_torch(tree.scale, device)
+        if not hasattr(tree, "axis"):
+            return QuantizedExpertTensor(q=q, scale=scale)
+        return QuantizedTensor(q=q, scale=scale, axis=int(tree.axis),
+                               act_quant=bool(tree.act_quant))
     return _to_torch(tree, device)
 
 
@@ -170,18 +182,19 @@ def _concat_weights(ws):
 def fuse_params(params: Params) -> Params:
     """Fuse each layer's q/k/v projections into one `wqkv` and gate/up into
     one `w_gateup` weight (concatenated along the output axis); raw or
-    quantized trees."""
+    quantized trees. MoE layers stay unfused, as in the reference: their
+    attention runs wq, wk, wv and wo apart."""
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = []
     for layer in params["layers"]:
         lo = dict(layer)
-        if "wq" in lo:
+        if "wq" in lo and "moe" not in lo:
             lo["wqkv"] = _concat_weights([lo.pop("wq"), lo.pop("wk"),
                                           lo.pop("wv")])
             if "bq" in lo:
                 lo["bqkv"] = torch.cat([lo.pop("bq"), lo.pop("bk"),
                                         lo.pop("bv")])
-        if "w_gate" in lo:
+        if "w_gate" in lo and "moe" not in lo:
             lo["w_gateup"] = _concat_weights([lo.pop("w_gate"),
                                               lo.pop("w_up")])
         out["layers"].append(lo)
@@ -309,6 +322,8 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "moe" in layer:  # Mixtral-style sparse MLP
+        return moe_mlp(layer["moe"], x, cfg)
     act = cfg.hidden_act
     if "w_gateup" in layer:
         gu = _matmul(x, layer["w_gateup"])

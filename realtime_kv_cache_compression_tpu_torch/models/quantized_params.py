@@ -8,9 +8,11 @@ embedding quantizes per row and, like `lm_head`, stays int8 under
 `bits=4`. Codes, packed bytes and scales are computed in the same float32
 order as the reference, so they are byte-identical to it.
 
-`llama._matmul` dispatches on these classes. The expert variants
-(`QuantizedExpertTensor`, `Int4ExpertTensor`) are not ported yet: MoE
-layers wait for ROADMAP Queue 1 item 15.
+`llama._matmul` dispatches on these classes. MoE layers' expert stacks
+quantize to `QuantizedExpertTensor` (int8 per expert and out-channel) or,
+at `bits=4`, `Int4ExpertTensor` (the same packed layout with a leading
+expert axis, whose routed experts run K3's expert-indexed GEMV in decode,
+ops/moe.py); the router gate stays full precision.
 """
 
 from __future__ import annotations
@@ -111,20 +113,108 @@ def quantize_tensor_int4(w: torch.Tensor, group_size: int = 128
     return Int4Tensor(q_packed=packed, scale=scale, in_dim=in_dim)
 
 
+@dataclasses.dataclass
+class QuantizedExpertTensor:
+    """Per-(expert, out-channel) symmetric int8 MoE weight stack:
+    w[e, i, o] ≈ q[e, i, o] · scale[e, o]."""
+
+    q: torch.Tensor      # [E, in, out] int8
+    scale: torch.Tensor  # [E, out] float32
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return (self.q.float() * self.scale[:, None, :]).to(dtype)
+
+
+def quantize_expert_tensor(w: torch.Tensor) -> QuantizedExpertTensor:
+    """Symmetric int8 over each expert's reduction axis (axis 1)."""
+    wf = w.float()
+    absmax = wf.abs().amax(dim=1)                    # [E, out]
+    scale = torch.clamp_min(absmax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(wf / scale[:, None, :]), -127, 127)
+    return QuantizedExpertTensor(q=q.to(torch.int8), scale=scale)
+
+
+@dataclasses.dataclass
+class Int4ExpertTensor:
+    """Group-wise int4 MoE expert stack: `Int4Tensor`'s half-split,
+    offset-binary packed layout with a leading expert axis."""
+
+    q_packed: torch.Tensor  # [E, in_dim // 2, out] uint8
+    scale: torch.Tensor     # [E, in_dim // G, out] float32
+    in_dim: int = 0
+
+    @property
+    def shape(self):
+        return (self.q_packed.shape[0], self.in_dim, self.q_packed.shape[-1])
+
+    @property
+    def group_size(self) -> int:
+        return self.in_dim // self.scale.shape[1]
+
+    def expert(self, e: int) -> Int4Tensor:
+        """One expert's weight (views of the stack; `e` a host int)."""
+        return Int4Tensor(q_packed=self.q_packed[e], scale=self.scale[e],
+                          in_dim=self.in_dim)
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        p = self.q_packed.to(torch.int32)
+        codes = torch.cat([(p & 0xF) - 8, (p >> 4) - 8], dim=1).float()
+        e, _, out = p.shape
+        n_g = self.scale.shape[1]
+        w = (codes.reshape(e, n_g, self.group_size, out)
+             * self.scale[:, :, None, :])
+        return w.reshape(e, self.in_dim, out).to(dtype)
+
+
+def quantize_expert_tensor_int4(w: torch.Tensor, group_size: int = 128
+                                ) -> Int4ExpertTensor:
+    """Group-wise symmetric int4 along each expert's reduction axis: the
+    grouping and packing of `quantize_tensor_int4`, over the expert axis."""
+    wf = w.float()
+    e, in_dim, out = wf.shape
+    if in_dim % 2:
+        raise ValueError(f"int4 packing needs even in_dim, got {in_dim}")
+    g = group_size if in_dim % (2 * group_size) == 0 else in_dim
+    grouped = wf.reshape(e, in_dim // g, g, out)
+    absmax = grouped.abs().amax(dim=2)
+    scale = torch.clamp_min(absmax, 1e-8) / 7.0
+    q = torch.clamp(torch.round(grouped / scale[:, :, None, :]), -7, 7)
+    u = (q + 8).to(torch.uint8).reshape(e, in_dim, out)
+    half = in_dim // 2
+    packed = (u[:, half:] << 4) | u[:, :half]
+    return Int4ExpertTensor(q_packed=packed, scale=scale, in_dim=in_dim)
+
+
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                 "wqkv", "w_gateup")  # fused names: llama.fuse_params
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
-def _check_args(params: Dict[str, Any], bits: int) -> None:
+def _check_args(bits: int) -> None:
     if bits not in (4, 8):
         raise ValueError(f"weight bits must be 4 or 8, got {bits}")
-    if any("moe" in layer for layer in params["layers"]):
-        raise NotImplementedError("quantized MoE experts are not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+
+
+def _quantize_expert_entry(k: str, v, bits: int, group_size: int):
+    """An entry of a layer's "moe" dict, quantized when it is an expert
+    stack (the router gate stays full precision: tiny, routing-critical)."""
+    if k not in _EXPERT_KEYS:
+        return v
+    if bits == 4:
+        return quantize_expert_tensor_int4(v, group_size=group_size)
+    return quantize_expert_tensor(v)
 
 
 def _quantize_entry(k: str, v, bits: int, act_quant: bool, group_size: int):
-    """A layer entry, quantized when it is a matmul weight."""
+    """A layer entry, quantized when it is a matmul weight or a "moe"
+    dict."""
+    if k == "moe":
+        return {mk: _quantize_expert_entry(mk, mv, bits, group_size)
+                for mk, mv in v.items()}
     if k not in _MATMUL_KEYS:
         return v
     if bits == 4:
@@ -140,7 +230,7 @@ def quantize_params(params: Dict[str, Any], act_quant: bool = False,
     K4 with per-token int8 activations. bits=4 stores the layer matmul
     weights as `Int4Tensor`s; embed and lm_head stay int8.
     """
-    _check_args(params, bits)
+    _check_args(bits)
     out: Dict[str, Any] = {
         "embed": quantize_tensor(params["embed"], axis=0),  # per row
         "final_norm": params["final_norm"]}
@@ -160,7 +250,7 @@ def quantize_params_streaming(params: Dict[str, Any],
     last reference in the tree is dropped as soon as its quantized
     replacement exists, so peak device memory is the full-precision tree
     plus one tensor (when the caller holds no other reference)."""
-    _check_args(params, bits)
+    _check_args(bits)
     out: Dict[str, Any] = {"layers": []}
     out["embed"] = quantize_tensor(params["embed"], axis=0)
     params["embed"] = None
@@ -174,14 +264,21 @@ def quantize_params_streaming(params: Dict[str, Any],
         layer = layers[i]
         ql = {}
         for k in list(layer.keys()):
-            ql[k] = _quantize_entry(k, layer.pop(k), bits, act_quant,
-                                    group_size)
+            v = layer.pop(k)
+            if k == "moe":  # each expert stack dropped once quantized
+                ql[k] = {mk: _quantize_expert_entry(mk, v.pop(mk), bits,
+                                                    group_size)
+                         for mk in list(v.keys())}
+            else:
+                ql[k] = _quantize_entry(k, v, bits, act_quant, group_size)
+            del v
         layers[i] = None
         out["layers"].append(ql)
     return out
 
 
-_QUANTIZED = (QuantizedTensor, Int4Tensor)
+_QUANTIZED = (QuantizedTensor, Int4Tensor, QuantizedExpertTensor,
+              Int4ExpertTensor)
 
 
 def _leaves(tree):
@@ -218,7 +315,8 @@ def params_to(params: Any, device) -> Any:
 
 
 def params_are_quantized(params: Any) -> bool:
-    """True when the tree carries int8 / int4 quantized weights."""
+    """True when the tree carries int8 / int4 quantized weights (dense or
+    expert stacks)."""
     return any(isinstance(x, _QUANTIZED) for x in _leaves(params))
 
 
@@ -234,6 +332,6 @@ def params_num_weights(params: Any) -> int:
     total = 0
     for x in _leaves(params):
         total += sum(t.numel() for t in _tensors(x))
-        if isinstance(x, Int4Tensor):
+        if isinstance(x, (Int4Tensor, Int4ExpertTensor)):
             total += x.q_packed.numel()  # the second weight of each byte
     return total

@@ -15,7 +15,11 @@ type (`_route`, counted in `int4_matmul.route_launches`):
   wgmma tiles bound by operations;
 - "tile", every other M > 8 (float32, the parity phases' exact route, and
   the shapes the tensor-core route does not take): a float32
-  shared-memory tile.
+  shared-memory tile;
+- "gemv_expert" (`int4_matmul_expert`), the GEMV over one expert of an
+  `Int4ExpertTensor` stack whose id each block reads from device memory:
+  MoE decode's routed experts, one launch per expert and projection, with
+  no host read and no copy of the expert.
 
 A CPU tensor takes the plain version, the JAX package's off-TPU grouped form
 (`llama._matmul` for `Int4Tensor`); a CUDA tensor launches the kernel or
@@ -38,11 +42,17 @@ class Int4MatmulParams(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "q", "scale", "out",
                                                 "partial", "ticket")]
                 + [(n, ctypes.c_int) for n in ("M", "N", "KH", "gs", "hi_off",
-                                               "split", "route", "dtype")])
+                                               "split", "route", "dtype")]
+                + [("expert_ids", ctypes.c_void_p),
+                   ("q_estride", ctypes.c_longlong),
+                   ("s_estride", ctypes.c_longlong),
+                   ("slot", ctypes.c_int), ("n_experts", ctypes.c_int)])
 
 
 # Route, kSmallM and kMaxRange in csrc/int4_matmul.cu.
 ROUTES = {"gemv": 0, "tile": 1, "tensor_core": 2}
+# Counted apart; the source's kGemv with expert_ids set.
+COUNTED_ROUTES = (*ROUTES, "gemv_expert")
 SMALL_M = 8            # the GEMV route's rows, at most
 GEMV_MAX_ROWS = 512    # packed rows a GEMV block stages x for, at most
 GEMV_BLOCKS = 264      # two GEMV blocks per SM of the H100's 132: one wave
@@ -138,20 +148,16 @@ def gemv_split(m: int, n: int, kh: int) -> int:
     return max(split, -(-kh // GEMV_MAX_ROWS))
 
 
-def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """[M, K] x (half-split packed [K/2, N] uint8, [n_g, N] float32 group
-    scales) → [M, N] in x's dtype."""
-    if x.device.type == "cpu":
-        return int4_matmul_plain(x, q_packed, scale)
-    _check(x, q_packed, scale)
-    (m, _), (kh, n) = x.shape, q_packed.shape
-    gs, hi_off = _groups(kh, scale.shape[0])
+def _launch(x, q_packed, scale, route: str, **expert) -> torch.Tensor:
+    """One K3 launch on `route` (q_packed / scale: one [K/2, N] / [n_g, N]
+    weight; for the expert form expert 0 of the stack, with `expert` the
+    ids pointer, strides, slot and count)."""
+    (m, _), (kh, n) = x.shape, q_packed.shape[-2:]
+    gs, hi_off = _groups(kh, scale.shape[-2])
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    route = _route(x, q_packed, gs)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     split, partial, ticket = 0, None, None
-    if route == "gemv":
+    if route in ("gemv", "gemv_expert"):
         split = gemv_split(m, n, kh)
         if split > 1:
             partial, ticket = _build.scratch(x.device, stream, split * m * n,
@@ -162,15 +168,60 @@ def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
         partial=None if partial is None else partial.data_ptr(),
         ticket=None if ticket is None else ticket.data_ptr(),
         M=m, N=n, KH=kh, gs=gs, hi_off=hi_off, split=split,
-        route=ROUTES[route], dtype=_build.dtype_code(x.dtype))
+        route=ROUTES["gemv" if route == "gemv_expert" else route],
+        dtype=_build.dtype_code(x.dtype), **expert)
     _build.launch("int4_matmul_launch", p, stream)
     int4_matmul.launches += 1
     int4_matmul.route_launches[route] += 1
     return out
 
 
+def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """[M, K] x (half-split packed [K/2, N] uint8, [n_g, N] float32 group
+    scales) → [M, N] in x's dtype."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q_packed, scale)
+    _check(x, q_packed, scale)
+    gs, _ = _groups(q_packed.shape[0], scale.shape[0])
+    return _launch(x, q_packed, scale, _route(x, q_packed, gs))
+
+
 int4_matmul.launches = 0
-int4_matmul.route_launches = dict.fromkeys(ROUTES, 0)
+int4_matmul.route_launches = dict.fromkeys(COUNTED_ROUTES, 0)
+
+
+def int4_matmul_expert(x: torch.Tensor, q_packed: torch.Tensor,
+                       scale: torch.Tensor, ids: torch.Tensor,
+                       slot: int) -> torch.Tensor:
+    """[M, K] (M <= 8) x expert ids[slot] of a stack (packed [E, K/2, N]
+    uint8, scales [E, n_g, N] float32) → [M, N] in x's dtype.
+
+    `ids` is an int32 tensor of expert ids on x's device and `slot` a host
+    index into it: on a CUDA tensor the kernel reads the id itself (no
+    host read, no copy of the expert's weights; an id outside [0, E) traps
+    on the card). A CPU tensor takes `int4_matmul_plain` on the expert's
+    codes and scales."""
+    if x.device.type == "cpu":
+        e = int(ids.reshape(-1)[slot])
+        return int4_matmul_plain(x, q_packed[e], scale[e])
+    _check(x, q_packed[0], scale[0])
+    if x.shape[0] > SMALL_M:
+        raise ValueError(f"int4 expert matmul: at most {SMALL_M} rows, got "
+                         f"{x.shape[0]}")
+    if (q_packed.ndim != 3 or scale.ndim != 3
+            or scale.shape[0] != q_packed.shape[0]
+            or not (q_packed.is_contiguous() and scale.is_contiguous())):
+        raise ValueError("int4 expert matmul: contiguous q_packed [E, K/2, "
+                         "N] and scale [E, n_g, N]")
+    if (ids.device != x.device or ids.dtype != torch.int32
+            or not ids.is_contiguous() or not 0 <= slot < ids.numel()):
+        raise ValueError("int4 expert matmul: contiguous int32 ids on x's "
+                         "device, slot inside them")
+    return _launch(x, q_packed, scale, "gemv_expert",
+                   expert_ids=ids.data_ptr(),
+                   q_estride=q_packed.stride(0), s_estride=scale.stride(0),
+                   slot=slot, n_experts=q_packed.shape[0])
 
 
 def int4_matmul_tensor(x: torch.Tensor, w) -> torch.Tensor:

@@ -127,6 +127,8 @@ def _assert_k1_out(o, o_ref, o_abs):
     (2, 1000, 32, 4, 64, (256, 300)),  # plen on a tile edge, straddling
     (1, 333, 8, 1, 256, (100,)),  # Gemma-2B heads: d=256, n_rep = 8
     (2, 200, 4, 4, 256, (64, 130)),  # Gemma-7B's d=256 at n_rep = 1
+    (2, 300, 14, 2, 64, (100, 7)),   # Qwen2-0.5B heads: n_rep = 7
+    (1, 257, 28, 4, 128, None),      # Qwen2-7B heads: n_rep = 7, d=128
 ])
 def test_k1_matches_plain(cuda, dtype, b, s, hq, hkv, d, plens):
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -428,6 +430,8 @@ def _decode_state(cuda, dtype, ccfg, b, s, hq, hkv, d, ring, n_recent, seed):
     ("16/8/4", dict(b=2, s=90, hq=2, hkv=2, d=16, ring=4, n_recent=3)),
     ("8/4/2", dict(b=2, s=700, hq=8, hkv=1, d=256, ring=8, n_recent=5)),
     ("16/8/4", dict(b=1, s=300, hq=4, hkv=4, d=256, ring=4, n_recent=2)),
+    ("8/4/2", dict(b=2, s=600, hq=14, hkv=2, d=64, ring=8, n_recent=3)),
+    ("8/4/2", dict(b=1, s=700, hq=28, hkv=4, d=128, ring=8, n_recent=5)),
 ])
 def test_k2_matches_plain(cuda, dtype, tiers, shape):
     ccfg = {"8/4/2": rt.CompressionConfig(num_layers=4),
@@ -503,12 +507,13 @@ def test_k2_pool_and_groups_match_plain(cuda, dtype, pool_bits, group_size,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (12, 4), (8, 1),
-                                    (32, 2), (16, 1)])
+                                    (32, 2), (16, 1), (14, 2)])
 @pytest.mark.parametrize("group_size", [0, 16])
 def test_k2_matches_plain_at_every_n_rep_instance(cuda, dtype, hq, hkv,
                                                   group_size):
     """n_rep is a template parameter of the kernel (instances 1, 2, 4, 8,
-    16; n_rep 3 takes the 4 instance with one head unread), at G = 1 and
+    16; n_rep 3 takes the 4 instance with one head unread, Qwen2's n_rep
+    7 the 8 instance), at G = 1 and
     G = 4 (16-channel groups at d = 64), tiers, decode pool and ring."""
     ccfg = rt.CompressionConfig(num_layers=4, quant_group_size=group_size,
                                 decode_pool_blocks=2, decode_pool_bits=4)
@@ -974,6 +979,89 @@ def test_k3_routes_match_plain(cuda, dtype, m, k, n, group_size, bf16_route):
     ref = int4_matmul_plain(x, w.q_packed, w.scale)
     tol = TOL_K3_REL * float(ref.float().abs().max())
     _assert_close(out, ref, tol, floor=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2])
+def test_k3_expert_gemv_matches_plain(cuda, dtype, m):
+    """The expert-indexed GEMV: one launch per call on its own route, the
+    expert id read by the kernel from device ids (the last expert
+    included), no host read (sync debug mode), against the plain version
+    on that expert's codes and scales."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import quantize_expert_tensor_int4
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.int4_matmul \
+        import int4_matmul_expert
+
+    gen = torch.Generator(device=cuda).manual_seed(13 + m)
+    e, k, n = 8, 1024, 2304
+    w = quantize_expert_tensor_int4(
+        _randn(gen, (e, k, n), torch.float32, cuda) * k ** -0.5)
+    x = _randn(gen, (m, k), dtype, cuda)
+    ids = torch.tensor([5, 7, 0, 3], dtype=torch.int32, device=cuda)
+    int4_matmul_expert(x, w.q_packed, w.scale, ids, 0)  # warm-up: scratch
+    torch.cuda.synchronize()
+    before = dict(int4_matmul.route_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [int4_matmul_expert(x, w.q_packed, w.scale, ids, slot)
+                for slot in range(4)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {r: c - before[r] for r, c in
+            int4_matmul.route_launches.items()} == {
+                r: 4 * (r == "gemv_expert") for r in before}
+    for ex, out in zip((5, 7, 0, 3), outs):
+        ref = int4_matmul_plain(x, w.q_packed[ex], w.scale[ex])
+        assert out.dtype == dtype and out.shape == (m, n)
+        tol = TOL_K3_REL * float(ref.float().abs().max())
+        _assert_close(out, ref, tol, floor=tol)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            int4_matmul_expert(x, w.q_packed, w.scale, ids, 1)
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3 and all("int4_gemv" in k for k in kernels), \
+        kernels
+
+
+def test_moe_decode_step_reads_no_device_value(cuda):
+    """A decode step of a 2-layer MoE model with int4 experts and int4
+    attention matmuls under the sync debug mode: each layer's routed
+    experts run K3's expert GEMV (k = 2 experts x 3 projections) and its
+    unfused attention K3's GEMV (4), with no host read."""
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=512,
+                              intermediate_size=1024, num_heads=8,
+                              num_kv_heads=2, head_dim=64, num_experts=8,
+                              num_experts_per_tok=2)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    params = llama.fuse_params(quantize_params(
+        llama.init_params(0, mcfg, cuda), bits=4))
+    assert "wq" in params["layers"][0]  # MoE layers stay unfused
+    ids = torch.randint(0, mcfg.vocab_size, (1, 300), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=8)
+    tok = torch.argmax(logits, -1)
+    llama.decode_step(params, tok, llama.clone_decode_state(state), mcfg,
+                      ccfg)  # warm-up: scratch
+    torch.cuda.synchronize()
+    before = dict(int4_matmul.route_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, state = llama.decode_step(params, tok, state, mcfg, ccfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {r: c - before[r] for r, c in
+            int4_matmul.route_launches.items()} == {
+                "gemv": 4 * 2, "gemv_expert": 6 * 2, "tile": 0,
+                "tensor_core": 0}
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

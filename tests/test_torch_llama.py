@@ -273,18 +273,24 @@ def test_forward_logits_sdpa_route_matches_plain(runs):
 
 
 def test_unported_paths_raise(runs):
-    """Ragged batches, the decode pool and query-guided importance (one-shot
-    and chunked: tests/test_torch_query_importance.py) are ported; the
-    compressed-prefix prefill refuses query-guided scoring, as the
-    reference does, and MoE still raises."""
+    """Ragged batches, the decode pool, query-guided importance (one-shot
+    and chunked: tests/test_torch_query_importance.py) and MoE
+    (tests/test_torch_moe.py) are ported; the compressed-prefix prefill
+    refuses query-guided scoring, as the reference does. MoE layers get
+    the reference's shapes: router gate [H, E], expert stacks [E, H, I] /
+    [E, I, H], no dense MLP."""
     tcfg, tcc = runs["tcfg"], runs["tcc"]
     query = dataclasses.replace(tcc, importance_source="query")
     with pytest.raises(ValueError, match="prompt"):
         tl.prefill_chunked_compressed_init(BATCH, PROMPT, 32, tcfg, query,
                                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        tl.init_params(0, dataclasses.replace(tcfg, num_experts=4),
-                       device="cpu")
+    moe_cfg = dataclasses.replace(tcfg, num_experts=4)
+    layer = tl.init_params(0, moe_cfg, device="cpu")["layers"][0]
+    h, i = moe_cfg.hidden_size, moe_cfg.intermediate_size
+    assert "w_gate" not in layer
+    assert {k: tuple(v.shape) for k, v in layer["moe"].items()} == {
+        "gate": (h, 4), "w_gate": (4, h, i), "w_up": (4, h, i),
+        "w_down": (4, i, h)}
 
 
 def test_gemma_switches_and_head_dim_256_match_jax():

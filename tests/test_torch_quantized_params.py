@@ -144,11 +144,14 @@ def test_quantize_params_guards(trees):
     _, tp = trees
     with pytest.raises(ValueError, match="bits"):
         tq.quantize_params(tp, bits=3)
-    moe = {**tp, "layers": [{**tp["layers"][0], "moe": {}}]}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tq.quantize_params(moe)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tq.quantize_params_streaming(moe)
-    assert moe["embed"] is tp["embed"]  # refused before anything was consumed
+    streamed = {**tp, "layers": list(tp["layers"])}
+    with pytest.raises(ValueError, match="bits"):
+        tq.quantize_params_streaming(streamed, bits=3)
+    assert streamed["embed"] is tp["embed"]  # refused before any was consumed
+    # MoE layers quantize their expert stacks (tests/test_torch_moe.py).
+    moe_cfg = rt.tiny_test_model(num_layers=1, num_experts=4)
+    q = tq.quantize_params(tl.init_params(0, moe_cfg, device="cpu"), bits=4,
+                           group_size=16)
+    assert isinstance(q["layers"][0]["moe"]["w_up"], tq.Int4ExpertTensor)
     cfg = rt.tiny_test_model(num_layers=1)
     assert tq.params_bytes(tl.init_params(0, cfg, device="cpu")) > 0

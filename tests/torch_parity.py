@@ -29,9 +29,31 @@ def numpy_tree(tree):
 def jax_tree(tree):
     """The port's params (CPU tensors) as a JAX params tree: random weights
     made once by the port's `init_params` from a seed feed both packages,
-    and the JAX side compiles no initialiser."""
-    return jax.tree_util.tree_map(lambda t: jax.numpy.asarray(t.numpy()),
-                                  tree)
+    and the JAX side compiles no initialiser. The port's quantized leaves
+    become the JAX package's classes of the same name and fields."""
+    import dataclasses
+
+    from realtime_kv_cache_compression_tpu.models import quantized_params
+
+    def conv(x):
+        if dataclasses.is_dataclass(x):
+            cls = getattr(quantized_params, type(x).__name__)
+            return cls(**{f.name: conv(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+        if isinstance(x, torch.Tensor):
+            return jax.numpy.asarray(to_numpy(x))
+        return x
+
+    return jax.tree_util.tree_map(conv, tree,
+                                  is_leaf=dataclasses.is_dataclass)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as numpy, bf16 as ml_dtypes' bfloat16."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def state_to_jax(state):
