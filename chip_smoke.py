@@ -95,13 +95,27 @@ each with every launch count set to 0 just before it and read just after:
   kernel and by K3 route (unfused attention on the tensor cores and the
   GEMV, every routed expert projection on the expert GEMV), timed
   REPEATS_MIXTRAL times, the uncompressed arm and a profile; then a
-  checkpoint round trip of its layer 0, embedding and head, bit-equal.
+  checkpoint round trip of its layer 0, embedding and head, bit-equal;
+- TinyLlama served by the continuous-batching engine (`serving/`): bf16
+  fused weights, 4 slots over a 4096-token bucket, decode chunks of 8,
+  `warmup()`, the one-shot 4096-token prefill timed (the effective
+  throughput behind `estimate_prefill_seconds`), 8 prompts of 1024-4096
+  tokens with budgets of 16-64 tokens at once (launches held to the
+  engine's own schedule: K1 22 a prefill, K2 22 a decode step), a step
+  with an admission in flight under the profiler, exact and partial
+  prefix hits (no K1), chunked admission (K1 mode (b) 22 a chunk), and
+  HTTP completions (4 concurrent, one streamed) held to the engine's
+  text, tokens and logprobs.
 
 Before the full runs, each path's kernel path is checked against the plain
 path in float32 at reduced depth (2 layers, full width; Gemma-2B too): equal
 greedy tokens, for the chunked path also chunked against one-shot prefill, and
 for the compressed-prefix path equal kept positions and a single chunk
-against `prefill_compressed`; for query-guided scoring ("query", "both")
+against `prefill_compressed`; for the serving engine (2 layers, 4 slots,
+one-shot and chunked admission, an in-batch duplicate, an exact and a
+partial prefix hit) equal tokens, stop reasons and kept ratios on the
+kernels, on the plain versions and for each request alone at B=1 (up to
+a near tie); for query-guided scoring ("query", "both")
 equal kept positions and tokens, and chunked against one-shot prefill up
 to a near-tie swap; for beam search (B=1, W=4, with and without an EOS
 the model emits) equal sequences and scores within 1e-4 relative; for
@@ -121,6 +135,7 @@ Needs a CUDA device and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import importlib.metadata
@@ -243,6 +258,21 @@ MIXTRAL_PARITY_TOKENS = 6
 # Written by the Qwen2-from-disk and checkpoint phases (git-ignored).
 QWEN2_DIR = "build/qwen2_0_5b_checkpoint"
 CKPT_DIR = "build/mixtral_layer0_checkpoint"
+# The serving engine: SERVE_SLOTS decode slots over a PROMPT-token bucket,
+# up to SERVE_NEW_TOKENS tokens per request in decode chunks of SERVE_CHUNK
+# steps, SERVE_PROMPTS distinct prompts of PROMPT/4-PROMPT tokens (a first
+# admission, then refills); chunked admission in chunks of
+# SERVE_PREFILL_CHUNK; a registered SERVE_SHARED-token system prompt
+# extended by up to SERVE_BUDGET tokens.
+SERVE_SLOTS = 4
+SERVE_NEW_TOKENS = 64
+SERVE_CHUNK = 8
+SERVE_PROMPTS = 8
+SERVE_PREFILL_CHUNK = 1024
+SERVE_SHARED = 3584
+SERVE_BUDGET = 256
+NEAR_TIE = 2 * TOL_LOGITS  # float32 serving parity: a reference top-2 gap
+                           # below it may part kernel and plain paths
 
 
 def log(msg: str) -> None:
@@ -274,32 +304,42 @@ def bf16_share(out: torch.Tensor, ref: torch.Tensor,
     return float((err / (BF16_ULPS * ulp + floor)).max())
 
 
-def check_close(out, ref, tol, what: str, floor: float = BF16_FLOOR,
+def limit_share(out, ref, tol, floor: float = BF16_FLOOR,
                 ref_abs=None) -> float:
-    """Checks `out` against `ref` (bf16: the per-element ulp limit with
-    `floor`, or with `ref_abs` given, K1's `bf16_output_limit`; float32:
-    `tol` absolute), logs the result and returns the max abs error."""
+    """The share of its limit that `out`'s worst element uses against
+    `ref`, under `check_close`'s limits (bf16: the per-element ulp limit
+    with `floor`, or with `ref_abs` given, K1's `bf16_output_limit`;
+    float32: `tol` absolute). Passes at <= 1."""
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.flash_prefill \
         import bf16_limit_share
 
+    if out.dtype == torch.bfloat16 and ref_abs is not None:
+        return bf16_limit_share(out, ref, ref_abs)
+    if out.dtype == torch.bfloat16:
+        return bf16_share(out, ref, floor)
+    err = max_err(out, ref)
+    return err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def check_close(out, ref, tol, what: str, floor: float = BF16_FLOOR,
+                ref_abs=None) -> float:
+    """Checks `out` against `ref` under `limit_share`'s limits, logs the
+    result and returns the max abs error."""
     err = max_err(out, ref)
     peak = float(ref.float().abs().max())
+    share = limit_share(out, ref, tol, floor, ref_abs)
     if out.dtype == torch.bfloat16 and ref_abs is not None:
-        share = bf16_limit_share(out, ref, ref_abs)
         log(f"{what}: max abs err {err:.3e}, max|ref| {peak:.3e}, worst "
             f"element at {share:.3f} of its limit ({BF16_ULPS} bf16 ulps "
             f"+ 2^-8 sum p|v|/l + {floor:.0e})")
-        check(share <= 1.0, what)
     elif out.dtype == torch.bfloat16:
-        share = bf16_share(out, ref, floor)
         log(f"{what}: max abs err {err:.3e}, max|ref| {peak:.3e}, worst "
             f"element at {share:.3f} of its limit ({BF16_ULPS} bf16 ulps "
             f"+ {floor:.3e})")
-        check(share <= 1.0, what)
     else:
         log(f"{what}: max abs err {err:.3e} (tol {tol:.3e}), max|ref| "
             f"{peak:.3e}")
-        check(err <= tol, what)
+    check(share <= 1.0, what)
     return err
 
 
@@ -3255,6 +3295,584 @@ def phase_forward_logits(device, mcfg, main_run, prompt: int = 1024) -> None:
                             "vs prefill_uncompressed")
 
 
+def _engine_calls(eng) -> dict:
+    """The engine's own schedule (its calls of prefill, chunk step and
+    decode chunk, `ServingEngine.model_calls`), set to 0: the launches
+    follow from it."""
+    eng.model_calls.update(dict.fromkeys(eng.model_calls, 0))
+    return eng.model_calls
+
+
+@contextlib.contextmanager
+def _held_to_plain(audit: dict):
+    """While active, each call the model makes to K1 mode (a), K1 mode (b)
+    and K2 is held against its plain version on its own inputs as soon as
+    it returns: K1 row by row (the rows are independent) on float32 copies
+    under the bf16 limit with 2^-8 sum p|v|/l, its prompt mass within
+    TOL_MASS (`k1_refs`); K2 against `decode_attention_plain` in float32
+    under the bf16 ulp limit, as in `phase_k2`. K2 is checked at the call,
+    before the next step writes the ring and pool in place. Calls to the
+    plain versions launch nothing. `audit` collects, per kernel, [calls,
+    worst max abs err, worst share of the limit]."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.attention import (
+        chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass)
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import decode_attention_plain
+
+    def note(key, pairs, what, count=True):
+        rec = audit.setdefault(key, [0, 0.0, 0.0])
+        rec[0] += count
+        for out, ref, tol, ref_abs in pairs:
+            share = limit_share(out, ref, tol, ref_abs=ref_abs)
+            rec[1] = max(rec[1], max_err(out, ref))
+            rec[2] = max(rec[2], share)
+            check(share <= 1.0, f"{what}: worst element at {share:.3f} of "
+                                f"its limit")
+
+    def k1(key, plain, q, k, v, args, prompt_lens, result):
+        o, pm = result
+        for b in range(q.shape[0]):
+            lens = None if prompt_lens is None else prompt_lens[b:b + 1]
+            (o_ref, pm_ref), o_abs = k1_refs(plain, q[b:b + 1], k[b:b + 1],
+                                             v[b:b + 1], *args,
+                                             prompt_lens=lens)
+            note(key, [(o[b:b + 1], o_ref, TOL_K1_F32, o_abs),
+                       (pm[b:b + 1], pm_ref, TOL_MASS, None)],
+                 f"{key} {tuple(q.shape)} {args} row {b}", count=b == 0)
+
+    originals = {name: getattr(llama, name) for name in (
+        "flash_prefill_with_prompt_mass",
+        "flash_chunk_attention_with_prompt_mass", "fused_decode_attention")}
+
+    def prefill(q, k, v, prompt_len, prompt_lens=None):
+        result = originals["flash_prefill_with_prompt_mass"](
+            q, k, v, prompt_len, prompt_lens=prompt_lens)
+        k1("K1", prefill_attention_with_prompt_mass, q, k, v, (prompt_len,),
+           prompt_lens, result)
+        return result
+
+    def chunk(q, k_buf, v_buf, q_offset, prompt_len, prompt_lens=None):
+        result = originals["flash_chunk_attention_with_prompt_mass"](
+            q, k_buf, v_buf, q_offset, prompt_len, prompt_lens=prompt_lens)
+        k1("K1b", chunk_attention_with_prompt_mass, q, k_buf, v_buf,
+           (q_offset, prompt_len), prompt_lens, result)
+        return result
+
+    def decode(q, cache, recent, q_pos, cfg, pool=None):
+        out = originals["fused_decode_attention"](q, cache, recent, q_pos,
+                                                  cfg, pool=pool)
+        ref = decode_attention_plain(q, cache, recent, q_pos, cfg, pool=pool)
+        note("K2", [(out, ref, TOL_K2_F32, None)],
+             f"K2 {tuple(q.shape)} at positions "
+             f"{q_pos[:, 0].tolist()}, ring {recent.length.tolist()}")
+        return out
+
+    llama.flash_prefill_with_prompt_mass = prefill
+    llama.flash_chunk_attention_with_prompt_mass = chunk
+    llama.fused_decode_attention = decode
+    try:
+        yield audit
+    finally:
+        for name, fn in originals.items():
+            setattr(llama, name, fn)
+
+
+def _audit_serving(eng, prompts, label: str) -> dict:
+    """One admission of `prompts` (ragged, padded to a power-of-two batch)
+    into the engine's free slots and the one decode chunk that serves
+    them (a token budget of SERVE_CHUNK + 1), every slot decoding, idle
+    ones included, with each kernel call held to its plain version
+    (`_held_to_plain`). Returns {kernel: worst max abs err}."""
+    audit = {}
+    with _held_to_plain(audit):
+        rids = [eng.submit(p, max_new_tokens=SERVE_CHUNK + 1)
+                for p in prompts]
+        eng.run()
+    check(all(len(eng.completed[r].tokens) == SERVE_CHUNK + 1 for r in rids),
+          f"{label} audit: every request served")
+    layers, b = eng.mcfg.num_layers, 1 << (len(prompts) - 1).bit_length()
+    expect = {"K2": layers * SERVE_CHUNK,
+              ("K1b" if eng.prefill_chunk else "K1"): layers * (
+                  -(-max(map(len, prompts)) // eng.prefill_chunk)
+                  if eng.prefill_chunk else 1)}
+    check({k: v[0] for k, v in audit.items()} == expect,
+          f"{label} audit: calls held to plain {audit} (expect {expect})")
+    log(f"{label}: one admission of B={b} (prompts {[len(p) for p in prompts]}"
+        f") and one decode chunk over {eng.num_slots} slots, every kernel "
+        f"call held to its plain version: " + "; ".join(
+            f"{k} {n} calls, max abs err {e:.3e}, worst element at {s:.3f} "
+            f"of its limit" for k, (n, e, s) in audit.items()))
+    return {k: v[1] for k, v in audit.items()}
+
+
+def _serving_parity_traffic(eng, prompts, shared, suffix) -> dict:
+    """Six requests into four slots (the second and third one prompt: an
+    in-batch duplicate), then the last prompt again (an exact prefix-cache
+    hit) and `shared` + `suffix` after `register_prefix(shared)` (a partial
+    hit); returns {label: request}."""
+    rids = {f"r{i}": eng.submit(p) for i, p in enumerate(prompts)}
+    eng.run()
+    rids["exact"] = eng.submit(prompts[-1])
+    eng.register_prefix(shared)
+    rids["partial"] = eng.submit(shared + suffix)
+    eng.run()
+    return {k: eng.completed[r] for k, r in rids.items()}
+
+
+def _standalone_serving(params, mcfg, ccfg, prompt, context: int,
+                        ring_cap: int, new_tokens: int, chunk=None,
+                        suffix=None):
+    """One request alone at B=1 on the plain versions, as the engine serves
+    it: the prompt right-padded to the `context` bucket with its length,
+    `prefill_compressed` (or the chunked prefill in chunks of `chunk`),
+    `extend_prefill` over `suffix` for a partial prefix hit, then greedy
+    `decode_step`s. Returns (tokens, logits per token [n, V] on the host,
+    kept ratio)."""
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        summarize_layer_stats)
+    from realtime_kv_cache_compression_tpu_torch.models import (llama,
+                                                                 speculative)
+
+    dev = params["embed"].device
+    ids = torch.tensor([prompt + [0] * (context - len(prompt))], device=dev)
+    lens = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+    if chunk:
+        logits, state, stats = llama.prefill_compressed_chunked(
+            params, ids, mcfg, ccfg, chunk, max_decode_len=ring_cap,
+            lengths=lens, use_flash=False)
+    else:
+        logits, state, stats = llama.prefill_compressed(
+            params, ids, mcfg, ccfg, max_decode_len=ring_cap,
+            use_flash=False, lengths=lens)
+    if suffix:
+        logits, state = speculative.extend_prefill(
+            params, state, torch.tensor([suffix], device=dev),
+            torch.tensor([len(suffix)], dtype=torch.int32, device=dev),
+            mcfg, ccfg)
+    out = [logits.float().cpu()]
+    for _ in range(new_tokens - 1):
+        logits, state = llama.decode_step(
+            params, torch.argmax(logits, -1), state, mcfg, ccfg,
+            use_fused=False)
+        out.append(logits.float().cpu())
+    logits = torch.cat(out)
+    return (torch.argmax(logits, -1).tolist(), logits,
+            summarize_layer_stats(stats)["avg_compression_ratio"])
+
+
+def _held_to_reference(label: str, toks, ref_toks, ref_logits) -> int:
+    """Tokens equal to the reference's up to its first near tie (top-2 gap
+    below NEAR_TIE, where float32 paths may part); returns how many were
+    held."""
+    for t in range(len(ref_toks)):
+        top2 = torch.topk(ref_logits[t], 2).values
+        gap = float(top2[0] - top2[1])
+        if gap < NEAR_TIE:
+            log(f"{label}: step {t} is a near tie (reference top-2 gap "
+                f"{gap:.3e}); tokens held to step {t - 1}")
+            return t
+        check(t < len(toks) and toks[t] == ref_toks[t],
+              f"{label}: token {t} (reference top-2 gap {gap:.3e})")
+    check(len(toks) == len(ref_toks), f"{label}: token count")
+    return len(ref_toks)
+
+
+def phase_parity_serving(device, mcfg, context: int = 1024,
+                         new_tokens: int = 16, chunk: int = 256,
+                         lengths=(300, 1000), shared: int = 900,
+                         suffix: int = 40) -> None:
+    """The serving engine in float32 at reduced depth (full width): 4
+    slots over a `context`-token bucket, `new_tokens` tokens in decode
+    chunks of 4, a prefix cache of 4 and a continuation budget of 64. The
+    traffic: six requests of ragged lengths (`context` and `lengths`
+    tokens; the second and third one prompt, an in-batch duplicate), then
+    an exact resubmission and a prompt extending a registered
+    `shared`-token prefix by `suffix` tokens. The engine on the kernels (K1, K2) against the same engine
+    on the plain versions and against each request alone at B=1 on the
+    plain versions (`_standalone_serving`): equal tokens up to a near tie
+    of the reference, "length" stop reasons, per-row kept ratios within
+    1e-6. Once one-shot, once with `prefill_chunk=chunk` (K1 mode (b); the
+    references then prefill in chunks too, except the registered prefix,
+    which `register_prefix` prefills in one shot)."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.serving import ServingEngine
+
+    mcfg = dataclasses.replace(mcfg, dtype="float32")
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator().manual_seed(SEED + 11)
+
+    def prompt(n):
+        return torch.randint(1, mcfg.vocab_size, (n,), generator=gen).tolist()
+
+    sizes = [context] + torch.randint(lengths[0], lengths[1] + 1, (4,),
+                                      generator=gen).tolist()
+    distinct = [prompt(n) for n in sizes]
+    prompts = distinct[:2] + distinct[1:]  # the in-batch duplicate
+    shared, suffix = prompt(shared), prompt(suffix)
+    budget = 64
+    kw = dict(num_slots=SERVE_SLOTS, context_len=context,
+              max_new_tokens=new_tokens, decode_chunk=4, prefix_cache_size=4,
+              prefix_continue_budget=budget)
+    for prefill_chunk in (None, chunk):
+        served = {}
+        for kernels in (True, False):
+            eng = ServingEngine(params, mcfg, ccfg, use_flash=kernels,
+                                use_fused_decode=kernels,
+                                prefill_chunk=prefill_chunk, **kw)
+            served[kernels] = _serving_parity_traffic(eng, prompts, shared,
+                                                      suffix)
+            check(eng.summary()["prefix_cache"]["partial_hits"] == 1
+                  and eng.prefix_hits == 2, "serving parity: prefix hits")
+        mode = f"chunk {prefill_chunk}" if prefill_chunk else "one-shot"
+        refs = {}
+        for label, p, extra in [(f"r{i}", p, {}) for i, p in
+                                enumerate(prompts)] + [
+                ("exact", prompts[-1], {}),
+                ("partial", shared, {"suffix": suffix})]:
+            key = (tuple(p), bool(extra))
+            if key not in refs:
+                refs[key] = _standalone_serving(
+                    params, mcfg, ccfg, p, context, new_tokens + budget,
+                    new_tokens, chunk=None if extra else prefill_chunk,
+                    **extra)
+            ref_toks, ref_logits, ref_kept = refs[key]
+            held = []
+            for kernels in (True, False):
+                req = served[kernels][label]
+                what = (f"serving parity f32 {mode} {label} "
+                        f"({'kernels' if kernels else 'plain'})")
+                held.append(_held_to_reference(what, req.tokens, ref_toks,
+                                               ref_logits))
+                check(req.stop_reason == "length", f"{what}: stop reason")
+                kept = req.prefill_stats["avg_compression_ratio"]
+                check(abs(kept - ref_kept) <= 1e-6,
+                      f"{what}: kept ratio {kept} vs alone {ref_kept}")
+            a, b = (served[k][label].tokens for k in (True, False))
+            n = min(held)
+            check(a[:n] == b[:n], f"serving parity {mode} {label}: kernel "
+                                  f"and plain engines")
+            log(f"serving parity f32 {mode} {label} (length "
+                f"{len(p) + len(extra.get('suffix', []))}): {n} of "
+                f"{new_tokens} tokens held, kept ratio {ref_kept:.4f}, "
+                f"engines equal {a == b}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _serve_main(eng, traffic, label: str) -> dict:
+    """Submit `traffic` ((prompt, token budget) pairs) at once and run the
+    engine with every launch count
+    set to 0 just before and read just after; launches held to the
+    engine's schedule (K1 22 per one-shot prefill, K1 mode (b) 22 per
+    chunk step, K2 22 per decode step: decode chunks x SERVE_CHUNK).
+    Returns the readings (requests, launches, wall, TTFT, the largest gap
+    between two deliveries to one request)."""
+    calls = _engine_calls(eng)
+    stamps = {}
+
+    def on_token(req, _new):
+        stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=m, on_token=on_token)
+            for p, m in traffic]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: wrapper(key).launches for key in KERNELS}
+    layers = eng.mcfg.num_layers
+    expect = {**{key: 0 for key in KERNELS},
+              "K1": layers * calls["prefill"],
+              "K1b": layers * calls["chunk_step"],
+              "K2": layers * SERVE_CHUNK * calls["decode"]}
+    log(f"{label} launches: {launches} (expect {expect}; engine schedule "
+        f"{calls})")
+    check(launches == expect, f"{label}: launches per kernel")
+    reqs = [eng.completed[r] for r in rids]
+    check(all(len(r.tokens) == m and r.stop_reason == "length"
+              for r, (_, m) in zip(reqs, traffic)),
+          f"{label}: every request served in full")
+    check(all(0.0 < r.prefill_stats["avg_compression_ratio"] < 1.0
+              and all(-1e30 < x <= 0.0 for x in r.logprobs) for r in reqs),
+          f"{label}: kept ratios in (0, 1), finite logprobs")
+    ttft = sorted(r.ttft * 1e3 for r in reqs)
+    gap = max(b - a for ts in stamps.values() for a, b in zip(ts, ts[1:]))
+    tokens = sum(len(r.tokens) for r in reqs)
+    log(f"{label}: {len(reqs)} requests, {tokens} tokens in {wall:.3f} s: "
+        f"{tokens / wall:.1f} generated tok/s; TTFT ms median "
+        f"{ttft[len(ttft) // 2]:.1f}, max {ttft[-1]:.1f} (in submission "
+        f"order {[round(r.ttft * 1e3, 1) for r in reqs]}); largest gap "
+        f"between deliveries to one request {gap * 1e3:.1f} ms")
+    return {"requests": reqs, "launches": launches, "calls": calls,
+            "gap_ms": gap * 1e3}
+
+
+class _IdTokenizer:
+    """Decodes each id to its own text, `<id>`, so that a reply's text
+    stands for every token of it (the byte tokenizer drops the ids of
+    TinyLlama's vocabulary above 255, most of a random model's)."""
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def phase_serving_path(device, mcfg) -> tuple:
+    """The serving layer at full width and depth (bf16, fused raw weights
+    from SEED): a `ServingEngine` of SERVE_SLOTS slots over a PROMPT-token
+    bucket, up to SERVE_NEW_TOKENS greedy tokens in decode chunks of
+    SERVE_CHUNK, a prefix cache of 8, logprobs on. `warmup()` first;
+    TinyLlama's one-shot PROMPT-token prefill timed (the effective
+    throughput behind `estimate_prefill_seconds`); then the main traffic
+    (SERVE_PROMPTS distinct prompts of PROMPT/4-PROMPT tokens at once, token
+    budgets of SERVE_NEW_TOKENS/4-SERVE_NEW_TOKENS: a first admission of
+    four ragged rows, then slot refills while other slots decode) with
+    exact launches; one engine step with an admission
+    in flight under the profiler (host wall against device busy; the host
+    time of `_start_admissions` and whether the prefill was done when it
+    returned); 4 exact prefix hits (no K1, the first serving's tokens);
+    one admission of three ragged prompts (B=4) and its decode chunk over
+    every slot, idle ones included, with each K1 and K2 call held to its
+    plain version (`_audit_serving`); a second engine with a registered SERVE_SHARED-token prefix and 4 prompts
+    extending it by 64-SERVE_BUDGET tokens (4 partial hits, no K1); the
+    main traffic again with `prefill_chunk=SERVE_PREFILL_CHUNK` (K1 mode
+    (b), its largest delivery gap beside the one-shot engine's) and the
+    same audit of one chunked admission; and a `CompletionServer` on port
+    0 (`_IdTokenizer`): 4 concurrent token-id completions and one streamed,
+    each reply's text, token count and logprobs those of the engine for
+    the same prompt. Returns the launches of the one-shot and chunked
+    main traffic, and the audits' worst error per kernel."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.models.quantized_params \
+        import params_num_weights
+    from realtime_kv_cache_compression_tpu_torch.serving import (
+        CompletionServer, ServingEngine, engine as serving_engine)
+    from realtime_kv_cache_compression_tpu_torch.utils.tokenizer import (
+        decode_ids)
+
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, device))
+    gen = torch.Generator().manual_seed(SEED + 12)
+
+    def prompt(n):
+        return torch.randint(1, mcfg.vocab_size, (n,), generator=gen).tolist()
+
+    kw = dict(num_slots=SERVE_SLOTS, context_len=PROMPT,
+              max_new_tokens=SERVE_NEW_TOKENS, decode_chunk=SERVE_CHUNK,
+              prefix_cache_size=8, logprobs=True)
+    eng = ServingEngine(params, mcfg, ccfg, **kw)
+    info = eng.warmup()
+    log(f"serving warmup: batch sizes {info['batch_sizes']}, wall "
+        f"{info['wall_s']:.3f} s")
+    check(info["batch_sizes"] == [1, 2, 4] and eng.summary() == {
+        "completed": 0} and not eng._prefix_cache, "warmup leaks nothing")
+
+    ids = torch.tensor([prompt(PROMPT)], device=device)
+    lens = torch.tensor([PROMPT], dtype=torch.int32, device=device)
+    ms = sorted(_host_ms(lambda: eng._prefill(ids, lens), runs=4))
+    n_weights = params_num_weights(params)
+    flops = (2.0 * n_weights * PROMPT
+             + 2.0 * mcfg.num_heads * PROMPT ** 2 * mcfg.head_dim)
+    tf_s = flops / (ms[len(ms) // 2] / 1e3) / 1e12
+    log(f"serving one-shot prefill B=1 S={PROMPT}: host ms {_spread(ms)}; "
+        f"{flops / 1e12:.3f} TFLOP by estimate_prefill_seconds' formula: "
+        f"effective {tf_s:.3f} TF/s (EFFECTIVE_TF_S "
+        f"{serving_engine.EFFECTIVE_TF_S}); resolve_prefill_chunk at "
+        f"{PROMPT}: {serving_engine.resolve_prefill_chunk(params, mcfg, PROMPT)}"
+        f", at 32768: "
+        f"{serving_engine.resolve_prefill_chunk(params, mcfg, 32768)}")
+
+    lengths = torch.randint(PROMPT // 4, PROMPT + 1, (SERVE_PROMPTS,),
+                            generator=gen).tolist()
+    budgets = torch.randint(SERVE_NEW_TOKENS // 4, SERVE_NEW_TOKENS + 1,
+                            (SERVE_PROMPTS,), generator=gen).tolist()
+    traffic = [(prompt(n), m) for n, m in zip(lengths, budgets)]
+    log(f"serving main traffic: prompt lengths {lengths}, token budgets "
+        f"{budgets}")
+    main = _serve_main(eng, traffic, "tinyllama serving")
+    first = {tuple(p): r.tokens for (p, _), r in zip(traffic,
+                                                     main["requests"])}
+
+    # Exact prefix hits: four served prompts again, no prefill.
+    calls = _engine_calls(eng)
+    _zero_counts()
+    hits_before = eng.prefix_hits
+    rids = [eng.submit(p, max_new_tokens=m) for p, m in traffic[:4]]
+    eng.run()
+    launches = {key: wrapper(key).launches for key in KERNELS}
+    log(f"serving exact prefix hits launches: {launches} (schedule {calls})")
+    check(eng.prefix_hits - hits_before == 4 and launches["K1"] == 0
+          and launches["K2"] == mcfg.num_layers * SERVE_CHUNK
+          * calls["decode"], "exact prefix hits: no K1, K2 per step")
+    check(all(eng.completed[r].tokens == first[tuple(p)]
+              for r, (p, _) in zip(rids, traffic)),
+          "exact prefix hits: tokens of the first serving")
+    audit_lengths = (PROMPT, PROMPT * 5 // 8, PROMPT * 3 // 8 + 1)
+    errs = _audit_serving(eng, [prompt(n) for n in audit_lengths],
+                          "tinyllama serving")
+
+    # One engine step with one admission in flight: three slots decoding,
+    # a fourth request admitted.
+    for p in [prompt(PROMPT) for _ in range(SERVE_SLOTS - 1)]:
+        eng.submit(p)
+    eng.step()
+    check(sum(eng._active_mask) == SERVE_SLOTS - 1, "three slots active")
+    eng.submit(prompt(PROMPT))
+    seen = {}
+    start, poll = eng._start_admissions, eng._poll_inflight
+
+    def timed_start(pairs):
+        t0 = time.perf_counter()
+        start(pairs)
+        seen["start_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def first_poll(force=False):
+        if "ready" not in seen:
+            seen["ready"] = [ev is None or ev.query()
+                             for *_, ev in eng._inflight]
+        poll(force)
+
+    eng._start_admissions, eng._poll_inflight = timed_start, first_poll
+    _profile_window("tinyllama serving", "one engine step with an admission "
+                    "in flight", eng.step)
+    log(f"serving step: _start_admissions host {seen['start_ms']:.3f} ms; "
+        f"prefill done at the first poll: {seen['ready']} (True: the "
+        f"dispatch waited for the device, so async admission overlapped "
+        f"nothing)")
+    eng._start_admissions, eng._poll_inflight = start, poll
+    eng.run()
+
+    # HTTP: four concurrent completions and one streamed over this engine.
+    import json
+    import threading
+    import urllib.request
+
+    tok = _IdTokenizer()
+    http = [prompt(PROMPT * k // 8) for k in range(2, 7)]
+    replies, latency = {}, {}
+
+    def post(i):
+        body = {"prompt": http[i], "max_tokens": SERVE_NEW_TOKENS,
+                "stream": i == 4}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/completions",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            if i < 4:
+                replies[i] = json.loads(r.read())
+            else:
+                deltas = [json.loads(line[6:])["choices"][0]["text"]
+                          for line in (raw.decode().strip() for raw in r)
+                          if line.startswith("data: {")]
+                replies[i] = "".join(deltas)
+        latency[i] = (time.perf_counter() - t0) * 1e3
+
+    with CompletionServer(eng, tok, host="127.0.0.1", port=0) as srv:
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(5)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads) and len(replies) == 5,
+              "http: every request answered")
+    rids = [eng.submit(p) for p in http]  # exact hits: the served tokens
+    eng.run()
+    for i, r in enumerate(rids):
+        req = eng.completed[r]
+        text = decode_ids(tok, req.tokens)
+        if i < 4:
+            choice = replies[i]["choices"][0]
+            check(choice["text"] == text
+                  and replies[i]["usage"]["completion_tokens"]
+                  == len(req.tokens) == SERVE_NEW_TOKENS
+                  and choice["logprobs"]["token_logprobs"] == req.logprobs,
+                  f"http request {i}: the engine's text, tokens, logprobs")
+        else:
+            check(replies[i] == text, "http stream: the engine's text")
+    log(f"serving http: 5 requests (prompts {[len(p) for p in http]}, one "
+        f"streamed), latency ms {[round(latency[i], 1) for i in range(5)]}; "
+        f"text decoded id by id from {SERVE_NEW_TOKENS} tokens each")
+    del eng
+    torch.cuda.empty_cache()
+
+    # Partial prefix hits: a registered shared prompt, four questions.
+    eng = ServingEngine(params, mcfg, ccfg,
+                        **{**kw, "prefix_continue_budget": SERVE_BUDGET})
+    shared = prompt(SERVE_SHARED)
+    _zero_counts()
+    eng.register_prefix(shared)
+    check(wrapper("K1").launches == mcfg.num_layers,
+          "register_prefix: one prefill")
+    calls = _engine_calls(eng)
+    extend_ms = []
+    cont = eng._continue_entry
+
+    def timed_continue(rkey, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry = cont(rkey, key)
+        torch.cuda.synchronize()
+        extend_ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+        return entry
+
+    eng._continue_entry = timed_continue
+    _zero_counts()
+    suffixes = [prompt(SERVE_BUDGET * k // 4) for k in range(1, 5)]
+    t0 = time.perf_counter()
+    rids = [eng.submit(shared + s) for s in suffixes]
+    eng.run()
+    wall = time.perf_counter() - t0
+    launches = {key: wrapper(key).launches for key in KERNELS}
+    reqs = [eng.completed[r] for r in rids]
+    log(f"serving partial prefix hits launches: {launches} (schedule "
+        f"{calls}); TTFT ms {[round(r.ttft * 1e3, 1) for r in reqs]}, wall "
+        f"{wall:.3f} s; extend_prefill host ms per suffix of "
+        f"{[len(x) for x in suffixes]} tokens: {extend_ms}")
+    check(eng.prefix_partial_hits == 4 and launches["K1"] == 0
+          and launches["K2"] == mcfg.num_layers * SERVE_CHUNK
+          * calls["decode"] and all(len(r.tokens) == SERVE_NEW_TOKENS
+                                    for r in reqs),
+          "partial prefix hits: no K1, K2 per step, every token")
+    del eng
+    torch.cuda.empty_cache()
+
+    # Chunked admission: the main traffic in chunks of SERVE_PREFILL_CHUNK.
+    eng = ServingEngine(params, mcfg, ccfg,
+                        **{**kw, "prefill_chunk": SERVE_PREFILL_CHUNK})
+    ends = []
+    advance = eng._advance_chunked
+
+    def recorded(rec):
+        if not rec["st"].offset:
+            ends.append(rec["end"] // SERVE_PREFILL_CHUNK)
+        return advance(rec)
+
+    eng._advance_chunked = recorded
+    chunked = _serve_main(eng, traffic, "tinyllama serving chunked")
+    check(chunked["calls"]["chunk_step"] == sum(ends),
+          f"chunked admission: chunk steps cover each admission's longest "
+          f"prompt ({ends})")
+    for key, err in _audit_serving(
+            eng, [prompt(n) for n in audit_lengths],
+            "tinyllama serving chunked").items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    log(f"serving largest gap between deliveries to one request: one-shot "
+        f"{main['gap_ms']:.1f} ms, chunks of {SERVE_PREFILL_CHUNK} "
+        f"{chunked['gap_ms']:.1f} ms")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"tinyllama_serving": main["launches"],
+            "tinyllama_serving_chunked": chunked["launches"]}, errs
+
+
 def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             qwen2_7b) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
@@ -3333,6 +3951,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     phase_parity_speculative(device, two(tiny))
     phase_parity_mixtral(device, two(mixtral))
     mark("float32 parity phases")
+    phase_parity_serving(device, two(tiny))
+    mark("float32 serving parity")
     n_steps = NEW_TOKENS - 1
     tiny_run = phase_main(
         "tinyllama main run", device, tiny,
@@ -3363,6 +3983,11 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     mark("tinyllama compressed-prefix run")
     launches.update(phase_query_path(device, tiny))
     mark("tinyllama query-guided runs")
+    serving_launches, serving_err = phase_serving_path(
+        device, dataclasses.replace(tiny,
+                                    max_position_embeddings=PROMPT + 512))
+    launches.update(serving_launches)
+    mark("tinyllama serving runs")
     launches["gemma_2b"] = run_gemma(device, gemma)
     mark("gemma-2b run")
     routes = {}
@@ -3404,10 +4029,15 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                    f"{PROMPT // CHUNK} chunks summed, one layer's prefill")
     pair_note = (f"B={PREFIX_BATCH} S_q=S_k={CHUNK}, Hq={{}} Hkv={{}} d={{}}, "
                  f"bf16")
-    k2_err = max(r["max_abs_err"] for r in (
+    k2_err = max(serving_err["K2"], *(r["max_abs_err"] for r in (
         k2, k2_tiny, k2p_tiny, k2p_big, k2_beam,
         *(g[m][p] for m in g for p in ("K2", "K2pool")),
-        *(q2[m]["K2"] for m in q2)))
+        *(q2[m]["K2"] for m in q2))))
+    serving_note = ("tinyllama_serving (one-shot and chunked): every call "
+                    "of one admission of B=4 ragged rows over the "
+                    f"{PROMPT}-token bucket and of its decode chunk over "
+                    f"{SERVE_SLOTS} slots, idle ones included, against "
+                    "the plain version, bf16")
 
     g_cfgs = {"gemma_2b": gemma, "gemma_7b": gemma7}
     q2_cfgs = {"qwen2_0_5b": qwen2, "qwen2_7b": qwen2_7b,
@@ -3419,14 +4049,19 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
         return {m: {**pick(g[m][part]),
                     "shape": note.format(*heads(g_cfgs[m]))} for m in g}
 
-    def worst(*results):
-        return max(r["max_abs_err"] for r in results)
+    def worst(*results, serving=None):
+        return max([r["max_abs_err"] for r in results]
+                   + ([serving_err[serving]] if serving else []))
+
+    def serving_extra(key):
+        return {"serving_max_abs_err": serving_err[key],
+                "serving_shape": serving_note}
 
     k1_note = f"B=1 S={PROMPT} Hq={{}} Hkv={{}} d={{}}"
     kernels = [
         entry("K1", {**k1, "max_abs_err": worst(
             k1, k1_tiny, *(g[m]["K1"] for m in g),
-            *(q2[m]["K1"] for m in q2))}, "llama2_7b_int4", {
+            *(q2[m]["K1"] for m in q2), serving="K1")}, "llama2_7b_int4", {
             "mode": "a (square causal)",
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
@@ -3435,9 +4070,10 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             **d256("K1", k1_note),
             **{m: {**q2[m]["K1"], "shape": k1_note.format(*heads(q2_cfgs[m]))}
                for m in q2},
-            "model_activations_max_abs_err": k1_activations}),
+            "model_activations_max_abs_err": k1_activations,
+            **serving_extra("K1")}),
         entry("K1b", {**k1b_tiny, "max_abs_err": worst(
-            k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g))},
+            k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g), serving="K1b")},
               "tinyllama_chunked", {
             "mode": "b (rectangular causal at q_offset, chunked prefill)",
             "shape": chunk_note.format(tiny.num_heads, tiny.num_kv_heads,
@@ -3446,7 +4082,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                        "[c, S_k] causal mask, no prompt mass",
             "llama2_7b": {**k1b_big, "shape": chunk_note.format(
                 big.num_heads, big.num_kv_heads, big.head_dim)},
-            **d256("K1b", chunk_note)}),
+            **d256("K1b", chunk_note), **serving_extra("K1b")}),
         entry("K1c", {**k1c_tiny, "max_abs_err": worst(
             k1c_tiny, k1c_big, *(g[m]["K1c"] for m in g))},
               "tinyllama_prefix", {
@@ -3493,6 +4129,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "device_us_per_call": k2["device_us"],
             "tinyllama": k2_tiny,
             "beam": k2_beam,  # the beam path's B·W rows
+            **serving_extra("K2"),
             **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
                                           f"state, 8/4/2, tiers + ring, bf16"}
                for m in g},

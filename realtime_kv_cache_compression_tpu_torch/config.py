@@ -96,8 +96,8 @@ class CompressionConfig:
     #       prefix whose cumulative byte-cost fits the budget (and at most the
     #       slot capacity). O(S log S).
     #   "exact_greedy": reference-exact greedy incl. the skip-then-refill
-    #       refinement (selective_propagation.py:119-131); the port's
-    #       selection raises for it until it is ported.
+    #       refinement (selective_propagation.py:119-131), a sequential
+    #       scan over the sorted tokens (ops/selection.py, _greedy_exact).
     selection_mode: str = "topk_prefix"
     # Emergency floor: if the budget selects nothing, keep top
     # max(1, S * fallback_frac) tokens (selective_propagation.py:205-211).

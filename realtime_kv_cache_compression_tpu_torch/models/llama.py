@@ -405,15 +405,37 @@ def clone_decode_state(state: DecodeState) -> DecodeState:
         position=state.position.clone())
 
 
+def map_decode_state(state: DecodeState, fn,
+                     ring_fill: Tuple[int, ...]) -> DecodeState:
+    """A new decode state with fn applied to every tensor of `state` (tier
+    caches, rings, decode pools, position) and the host ring fill
+    `ring_fill`, one count per row of the result (fn may change the row
+    count: `t[r:r + 1].clone()` takes row r, `t[:1].repeat(...)` fills a
+    batch with copies of row 0)."""
+    return DecodeState(
+        caches=tuple(dataclasses.replace(c, tiers=tuple(
+            _map_tensors(t, fn) for t in c.tiers)) for c in state.caches),
+        recents=tuple(_map_tensors(r, fn) for r in state.recents),
+        position=fn(state.position),
+        pools=tuple(p if p is None else _map_tensors(p, fn)
+                    for p in state.pools),
+        ring_fill=ring_fill)
+
+
+def decode_state_parts(state: DecodeState) -> list:
+    """The containers of `state` that hold its tensors, in a fixed order:
+    every layer's tiers, then the rings, then the decode pools."""
+    return [*(t for c in state.caches for t in c.tiers), *state.recents,
+            *(p for p in state.pools if p is not None)]
+
+
 def decode_state_tensors(state: DecodeState) -> List[torch.Tensor]:
     """Every tensor of `state`, tier caches included, in a fixed order
     (to compare two states, or one state before and after a call, byte for
     byte)."""
-    parts = (*(t for c in state.caches for t in c.tiers), *state.recents,
-             *(p for p in state.pools if p is not None))
     return [state.position] + [
-        v for part in parts for v in (getattr(part, f.name) for f in
-                                      dataclasses.fields(part))
+        v for part in decode_state_parts(state)
+        for v in (getattr(part, f.name) for f in dataclasses.fields(part))
         if isinstance(v, torch.Tensor)]
 
 

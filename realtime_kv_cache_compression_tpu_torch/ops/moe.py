@@ -51,7 +51,10 @@ def router_topk(x2: torch.Tensor, gate: torch.Tensor, num_experts_per_tok: int,
     """Top-k routing (HF Mixtral semantics). x2: [N, H] tokens, gate:
     [H, E]. Returns (weights [N, k] float32, expert ids [N, k] int32)."""
     probs = torch.softmax(x2.float() @ gate.float(), dim=-1)   # [N, E]
-    w, ids = torch.topk(probs, num_experts_per_tok, dim=-1)
+    # A stable descending sort puts the lower expert first among equal
+    # probabilities, as jax.lax.top_k does (torch.topk promises no order).
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :num_experts_per_tok], ids[:, :num_experts_per_tok]
     if norm_topk:
         w = w / w.sum(dim=-1, keepdim=True)
     return w, ids.to(torch.int32)

@@ -83,6 +83,22 @@ def test_router_topk_matches_jax(setup):
     _close(jw, tw, 1e-6, "router weights")
 
 
+def test_router_topk_exact_ties_match_jax(setup):
+    """Exactly equal probabilities (three zero gate columns, and a zero
+    token whose experts all tie): the lower expert id first, as
+    jax.lax.top_k orders them."""
+    _, _, moe, x = setup
+    x2 = x.reshape(-1, x.shape[-1]).copy()
+    x2[0] = 0.0
+    gate = torch.zeros_like(moe["gate"])
+    gate[:, 2] = moe["gate"][:, 2]
+    jw, jids = jm.router_topk(jnp.asarray(x2), jnp.asarray(gate.numpy()), 2)
+    tw, tids = tm.router_topk(torch.from_numpy(x2), gate, 2)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    assert set(tids[:, 1].tolist()) <= {0, 1}  # ties resolved to the lowest
+    _close(jw, tw, 1e-6, "router weights")
+
+
 def test_float_strategies_and_oracle_match_jax(setup):
     jcfg, tcfg, moe, x = setup
     jmoe = jax_tree(moe)
