@@ -41,6 +41,7 @@ Prints one JSON line per tree and a table at the end.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import subprocess
 import sys
@@ -53,9 +54,16 @@ NEW_TOKENS = 128
 CHUNK = 1024
 
 
-def _median(xs):
-    xs = sorted(xs)
-    return xs[len(xs) // 2]
+def _own_timing():
+    """This checkout's `utils/timing.py`, loaded by path under its own name:
+    the trees measured may predate it, and each imports the package from
+    itself."""
+    path = (Path(__file__).resolve().parents[1]
+            / "realtime_kv_cache_compression_tpu_torch" / "utils" / "timing.py")
+    spec = importlib.util.spec_from_file_location("ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def measure(tree: str) -> dict:
@@ -81,17 +89,11 @@ def measure(tree: str) -> dict:
     _build.load_library()
     out = {"tree": tree, "build_s": time.perf_counter() - t0}
 
+    timing = _own_timing()
+
     def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        fn()  # warm-up
+        return timing.cuda_ms(fn, reps)[1]
 
     dev = "cuda"
 
@@ -315,11 +317,12 @@ def main(argv) -> int:
             "k3_decode_step_ms", "k3_m1_device_us", "k3_prefill_ms",
             "k4_m1_device_us", "k4_prefill_ms",
             "tinyllama_ttft_ms", "tinyllama_decode_tok_s")
+    median = _own_timing().median
     for i, r in enumerate(rows):
         cells = []
         for k in keys:
             v = r[k]
-            v = _median(v) if isinstance(v, list) else v
+            v = median(v) if isinstance(v, list) else v
             cells.append(f"{k} {v:.4f}")
         print(f"run {i + 1} {r['tree']}: " + "; ".join(cells))
     return 0
