@@ -48,7 +48,8 @@ each with every launch count set to 0 just before it and read just after:
   ms per token, the verify forward alone, bf16 agreement with
   `decode_loop`); and `forward_logits` (SDPA route against the plain
   route and against `prefill_uncompressed`'s last logits);
-- Llama-2-7B (32 layers, hidden 4096, 32/32 heads, d=128), bf16 random
+- Llama-2-7B (BIG_RUN_LAYERS = 16 of its 32 layers, hidden 4096, 32/32
+  heads, d=128), bf16 random
   weights quantized with `quantize_params_streaming(bits=4)` and fused:
   every layer matmul through K3, embed and lm_head int8 weight-only; the
   same prompt, tiers and generation, counted once and timed REPEATS_7B
@@ -56,13 +57,15 @@ each with every launch count set to 0 just before it and read just after:
 - the same model under `quantize_params(bits=8, act_quant=True)`: every
   layer matmul and lm_head through K4, counted by route (the prefill's 128
   layer matmuls on the int8 tensor cores, every M=1 call on the GEMV);
-- TinyLlama again on the ragged, chunked, long-generation path: batch 2
+- TinyLlama (TINY_PATH_LAYERS = 11 of its 22 layers here and in the next
+  two paths) on the ragged, chunked, long-generation path: batch 2
   with lengths (4096, 3000) right-padded to 4096,
   `prefill_compressed_chunked` in 4 chunks of 1024 (K1 mode (b)), then 383
   greedy steps over a 64-token ring and a decode pool of 4 blocks at 4
   bits, with 2 scale groups per head (K2 with the pool), so every layer
   flushes its ring 5 times and wraps the pool; counted once, timed
-  twice, the uncompressed arm with the same lengths, and a profile;
+  REPEATS_NEW times, the uncompressed arm with the same lengths, and a
+  profile;
 - TinyLlama on the compressed-prefix chunked path: batch 2 uniform rows
   of 4096, `prefill_compressed_prefix_chunked` in 4 chunks of 1024 (each
   chunk attends over the compressed pools of the earlier ones: K1 mode (d)
@@ -82,15 +85,15 @@ each with every launch count set to 0 just before it and read just after:
   tied head), bf16 random weights from SEED, fused: TinyLlama's traffic
   (prompt 4096, batch 1, 128 new tokens, tiers 8/4/2), counted once, timed
   REPEATS_NEW times, the uncompressed arm, and a profile;
-- Qwen2-0.5B (24 layers, 14 query heads over 2, d=64, q/k/v biases, tied
-  head), bf16 random weights from SEED written as HF-named safetensors
+- Qwen2-0.5B (QWEN2_LAYERS = 12 of its 24 layers, 14 query heads over
+  2, d=64, q/k/v biases, tied head), bf16 random weights from SEED written as HF-named safetensors
   shards with an index and a config.json (the port's writer), read back
   by `config_from_hf` (the preset, field by field) and
   `load_hf_checkpoint` (every tensor bit-equal), then TinyLlama's traffic
   from the loaded params, counted, timed, the uncompressed arm and a
   profile, its tokens equal to the in-memory params';
-- Mixtral-8x7B int4 at full width and depth (32 layers, 8 experts, top
-  2), built layer by layer (a one-layer bf16 init from SEED + i, then
+- Mixtral-8x7B int4 at full width (MIXTRAL_LAYERS = 8 of its 32 layers,
+  8 experts, top 2), built layer by layer (a one-layer bf16 init from SEED + i, then
   `quantize_params_streaming(bits=4)`): TinyLlama's traffic, counted by
   kernel and by K3 route (unfused attention on the tensor cores and the
   GEMV, every routed expert projection on the expert GEMV), timed
@@ -130,7 +133,21 @@ each with every launch count set to 0 just before it and read just after:
   against sequential and kernels against plain;
 - the six-scenario benchmark suite (`CompressionBenchmark`) at TinyLlama's
   full width and depth, sequence 4096, 50 new tokens, its launches held
-  to its schedule.
+  to its schedule;
+- the other five experiment CLIs in-process, each with its launches held
+  to its own schedule and its new configurations' kernel calls held to
+  the plain versions: `ablation_study` (TinyLlama bf16, the component and
+  bits studies; every config once more with each K1 and K2 call held to
+  its plain version: tier sets (16, 8, 4), (8, 8, 4), (4, 4, 2) and
+  all-16-bit, threshold tiers; the five studies' configs against a
+  hard-coded list), `hyperparameter_tuning` (the four methods on its own
+  4-layer model, d=16, float32; the Bayesian method fits the port's GP),
+  `serving_benchmark` (its defaults at TinyLlama width),
+  `speculative_benchmark` (a recall model trained by the port: speculative
+  == greedy == adaptive, asserted by the CLI) and `chunked_prefix_quality`
+  (a recall model trained by the port: its three arms, K1 mode (d) and
+  the diagonal pair in float32 at d=32 held to their plain versions, and
+  each arm's kernel tokens held to the plain path's up to a near tie).
 
 Before the full runs, each path's kernel path is checked against the plain
 path in float32 at reduced depth (2 layers, full width; Gemma-2B too): equal
@@ -167,6 +184,7 @@ import importlib
 import importlib.metadata
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -242,10 +260,22 @@ NEW_TOKENS = 128
 # cut by one (TinyLlama 3 -> 2, the others 2 -> 1, the uncompressed arms
 # to one timed run, beam search's turns 3 -> 2) when Mixtral and Qwen2
 # joined, to keep the script well inside its time limit; every check
-# stays. Mixtral's main run keeps 2.
-REPEATS = 2
+# stays. TinyLlama's and Mixtral's counts were cut once more (2 -> 1) when the
+# experiment CLIs joined, so every path now times one run after its
+# counted one.
+REPEATS = 1
 REPEATS_7B = 1
-REPEATS_MIXTRAL = 2
+REPEATS_MIXTRAL = 1
+# Depth of later paths, cut to keep the script inside its limit as the
+# experiment CLIs joined: every check stays at full width, and the launch
+# counts follow the layer count. TinyLlama's chunked pooled,
+# compressed-prefix and query-guided paths (of 22 layers), the Llama-2-7B
+# int4 and W8A8 main runs (of 32; the K3 / K4 phases keep 32), Mixtral-8x7B
+# (of 32) and Qwen2-0.5B loaded from disk (of 24).
+TINY_PATH_LAYERS = 11
+BIG_RUN_LAYERS = 16
+MIXTRAL_LAYERS = 8
+QWEN2_LAYERS = 12
 BASELINE_REPEATS = 1  # the uncompressed arm's timed runs in phase_main
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
@@ -327,6 +357,63 @@ QUALITY_R4_ARTIFACT = "experiments/results/quality_demo_r4/quality_demo.json"
 EVAL_MAX_LENGTH = 4096
 EVAL_NEW_TOKENS = 32
 EVAL_CONTEXT_WORDS = 550
+# The experiment CLIs (phase_ablation .. phase_chunked_prefix_quality):
+# their own argv, cut for time where the phase's docstring says.
+ABLATION_ARGS = ["--model", "tinyllama", "--tasks", "narrativeqa", "qasper",
+                 "--max-samples", "1", "--max-length", "1024",
+                 "--max-new-tokens", "16"]
+ABLATION_STUDIES = ("component", "bits")
+ABLATION_AUDIT_TOKENS = 4
+# Each study's configs as (alpha, beta, gamma, theta_h, theta_m, early,
+# middle, later ratio, high, medium, low bits, tier mode) over the
+# defaults at 8/4/2 bits.
+ABLATION_CONFIGS = {
+    "component": {
+        "full": (0.4, 0.3, 0.3, 0.7, 0.3, 0.8, 0.6, 0.4, 8, 4, 2, "quantile"),
+        "no_attention": (0.0, 0.5, 0.5, 0.7, 0.3, 0.8, 0.6, 0.4, 8, 4, 2,
+                         "quantile"),
+        "no_position": (0.55, 0.0, 0.45, 0.7, 0.3, 0.8, 0.6, 0.4, 8, 4, 2,
+                        "quantile"),
+        "no_relevance": (0.55, 0.45, 0.0, 0.7, 0.3, 0.8, 0.6, 0.4, 8, 4, 2,
+                         "quantile"),
+        "uniform_precision": (0.4, 0.3, 0.3, 1.0, 0.0, 0.8, 0.6, 0.4, 8, 4,
+                              2, "threshold"),
+        "uniform_propagation": (0.4, 0.3, 0.3, 0.7, 0.3, 0.6, 0.6, 0.6, 8, 4,
+                                2, "quantile"),
+        "no_quantization": (0.4, 0.3, 0.3, 0.7, 0.3, 0.8, 0.6, 0.4, 16, 16,
+                            16, "quantile"),
+    },
+    "weights": {
+        f"a{a}_b{b}_g{g}": (a, b, g, 0.7, 0.3, 0.8, 0.6, 0.4, 8, 4, 2,
+                            "quantile")
+        for a, b, g in ((0.2, 0.2, 0.6), (0.2, 0.4, 0.4), (0.2, 0.6, 0.2),
+                        (0.4, 0.2, 0.4), (0.4, 0.4, 0.2), (0.6, 0.2, 0.2))},
+    "thresholds": {
+        f"th{h}_tm{m}": (0.4, 0.3, 0.3, h, m, 0.8, 0.6, 0.4, 8, 4, 2,
+                         "threshold")
+        for h, m in ((0.5, 0.1), (0.5, 0.3), (0.7, 0.1), (0.7, 0.3),
+                     (0.7, 0.5), (0.9, 0.1), (0.9, 0.3), (0.9, 0.5))},
+    "ratios": {
+        f"r{e}_{m}_{l}": (0.4, 0.3, 0.3, 0.7, 0.3, e, m, l, 8, 4, 2,
+                          "quantile")
+        for e, m, l in ((0.9, 0.7, 0.5), (0.8, 0.6, 0.4), (0.7, 0.5, 0.3),
+                        (0.6, 0.4, 0.25))},
+    "bits": {
+        f"b{h}_{m}_{l}": (0.4, 0.3, 0.3, 0.7, 0.3, 0.8, 0.6, 0.4, h, m, l,
+                          "quantile")
+        for h, m, l in ((16, 8, 4), (8, 4, 2), (8, 8, 4), (4, 4, 2))},
+}
+# 7 trials: 4 random starts and 3 GP fits in the Bayesian method, one
+# child in the genetic one (its population is 6).
+TUNING_ARGS = ["--method", "compare", "--trials", "7", "--max-samples", "1"]
+SPEC_BENCH_ARGS = ["--fillers", "512", "--payload", "16", "--steps", "300",
+                   "--reps", "3", "--adaptive"]
+PREFIX_QUALITY_ARGS = ["--contexts", "256,1024", "--steps", "300"]
+SERVE_BENCH_ARGS = ["--model", "tinyllama"]  # the CLI's defaults
+
+
+def _arg(argv: list, flag: str) -> str:
+    return argv[argv.index(flag) + 1]
 
 
 def log(msg: str) -> None:
@@ -2150,7 +2237,8 @@ def phase_parity_mixtral(device, mcfg, prompt: int = MIXTRAL_PARITY_PROMPT,
 
 
 def run_mixtral(device, mcfg) -> dict:
-    """Mixtral-8x7B int4 at full width and depth (built layer by layer):
+    """Mixtral-8x7B int4 at full width (built layer by layer; run_all cuts
+    its depth to MIXTRAL_LAYERS):
     the main run with its launch counts, overall and by K3 route (the
     prefill's 128 unfused attention matmuls on the tensor cores; in decode
     4 attention GEMVs per layer and 6 expert GEMVs per layer and token),
@@ -2309,7 +2397,8 @@ def _host_ms(fn, runs: int = 6) -> list:
 
 
 def phase_chunked_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
-    """The ragged, chunked, long-generation path at full width and depth:
+    """The ragged, chunked, long-generation path at full width (run_all
+    cuts its depth to TINY_PATH_LAYERS):
     batch 2 with LENGTHS right-padded to PROMPT, `prefill_compressed_chunked`
     in chunks of CHUNK (K1 mode (b)), DECODE_STEPS greedy steps over a
     RING-token ring and a POOL_BLOCKS x POOL_BITS-bit decode pool with 2
@@ -2468,7 +2557,8 @@ def _kept_and_stored(caches, layers: int, b: int, s: int, mcfg):
 
 
 def phase_prefix_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
-    """The compressed-prefix chunked path at full width and depth:
+    """The compressed-prefix chunked path at full width (run_all cuts its
+    depth to TINY_PATH_LAYERS):
     PREFIX_BATCH uniform rows of PROMPT tokens, `prefill_compressed_prefix_
     chunked` in chunks of CHUNK (K1 mode (d) over the pools plus the
     diagonal pair, merged), NEW_TOKENS - 1 greedy steps through K2 over the
@@ -2604,7 +2694,8 @@ def _counted_run(label: str, prefill, decode, expect: dict):
 
 
 def phase_query_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
-    """Query-guided importance at full width and depth, beside the
+    """Query-guided importance at full width (run_all cuts its depth to
+    TINY_PATH_LAYERS), beside the
     prompt-scored arm: `importance_source` "prompt", "query" and "both"
     (window automatic, W = 256 at T = PROMPT; pool QUERY_POOL), on the
     one-shot path (prompt PROMPT, batch 1, NEW_TOKENS - 1 greedy steps;
@@ -3344,23 +3435,31 @@ def _engine_calls(eng) -> dict:
 
 @contextlib.contextmanager
 def _held_to_plain(audit: dict):
-    """While active, each call the model makes to K1 mode (a), K1 mode (b)
-    and K2 is held against its plain version on its own inputs as soon as
-    it returns: K1 row by row (the rows are independent) on float32 copies
-    under the bf16 limit with 2^-8 sum p|v|/l, its prompt mass within
-    TOL_MASS (`k1_refs`); K2 against `decode_attention_plain` in float32
-    under the bf16 ulp limit, as in `phase_k2`. K2 is checked at the call,
-    before the next step writes the ring and pool in place. Calls to the
-    plain versions launch nothing. `audit` collects, per kernel, [calls,
-    worst output max abs err, worst share of a limit, worst prompt mass
-    max abs err]. A float32 output is held to its tolerance (TOL_K1_F32,
-    TOL_K2_F32) times max(1, max|reference|): float32 rounding grows with
-    the values summed, and the tolerances were set on random-weight
-    outputs of magnitude 1 or less (a trained recall model's reach 8.4).
-    The prompt mass is held to TOL_MASS as an absolute limit."""
+    """While active, each call the model makes to K1 mode (a), K1 mode (b),
+    K1 mode (d), the diagonal pair and K2 is held against its plain version
+    on its own inputs as soon as it returns: K1 row by row (the rows are
+    independent; modes (d) and the pair whole) on float32 copies under the
+    bf16 limit with 2^-8 sum p|v|/l, its prompt mass within TOL_MASS
+    (`k1_refs`), and for mode (d) and the pair the log-sum-exp within
+    TOL_LSE on rows that see a key and -inf exactly on the others; K2
+    against `decode_attention_plain` in float32 under the bf16 ulp limit,
+    as in `phase_k2`. K2 is checked at the call, before the next step
+    writes the ring and pool in place. Calls to the plain versions launch
+    nothing. `audit` collects, per kernel, [calls, worst output max abs
+    err, worst share of a limit, worst prompt mass max abs err]. A float32
+    output (and the lse) is held to its tolerance (TOL_K1_F32, TOL_K2_F32,
+    TOL_LSE) times max(1, max|reference|): float32 rounding grows with the
+    values summed, and the tolerances were set on random-weight outputs of
+    magnitude 1 or less (a trained recall model's reach 8.4). The prompt
+    mass is held to TOL_MASS as an absolute limit. Mode (d) and the pair
+    are wrapped where `flash_compressed_prefix_attention` finds them, in
+    the kernel module; their launches there are added back to the
+    wrappers' counts on exit."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
     from realtime_kv_cache_compression_tpu_torch.ops.attention import (
         chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass)
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
+        flash_prefill as fp)
     from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
         import decode_attention_plain
 
@@ -3417,14 +3516,55 @@ def _held_to_plain(audit: dict):
              f"{q_pos[:, 0].tolist()}, ring {recent.length.tolist()}")
         return out
 
+    def with_lse(key, plain, q, k, v, args, result):
+        """Mode (d) or the pair: output and prompt mass as K1's, then the
+        lse."""
+        o, lse, pm = result
+        (o_ref, lse_ref, pm_ref), o_abs = k1_refs(plain, q, k, v, *args)
+        what = f"{key} {tuple(q.shape)} over {k.shape[1]} keys"
+        note(key, [(o, o_ref, TOL_K1_F32, o_abs), (pm, pm_ref, TOL_MASS,
+                                                  None)], what)
+        sees = torch.isfinite(lse_ref)
+        check(torch.equal(sees, torch.isfinite(lse))
+              and bool((lse[~sees] == -torch.inf).all()),
+              f"{what}: lse is -inf exactly on the rows that see no key")
+        if bool(sees.any()):
+            err = max_err(lse[sees], lse_ref[sees])
+            tol = TOL_LSE * max(1.0, float(lse_ref[sees].abs().max()))
+            check(err <= tol, f"{what} lse: max abs err {err:.3e} (tol "
+                              f"{tol:.3e})")
+
+    def positioned(q, k, v, k_pos, q_offset, prompt_len):
+        result = kernels["flash_positioned_attention"](q, k, v, k_pos,
+                                                       q_offset, prompt_len)
+        with_lse("K1d", fp.positioned_attention_plain, q, k, v,
+                 (k_pos, q_offset, prompt_len), result)
+        return result
+
+    def pair(q, k, v, plen_local):
+        result = kernels["flash_diagonal_pair_attention"](q, k, v, plen_local)
+        with_lse("K1p", lambda *a: fp.pair_attention_plain(*a, causal=True),
+                 q, k, v, (plen_local,), result)
+        return result
+
+    kernels = {name: getattr(fp, name) for name in (
+        "flash_positioned_attention", "flash_diagonal_pair_attention")}
+    # The originals count their launches on the module's name, which is
+    # the wrapper while it stands.
+    positioned.launches = pair.launches = 0
     llama.flash_prefill_with_prompt_mass = prefill
     llama.flash_chunk_attention_with_prompt_mass = chunk
     llama.fused_decode_attention = decode
+    fp.flash_positioned_attention = positioned
+    fp.flash_diagonal_pair_attention = pair
     try:
         yield audit
     finally:
         for name, fn in originals.items():
             setattr(llama, name, fn)
+        for (name, fn), wrapped in zip(kernels.items(), (positioned, pair)):
+            setattr(fp, name, fn)
+            fn.launches += wrapped.launches
 
 
 def _audit_serving(eng, prompts, label: str) -> dict:
@@ -4326,40 +4466,25 @@ def phase_quality_demo(device) -> dict:
     return launches
 
 
-def _error_details(results: dict) -> list:
-    """(arm, task, detail) of every recorded error of an experiment."""
-    out = []
-    for arm, r in results.items():
-        for task, t in r["per_task"].items():
-            if "error" in t:
-                out.append((arm, task, t["error"]))
-            for d in t.get("details", []):
-                if "error" in d:
-                    out.append((arm, task, d["error"]))
-    return out
-
-
 def _eval_experiment(label: str, argv: list, layers: int) -> dict:
     """The port's run_compression_experiment in-process with every launch
     count set to 0 just before and read just after, held to its runners'
     own schedule: K1 `layers` a prefill call (warm-ups included) in both
     arms, K2 `layers` a decode step in the compressed arm."""
+    from realtime_kv_cache_compression_tpu_torch.eval.longbench import (
+        recorded_errors)
     from realtime_kv_cache_compression_tpu_torch.experiments import (
         run_compression_experiment)
 
-    torch.cuda.synchronize()
-    _zero_counts()
-    run = run_compression_experiment.main(argv)
-    torch.cuda.synchronize()
-    launches = _launches()
-    calls = run["model_calls"]
-    expect = {**{key: 0 for key in KERNELS},
-              "K1": layers * sum(c["prefill"] for c in calls.values()),
-              "K2": layers * calls["compressed"]["decode_steps"]}
-    log(f"{label} launches: {launches} (expect {expect}; runner schedule "
-        f"{calls})")
-    check(launches == expect, f"{label}: launches per kernel")
-    errors = _error_details(run["results"])
+    run, launches, _ = _cli_launches(
+        label, lambda: run_compression_experiment.main(argv),
+        lambda run: {"K1": layers * sum(c["prefill"] for c in
+                                        run["model_calls"].values()),
+                     "K2": layers
+                     * run["model_calls"]["compressed"]["decode_steps"]})
+    log(f"{label}: runner schedule {run['model_calls']}")
+    errors = [(arm, *e) for arm, r in run["results"].items()
+              for e in recorded_errors(r)]
     check(not errors, f"{label}: no evaluation error ({errors[:2]})")
     for arm, r in run["results"].items():
         for task, t in r["per_task"].items():
@@ -4518,6 +4643,422 @@ def phase_benchmark_suite(device, mcfg) -> dict:
     return launches
 
 
+def _cli_launches(label: str, run_cli, expect_of) -> tuple:
+    """One CLI run in-process with every launch count set to 0 just before
+    and read just after, held to the launches its own schedule gives
+    (`expect_of(run)`: kernel -> count; the others 0). Returns (the run's
+    result, the launches, wall seconds)."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = run_cli()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    expect = {**{key: 0 for key in KERNELS}, **expect_of(run)}
+    log(f"{label} launches: {launches} (expect {expect}); {wall:.1f} s")
+    check(launches == expect, f"{label}: launches per kernel")
+    return run, launches, wall
+
+
+def _audit_line(label: str, audit: dict, expect: dict) -> None:
+    """Checks the calls `_held_to_plain` held against `expect` and logs
+    their worst errors."""
+    calls = {k: v[0] for k, v in audit.items()}
+    check(calls == expect, f"{label}: kernel calls held to plain {calls} "
+                           f"(expect {expect})")
+    log(f"{label}: every kernel call held to its plain version: " + "; ".join(
+        f"{k} {n} calls, max abs err {e:.3e}, worst element at {sh:.3f} of "
+        f"its limit, prompt mass {m:.3e}"
+        for k, (n, e, sh, m) in audit.items()))
+
+
+def _worst(into: dict, audit: dict) -> None:
+    for k, v in audit.items():
+        into[k] = max(into.get(k, 0.0), v[1], v[3])
+
+
+def phase_ablation(device, mcfg, errors: dict) -> dict:
+    """The port's ablation_study CLI at TinyLlama's full width and depth
+    (bf16, its own `init_params(0)`): the five studies' configs held to
+    ABLATION_CONFIGS; then `--study component` and `--study bits`
+    (ABLATION_ARGS: narrativeqa and qasper, 1 synthetic sample each, cut
+    from the CLI's 10, max length 1024, 16 new tokens), launches held to
+    its runners' schedule, no error row. Then each config of both studies
+    once through the runner on one synthetic prompt of the max length
+    (ABLATION_AUDIT_TOKENS new tokens) with every K1 and K2 call held to
+    its plain version: the tier sets (16, 8, 4), (8, 8, 4), (4, 4, 2) and
+    all-16-bit, and the threshold tier mode at theta_h 1.0."""
+    import tempfile
+
+    from realtime_kv_cache_compression_tpu_torch.eval import longbench
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        ablation_study)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.utils import data
+    from realtime_kv_cache_compression_tpu_torch.utils.tokenizer import (
+        ByteTokenizer)
+
+    data._HUB_UNAVAILABLE = True  # synthetic tasks, no network attempt
+    fields = ("alpha", "beta", "gamma", "theta_h", "theta_m",
+              "early_layer_ratio", "middle_layer_ratio", "later_layer_ratio",
+              "high_precision_bits", "medium_precision_bits",
+              "low_precision_bits", "tier_mode")
+    base = ablation_study.base_config(mcfg.num_layers)
+    for study, want in ABLATION_CONFIGS.items():
+        got = {n: tuple(getattr(c, f) for f in fields)
+               for n, c in ablation_study.STUDIES[study](base).items()}
+        check(list(got) == list(want) and all(
+            g == w or (isinstance(w, float) and math.isclose(
+                g, w, abs_tol=1e-12))
+            for n in want for g, w in zip(got[n], want[n])),
+            f"ablation {study}: configs {got}")
+    layers, launches = mcfg.num_layers, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for study in ABLATION_STUDIES:
+            run, launches[f"tinyllama_ablation_{study}"], _ = _cli_launches(
+                f"ablation {study}", lambda: ablation_study.main(
+                    ABLATION_ARGS + ["--device", device, "--study", study,
+                                     "--output-dir", tmp]),
+                lambda run: {
+                    "K1": layers * sum(c["prefill"] for c in
+                                       run["model_calls"][study].values()),
+                    "K2": layers * sum(c["decode_steps"] for c in
+                                       run["model_calls"][study].values())})
+            rows = run["rows"][study]
+            check(not any("error" in r for r in rows),
+                  f"ablation {study}: no error row")
+            for r in rows:
+                log(f"ablation {study} {r['config']}: quality "
+                    f"{r['quality']:.4f}, memory savings "
+                    f"{r['memory_savings']:.4f}, kept ratio "
+                    f"{r['compression_ratio']:.4f}, tok/s "
+                    f"{r['tokens_per_second']:.1f}, TTFT "
+                    f"{r['ttft'] * 1e3:.1f} ms, wall {r['wall_s']:.2f} s")
+            log(f"ablation {study}: artifacts {sorted(os.listdir(tmp))}")
+    params = llama.init_params(0, mcfg, device)
+    tok = ByteTokenizer()
+    task = data.LONGBENCH_TASKS["narrativeqa"]
+    sample = data.synthetic_task_data("narrativeqa", 1, context_words=600)[0]
+    ids = data.truncate_middle(tok.encode(data.format_prompt(task, sample)),
+                               int(_arg(ABLATION_ARGS, "--max-length")))
+    ids_t = torch.tensor([ids], device=device)
+    lens = torch.tensor([len(ids)], dtype=torch.int32, device=device)
+    n = ABLATION_AUDIT_TOKENS
+    for study in ABLATION_STUDIES:
+        for name, ccfg in ablation_study.STUDIES[study](base).items():
+            audit = {}
+            runner = longbench.ModelRunner(params, mcfg, ccfg,
+                                           use_flash=True, max_new_tokens=n)
+            with _held_to_plain(audit):
+                out = runner.generate(ids_t, lengths=lens)
+            _audit_line(f"ablation {study} {name} (prompt {len(ids)}, "
+                        f"bits {ccfg.high_precision_bits}/"
+                        f"{ccfg.medium_precision_bits}/"
+                        f"{ccfg.low_precision_bits}, {ccfg.tier_mode})",
+                        audit, {"K1": 2 * layers,
+                                "K2": 2 * layers * (n - 1)})
+            log(f"ablation {study} {name}: kept ratio "
+                f"{out['compression']['avg_compression_ratio']:.4f}, "
+                f"precision {out['compression']['precision_distribution']}")
+            _worst(errors, audit)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tuning(device, errors: dict) -> dict:
+    """The port's hyperparameter_tuning CLI on its own model (the JAX
+    script has no other: `tiny_test_model(vocab_size=258)`, 4 layers,
+    float32, d=16): `--method compare` (grid, random, Bayesian, genetic)
+    with TUNING_ARGS (7 trials each, so the Bayesian method fits the
+    port's GP 3 times and the genetic one makes a child; 1 sample per
+    task, cut from 5), launches held to the trials' runners' schedule, no
+    failed trial, the GP fits counted. Then the Bayesian method's last
+    point's trial again with every K1 and K2 call held to its plain
+    version."""
+    import tempfile
+
+    from realtime_kv_cache_compression_tpu_torch import tiny_test_model
+    from realtime_kv_cache_compression_tpu_torch.eval import longbench
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        hyperparameter_tuning as tuning)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.utils import data
+    from realtime_kv_cache_compression_tpu_torch.utils.tokenizer import (
+        ByteTokenizer)
+
+    data._HUB_UNAVAILABLE = True
+    mcfg = tiny_test_model(vocab_size=258, num_layers=4)  # the CLI's
+    trials = int(_arg(TUNING_ARGS, "--trials"))
+    with tempfile.TemporaryDirectory() as tmp:
+        run, launches, _ = _cli_launches(
+            "tuning", lambda: tuning.main(TUNING_ARGS + [
+                "--device", device, "--output-dir", tmp]),
+            lambda run: {"K1": mcfg.num_layers * sum(
+                c["prefill"] for c in run["model_calls"].values()),
+                "K2": mcfg.num_layers * sum(
+                c["decode_steps"] for c in run["model_calls"].values())})
+        log(f"tuning: artifacts {sorted(os.listdir(tmp))}")
+    check(run["gp_fits"] == {"grid": 0, "random": 0, "bayesian": trials - 4,
+                             "genetic": 0},
+          f"tuning: GP fits {run['gp_fits']}")
+    for method, hist in run["history"].items():
+        check(len(hist) == trials and not any("error" in h for h in hist),
+              f"tuning {method}: {trials} trials, none failed")
+        best = run["comparison"][method]["best"]
+        log(f"tuning {method}: best score {best['score']:.4f} (quality "
+            f"{best['quality']:.4f}, savings {best['savings']:.4f}); "
+            f"scores {[round(h['score'], 4) for h in hist]}; wall "
+            f"{run['comparison'][method]['wall_s']:.2f} s")
+    # The trial as `Tuner.objective` runs it, at the CLI's defaults.
+    pt = run["history"]["bayesian"][-1]["point"]
+    runner = longbench.ModelRunner(
+        llama.init_params(0, mcfg, device), mcfg,
+        tuning.point_to_config(pt, mcfg.num_layers), use_flash=True,
+        max_new_tokens=16)
+    audit = {}
+    with _held_to_plain(audit):
+        res = longbench.LongBenchEvaluator(
+            runner, ByteTokenizer(), max_length=1024,
+            synthetic_kwargs={"context_words": 600}).evaluate_all_tasks(
+                ["narrativeqa", "qasper"], 1)
+    check(not longbench.recorded_errors(res), "tuning audit trial")
+    calls = runner.model_calls
+    _audit_line(f"tuning audit (bits {pt['high_precision_bits']}/"
+                f"{pt['medium_precision_bits']}/2, theta_h "
+                f"{pt['theta_h']:.3f})", audit,
+                {"K1": mcfg.num_layers * calls["prefill"],
+                 "K2": mcfg.num_layers * calls["decode_steps"]})
+    _worst(errors, audit)
+    return launches
+
+
+def phase_serving_benchmark(device, mcfg, errors: dict) -> dict:
+    """The port's serving_benchmark CLI at its defaults (TinyLlama, 22
+    layers, bf16 from `init_params(0)`, 4 slots over a 1024-token bucket,
+    a warm-up of admissions at B = 1, 2, 4, then 8 requests of 512-1023
+    tokens, 32 new tokens, decode chunks of 8): launches held to the
+    engine's schedule (K1 22 a prefill, K2 22 x 8 a decode chunk), every
+    request served; throughput, mean TTFT and mean savings printed. Then
+    one admission of three ragged prompts and its decode chunk on the
+    same engine with every kernel call held to its plain version."""
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        serving_benchmark)
+
+    layers = mcfg.num_layers
+    run, launches, wall = _cli_launches(
+        "serving benchmark", lambda: serving_benchmark.main(
+            SERVE_BENCH_ARGS + ["--device", device]),
+        lambda run: {"K1": layers * run["model_calls"]["prefill"],
+                     "K1b": layers * run["model_calls"]["chunk_step"],
+                     "K2": layers * SERVE_CHUNK
+                     * run["model_calls"]["decode"]})
+    s = run["summary"]
+    check(s["completed"] == len(run["completed"]) == 8 and all(
+        r.finished and len(r.tokens) == 32
+        for r in run["completed"].values()),
+        "serving benchmark: every request served its 32 tokens")
+    log(f"serving benchmark: {s['completed']} requests, wall "
+        f"{run['wall_s']:.3f} s, throughput "
+        f"{s['total_tokens'] / run['wall_s']:.1f} generated tok/s, mean "
+        f"TTFT {s['avg_ttft_s'] * 1e3:.1f} ms, mean savings "
+        f"{s['avg_memory_savings']:.4f}; warm-up {run['warmup_s']:.1f} s; "
+        f"engine schedule {run['model_calls']}; whole CLI {wall:.1f} s")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    prompts = [torch.randint(1, mcfg.vocab_size, (n,),
+                             generator=gen).tolist() for n in (1024, 700, 513)]
+    eng = run["engine"]
+    eng.use_flash = eng.use_fused_decode = True  # None's choice on the card
+    for k, e in _audit_serving(eng, prompts, "serving benchmark").items():
+        errors[k] = max(errors.get(k, 0.0), e)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_speculative_benchmark(device, errors: dict) -> dict:
+    """The port's speculative_benchmark CLI on the recall model (6 layers,
+    hidden 128, 4 / 2 heads of 32, vocab 256, float32) with
+    SPEC_BENCH_ARGS: filler 512 (cut from 512 and 4096), payload 16 (cut
+    from 48), 300 training steps (cut from 1200), 3 timed runs, the
+    adaptive arm; the CLI asserts speculative == greedy == adaptive before
+    it times. Launches held to its schedule (K1 6 a prefill, K2 6 a greedy
+    or plain-chunk decode step; the verify forward is plain). Then the
+    trained model's prefill and 4 decode steps with every K1 and K2 call
+    held to its plain version."""
+    import tempfile
+
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        speculative_benchmark as spec)
+    from realtime_kv_cache_compression_tpu_torch.experiments.quality_demo \
+        import make_batch
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run, launches, wall = _cli_launches(
+            "speculative benchmark", lambda: spec.main(SPEC_BENCH_ARGS + [
+                "--device", device, "--output-dir", tmp]),
+            lambda run: {"K1": run["mcfg"].num_layers
+                         * run["model_calls"]["prefill"],
+                         "K2": run["mcfg"].num_layers
+                         * run["model_calls"]["decode_steps"]})
+    for row in run["results"]:
+        log(f"speculative benchmark filler {row['filler']}: speculative == "
+            f"greedy == adaptive ({row['n_steps']} tokens), em "
+            f"{row['em']:.3f}, {row['iterations']} verify forwards, accept "
+            f"rate {row['accept_rate']:.3f}; greedy ms "
+            f"{row['greedy_ms_spread']}; speculative ms "
+            f"{row['spec_ms_spread']} ({row['speedup']:.3f}x); adaptive ms "
+            f"{row['adaptive']['ms_spread']} ({row['adaptive']['speedup']:.3f}"
+            f"x, {row['adaptive']['spec_chunks']} speculative and "
+            f"{row['adaptive']['plain_chunks']} plain chunks)")
+    log(f"speculative benchmark: whole CLI {wall:.1f} s (training included)")
+    mcfg, ccfg, params = run["mcfg"], run["ccfg"], run["params"]
+    filler = int(_arg(SPEC_BENCH_ARGS, "--fillers").split(",")[0])
+    payload = int(_arg(SPEC_BENCH_ARGS, "--payload"))
+    gen = torch.Generator(device=device).manual_seed(7 + filler)
+    ids, plen, _ = make_batch(gen, 1, payload, filler, mcfg.vocab_size,
+                              "recall")
+    audit = {}
+    with _held_to_plain(audit):
+        logits, state, _ = llama.prefill_compressed(
+            params, ids[:, :plen], mcfg, ccfg, max_decode_len=payload,
+            use_flash=True)
+        llama.decode_loop(params, torch.argmax(logits, -1), state, 4, mcfg,
+                          ccfg, use_fused=True)
+    _audit_line(f"speculative benchmark audit (float32, d={mcfg.head_dim}, "
+                f"prompt {plen})", audit,
+                {"K1": mcfg.num_layers, "K2": 4 * mcfg.num_layers})
+    _worst(errors, audit)
+    del run, params
+    torch.cuda.empty_cache()
+    return {"recall_speculative_benchmark": launches}
+
+
+def _prefix_quality_trace(params, prompt, payload: int, mcfg, ccfg,
+                          chunk: int, kernels: bool) -> dict:
+    """Each arm of `chunked_prefix_quality.run_arms`, step by step: {arm:
+    (tokens [B, payload], logits [B, payload, V] on the host, kept
+    positions per layer, tier and row, or None uncompressed)}."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    b, t = prompt.shape
+    logits, (ks, vs) = llama.prefill_uncompressed(params, prompt, mcfg,
+                                                  use_flash=kernels)
+    kv = tuple(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, payload))
+               for a in (ks, vs))
+    pos = torch.full((b,), t, dtype=torch.int32, device=prompt.device)
+    out = [logits.float().cpu()]
+    for _ in range(payload - 1):
+        logits, kv, pos = llama.decode_step_uncompressed(
+            params, torch.argmax(logits, -1), kv, pos, mcfg)
+        out.append(logits.float().cpu())
+    logits = torch.stack(out, dim=1)
+    trace = {"baseline_fp": (torch.argmax(logits, -1), logits, None)}
+    for arm in ("comp_oneshot", "comp_prefix"):
+        if arm == "comp_oneshot":
+            logits, state, _ = llama.prefill_compressed(
+                params, prompt, mcfg, ccfg, max_decode_len=payload,
+                use_flash=kernels)
+        else:
+            logits, state, _ = llama.prefill_compressed_prefix_chunked(
+                params, prompt, mcfg, ccfg, chunk_size=chunk,
+                max_decode_len=payload + 4, use_flash=kernels)
+        kept = _kept_positions(state.caches)
+        trace[arm] = (*_greedy_from(params, logits, state, mcfg, ccfg,
+                                    payload - 1, kernels), kept)
+    return trace
+
+
+def phase_chunked_prefix_quality(device, errors: dict) -> dict:
+    """The port's chunked_prefix_quality CLI on the recall model (6
+    layers, hidden 128, 4 / 2 heads of 32, vocab 64, float32) with
+    PREFIX_QUALITY_ARGS: contexts 256 and 1024 (cut from 256, 1024 and
+    4096), 300 training steps (cut from 2400), 32 samples in batches of 8;
+    launches held to its schedule (per batch: K1 6 in each of two one-shot
+    prefills, K1 mode (d) and the diagonal pair 6 a chunk x 4 chunks, K2 6
+    a compressed decode step x 7 x 2). Then at context 1024, on the first
+    eval batch: the arms step by step (`_prefix_quality_trace`) on the
+    kernels, with every K1 (modes a and d, the pair) and K2 call held to
+    its plain version, their tokens those of the CLI's `run_arms`, and on
+    the plain versions; each arm's kernel tokens held to
+    the plain path's up to a near tie of the plain logits, on every row
+    of the uncompressed arm and on every row whose two prefills keep the
+    same positions in every layer and tier (the others counted: K1's
+    float32 rounding can move near-equal importance scores across a tier
+    boundary)."""
+    import tempfile
+
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        chunked_prefix_quality as cpq)
+    from realtime_kv_cache_compression_tpu_torch.experiments.quality_demo \
+        import make_batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run, launches, wall = _cli_launches(
+            "chunked-prefix quality", lambda: cpq.main(PREFIX_QUALITY_ARGS + [
+                "--device", device, "--output-dir", tmp]),
+            lambda run: {
+                "K1": run["mcfg"].num_layers * run["model_calls"]["prefill"],
+                "K1d": run["mcfg"].num_layers
+                * run["model_calls"]["prefix_chunks"],
+                "K1p": run["mcfg"].num_layers
+                * run["model_calls"]["prefix_chunks"],
+                "K2": run["mcfg"].num_layers
+                * run["model_calls"]["decode_steps"]})
+    res = run["results"]
+    for key, row in res.items():
+        if key.startswith("context"):
+            log(f"chunked-prefix quality {key} (chunk {row['chunk']}): " + ", "
+                .join(f"{a} acc {row[a]['token_accuracy']:.4f} em "
+                      f"{row[a]['exact_match']:.4f}" for a in cpq.ARMS)
+                + f"; prefix vs one-shot {row['prefix_vs_oneshot_acc_delta']}")
+    log(f"chunked-prefix quality: whole CLI {wall:.1f} s (training "
+        f"included)")
+    mcfg, ccfg, params = run["mcfg"], run["ccfg"], run["params"]
+    t = max(res["meta"]["contexts"])
+    payload = 8  # the CLI's default
+    gen = torch.Generator(device=device).manual_seed(123 + t - payload - 1)
+    ids, plen, _ = make_batch(gen, 32, payload, t - payload - 1,
+                              mcfg.vocab_size, "recall")
+    prompt = ids[:8, :plen]  # the first eval batch
+    audit, layers = {}, mcfg.num_layers
+    with _held_to_plain(audit):
+        kern = _prefix_quality_trace(params, prompt, payload, mcfg, ccfg,
+                                     t // 4, True)
+    _audit_line(f"chunked-prefix quality audit (float32, d={mcfg.head_dim},"
+                f" T={t}, chunks of {t // 4}, B={prompt.shape[0]})", audit,
+                {"K1": 2 * layers, "K1d": 4 * layers, "K1p": 4 * layers,
+                 "K2": 2 * layers * (payload - 1)})
+    _worst(errors, audit)
+    toks = cpq.run_arms(params, prompt, payload, mcfg, ccfg, t // 4)
+    plain = _prefix_quality_trace(params, prompt, payload, mcfg, ccfg,
+                                  t // 4, False)
+    for arm in cpq.ARMS:
+        check(torch.equal(kern[arm][0], toks[arm].cpu()),
+              f"chunked-prefix quality {arm}: run_arms' tokens")
+        held, moved = 0, []
+        for r in range(prompt.shape[0]):
+            if kern[arm][2] is not None and any(
+                    [tier[r] for tier in layer] != [tier[r] for tier in pl]
+                    for layer, pl in zip(kern[arm][2], plain[arm][2])):
+                moved.append(r)
+                continue
+            _held_to_reference(f"chunked-prefix quality {arm} row {r}",
+                               kern[arm][0][r].tolist(),
+                               plain[arm][0][r].tolist(), plain[arm][1][r])
+            held += 1
+        apart = torch.nonzero((kern[arm][0] != plain[arm][0]).any(1))
+        log(f"chunked-prefix quality {arm} at T={t}: {held} rows held to "
+            f"the plain path's tokens up to a near tie; rows whose prefills "
+            f"keep other positions {moved}; rows whose tokens part "
+            f"{apart.flatten().tolist()}")
+    del run, params
+    torch.cuda.empty_cache()
+    return {"recall_chunked_prefix_quality": launches}
+
+
 def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             qwen2_7b) -> list:
     """Every phase, in order; returns the kernels' entries for the JSON
@@ -4618,15 +5159,13 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     del tiny_run
     torch.cuda.empty_cache()
     mark("tinyllama beam, speculative and forward_logits runs")
-    launches["tinyllama_chunked"] = phase_chunked_path(
-        device, dataclasses.replace(tiny,
-                                    max_position_embeddings=PROMPT + 512))
+    tiny_paths = dataclasses.replace(tiny, num_layers=TINY_PATH_LAYERS,
+                                     max_position_embeddings=PROMPT + 512)
+    launches["tinyllama_chunked"] = phase_chunked_path(device, tiny_paths)
     mark("tinyllama chunked pooled run")
-    launches["tinyllama_prefix"] = phase_prefix_path(
-        device, dataclasses.replace(tiny,
-                                    max_position_embeddings=PROMPT + 512))
+    launches["tinyllama_prefix"] = phase_prefix_path(device, tiny_paths)
     mark("tinyllama compressed-prefix run")
-    launches.update(phase_query_path(device, tiny))
+    launches.update(phase_query_path(device, tiny_paths))
     mark("tinyllama query-guided runs")
     serving_launches, serving_err = phase_serving_path(
         device, dataclasses.replace(tiny,
@@ -4645,16 +5184,31 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     launches["tinyllama_benchmark_suite"] = phase_benchmark_suite(device,
                                                                   tiny)
     mark("tinyllama benchmark suite")
+    # The experiment CLIs; each audit's worst error per kernel.
+    exp_err = {}
+    launches.update(phase_ablation(device, tiny, exp_err))
+    mark("ablation study")
+    launches["tuning_compare"] = phase_tuning(device, exp_err)
+    mark("hyperparameter tuning")
+    launches["tinyllama_serving_benchmark"] = phase_serving_benchmark(
+        device, tiny, exp_err)
+    mark("serving benchmark")
+    launches.update(phase_speculative_benchmark(device, exp_err))
+    mark("speculative benchmark")
+    launches.update(phase_chunked_prefix_quality(device, exp_err))
+    mark("chunked-prefix quality")
     launches["gemma_2b"] = run_gemma(device, gemma)
     mark("gemma-2b run")
     routes = {}
     for arm in ("int4", "w8a8"):
-        launches[f"llama2_7b_{arm}"], routes[arm] = run_7b_arm(arm, device,
-                                                               big)
+        launches[f"llama2_7b_{arm}"], routes[arm] = run_7b_arm(
+            arm, device, dataclasses.replace(big, num_layers=BIG_RUN_LAYERS))
     mark("llama2-7b runs")
-    launches["qwen2_0_5b_loaded"] = run_qwen2_from_disk(device, qwen2)
+    launches["qwen2_0_5b_loaded"] = run_qwen2_from_disk(
+        device, dataclasses.replace(qwen2, num_layers=QWEN2_LAYERS))
     mark("qwen2-0.5b run from disk")
-    launches["mixtral_8x7b_int4"] = run_mixtral(device, mixtral)
+    mixtral_run = dataclasses.replace(mixtral, num_layers=MIXTRAL_LAYERS)
+    launches["mixtral_8x7b_int4"] = run_mixtral(device, mixtral_run)
     mark("mixtral-8x7b run and checkpoint round trip")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -4666,6 +5220,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                 "replaces": replaces, "launches": launches[path][key],
                 **{f: result[f] for f in fields},
                 "launches_by_path": {p: c[key] for p, c in launches.items()},
+                **({"experiments_max_abs_err": exp_err[key]}
+                   if key in exp_err else {}),
                 **(extra or {})}
 
     shape_note = ("ms, plain_ms, bound_ms, library_ms: one decode step's "
@@ -4824,7 +5380,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                             f"{JAX_PKG}/ops/pallas/int4_matmul.py:46)",
                 "launches": launches["mixtral_8x7b_int4"]["K3"],
                 "launches_gemv_expert": 3 * mixtral.num_experts_per_tok
-                * mixtral.num_layers * (NEW_TOKENS - 1),
+                * mixtral_run.num_layers * (NEW_TOKENS - 1),
                 "shape": "one routed expert's gate, up and down at M=1, "
                          "Mixtral-8x7B (4096 x 14336, 14336 x 4096, groups "
                          "of 128), bf16"}}),

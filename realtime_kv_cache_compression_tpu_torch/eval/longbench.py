@@ -27,7 +27,7 @@ from __future__ import annotations
 import functools
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +51,19 @@ def pick_bucket(n: int, max_length: int, min_bucket: int = 256) -> int:
     while b < min(n, max_length):
         b *= 2
     return min(b, max_length)
+
+
+def recorded_errors(results: Dict[str, Any]) -> List[Tuple[str, str]]:
+    """(task, error) of every failure that `evaluate_all_tasks` recorded
+    and went on past: a task that raised, or one of its samples. A caller
+    that must not take a failed kernel for a low score raises on any."""
+    out = []
+    for task, t in results["per_task"].items():
+        if "error" in t:
+            out.append((task, t["error"]))
+        out.extend((task, d["error"]) for d in t.get("details", [])
+                   if "error" in d)
+    return out
 
 
 class ModelRunner:

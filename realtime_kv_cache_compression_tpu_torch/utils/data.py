@@ -19,6 +19,7 @@ process: its rows are the same in one process, not across processes.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import random
@@ -141,6 +142,23 @@ def save_json(path: str, obj: Any):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f, indent=2, default=str)
+
+
+def save_csv(path: str, rows: List[Dict]):
+    """Rows as CSV with the stdlib `csv` module, laid out as
+    `pandas.DataFrame(rows).to_csv(index=False)` lays them: one column per
+    key in order of first appearance, a key a row lacks left empty. The
+    JAX package's experiment scripts write CSV through pandas, when it
+    imports; the port writes it always (the card machine has no
+    pandas)."""
+    cols: Dict[str, None] = {}
+    for r in rows:
+        cols.update(dict.fromkeys(r))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(cols), lineterminator="\n")
+        w.writeheader()
+        w.writerows(rows)
 
 
 def load_task_data(task_name: str, data_dir: Optional[str] = None,
