@@ -48,6 +48,19 @@ each with every launch count set to 0 just before it and read just after:
   ms per token, the verify forward alone, bf16 agreement with
   `decode_loop`); and `forward_logits` (SDPA route against the plain
   route and against `prefill_uncompressed`'s last logits);
+- TinyLlama's sequence-parallel prefill (`parallel/`) on the main run's
+  weights and prompt: 4 ranks spawned as processes on this one card over
+  a gloo group (collectives staged through the host), ring attention
+  through K1's diagonal pair and mode (c) (22 r launches on rank r, its
+  only path), each call held to its plain version; replicated
+  compression against the one-shot prefill (logits against a float32
+  one-shot, tier changes as rank reversals within the measured score
+  drift), fully sharded compression byte for byte against
+  `compress_layer_kv_chunked`, 32 greedy tokens through K2 from each
+  state (the sharded one gathered), a float32 run at tiny_test_model
+  width (query-guided, ragged) whose tokens equal the one-shot path's,
+  and TTFT by CUDA events for the one-shot and the 4-rank prefill with
+  each rank's host staging;
 - Llama-2-7B (BIG_RUN_LAYERS = 16 of its 32 layers, hidden 4096, 32/32
   heads, d=128), bf16 random
   weights quantized with `quantize_params_streaming(bits=4)` and fused:
@@ -410,6 +423,28 @@ SPEC_BENCH_ARGS = ["--fillers", "512", "--payload", "16", "--steps", "300",
                    "--reps", "3", "--adaptive"]
 PREFIX_QUALITY_ARGS = ["--contexts", "256,1024", "--steps", "300"]
 SERVE_BENCH_ARGS = ["--model", "tinyllama"]  # the CLI's defaults
+# Sequence-parallel prefill (phase_seq_parallel): SEQ_RANKS spawned ranks on
+# this one card over a gloo group, TinyLlama at full width and depth on the
+# main run's prompt, SEQ_NEW_TOKENS greedy tokens from each state; the
+# deadline of the ranks and of each collective. The float32 parity run:
+# SEQ_F32_LAYERS layers at tiny_test_model width, query-guided ("both",
+# pool 4), ragged rows SEQ_F32_LENGTHS right-padded to SEQ_F32_PROMPT.
+# bf16 ring and one-shot prefills round their attention outputs apart
+# (merged partials against one pass), so their activations drift through
+# the layers: their importance scores are held within BF16_SCORE_DRIFT
+# instead of TOL_LOGITS: twice the worst drift measured at TinyLlama's
+# depth (1.97e-4, layer 5 of 22, NVIDIA H100 80GB HBM3 at 700 W), below
+# every layer's drift under a ring that scales its rotated blocks' prompt
+# mass by 1 + 2^-6 (4.25e-4 to 8.45e-4), a fault that leaves the logits
+# and each kernel call as they were (PERF.md, PR 14, has the readings).
+SEQ_RANKS = 4
+SEQ_NEW_TOKENS = 32
+SEQ_TIMEOUT = 600
+SEQ_F32_LAYERS = 3
+SEQ_F32_PROMPT = 256
+SEQ_F32_LENGTHS = (256, 201)
+SEQ_F32_NEW_TOKENS = 16
+BF16_SCORE_DRIFT = 4e-4
 
 
 def _arg(argv: list, flag: str) -> str:
@@ -3517,22 +3552,9 @@ def _held_to_plain(audit: dict):
         return out
 
     def with_lse(key, plain, q, k, v, args, result):
-        """Mode (d) or the pair: output and prompt mass as K1's, then the
-        lse."""
-        o, lse, pm = result
-        (o_ref, lse_ref, pm_ref), o_abs = k1_refs(plain, q, k, v, *args)
-        what = f"{key} {tuple(q.shape)} over {k.shape[1]} keys"
-        note(key, [(o, o_ref, TOL_K1_F32, o_abs), (pm, pm_ref, TOL_MASS,
-                                                  None)], what)
-        sees = torch.isfinite(lse_ref)
-        check(torch.equal(sees, torch.isfinite(lse))
-              and bool((lse[~sees] == -torch.inf).all()),
-              f"{what}: lse is -inf exactly on the rows that see no key")
-        if bool(sees.any()):
-            err = max_err(lse[sees], lse_ref[sees])
-            tol = TOL_LSE * max(1.0, float(lse_ref[sees].abs().max()))
-            check(err <= tol, f"{what} lse: max abs err {err:.3e} (tol "
-                              f"{tol:.3e})")
+        """Mode (d) or the pair: `_check_partial`."""
+        _check_partial(key, f"{key} {tuple(q.shape)} over {k.shape[1]} "
+                            f"keys", result, plain, q, k, v, args, audit)
 
     def positioned(q, k, v, k_pos, q_offset, prompt_len):
         result = kernels["flash_positioned_attention"](q, k, v, k_pos,
@@ -3565,6 +3587,533 @@ def _held_to_plain(audit: dict):
         for (name, fn), wrapped in zip(kernels.items(), (positioned, pair)):
             setattr(fp, name, fn)
             fn.launches += wrapped.launches
+
+
+def _check_partial(key: str, what: str, result, plain, q, k, v, args,
+                   audit: dict) -> None:
+    """A K1 partial (o, lse, pm) held to its plain version on float32
+    copies of its inputs: o under the bf16 limit with 2^-8 sum p|v|/l (or
+    TOL_K1_F32 times max(1, max|ref|) in float32), the prompt mass within
+    TOL_MASS, the lse within TOL_LSE on rows that see a key and -inf
+    exactly on the others. `audit[key]` collects [calls, worst output max
+    abs err, worst share of a limit, worst prompt mass max abs err]."""
+    o, lse, pm = result
+    (o_ref, lse_ref, pm_ref), o_abs = k1_refs(plain, q, k, v, *args)
+    tol = TOL_K1_F32 * max(1.0, float(o_ref.abs().max()))
+    shares = (limit_share(o, o_ref, tol, ref_abs=o_abs),
+              limit_share(pm, pm_ref, TOL_MASS))
+    rec = audit.setdefault(key, [0, 0.0, 0.0, 0.0])
+    rec[0] += 1
+    rec[1] = max(rec[1], max_err(o, o_ref))
+    rec[2] = max(rec[2], *shares)
+    rec[3] = max(rec[3], max_err(pm, pm_ref))
+    check(max(shares) <= 1.0, f"{what}: output and prompt mass at "
+                              f"{shares[0]:.3f} / {shares[1]:.3f} of their "
+                              f"limits")
+    sees = torch.isfinite(lse_ref)
+    check(torch.equal(sees, torch.isfinite(lse))
+          and bool((lse[~sees] == -torch.inf).all()),
+          f"{what}: lse is -inf exactly on the rows that see no key")
+    if bool(sees.any()):
+        err = max_err(lse[sees], lse_ref[sees])
+        tol = TOL_LSE * max(1.0, float(lse_ref[sees].abs().max()))
+        check(err <= tol, f"{what} lse: max abs err {err:.3e} (tol "
+                          f"{tol:.3e})")
+
+
+@contextlib.contextmanager
+def _ring_held_to_plain(audit: dict):
+    """While active, every K1 call of ring attention (the diagonal pair,
+    K1p, and mode (c), K1c) is held to `pair_attention_plain` on its own
+    inputs as it returns (`_check_partial`). The wrappers are replaced
+    where `ring_prefill_attention` finds them; their launches count on
+    the kernel module's names as always. The plain versions launch
+    nothing."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
+        flash_prefill as fp)
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        ring_attention as ra)
+
+    def held(key, name, causal):
+        kernel = getattr(ra, name)
+
+        def call(q, k, v, plen_local):
+            result = kernel(q, k, v, plen_local)
+            _check_partial(key, f"{key} {tuple(q.shape)} over {k.shape[1]} "
+                                f"keys", result,
+                           lambda *a: fp.pair_attention_plain(
+                               *a, causal=causal), q, k, v, (plen_local,),
+                           audit)
+            return result
+        return kernel, call
+
+    patched = {name: held(key, name, causal) for key, name, causal in (
+        ("K1p", "flash_diagonal_pair_attention", True),
+        ("K1c", "flash_full_pair_attention", False))}
+    for name, (_, call) in patched.items():
+        setattr(ra, name, call)
+    try:
+        yield audit
+    finally:
+        for name, (kernel, _) in patched.items():
+            setattr(ra, name, kernel)
+
+
+def _params_digest(params) -> torch.Tensor:
+    """Per tensor of a params tree, in a fixed order: the float64 sum of
+    its values and of their squares times their flat index (a digest that
+    two ranks share only if they hold the same weights)."""
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for key in sorted(x):
+                walk(x[key])
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+        else:
+            leaves.append(x)
+    walk(params)
+    out = []
+    for t in leaves:
+        f = t.double().reshape(-1)
+        idx = torch.arange(f.numel(), device=f.device, dtype=torch.float64)
+        out += [f.sum(), (f * f * idx).sum()]
+    return torch.stack(out).cpu()
+
+
+def _seq_parallel_rank(rank: int, n: int, group, device, mcfg, ids, small,
+                       small_ids, small_lengths) -> dict:
+    """One rank of phase_seq_parallel, spawned on `device` (cuda:0) over a
+    gloo group (`parallel.launch.run_ranks`); every failed check raises, which
+    fails the phase. The float32 parity run first (`small`, query-guided,
+    ragged), counted; then TinyLlama bf16 (`mcfg`) from the main run's
+    seed (every rank's weights compared by digest over the group) on the
+    main run's prompt `ids`: the replicated run counted and every K1 call
+    held to its plain version (`_ring_held_to_plain`), its greedy decode
+    through K2 counted, the same prefill timed (CUDA events and host wall,
+    after a barrier; the host staging of the collectives counted), then
+    the sharded run counted with each layer's compression inputs recorded,
+    and the greedy decode from the gathered state through K2, counted.
+    Returns host copies of what the parent compares."""
+    import torch.distributed as dist
+
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        comm, gather_sharded_state, seq_parallel_prefill)
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        seq_parallel as sp)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    host = lambda state: llama.map_decode_state(  # noqa: E731
+        state, lambda t: t.cpu(), state.ring_fill)
+    out = {}
+
+    def counted(label, fn, expect):
+        _zero_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = _launches()
+        want = {**{key: 0 for key in KERNELS}, **expect}
+        check(got == want, f"rank {rank} {label}: launches {got} (expect "
+                           f"{want})")
+        return result, got
+
+    # float32 parity at tiny_test_model width.
+    sp_params = llama.init_params(SEED + 20, small, dev)
+    sccfg = CompressionConfig(num_layers=small.num_layers,
+                              importance_source="both", query_mass_pool=4)
+    (logits, state, _), _ = counted(
+        "float32 parity prefill", lambda: seq_parallel_prefill(
+            sp_params, small_ids.to(dev), small, sccfg, group,
+            max_decode_len=SEQ_F32_NEW_TOKENS + 4,
+            lengths=small_lengths.to(dev)),
+        {"K1p": small.num_layers, "K1c": small.num_layers * rank})
+    toks, _ = llama.decode_loop(sp_params, torch.argmax(logits, -1), state,
+                                SEQ_F32_NEW_TOKENS - 1, small, sccfg)
+    out["f32"] = {"logits": logits.cpu(), "caches": host(state).caches,
+                  "tokens": torch.cat([torch.argmax(logits, -1)[:, None],
+                                       toks], 1).cpu()}
+    del sp_params, logits, state
+
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, dev))
+    digests = comm.all_gather_tensors([_params_digest(params)], group)
+    check(all(torch.equal(d[0], digests[0][0]) for d in digests),
+          f"rank {rank}: every rank holds the same weights")
+    ids = ids.to(dev)
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    layers, steps = mcfg.num_layers, SEQ_NEW_TOKENS - 1
+    ring = {"K1p": layers, "K1c": layers * rank}
+    records, audit = {}, {}
+    real = sp.compress_layer_kv
+
+    def recording(k, v, mass, li, *a, **kw):
+        records[li] = (mass.clone(), kw.get("query_mass"))
+        return real(k, v, mass, li, *a, **kw)
+
+    sp.compress_layer_kv = recording
+    try:
+        with _ring_held_to_plain(audit):
+            comm.reset_stage_counts()
+            (logits, state, stats), launches = counted(
+                "replicated prefill", lambda: seq_parallel_prefill(
+                    params, ids, mcfg, ccfg, group,
+                    max_decode_len=SEQ_NEW_TOKENS + 8), ring)
+    finally:
+        sp.compress_layer_kv = real
+    first = torch.argmax(logits, -1)
+    out["replicated"] = {
+        "logits": logits.float().cpu(), "caches": host(state).caches,
+        "stats": [{k_: v_.cpu() for k_, v_ in st.items()} for st in stats],
+        "masses": {li: (m.cpu(), None if q is None else q.cpu())
+                   for li, (m, q) in records.items()},
+        "audit": audit, "launches": launches,
+        "staged": (comm.stage.seconds, comm.stage.bytes, comm.stage.calls)}
+    (toks, _), out["replicated"]["decode_launches"] = counted(
+        "replicated decode", lambda: llama.decode_loop(
+            params, first, state, steps, mcfg, ccfg),
+        {"K2": layers * steps})
+    out["replicated"]["tokens"] = torch.cat([first[:, None], toks], 1).cpu()
+    del state, stats, records
+
+    # The same prefill timed (no audit): every rank starts after a barrier.
+    comm.reset_stage_counts()
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    seq_parallel_prefill(params, ids, mcfg, ccfg, group,
+                         max_decode_len=SEQ_NEW_TOKENS + 8)
+    end.record()
+    torch.cuda.synchronize()
+    out["timed"] = {"event_ms": start.elapsed_time(end),
+                    "wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "staged": (comm.stage.seconds, comm.stage.bytes,
+                               comm.stage.calls)}
+
+    inputs = []
+
+    def recording_inputs(k, v, mass, li, *a, **kw):
+        inputs.append((k.cpu(), v.cpu(), mass.cpu()))
+        return real(k, v, mass, li, *a, **kw)
+
+    sp.compress_layer_kv = recording_inputs
+    try:
+        (logits, state, stats), launches = counted(
+            "sharded prefill", lambda: seq_parallel_prefill(
+                params, ids, mcfg, ccfg, group,
+                max_decode_len=SEQ_NEW_TOKENS + 8,
+                sharded_compression=True), ring)
+    finally:
+        sp.compress_layer_kv = real
+    full = gather_sharded_state(state, group)
+    first = torch.argmax(logits, -1)
+    out["sharded"] = {
+        "logits": logits.float().cpu(), "inputs": inputs,
+        "full_caches": host(full).caches if rank == 0 else None,
+        "shard_slots": [c.tiers[0].positions.shape[1] for c in state.caches],
+        "full_slots": [c.tiers[0].positions.shape[1] for c in full.caches],
+        "stats": [{k_: v_.cpu() for k_, v_ in st.items()} for st in stats],
+        "launches": launches}
+    (toks, _), out["sharded"]["decode_launches"] = counted(
+        "sharded decode", lambda: llama.decode_loop(
+            params, first, full, steps, mcfg, ccfg), {"K2": layers * steps})
+    out["sharded"]["tokens"] = torch.cat([first[:, None], toks], 1).cpu()
+    return out
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significand bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def _prefilled_state(caches, s: int, mcfg, ccfg, device):
+    """The decode state a B=1 prefill of s tokens leaves: `caches`, empty
+    rings of SEQ_NEW_TOKENS + 8 tokens, no decode pool."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    return llama.DecodeState(
+        caches=tuple(caches),
+        recents=tuple(llama._decode_buffers(1, SEQ_NEW_TOKENS + 8, mcfg,
+                                            ccfg, device)[0]
+                      for _ in caches),
+        position=torch.full((1,), s, dtype=torch.int32, device=device),
+        pools=(None,) * len(caches))
+
+
+def phase_seq_parallel(device, mcfg, main_run) -> dict:
+    """The sequence-parallel prefill (`parallel/`) on this one card:
+    SEQ_RANKS ranks spawned as processes on cuda:0 over a gloo group (the
+    collectives staged through the host), the kernels built by this
+    process before (phase_build), each rank's work `_seq_parallel_rank`.
+    A rank that raises or hangs past SEQ_TIMEOUT fails the phase.
+
+    Per rank, launches exact: K1's diagonal pair once a layer and mode (c)
+    once a layer for every rank before it (22 r on rank r at TinyLlama's
+    depth), in both compression modes, and K2 once a layer and step in
+    both decodes; every K1 call of the replicated run held to its plain
+    version. Against the port's one-shot `prefill_compressed` on this
+    card (the main run's weights and prompt):
+    - bf16, replicated: every rank's logits, kept positions and tokens the
+      same; the 32 tokens through K2 equal, up to a near tie (a top-2 gap
+      under BF16_ULPS bf16 ulps at the largest logit), to the plain K2
+      decode over the same caches (`_greedy_from(kernels=False)`); the
+      logits no further from a float32 one-shot prefill over the
+      same bf16 weights than twice the bf16 one-shot's distance (plus
+      1e-3); where a layer keeps other positions, each tier change a rank
+      reversal between scores within 2 delta of the boundary's, delta the
+      two runs' largest score difference, at most BF16_SCORE_DRIFT
+      (`_selection_drift`), and otherwise equal kept counts; if every
+      layer keeps the same positions, the 32 tokens equal the one-shot
+      path's up to a near tie (a one-shot top-2 gap within twice the two
+      prefills' logit difference);
+    - bf16, sharded: each layer's gathered caches equal, byte for byte, to
+      `compress_layer_kv_chunked(n_chunks=SEQ_RANKS)` on this card over
+      the K/V and prompt masses the ranks compressed, the stats equal
+      (counts exactly, the rest within 1e-5 relative), each rank holding
+      1/SEQ_RANKS of the slots; the logits equal to the replicated run's
+      bit for bit; the decode from the gathered state equal on every rank
+      and to the one-shot decode over the chunked reference's caches;
+    - float32 at tiny_test_model width (SEQ_F32_LAYERS layers,
+      query-guided, ragged): logits within TOL_LOGITS, kept positions and
+      every token equal to the one-shot path's.
+    Logs TTFT by CUDA events for the one-shot and the ranks' prefill
+    (with each rank's host wall and staging), and the card's nvidia-smi
+    line. Returns {"launches": the replicated and sharded paths' launches
+    summed over the ranks, "audit": per ring kernel [calls, worst max abs
+    err, worst share of a limit, worst prompt mass err]}."""
+    from realtime_kv_cache_compression_tpu_torch import (CompressionConfig,
+                                                         tiny_test_model)
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        compress_layer_kv_chunked)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+
+    params, ids, ccfg = main_run["params"], main_run["ids"], main_run["ccfg"]
+    layers, s = mcfg.num_layers, ids.shape[1]
+    steps = SEQ_NEW_TOKENS - 1
+    t0 = time.perf_counter()
+
+    # The one-shot path on this card, its masses recorded.
+    records, original = {}, llama.compress_layer_kv
+    llama.compress_layer_kv = _recording_compress(original, records)
+    try:
+        logits1, state1, stats1 = llama.prefill_compressed(
+            params, ids, mcfg, ccfg, max_decode_len=SEQ_NEW_TOKENS + 8)
+    finally:
+        llama.compress_layer_kv = original
+    caches1 = state1.caches
+    toks1, step_logits1 = _greedy_from(params, logits1, state1, mcfg, ccfg,
+                                       steps, kernels=True)
+    del state1
+    _, ttft1 = cuda_ms(lambda: llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=SEQ_NEW_TOKENS + 8))
+    f32 = dataclasses.replace(mcfg, dtype="float32")
+    params32 = _map_tree(params, lambda t: t.float())
+    logits32, _, _ = llama.prefill_compressed(params32, ids, f32, ccfg,
+                                              max_decode_len=8)
+    del params32
+
+    small = tiny_test_model(num_layers=SEQ_F32_LAYERS,
+                            max_position_embeddings=SEQ_F32_PROMPT + 64)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    small_ids = torch.randint(0, small.vocab_size, (len(SEQ_F32_LENGTHS),
+                                                    SEQ_F32_PROMPT),
+                              generator=gen)
+    small_lengths = torch.tensor(SEQ_F32_LENGTHS)
+    sp_params = llama.init_params(SEED + 20, small, device)
+    sccfg = CompressionConfig(num_layers=small.num_layers,
+                              importance_source="both", query_mass_pool=4)
+    lg, st, _ = llama.prefill_compressed(
+        sp_params, small_ids.to(device), small, sccfg,
+        max_decode_len=SEQ_F32_NEW_TOKENS + 4,
+        lengths=small_lengths.to(device))
+    tk, _ = llama.decode_loop(sp_params, torch.argmax(lg, -1), st,
+                              SEQ_F32_NEW_TOKENS - 1, small, sccfg)
+    f32_ref = (lg.cpu(), st.caches,
+               torch.cat([torch.argmax(lg, -1)[:, None], tk], 1).cpu())
+    del sp_params, lg, st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"seq parallel: one-shot references in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    ranks = run_ranks(_seq_parallel_rank, SEQ_RANKS, args=(
+        str(device), mcfg, ids.cpu(), small, small_ids, small_lengths),
+        timeout=SEQ_TIMEOUT)
+    log(f"seq parallel: {SEQ_RANKS} ranks spawned, run and joined in "
+        f"{time.perf_counter() - t1:.1f} s")
+
+    # float32 parity: every token equal.
+    for r, res in enumerate(ranks):
+        got = res["f32"]
+        check_close(got["logits"], f32_ref[0], TOL_LOGITS,
+                    f"seq parallel f32 rank {r}: logits vs one-shot")
+        check(_kept_positions(got["caches"]) == _kept_positions(
+            [c for c in f32_ref[1]]),
+              f"seq parallel f32 rank {r}: kept positions equal")
+        check(torch.equal(got["tokens"], f32_ref[2]),
+              f"seq parallel f32 rank {r}: {SEQ_F32_NEW_TOKENS} tokens "
+              f"equal to the one-shot path's")
+    log(f"seq parallel f32 ({SEQ_F32_LAYERS} layers, d={small.head_dim}, "
+        f"lengths {SEQ_F32_LENGTHS}, query-guided): logits, kept positions "
+        f"and {SEQ_F32_NEW_TOKENS} tokens equal to the one-shot path's on "
+        f"every rank")
+
+    # bf16, replicated.
+    rep = [res["replicated"] for res in ranks]
+    for r, res in enumerate(rep):
+        check(torch.equal(res["logits"], rep[0]["logits"])
+              and torch.equal(res["tokens"], rep[0]["tokens"])
+              and _kept_positions(res["caches"])
+              == _kept_positions(rep[0]["caches"]),
+              f"seq parallel rank {r}: logits, kept positions and tokens "
+              f"equal to rank 0's")
+    audit = {key: [sum(res["audit"][key][0] for res in rep if key in
+                       res["audit"]),
+                   *(max(res["audit"].get(key, [0] * 4)[i] for res in rep)
+                     for i in (1, 2, 3))] for key in ("K1p", "K1c")}
+    check(audit["K1p"][0] == SEQ_RANKS * layers
+          and audit["K1c"][0] == layers * SEQ_RANKS * (SEQ_RANKS - 1) // 2,
+          f"seq parallel: every K1 call held to its plain version {audit}")
+    one = logits1.float().cpu()
+    ref32 = logits32.float().cpu()
+    d_ring, d_one = max_err(rep[0]["logits"], ref32), max_err(one, ref32)
+    d_pair = max_err(rep[0]["logits"], one)
+    log(f"seq parallel bf16 logits: ranks vs one-shot max abs diff "
+        f"{d_pair:.3e}; vs the float32 one-shot: ranks {d_ring:.3e}, "
+        f"one-shot {d_one:.3e} (max|logit| {float(ref32.abs().max()):.3e})")
+    check(d_ring <= 2 * d_one + 1e-3,
+          "seq parallel bf16 logits no further from float32 than twice "
+          "the one-shot's")
+    records_ring = {(li, 0): (m.to(device), None, q)
+                    for li, (m, q) in rep[0]["masses"].items()}
+    caches_ring = _map_tree(rep[0]["caches"], lambda t: t.to(device))
+    drift = _selection_drift("seq parallel bf16", {True: records_ring,
+                                                   False: records},
+                             [caches_ring, caches1], ccfg, s,
+                             limit=BF16_SCORE_DRIFT)
+    log(f"seq parallel bf16 selection against the one-shot prefill: "
+        f"{drift['log']}")
+    # K2 against its plain version over the ring's own caches.
+    toks_p, logits_p = _greedy_from(
+        params, rep[0]["logits"].to(device), _prefilled_state(
+            _map_tree(rep[0]["caches"], lambda t: t.to(device)), s, mcfg,
+            ccfg, device), mcfg, ccfg, steps, kernels=False)
+    near = BF16_ULPS * _bf16_ulp(float(logits_p.abs().max()))
+    held = _held_to_reference("seq parallel bf16 replicated decode",
+                              rep[0]["tokens"][0], toks_p[0], logits_p[0],
+                              near=near)
+    log(f"seq parallel bf16 replicated decode: {held} of {SEQ_NEW_TOKENS} "
+        f"tokens through K2 held to the plain decode over the same caches "
+        f"(near tie: a top-2 gap under {near:.3e}, {BF16_ULPS} bf16 ulps "
+        f"at the largest logit)")
+    del toks_p, logits_p
+    kept_ring = [st["kept_tokens"] for st in rep[0]["stats"]]
+    kept_one = [st["kept_tokens"].cpu() for st in stats1]
+    if not drift["rows"]:
+        check(all(torch.equal(a, b) for a, b in zip(kept_ring, kept_one)),
+              "seq parallel bf16: kept counts equal")
+        held = _held_to_reference("seq parallel bf16",
+                                  rep[0]["tokens"][0], toks1[0],
+                                  step_logits1[0], near=2 * d_pair)
+        log(f"seq parallel bf16: every layer keeps the one-shot prefill's "
+            f"positions; {held} of {SEQ_NEW_TOKENS} tokens held equal")
+    else:
+        log(f"seq parallel bf16: kept positions part from the one-shot "
+            f"prefill's (held by the swap rule above); tokens "
+            f"{rep[0]['tokens'][0].tolist()} against "
+            f"{toks1[0].tolist()}")
+
+    # bf16, sharded: each layer against the chunked reference.
+    sh = [res["sharded"] for res in ranks]
+    check(all(torch.equal(res["logits"], rep[0]["logits"]) for res in sh),
+          "seq parallel sharded: logits equal to the replicated run's")
+    check(all(torch.equal(res["tokens"], sh[0]["tokens"]) for res in sh),
+          "seq parallel sharded: every rank decodes the same tokens")
+    ref_caches = []
+    for li in range(layers):
+        k, v, m = (torch.cat([res["inputs"][li][i] for res in sh],
+                             1).to(device) for i in range(3))
+        cache, stats = compress_layer_kv_chunked(k, v, m, li, ccfg, mcfg,
+                                                 n_chunks=SEQ_RANKS)
+        ref_caches.append(cache)
+        got = sh[0]["full_caches"][li]
+        for t_got, t_ref in zip(got.tiers, cache.tiers):
+            check(t_got.chunk == t_ref.chunk and all(
+                torch.equal(getattr(t_got, f), getattr(t_ref, f).cpu())
+                for f in ("k_stored", "v_stored", "k_scale", "k_zp",
+                          "v_scale", "v_zp", "positions", "valid")),
+                  f"seq parallel sharded layer {li}: caches equal to "
+                  f"compress_layer_kv_chunked's")
+        for r, res in enumerate(sh):
+            check(res["shard_slots"][li] * SEQ_RANKS
+                  == res["full_slots"][li],
+                  f"seq parallel sharded rank {r}: 1/{SEQ_RANKS} of the "
+                  f"slots")
+            for key, want in stats.items():
+                g, w = res["stats"][li][key], want.cpu()
+                ok = (torch.equal(g, w) if not g.is_floating_point() else
+                      bool(torch.allclose(g, w.to(g.dtype), rtol=1e-5,
+                                          atol=1e-6)))
+                check(ok, f"seq parallel sharded rank {r} layer {li}: stat "
+                          f"{key} {g.tolist()} vs {w.tolist()}")
+    state_ref = _prefilled_state(ref_caches, s, mcfg, ccfg, device)
+    first = sh[0]["tokens"][:, 0].to(device)
+    toks_ref, _ = llama.decode_loop(params, first, state_ref, steps, mcfg,
+                                    ccfg)
+    check(torch.equal(sh[0]["tokens"][:, 1:], toks_ref.cpu()),
+          "seq parallel sharded: tokens from the gathered state equal the "
+          "decode over the chunked reference's caches")
+    del state_ref, ref_caches
+    log(f"seq parallel sharded: caches of {layers} layers equal to "
+        f"compress_layer_kv_chunked(n_chunks={SEQ_RANKS}), stats equal, "
+        f"{SEQ_NEW_TOKENS} tokens from the gathered state on every rank "
+        f"{sh[0]['tokens'][0].tolist()}")
+
+    timed = [res["timed"] for res in ranks]
+    log(f"seq parallel TTFT (bf16, S={s}, {layers} layers): one-shot "
+        f"{ttft1:.3f} ms; {SEQ_RANKS} ranks on one card, CUDA events per "
+        f"rank {[round(t['event_ms'], 3) for t in timed]} ms, host wall "
+        f"{[round(t['wall_ms'], 3) for t in timed]} ms; host staging per "
+        f"rank {[round(t['staged'][0] * 1e3, 3) for t in timed]} ms for "
+        f"{[t['staged'][1] for t in timed]} bytes in "
+        f"{[t['staged'][2] for t in timed]} copies")
+    log(f"seq parallel audit (calls, worst max abs err, worst share of a "
+        f"limit, worst prompt mass err): {audit}")
+    log(nvidia_smi_line())
+    paths = {}
+    for path, part in (("tinyllama_seq_parallel", "replicated"),
+                       ("tinyllama_seq_parallel_sharded", "sharded")):
+        paths[path] = {key: sum(res[part]["launches"][key]
+                                + res[part]["decode_launches"][key]
+                                for res in ranks) for key in KERNELS}
+        log(f"seq parallel {path} launches over the ranks: {paths[path]}; "
+            f"per rank {[res[part]['launches'] for res in ranks]}")
+    log(f"seq parallel phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": paths, "audit": audit}
+
+
+def _map_tree(tree, fn):
+    """`tree` with fn applied to every tensor: dicts, lists, tuples and
+    dataclasses (caches, tiers) rebuilt, anything else kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _map_tree(getattr(tree, f.name), fn)
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
 
 
 def _audit_serving(eng, prompts, label: str) -> dict:
@@ -3650,14 +4199,15 @@ def _standalone_serving(params, mcfg, ccfg, prompt, context: int,
             summarize_layer_stats(stats)["avg_compression_ratio"])
 
 
-def _held_to_reference(label: str, toks, ref_toks, ref_logits) -> int:
+def _held_to_reference(label: str, toks, ref_toks, ref_logits,
+                       near: float = NEAR_TIE) -> int:
     """Tokens equal to the reference's up to its first near tie (top-2 gap
-    below NEAR_TIE, where float32 paths may part); returns how many were
-    held."""
+    below `near`, NEAR_TIE where float32 paths may part); returns how
+    many were held."""
     for t in range(len(ref_toks)):
         top2 = torch.topk(ref_logits[t], 2).values
         gap = float(top2[0] - top2[1])
-        if gap < NEAR_TIE:
+        if gap < near:
             log(f"{label}: step {t} is a near tie (reference top-2 gap "
                 f"{gap:.3e}); tokens held to step {t - 1}")
             return t
@@ -4218,16 +4768,17 @@ def _greedy_from(params, logits, state, mcfg, ccfg, steps: int,
 
 
 def _selection_drift(label: str, records: dict, caches: list, ccfg,
-                     s: int) -> dict:
+                     s: int, limit: float = TOL_LOGITS) -> dict:
     """Where the kernel prefill (records[True], caches[0]) and the plain
     prefill (records[False], caches[1]) keep other positions, holds the
     difference to the scores the compressor ranked. Per layer, the two
     runs' importance scores (from the recorded prompt and query masses)
-    lie within TOL_LOGITS of each other, the limit of the two float32
-    paths' logits (their rounding drifts through the layers: layer 0's
-    scores agree exactly where they come from the plain query mass, and
-    the query-guided scores of a trained recall model sit 1.46e-5 apart
-    by layer 1); delta is their largest difference.
+    lie within `limit` of each other (TOL_LOGITS, the limit of the two
+    float32 paths' logits: their rounding drifts through the layers: layer
+    0's scores agree exactly where they come from the plain query mass,
+    and the query-guided scores of a trained recall model sit 1.46e-5
+    apart by layer 1; bf16 paths pass their own); delta is their largest
+    difference.
     The kept tokens are a prefix of one score order and the tiers are
     ranks in it, so a token changes tier only across a tier boundary, and
     then its plain score lies within 2 delta of the plain score at that
@@ -4252,9 +4803,9 @@ def _selection_drift(label: str, records: dict, caches: list, ccfg,
                   for k in (True, False))
         delta = float((sk.double() - sp.double()).abs().max())
         deltas.append(delta)
-        check(delta <= TOL_LOGITS, f"{label} layer {li}: scores of the "
-                                   f"kernel and plain prefills {delta:.3e} "
-                                   f"apart")
+        check(delta <= limit, f"{label} layer {li}: scores of the two "
+                              f"prefills {delta:.3e} apart (limit "
+                              f"{limit:.1e})")
         flips = assign_precision(sk, ccfg)[0] != assign_precision(sp, ccfg)[0]
         sp = sp.double()
         for r in range(sp.shape[0]):
@@ -4293,7 +4844,7 @@ def _selection_drift(label: str, records: dict, caches: list, ccfg,
                           f"{2 * delta:.3e})")
     return {"rows": rows, "log": (
         f"score delta per layer {[f'{d:.2e}' for d in deltas]} (limit "
-        f"{TOL_LOGITS:.0e}), {moves} tier boundary crossings at worst "
+        f"{limit:.1e}), {moves} tier boundary crossings at worst "
         f"{worst:.3f} of 2 delta from the boundary's score, {recounts} "
         f"kept counts moved by a label flip")}
 
@@ -4454,7 +5005,9 @@ def phase_quality_demo(device) -> dict:
             f"{rows[f'recall_filler{filler}'][arm]['token_accuracy']:.4f}); "
             f"{calls} kernel calls held to their plain versions (worst "
             f"output max abs err "
-            f"{({k: f'{v[1]:.3e}' for k, v in audit.items()})}, K1 prompt "
+            f"{({k: f'{v[1]:.3e}' for k, v in audit.items()})}, worst "
+            f"share of a limit "
+            f"{({k: f'{v[2]:.3f}' for k, v in audit.items()})}, K1 prompt "
             f"mass {audit['K1'][3]:.3e} against TOL_MASS {TOL_MASS:.0e}); "
             f"prefill logits max err {err:.3e}; K2 on the kernel prefill's "
             f"cache held to the plain decode on every row; {len(alike)} of "
@@ -5156,9 +5709,12 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     launches.update(phase_speculative_path("tinyllama", device, tiny,
                                            tiny_run))
     phase_forward_logits(device, tiny, tiny_run)
+    mark("tinyllama beam, speculative and forward_logits runs")
+    seq = phase_seq_parallel(device, tiny, tiny_run)
+    launches.update(seq["launches"])
+    mark("tinyllama sequence-parallel runs")
     del tiny_run
     torch.cuda.empty_cache()
-    mark("tinyllama beam, speculative and forward_logits runs")
     tiny_paths = dataclasses.replace(tiny, num_layers=TINY_PATH_LAYERS,
                                      max_position_embeddings=PROMPT + 512)
     launches["tinyllama_chunked"] = phase_chunked_path(device, tiny_paths)
@@ -5271,6 +5827,17 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                 "serving_shape": serving_note}
 
     k1_note = f"B=1 S={PROMPT} Hq={{}} Hkv={{}} d={{}}"
+
+    def seq_note(rec):
+        return {"calls": rec[0], "max_abs_err": rec[1],
+                "worst_share_of_limit": rec[2], "prompt_mass_max_abs_err":
+                rec[3], "shape": f"ring attention of tinyllama_seq_parallel"
+                                 f" over {SEQ_RANKS} ranks: B=1, "
+                                 f"{PROMPT // SEQ_RANKS} queries over "
+                                 f"{PROMPT // SEQ_RANKS} keys, "
+                                 f"Hq={tiny.num_heads} Hkv="
+                                 f"{tiny.num_kv_heads} d={tiny.head_dim}, "
+                                 f"bf16"}
     kernels = [
         entry("K1", {**k1, "max_abs_err": worst(
             k1, k1_tiny, *(g[m]["K1"] for m in g),
@@ -5296,11 +5863,12 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "llama2_7b": {**k1b_big, "shape": chunk_note.format(
                 big.num_heads, big.num_kv_heads, big.head_dim)},
             **d256("K1b", chunk_note), **serving_extra("K1b")}),
-        entry("K1c", {**k1c_tiny, "max_abs_err": worst(
-            k1c_tiny, k1c_big, *(g[m]["K1c"] for m in g))},
-              "tinyllama_prefix", {
-            "mode": "c (non-causal pair, ring attention's off-diagonal "
-                    "block; on no path the port runs yet)",
+        entry("K1c", {**k1c_tiny, "max_abs_err": max(worst(
+            k1c_tiny, k1c_big, *(g[m]["K1c"] for m in g)),
+            seq["audit"]["K1c"][1])}, "tinyllama_seq_parallel", {
+            "mode": "c (non-causal pair: ring attention's blocks of past "
+                    "keys, 22 r launches on rank r of 4)",
+            "seq_parallel_audit": seq_note(seq["audit"]["K1c"]),
             "shape": pair_note.format(tiny.num_heads, tiny.num_kv_heads,
                                       tiny.head_dim),
             "library": "scaled_dot_product_attention, no mask, no prompt "
@@ -5322,10 +5890,12 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                               big.num_heads, big.num_kv_heads,
                               big.head_dim)},
             **d256("K1prefix", prefix_note, lambda r: r["positioned"])}),
-        entry("K1p", {**k1_prefix_tiny["pair"], "max_abs_err": worst(
+        entry("K1p", {**k1_prefix_tiny["pair"], "max_abs_err": max(worst(
             k1_prefix_tiny["pair"], k1_prefix_big["pair"],
-            *(g[m]["K1prefix"]["pair"] for m in g))}, "tinyllama_prefix", {
+            *(g[m]["K1prefix"]["pair"] for m in g)),
+            seq["audit"]["K1p"][1])}, "tinyllama_prefix", {
             "mode": "diagonal pair (mode a with lse, local prompt length)",
+            "seq_parallel_audit": seq_note(seq["audit"]["K1p"]),
             "shape": prefix_note.format(tiny.num_heads, tiny.num_kv_heads,
                                         tiny.head_dim),
             "library": "scaled_dot_product_attention, causal, no prompt "

@@ -11,9 +11,17 @@ compressed-prefix chunked prefill and `update_cache_chunk` writes one
 chunk's pools in place; `concat_layer_caches` and
 `compress_layer_kv_chunked` are the single-device chunked-selection policy.
 `query_mass` feeds query-guided importance (`importance_source` "query" /
-"both"). `summarize_layer_stats` and `summarize_layer_stats_per_row` bring
-the per-layer stats to the host in one transfer. Sequence-sharded
-compression (`axis_name`) is not ported yet (ROADMAP Queue 1, item 18).
+"both"). With the sequence sharded over a process group (`group`, the
+sequence-parallel prefill's `sharded_compression`), each rank compresses
+its own tokens at their global positions against the global mass range,
+with the budget split evenly, and its stats aggregate exactly over the
+group (`_aggregate_sharded_stats`): the policy and the caches of
+`compress_layer_kv_chunked` with one chunk per rank. The aggregated stats
+are the same tensors on every rank, so reading them needs no collective
+(the JAX package's `_host_get` gathers stats that a multi-host mesh
+shards over processes; that readback waits for the multi-host slice).
+`summarize_layer_stats` and `summarize_layer_stats_per_row` bring the
+per-layer stats to the host in one transfer.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import comm
 from ..config import HIGH, LOW, MID, CompressionConfig, ModelConfig
 from ..ops.importance import importance_scores
 from ..ops.quantization import (assign_precision, dequantize_tier,
@@ -57,6 +66,7 @@ def compress_layer_kv(
     minmax: tuple = None,
     chunk_lengths: torch.Tensor = None,
     query_mass: torch.Tensor = None,
+    group=None,
 ) -> Tuple[CompressedLayerCache, Dict[str, torch.Tensor]]:
     """Compress one layer's prefill K/V into packed tier pools.
 
@@ -77,13 +87,22 @@ def compress_layer_kv(
     optional [B, S] observation-window mass
     (`ops/attention.query_attention_mass`) for the alpha term when
     cfg.importance_source is "query" or "both".
+    group: the process group of sequence shards, fully sharded
+    compression: k, v, prompt_mass (and query_mass, token_valid) are this
+    rank's [B, S/n] slice at global offset shard_offset of total_len
+    tokens; the mass range is the global one (all-reduced), ragged rows
+    score with their global true lengths (the valid counts summed over the
+    group) and take prompt_lens global, each rank selects locally with the
+    budget split evenly, and the stats come back aggregated over the group
+    (the same on every rank). The rank's pools record their packing chunk,
+    so the ranks' caches concatenate along the slot axis in rank order.
     Returns (cache, stats): the layer's `CompressedLayerCache` and a dict of
-    per-row statistics with the reference's keys. Sequence sharding
-    (`axis_name`) is not ported yet (ROADMAP Queue 1, item 18).
+    per-row statistics with the reference's keys.
     """
     batch, seq_len, num_kv_heads, head_dim = k.shape
-    sharded = minmax is not None
-    if sharded and token_valid is not None and chunk_lengths is None:
+    sharded = group is not None or minmax is not None
+    if (minmax is not None and group is None and token_valid is not None
+            and chunk_lengths is None):
         raise ValueError("chunked-minmax ragged compression needs "
                          "chunk_lengths (global per-row true lengths)")
     total = total_len if total_len is not None else seq_len
@@ -92,11 +111,14 @@ def compress_layer_kv(
     store_dtype = model_dtype(model_cfg)
 
     lengths = token_valid.sum(dim=-1) if token_valid is not None else None
+    score_lengths = chunk_lengths if chunk_lengths is not None else lengths
+    if group is not None and lengths is not None:
+        score_lengths = comm.all_reduce_sum(lengths, group)
     scores = importance_scores(
         prompt_mass, layer_idx, seq_len, prompt_len, cfg,
-        lengths=chunk_lengths if chunk_lengths is not None else lengths,
-        prompt_lens=prompt_lens, position_offset=shard_offset,
-        total_len=total, minmax=minmax, query_mass=query_mass)
+        lengths=score_lengths, prompt_lens=prompt_lens,
+        position_offset=shard_offset, total_len=total, minmax=minmax,
+        group=group, query_mass=query_mass)
     labels, prec_stats = assign_precision(scores, cfg)
     # A chunk covering the whole sequence is the plain path, exactly.
     local_window = sharded and seq_len != total
@@ -162,7 +184,84 @@ def compress_layer_kv(
         "avg_selected_importance": sel.stats["avg_importance"],
         "demoted_count": sel.stats["demoted_count"],
     }
+    if group is not None:
+        stats = _aggregate_sharded_stats(stats, scores, group, kept,
+                                         token_valid=token_valid)
     return cache, stats
+
+
+_SUMMED = ("seq_len", "kept_tokens", "stored_high", "stored_medium",
+           "stored_low", "demoted_count")
+_AVERAGED = ("label_high_ratio", "label_medium_ratio", "label_low_ratio",
+             "byte_compression_ratio", "byte_memory_savings",
+             "budget_utilization")
+
+
+def _aggregate_sharded_stats(stats: Dict[str, torch.Tensor],
+                             scores: torch.Tensor, group,
+                             kept: torch.Tensor,
+                             token_valid: torch.Tensor = None
+                             ) -> Dict[str, torch.Tensor]:
+    """Exact global stats from each rank's: counts summed; means over
+    equal shards, or weighted by each shard's valid tokens on ragged rows
+    (token_valid); min and max reduced; the std pooled from E[x] and
+    E[x^2]; the ratios recomputed from the summed counts; the mean
+    selected importance weighted by each shard's kept count. Three
+    collectives: one int64 and one float32 SUM, one MAX."""
+    def flat(xs, dtype):
+        return torch.cat([x.to(dtype).reshape(-1) for x in xs])
+
+    def unflat(buf, likes):
+        out, i = [], 0
+        for x in likes:
+            out.append(buf[i:i + x.numel()].reshape(x.shape).to(x.dtype))
+            i += x.numel()
+        return out
+
+    n = comm.rank_and_size(group)[1]
+    out = dict(stats)
+    ints = [stats[key] for key in _SUMMED]
+    for key, x in zip(_SUMMED, unflat(comm.all_reduce_sum(
+            flat(ints, torch.int64), group), ints)):
+        out[key] = x
+    if token_valid is None:
+        w_loc = None
+        terms = [scores.mean(dim=-1), (scores ** 2).mean(dim=-1)]
+        terms += [stats[key] for key in _AVERAGED]
+    else:
+        w_loc = token_valid.sum(dim=-1).float()                  # [B]
+        sc = torch.where(token_valid, scores,
+                         torch.zeros((), device=scores.device))
+        terms = [sc.sum(dim=-1), (sc ** 2).sum(dim=-1)]
+        terms += [stats[key] * w_loc for key in _AVERAGED]
+    w_kept = kept.float()
+    terms += [stats["avg_selected_importance"] * w_kept, w_kept]
+    if w_loc is not None:
+        terms.append(w_loc)
+    sums = unflat(comm.all_reduce_sum(flat(terms, torch.float32), group),
+                  terms)
+    if w_loc is None:
+        mean_g, sq_g = sums[0] / n, sums[1] / n
+        averaged = [x / n for x in sums[2:2 + len(_AVERAGED)]]
+    else:
+        w_tot = torch.clamp(sums[-1], min=1.0)
+        mean_g, sq_g = sums[0] / w_tot, sums[1] / w_tot
+        averaged = [x / w_tot for x in sums[2:2 + len(_AVERAGED)]]
+    out.update(zip(_AVERAGED, averaged))
+    sel_sum, kept_sum = sums[2 + len(_AVERAGED):4 + len(_AVERAGED)]
+    out["avg_selected_importance"] = sel_sum / torch.clamp(kept_sum, min=1.0)
+    out["importance_mean"] = mean_g
+    out["importance_std"] = torch.sqrt(torch.clamp(sq_g - mean_g ** 2,
+                                                   min=0.0))
+    ends = comm.all_reduce_max(torch.cat([
+        -stats["importance_min"].reshape(-1),
+        stats["importance_max"].reshape(-1)]).float(), group)
+    m = stats["importance_min"].numel()
+    out["importance_min"] = (-ends[:m]).reshape(stats["importance_min"].shape)
+    out["importance_max"] = ends[m:].reshape(stats["importance_max"].shape)
+    out["compression_ratio"] = out["kept_tokens"] / out["seq_len"]
+    out["token_memory_savings"] = 1.0 - out["compression_ratio"]
+    return out
 
 
 def _concat_chunk(capacity: int, bits: int, chunk) -> int:
@@ -182,9 +281,10 @@ _TIER_FIELDS = ("k_stored", "v_stored", "k_scale", "k_zp", "v_scale", "v_zp",
 
 def concat_layer_caches(caches: List[CompressedLayerCache]
                         ) -> CompressedLayerCache:
-    """Concatenate per-chunk layer caches along the slot axis. All parts
-    must share tier shapes and packing chunks (as the chunked compression's
-    equal chunks do); the result's layout is chunked with that chunk."""
+    """Concatenate per-chunk or per-rank layer caches along the slot axis.
+    All parts must share tier shapes and packing chunks (as the chunked
+    compression's equal chunks and the sharded compression's equal shards
+    do); the result's layout is chunked with that chunk."""
     tiers = []
     for i in range(len(caches[0].tiers)):
         parts = [c.tiers[i] for c in caches]
@@ -297,8 +397,7 @@ def compress_layer_kv_chunked(
     st = {}
     for key in parts[0]:
         vals = [p[key] for p in parts]
-        if key in ("seq_len", "kept_tokens", "stored_high", "stored_medium",
-                   "stored_low", "demoted_count"):
+        if key in _SUMMED:
             st[key] = sum(vals)
         elif key == "importance_min":
             st[key] = torch.stack(vals).amin(dim=0)

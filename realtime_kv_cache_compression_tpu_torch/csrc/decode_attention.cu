@@ -13,13 +13,15 @@
 // rows, byte row r of chunk c holds the 8 / bits tokens c C + r + j R (j =
 // 0, 1, ...; those below C), token j at bit offset j * bits. With one
 // scale per (token, kv head), G = 1, the affine folds into rank-1
-// corrections:
+// corrections in bf16, as the reference folds it (decode_attention.py:
+// 32-33, :193-194):
 //   s = (q.c - sum(q) * zp_k) * sc_k * sm_scale
 //   o = sum_t p_t sc_v,t c_t - sum_t p_t sc_v,t zp_v,t
-// With G > 1 groups of gs = D / G channels (a power of two, at least 8)
-// each code is dequantized in registers, (c - zp_g) * sc_g, before its
-// products: the same function as the reference's per-channel expansion
-// (decode_attention.py:195-200, :230-234), summed in another order.
+// With G > 1 groups of gs = D / G channels (a power of two, at least 8),
+// and in float32 at any G (see launch_rep), each code is dequantized in
+// registers, (c - zp_g) * sc_g, before its products: the same function as
+// the reference's per-channel expansion (decode_attention.py:195-200,
+// :230-234), summed in another order.
 // The only mask is stored position <= query position; invalid tier and
 // pool slots and ring slots at or past the ring length are skipped.
 //
@@ -62,6 +64,7 @@
 //    index reads it where it lies instead of copying it to local memory.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -532,8 +535,9 @@ __device__ __forceinline__ void run_tile(const Ctx& x, const Tile& t,
   __syncthreads();
 }
 
-// kGrouped: G > 1 scale groups per head (per-element dequantization and
-// [G][tokens] scale rows); the G = 1 instance keeps the rank-1 arithmetic.
+// kGrouped: per-element dequantization with [G][tokens] scale rows (G > 1
+// scale groups per head, or float32 at any G); the other instance keeps
+// the rank-1 arithmetic.
 // Two blocks per SM (128 registers) where the sums fit; the 16-head
 // instances and the grouped 8-head ones take up to 255 registers.
 template <typename T, int REP, bool kGrouped>
@@ -742,10 +746,19 @@ cudaError_t launch_instance(const DecodeParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// float32 dequantizes every code before its products, at any G: the
+// rank-1 fold subtracts sum(q) zp_k and sum_t p_t sc_v,t zp_v,t from sums
+// of codes of up to 255 scale steps, and at a trained model's logits that
+// cancellation costs float32 the digits its parity with the plain version
+// (dequantize, then attend) needs. bf16 outputs round far above it.
 template <typename T, int REP>
 cudaError_t launch_rep(const DecodeParams& p, cudaStream_t stream) {
-  return p.G > 1 ? launch_instance<T, REP, true>(p, stream)
-                 : launch_instance<T, REP, false>(p, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_instance<T, REP, true>(p, stream);
+  } else {
+    return p.G > 1 ? launch_instance<T, REP, true>(p, stream)
+                   : launch_instance<T, REP, false>(p, stream);
+  }
 }
 
 template <typename T>

@@ -17,8 +17,9 @@ On the port: `--device` (cuda by default) replaces `--platform`, and
 `--flash` goes: on a CUDA device the compressed arm runs K1 in prefill
 and K2 in decode and the baseline K1 in prefill; --checkpoint loads a
 local HF checkpoint with the port's `load_hf_checkpoint`.
-Multi-device meshes (--mesh-data / --mesh-model > 1) wait for the port of
-the JAX package's `parallel/` and raise NotImplementedError.
+Multi-device meshes (--mesh-data / --mesh-model > 1) raise
+NotImplementedError: they wait for `sharding.py` and `mesh=` on the
+prefill drivers, in the rest of ROADMAP item 18.
 """
 
 from __future__ import annotations
@@ -140,8 +141,9 @@ def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
     if args.mesh_data * args.mesh_model > 1:
         raise NotImplementedError(
-            "--mesh-data / --mesh-model > 1: multi-device meshes wait for "
-            "the port of the JAX package's parallel/ (ROADMAP.md, Queue 1)")
+            "--mesh-data / --mesh-model > 1: the runner's meshes wait for "
+            "sharding.py and mesh= on the prefill drivers, in the rest of "
+            "ROADMAP item 18")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")

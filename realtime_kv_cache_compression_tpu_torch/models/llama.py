@@ -57,7 +57,8 @@ from ..ops.attention import (attention_over_tokens,
                              chunk_attention_with_prompt_mass,
                              positioned_attention_with_prompt_mass,
                              prefill_attention_with_prompt_mass,
-                             query_attention_mass, window_attention_mass)
+                             query_attention_mass, repeat_kv,
+                             window_attention_mass)
 from ..ops.cuda.decode_attention import (decode_attention_plain,
                                          fused_decode_attention)
 from ..ops.cuda.flash_prefill import (flash_chunk_attention_with_prompt_mass,
@@ -584,6 +585,36 @@ def prefill_uncompressed(
     return logits, (torch.stack(ks), torch.stack(vs))
 
 
+class _EfficientCausalAttention(torch.autograd.Function):
+    """Causal attention through PyTorch's memory-efficient kernel, with a
+    backward that repeats bit for bit. SDPA's route through that kernel
+    splits each row's keys over several blocks in the backward and adds
+    their query gradients atomically, in an order that changes from run
+    to run; one split (`num_splits_key=1`, as PyTorch's deterministic mode
+    asks for) sums them in order, so a seeded training run repeats.
+    q, k, v: [B, S, H, D] on a CUDA device, K and V at the query heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse, seed, offset, max_q, max_k = (
+            torch.ops.aten._efficient_attention_forward(
+                q, k, v, None, None, None, None, None, 0.0, 1, True,
+                scale=scale))
+        ctx.save_for_backward(q, k, v, out, lse, seed, offset)
+        ctx.sizes = (max_q, max_k, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, out, lse, seed, offset = ctx.saved_tensors
+        max_q, max_k, scale = ctx.sizes
+        dq, dk, dv, _ = torch.ops.aten._efficient_attention_backward(
+            grad.contiguous(), q, k, v, None, out, None, None, max_q, max_k,
+            lse, 0.0, seed, offset, 1, False, scale=scale, num_splits_key=1)
+        return dq, dk, dv, None
+
+
 def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
                    use_flash: Optional[bool] = None) -> torch.Tensor:
     """Logits at every position [B, S, V] (no KV cache; scoring).
@@ -593,10 +624,18 @@ def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
     library flash kernel there and none of its own; otherwise the plain
     `prefill_attention_with_prompt_mass`. The reference right-pads to a
     multiple of its library kernel's 128-token blocks (exact under
-    causality); SDPA takes any length, so nothing is padded here.
+    causality); SDPA takes any length, so nothing is padded here. Only the
+    flash backend takes grouped K/V heads (`enable_gqa`), and it takes
+    half precision only: in float32 (the trainer's) K and V are expanded
+    to the query heads first, as the reference expands them for its
+    kernel (`repeat_kv`), so that the memory-efficient kernel takes the
+    call rather than the math backend, which keeps [B, H, S, S] a layer;
+    on a CUDA device it is called with a deterministic backward
+    (`_EfficientCausalAttention`), on the CPU through SDPA.
     """
     if use_flash is None:
         use_flash = input_ids.is_cuda
+    n_rep = cfg.num_heads // cfg.num_kv_heads
     h, _, cos, sin = _prefill_start(params, input_ids, cfg)
     for layer in params["layers"]:
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
@@ -604,10 +643,17 @@ def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if use_flash:
-            attn = torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, scale=cfg.head_dim ** -0.5,
-                enable_gqa=True).transpose(1, 2)
+            gqa = q.dtype in (torch.float16, torch.bfloat16)
+            if not gqa:
+                k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+            if not gqa and q.is_cuda:
+                attn = _EfficientCausalAttention.apply(q, k, v,
+                                                       cfg.head_dim ** -0.5)
+            else:
+                attn = torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, scale=cfg.head_dim ** -0.5,
+                    enable_gqa=gqa and n_rep > 1).transpose(1, 2)
         else:
             attn, _ = prefill_attention_with_prompt_mass(q, k, v, 1)
         h = _attn_out(layer, h, attn, cfg)

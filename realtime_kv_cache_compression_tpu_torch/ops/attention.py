@@ -8,8 +8,10 @@ for its chunked mode; fused decode: dequantize, then
 `positioned_attention_with_prompt_mass`, the compressed-prefix chunked
 prefill's dense arm (`use_flash=False`). `query_attention_mass` and
 `window_attention_mass` give the observation-window mass of query-guided
-importance (`importance_source` "query" / "both"); they are plain code in
-the reference too, with no kernel behind them.
+importance (`importance_source` "query" / "both"), and
+`sharded_window_attention_mass` the same mass with the keys sharded over
+a process group (sequence-parallel prefill); they are plain code in the
+reference too, with no kernel behind them.
 Logits and accumulation are float32 as in the reference: bf16 operands are
 widened before the products, and probabilities are cast to the value dtype
 before the value product, like the reference's bf16 einsums with
@@ -22,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .. import comm
 
 NEG_INF = -1e30
 
@@ -267,3 +271,65 @@ def positioned_attention_with_prompt_mass(
     return (out.reshape(b, sq, hq, d).to(q.dtype),
             torch.where(any_valid, prompt_mass,
                         torch.zeros((), device=q.device)))
+
+
+def sharded_window_attention_mass(
+    q_w: torch.Tensor,
+    q_pos: torch.Tensor,
+    row_ok: torch.Tensor,
+    k: torch.Tensor,
+    key_pos: torch.Tensor,
+    key_ok: torch.Tensor,
+    group,
+    pool: int = 0,
+) -> torch.Tensor:
+    """`window_attention_mass` with the key axis sharded over `group`.
+
+    The observation window (the same on every rank) attends over this
+    rank's keys with the softmax normalised over all of them: the row max
+    is all-reduced with MAX and the denominator with SUM, so the local
+    [B, S_loc] mass is the one-device mass's slice up to float association.
+
+    q_w: [B, W, H_q, D] window queries at global positions q_pos [B, W];
+    row_ok: [B, W] the rows that exist; k: [B, S_loc, H_kv, D] this rank's
+    keys at global positions key_pos [B, S_loc], key_ok their validity.
+    pool: the max-pool width over key positions. The pool's window crosses
+    rank boundaries exactly: the (pool - 1) // 2 columns below come from
+    the left neighbour and the rest from the right one
+    (`comm.neighbour_shift`), zeros past the sequence's ends (the mass is
+    >= 0, so zeros act as the one-device call's -inf padding); a halo
+    wider than S_loc raises ValueError.
+    """
+    b, w, hq, d = q_w.shape
+    s_loc, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d)))
+    q5 = q_w.reshape(b, w, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", q5.float(), k.float()) * scale
+    mask = key_ok[:, None, :] & (key_pos[:, None, :]
+                                 <= q_pos[:, :, None])        # [B, W, S_loc]
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), NEG_INF, device=k.device))
+    row_max = comm.all_reduce_max(logits.amax(dim=-1), group)  # [B,h,r,W]
+    num = torch.where(mask[:, None, None],
+                      torch.exp(logits - row_max[..., None]),
+                      torch.zeros((), device=k.device))
+    denom = comm.all_reduce_sum(num.sum(dim=-1), group)       # [B,h,r,W]
+    attn = num / torch.clamp(denom, min=1e-30)[..., None]
+    attn = torch.where(row_ok[:, None, None, :, None], attn,
+                       torch.zeros((), device=k.device))
+    mass = attn.mean(dim=(1, 2)).sum(dim=1)                   # [B, S_loc]
+    if pool and pool > 1:
+        lo, hi = (pool - 1) // 2, pool // 2
+        if max(lo, hi) > s_loc:
+            raise ValueError(f"query_mass_pool {pool} needs a halo of at "
+                             f"most the {s_loc} tokens a rank holds; "
+                             f"shrink the pool or use fewer ranks")
+        # Every rank sends both halos (the ends receive zeros), so each
+        # issues the same exchanges.
+        left = comm.neighbour_shift(mass[:, s_loc - lo:].contiguous(), 1,
+                                    group)
+        right = comm.neighbour_shift(mass[:, :hi].contiguous(), -1, group)
+        padded = torch.cat([left, mass, right], dim=1)
+        mass = F.max_pool1d(padded[:, None], pool, stride=1)[:, 0]
+        mass = torch.where(key_ok, mass, torch.zeros((), device=k.device))
+    return mass

@@ -18,7 +18,11 @@ each packed byte row once for all the tokens it holds, and the last block
 of each (batch row, kv head) merges the splits' partial softmax states by
 log-sum-exp in the same launch. Its scratch (partials and tickets) is
 cached per device and stream (`_build.scratch`); a call allocates only
-its output.
+its output. bf16 at one scale group per head folds the affine
+dequantization into rank-1 corrections of the code sums, as the reference
+does; float32 dequantizes each code before its products, since the fold's
+cancellation costs float32 the digits its parity with the plain version
+needs on a trained model's activations.
 
 A CPU tensor takes the plain version, `decode_attention_plain`
 (dequantize the tiers and the pool, then `attention_over_tokens`). A CUDA

@@ -12,14 +12,17 @@ global positions against its caller's min-max (`position_offset`,
 `total_len`, `minmax`). With `importance_source` "query" the min-max
 normalised observation-window mass (`ops/attention.query_attention_mass`)
 replaces the prompt mass in the alpha term, and with "both" their
-elementwise max does. `cumulative_scores` is the running mean over layers.
-The sequence-sharded `axis_name` is not ported yet.
+elementwise max does. With the sequence sharded over a process group
+(`group`, sequence-parallel prefill) both masses normalise against their
+global row min and max over valid positions, all-reduced over the group.
+`cumulative_scores` is the running mean over layers.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import comm
 from ..config import CompressionConfig
 
 
@@ -40,6 +43,17 @@ def minmax_normalize(x: torch.Tensor, eps: float = 1e-8,
         safe, denom, torch.ones_like(denom)), torch.zeros_like(x))
 
 
+def _normalize(x: torch.Tensor, row_min: torch.Tensor,
+               row_max: torch.Tensor) -> torch.Tensor:
+    """(x - row_min) / (row_max - row_min) against a given [B, 1] range;
+    0 where the range is at most 1e-8."""
+    denom = row_max - row_min
+    safe = denom > 1e-8
+    return torch.where(
+        safe, (x - row_min) / torch.where(safe, denom, torch.ones_like(denom)),
+        torch.zeros_like(x))
+
+
 def context_relevance(seq_len: int, prompt_len: int) -> float:
     """r(i) = min(1, N_p / N), a scalar broadcast over positions."""
     return min(1.0, prompt_len / seq_len)
@@ -56,7 +70,7 @@ def importance_scores(
     position_offset: int = 0,
     total_len: int = None,
     minmax: tuple = None,
-    axis_name: str = None,
+    group=None,
     query_mass: torch.Tensor = None,
 ) -> torch.Tensor:
     """Three-term importance score for every token of a layer.
@@ -76,36 +90,50 @@ def importance_scores(
     prompt mass) or "both" (the elementwise max of the two normalised
     masses); it normalises over the valid tokens and is refused with
     `minmax` (the chunked prefill scores it at finish over full buffers).
-    Returns [B, S] float32. The sharded `axis_name` raises until ROADMAP
-    item 18 ports it.
+    group: the process group of sequence shards (this rank's tokens are
+    the S local ones at `position_offset`): the row min and max of both
+    masses are taken over every shard's valid positions, so the scores
+    equal the one-device call's slice; `lengths` must then be the global
+    true lengths, and `minmax` is refused.
+    Returns [B, S] float32.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sequence-sharded importance is not ported yet (ROADMAP Queue 1, "
-            "item 18)")
     dev = prompt_mass.device
     mass = prompt_mass.float()
     total = total_len if total_len is not None else seq_len
     gpos = torch.arange(seq_len, device=dev)[None, :] + position_offset
     valid = None if lengths is None else gpos < lengths[:, None]
+    use_query = cfg.importance_source != "prompt" and query_mass is not None
+    if group is not None:
+        if minmax is not None:
+            raise ValueError("importance_scores: group and minmax exclude "
+                             "each other")
+        # One MAX all-reduce gives both ends of each mass's range: the
+        # min is minus the max of the negated values.
+        masses = [mass] + ([query_mass.float()] if use_query else [])
+        ends = []
+        for x in masses:
+            lo = x if valid is None else torch.where(valid, x, torch.inf)
+            hi = x if valid is None else torch.where(valid, x, -torch.inf)
+            ends += [-lo.amin(dim=-1, keepdim=True),
+                     hi.amax(dim=-1, keepdim=True)]
+        ends = comm.all_reduce_max(torch.cat(ends, dim=-1), group)
+        minmax = (-ends[:, 0:1], ends[:, 1:2])
+        qminmax = (-ends[:, 2:3], ends[:, 3:4]) if use_query else None
     if minmax is not None:
-        row_min, row_max = minmax
-        denom = row_max - row_min
-        safe = denom > 1e-8
-        normalized = torch.where(
-            safe, (mass - row_min) / torch.where(safe, denom,
-                                                 torch.ones_like(denom)),
-            torch.zeros_like(mass))
+        normalized = _normalize(mass, *minmax)
     else:
         normalized = minmax_normalize(mass, valid=valid)
-    if cfg.importance_source != "prompt" and query_mass is not None:
-        if minmax is not None:
+    if use_query:
+        if group is not None:
+            normalized_q = _normalize(query_mass.float(), *qminmax)
+        elif minmax is not None:
             raise NotImplementedError(
                 "query-guided importance is not supported on the "
                 "chunked-selection (minmax-override) path; the chunked "
                 "prefill scores the query mass at finish over full buffers "
                 "(models/llama.py prefill_chunked_finish)")
-        normalized_q = minmax_normalize(query_mass.float(), valid=valid)
+        else:
+            normalized_q = minmax_normalize(query_mass.float(), valid=valid)
         normalized = (normalized_q if cfg.importance_source == "query"
                       else torch.maximum(normalized, normalized_q))
     w_l = cfg.layer_weights[layer_idx]

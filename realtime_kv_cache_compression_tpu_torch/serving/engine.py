@@ -24,7 +24,9 @@ Port of the JAX package's `serving/engine.py`, with its names. Design:
     prompts re-admit with zero prefill work. Decode updates rings, pools
     and positions in place, so an entry owns its tensors (a row sliced,
     then cloned) and the slot state never aliases one: admission copies.
-  * Sharded serving (`mesh=`) is not ported (ROADMAP item 18).
+  * Sharded serving (`mesh=`) is not ported: it waits for the rest of
+    ROADMAP item 18 (`sharding.py` and `mesh=` on the prefill drivers,
+    then `ServingEngine(mesh=)`).
 """
 
 from __future__ import annotations
@@ -169,7 +171,9 @@ class ServingEngine:
         moves them."""
         if mesh is not None:
             raise NotImplementedError(
-                "sharded serving (mesh=) is not ported yet (ROADMAP item 18)")
+                "sharded serving (ServingEngine(mesh=)) is not ported yet: "
+                "it waits for the rest of ROADMAP item 18 (sharding.py and "
+                "mesh= on the prefill drivers)")
         self.mcfg = mcfg
         self.ccfg = ccfg
         self.num_slots = num_slots

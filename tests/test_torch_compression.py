@@ -80,17 +80,22 @@ def test_importance_scores(case, layer):
 
 
 def test_importance_unported_paths_raise():
-    """Sequence sharding (`axis_name`) is not ported. A query source given
-    no query mass scores by the prompt mass, as the reference does; the
-    query paths themselves are held in tests/test_torch_query_importance.py."""
+    """A query source given no query mass scores by the prompt mass, as the
+    reference does. Sequence sharding (`group`, ported since the
+    sequence-parallel prefill) refuses a `minmax` override, which the
+    reference's docstring calls exclusive of its `axis_name`. The query
+    paths themselves are held in
+    tests/test_torch_query_importance.py, the sharded ones in
+    tests/test_torch_ring_attention.py."""
     ct = rt.CompressionConfig(importance_source="query")
     mass = torch.from_numpy(_mass(0, s=8))
     assert torch.equal(ti.importance_scores(mass, 0, 8, 1, ct),
                        ti.importance_scores(mass, 0, 8, 1,
                                             rt.CompressionConfig()))
-    with pytest.raises(NotImplementedError):
-        ti.importance_scores(torch.zeros(1, 8), 0, 8, 1, rt.CompressionConfig(),
-                             axis_name="seq")
+    ends = (mass.amin(-1, keepdim=True), mass.amax(-1, keepdim=True))
+    with pytest.raises(ValueError):
+        ti.importance_scores(mass, 0, 8, 1, rt.CompressionConfig(),
+                             group=object(), minmax=ends)
 
 
 def test_cumulative_scores_match_jax():

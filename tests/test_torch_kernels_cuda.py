@@ -1297,3 +1297,104 @@ def test_serving_engine_launches_k1_k2_and_matches_plain_engine(cuda):
             assert launched == (0, 0)
     assert runs[True] == runs[False]
     assert all(len(t) == 10 for t in runs[True])
+
+
+# chunked_prefix_quality's training at its documented sizes: float32, B=32,
+# T=4096. With grouped heads only SDPA's math backend takes float32, and it
+# keeps [B, H, S, S] a layer (8 GiB at these sizes; it ran out of the
+# card's memory); with K and V expanded the memory-efficient backend
+# takes the call.
+TRAIN_PEAK_LIMIT_GIB = 16.0
+
+
+def test_float32_gqa_training_step_fits_at_batch_32_and_4096_tokens(cuda):
+    """One float32 training step of `chunked_prefix_quality`'s recall model
+    (6 layers, 4 over 2 heads, d=32) at batch 32 and T=4096, the recalled
+    span supervised as its trainer does: a finite loss, and a peak below
+    TRAIN_PEAK_LIMIT_GIB (printed with -s)."""
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        chunked_prefix_quality, quality_demo)
+    from realtime_kv_cache_compression_tpu_torch.models import train
+
+    payload, t, batch = 8, 4096, 32
+    mcfg = chunked_prefix_quality.model_config(6, t + payload + 16)
+    params = llama.init_params(0, mcfg, cuda)
+    opt = train.make_optimizer(params, lr=1e-3, total_steps=10)
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    ids, prompt_len, _ = quality_demo.make_batch(
+        gen, batch, payload, t - payload - 1, mcfg.vocab_size, "recall")
+    tpos = torch.arange(ids.shape[1] - 1, device=cuda)
+    mask = ((tpos >= prompt_len - 1)
+            & (tpos < prompt_len - 1 + payload)).expand(batch, -1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = float(train.train_step(params, opt, ids, mcfg, loss_mask=mask))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"float32 training step, B={batch} x {ids.shape[1]} tokens: loss "
+          f"{loss:.4f}, peak {peak:.3f} GiB on "
+          f"{torch.cuda.get_device_name(0)}")
+    opt.release()
+    assert loss == loss and abs(loss) < float("inf")
+    assert peak < TRAIN_PEAK_LIMIT_GIB, peak
+
+
+def test_float32_training_attention_backward_repeats_and_matches_sdpa(cuda):
+    """The trainer's float32 attention on the card
+    (`llama._EfficientCausalAttention`, K/V at the query heads): two
+    backward passes give the same gradients bit for bit, and output and
+    gradients agree with SDPA's math backend within 1e-5 (absolute, at
+    values of magnitude 1)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((4, 1000, 8, 32), generator=gen, device=cuda)
+               for _ in range(3))
+    w = torch.randn((4, 1000, 8, 32), generator=gen, device=cuda)
+
+    def run(attend):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = attend(*xs)
+        (out * w).sum().backward()
+        return [out.detach()] + [x.grad for x in xs]
+
+    ours = [run(lambda *xs: llama._EfficientCausalAttention.apply(
+        *xs, 32 ** -0.5)) for _ in range(2)]
+    for a, b in zip(*ours):
+        assert torch.equal(a, b)
+    with sdpa_kernel(SDPBackend.MATH):
+        ref = run(lambda *xs: torch.nn.functional.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in xs), is_causal=True,
+            scale=32 ** -0.5).transpose(1, 2))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), ours[0], ref):
+        err = float((a - b).abs().max())
+        assert err < 1e-5, (name, err)
+
+
+def test_seq_parallel_prefill_on_two_ranks_runs_the_ring_kernels(cuda):
+    """Two spawned ranks on this card (gloo, staged through the host) run
+    a 2-layer float32 model's sequence-parallel prefill, replicated
+    compression: rank 0 launches the diagonal pair once a layer and no
+    mode (c), rank 1 both once a layer; logits within 1e-4 of the one-rank
+    prefill's on the card, kept positions equal as sets."""
+    import torch_ranks
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+
+    mcfg = rt.tiny_test_model(num_layers=2, hidden_size=256, num_heads=4,
+                              num_kv_heads=2, head_dim=64,
+                              intermediate_size=512)
+    ccfg = rt.CompressionConfig(num_layers=2)
+    res = run_ranks(torch_ranks.seq_parallel_on_card, 2,
+                    args=(mcfg, ccfg, 512), timeout=300)
+    params = llama.init_params(0, mcfg, cuda)
+    ids = torch.randint(0, mcfg.vocab_size, (1, 512),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=8)
+    for rank, r in enumerate(res):
+        assert r["launches"] == (2, 2 * rank)
+        assert float((r["logits"] - logits.cpu()).abs().max()) <= 1e-4
+        for got, want in zip(r["caches"], state.caches):
+            for tg, tw in zip(got.tiers, want.tiers):
+                assert (set(tg.positions[0][tg.valid[0]].tolist())
+                        == set(tw.positions[0][tw.valid[0]].cpu().tolist()))

@@ -5,7 +5,8 @@ feed both packages (`torch_parity.jax_tree`) and token ids come from numpy
 with a seed. Held:
 - `lm_loss` and its gradient on every tensor against
   `jax.value_and_grad(lm_loss)`, with and without the SFT `loss_mask`,
-  within 1e-5 (float32 sums in another order);
+  within 1e-5 (float32 sums in another order), on the plain attention and
+  on SDPA (float32 at n_rep 2: K and V expanded to the query heads);
 - the warmup + cosine schedule against optax's at every step of a 20-step
   run, within 1e-7 (optax evaluates it in float32, the port in double);
 - three optimizer steps (global-norm clip + AdamW, a schedule whose first
@@ -91,6 +92,28 @@ def test_lm_loss_and_gradients_match_jax(setup, masked):
     t_leaves, j_leaves = _leaves(params), _leaves(j_grads)
     assert [p for p, _ in t_leaves] == [p for p, _ in j_leaves]
     for (path, t), (_, g) in zip(t_leaves, j_leaves):
+        err = np.abs(to_numpy(t.grad) - np.asarray(g)).max()
+        assert err <= TOL_GRAD, (path, err)
+
+
+def test_sdpa_float32_gqa_loss_and_gradients_match_jax(setup):
+    """The SDPA route (`use_flash=True`) in float32 at n_rep 2, where K and
+    V are expanded to the query heads before SDPA, against JAX's dense
+    route: loss and every gradient within the same limits."""
+    tcfg, jcfg, params, ids, _ = setup
+    assert tcfg.num_heads // tcfg.num_kv_heads == 2
+    params = _clone(params)
+    j_params = jax_tree(params)
+    for _, t in _leaves(params):
+        t.requires_grad_(True)
+    loss = ttrain.lm_loss(params, torch.from_numpy(ids), tcfg, use_flash=True)
+    loss.backward()
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jtrain.lm_loss),
+                              static_argnums=(2, 3))(
+        j_params, jnp.asarray(ids), jcfg, False, None)
+    assert abs(float(loss.detach()) - float(j_loss)) <= TOL_LOSS
+    for (path, t), (_, g) in zip(_leaves(params), _leaves(j_grads),
+                                 strict=True):
         err = np.abs(to_numpy(t.grad) - np.asarray(g)).max()
         assert err <= TOL_GRAD, (path, err)
 

@@ -1,0 +1,162 @@
+"""Rank-side work of the port's multi-rank CPU tests (not a test module).
+
+`parallel.launch.run_ranks` pickles these functions by import path, so
+each spawned rank imports this module, which imports PyTorch and the port
+and never JAX. Each function takes (rank, world_size, group, ...) and
+returns CPU tensors; the tests concatenate the ranks' slices and hold them
+to the JAX package's one-device functions.
+"""
+
+import torch
+
+from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+from realtime_kv_cache_compression_tpu_torch.models import llama
+from realtime_kv_cache_compression_tpu_torch.ops.attention import \
+    sharded_window_attention_mass
+from realtime_kv_cache_compression_tpu_torch.ops.importance import \
+    importance_scores
+from realtime_kv_cache_compression_tpu_torch.parallel import (
+    MODEL_AXIS, SEQ_AXIS, comm, create_mesh, create_seq_mesh,
+    gather_sharded_state, ring_prefill_attention, seq_parallel_prefill)
+
+
+def _mine(x: torch.Tensor, rank: int, n: int, dim: int = 1) -> torch.Tensor:
+    """This rank's block of x along dim."""
+    return x.chunk(n, dim=dim)[rank].contiguous()
+
+
+def ring_and_window(rank, n, group, q, k, v, prompt_len, prompt_lens,
+                    window, pools, pm, qm, score_lengths):
+    """Ring attention over this rank's block of q, k, v (uniform, then
+    with per-row prompt_lens), the window mass of the last `window`
+    queries at each pool width, the "both" importance scores of this
+    rank's block of the masses pm and qm (uniform, then ragged at
+    score_lengths), what the collectives, the meshes and the halo check
+    give. Returns local slices."""
+    b, s = q.shape[:2]
+    s_loc = s // n
+    ql, kl, vl = (_mine(x, rank, n) for x in (q, k, v))
+    out = {"uniform": ring_prefill_attention(ql, kl, vl, prompt_len, group),
+           "ragged": ring_prefill_attention(ql, kl, vl, prompt_len, group,
+                                            prompt_lens=prompt_lens)}
+    gpos = (rank * s_loc + torch.arange(s_loc))[None].expand(b, s_loc)
+    q_pos = torch.arange(s - window, s)[None].expand(b, window)
+    for pool in pools:
+        out[f"mass_pool{pool}"] = sharded_window_attention_mass(
+            q[:, s - window:], q_pos, torch.ones((b, window), dtype=bool), kl,
+            gpos, torch.ones((b, s_loc), dtype=bool), group, pool=pool)
+    try:
+        sharded_window_attention_mass(
+            q[:, s - window:], q_pos, torch.ones((b, window), dtype=bool), kl,
+            gpos, torch.ones((b, s_loc), dtype=bool), group,
+            pool=2 * s_loc + 3)
+        out["halo_refused"] = False
+    except ValueError:
+        out["halo_refused"] = True
+    ccfg = CompressionConfig(num_layers=2, importance_source="both")
+    for key, lengths in (("scores", None), ("scores_ragged", score_lengths)):
+        out[key] = importance_scores(
+            _mine(pm, rank, n), 1, s_loc, ccfg.prompt_length(s), ccfg,
+            lengths=lengths, position_offset=rank * s_loc, total_len=s,
+            group=group, query_mass=_mine(qm, rank, n))
+    mesh = create_mesh(data=2) if n == 4 else create_mesh()
+    out["mesh"] = (mesh.shape, mesh.coords,
+                   {a: comm.rank_and_size(g) for a, g in mesh.groups.items()},
+                   comm.all_reduce_sum(torch.tensor([rank]),
+                                       mesh.group(MODEL_AXIS)))
+    out["seq_mesh"] = comm.rank_and_size(create_seq_mesh().group(SEQ_AXIS))
+    x = torch.tensor([float(rank)])
+    out["ring_shift"] = comm.ring_shift(x, group)
+    out["left"] = comm.neighbour_shift(x, 1, group)
+    out["right"] = comm.neighbour_shift(x, -1, group)
+    out["gathered"] = comm.all_gather_tensors(
+        [torch.full((2,), rank, dtype=torch.bfloat16),
+         torch.tensor([rank % 2 == 0])], group)
+    return out
+
+
+def fail_on_rank_one(rank, n, group):
+    """Rank 1 raises; the others wait in a collective it never joins."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    comm.all_reduce_sum(torch.zeros(1), group)
+    return rank
+
+
+def _state_cpu(state):
+    return llama.map_decode_state(state, lambda t: t.cpu().clone(),
+                                  state.ring_fill)
+
+
+def seq_parallel_runs(rank, n, group, params, ids, cfg, runs, decode_steps,
+                      max_decode_len):
+    """seq_parallel_prefill once per entry of `runs` (name -> (ccfg,
+    sharded_compression, lengths)), recording each layer's compression
+    inputs on the sharded runs, then greedy decode from the state
+    (gathered first when sharded). Also the refusals: S not a multiple of
+    the ranks, and sharded compression with an empty tier."""
+    from realtime_kv_cache_compression_tpu_torch.parallel import \
+        seq_parallel as sp
+
+    out = {}
+    for name, (ccfg, sharded, lengths) in runs.items():
+        inputs = []
+        real = sp.compress_layer_kv
+
+        def recording(k, v, pmass, layer_idx, *a, **kw):
+            inputs.append({"k": k.clone(), "v": v.clone(),
+                           "pmass": pmass.clone(),
+                           "qmass": (None if kw.get("query_mass") is None
+                                     else kw["query_mass"].clone())})
+            return real(k, v, pmass, layer_idx, *a, **kw)
+
+        sp.compress_layer_kv = recording
+        try:
+            logits, state, stats = seq_parallel_prefill(
+                params, ids, cfg, ccfg, group, max_decode_len=max_decode_len,
+                sharded_compression=sharded, lengths=lengths)
+        finally:
+            sp.compress_layer_kv = real
+        full = gather_sharded_state(state, group) if sharded else state
+        first = torch.argmax(logits, dim=-1)
+        toks, _ = llama.decode_loop(params, first, llama.clone_decode_state(
+            full), decode_steps, cfg, ccfg)
+        out[name] = {"logits": logits, "state": _state_cpu(state),
+                     "full": _state_cpu(full), "stats": stats,
+                     "tokens": torch.cat([first[:, None], toks], dim=1),
+                     "inputs": inputs if sharded else None}
+    refused = {}
+    try:
+        seq_parallel_prefill(params, ids[:, :-1], cfg, runs["replicated"][0],
+                             group)
+    except ValueError:
+        refused["length"] = True
+    try:
+        seq_parallel_prefill(params, ids[:, :8 * n], cfg,
+                             runs["replicated"][0], group,
+                             sharded_compression=True)
+    except ValueError:
+        refused["capacity"] = True
+    out["refused"] = refused
+    return out
+
+
+def seq_parallel_on_card(rank, n, group, cfg, ccfg, s):
+    """A seq_parallel_prefill on cuda:0 from init_params(0) and ids from a
+    seeded CPU generator; returns the logits, the caches and this rank's
+    (diagonal pair, mode (c)) launches, on the host."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import \
+        flash_prefill as fp
+
+    params = llama.init_params(0, cfg, "cuda")
+    ids = torch.randint(0, cfg.vocab_size, (1, s),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    fp.flash_diagonal_pair_attention.launches = 0
+    fp.flash_full_pair_attention.launches = 0
+    logits, state, _ = seq_parallel_prefill(params, ids, cfg, ccfg, group,
+                                            max_decode_len=8)
+    torch.cuda.synchronize()
+    return {"logits": logits.cpu(),
+            "caches": _state_cpu(state).caches,
+            "launches": (fp.flash_diagonal_pair_attention.launches,
+                         fp.flash_full_pair_attention.launches)}
