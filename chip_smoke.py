@@ -61,7 +61,19 @@ each with every launch count set to 0 just before it and read just after:
   width (query-guided, ragged) whose tokens equal the one-shot path's,
   and TTFT by CUDA events for the one-shot and the 4-rank prefill with
   each rank's host staging;
-- Llama-2-7B (BIG_RUN_LAYERS = 16 of its 32 layers, hidden 4096, 32/32
+- tensor, data and expert parallelism (`parallel/sharding.py`,
+  `expert_parallel.py`): 4 ranks spawned on this one card over a gloo
+  group, each holding its slice of the weights, on a 1 x 4 and a 2 x 2
+  (data x model) mesh: TinyLlama at full width and depth on the main
+  run's weights (B=1 on 1 x 4, B=2 on 2 x 2, prompt 4096, 32 greedy
+  tokens) and a Mixtral-8x7B-width model cut to 8 layers on 1 x 4
+  (prompt 1024, 16 tokens, experts on the model axis), K1 mode (a) and K2
+  on every rank over its heads, launches exact per rank, every K1 and K2
+  call held to its plain version, selection and tokens held to the
+  one-rank prefill's, a float32 run at tiny_test_model width whose tokens
+  equal the one-rank path's, and each rank's TTFT, staging and decode
+  rate;
+- Llama-2-7B (BIG_RUN_LAYERS = 8 of its 32 layers, hidden 4096, 32/32
   heads, d=128), bf16 random
   weights quantized with `quantize_params_streaming(bits=4)` and fused:
   every layer matmul through K3, embed and lm_head int8 weight-only; the
@@ -70,7 +82,7 @@ each with every launch count set to 0 just before it and read just after:
 - the same model under `quantize_params(bits=8, act_quant=True)`: every
   layer matmul and lm_head through K4, counted by route (the prefill's 128
   layer matmuls on the int8 tensor cores, every M=1 call on the GEMV);
-- TinyLlama (TINY_PATH_LAYERS = 11 of its 22 layers here and in the next
+- TinyLlama (TINY_PATH_LAYERS = 6 of its 22 layers here and in the next
   two paths) on the ragged, chunked, long-generation path: batch 2
   with lengths (4096, 3000) right-padded to 4096,
   `prefill_compressed_chunked` in 4 chunks of 1024 (K1 mode (b)), then 383
@@ -98,14 +110,14 @@ each with every launch count set to 0 just before it and read just after:
   tied head), bf16 random weights from SEED, fused: TinyLlama's traffic
   (prompt 4096, batch 1, 128 new tokens, tiers 8/4/2), counted once, timed
   REPEATS_NEW times, the uncompressed arm, and a profile;
-- Qwen2-0.5B (QWEN2_LAYERS = 12 of its 24 layers, 14 query heads over
+- Qwen2-0.5B (QWEN2_LAYERS = 6 of its 24 layers, 14 query heads over
   2, d=64, q/k/v biases, tied head), bf16 random weights from SEED written as HF-named safetensors
   shards with an index and a config.json (the port's writer), read back
   by `config_from_hf` (the preset, field by field) and
   `load_hf_checkpoint` (every tensor bit-equal), then TinyLlama's traffic
   from the loaded params, counted, timed, the uncompressed arm and a
   profile, its tokens equal to the in-memory params';
-- Mixtral-8x7B int4 at full width (MIXTRAL_LAYERS = 8 of its 32 layers,
+- Mixtral-8x7B int4 at full width (MIXTRAL_LAYERS = 4 of its 32 layers,
   8 experts, top 2), built layer by layer (a one-layer bf16 init from SEED + i, then
   `quantize_params_streaming(bits=4)`): TinyLlama's traffic, counted by
   kernel and by K3 route (unfused attention on the tensor cores and the
@@ -193,6 +205,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import importlib
 import importlib.metadata
 import json
@@ -201,6 +214,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -285,10 +299,15 @@ REPEATS_MIXTRAL = 1
 # compressed-prefix and query-guided paths (of 22 layers), the Llama-2-7B
 # int4 and W8A8 main runs (of 32; the K3 / K4 phases keep 32), Mixtral-8x7B
 # (of 32) and Qwen2-0.5B loaded from disk (of 24).
-TINY_PATH_LAYERS = 11
-BIG_RUN_LAYERS = 16
-MIXTRAL_LAYERS = 8
-QWEN2_LAYERS = 12
+# The tensor-parallel phase's ranks (its collectives staged through the
+# host) cut these once more, by about half, when it joined: TinyLlama's
+# paths 11 -> 6 layers (the eval harness, the benchmark suite and the
+# ablation study follow them), the 7B runs 16 -> 8, Mixtral 8 -> 4,
+# Qwen2-0.5B 12 -> 6.
+TINY_PATH_LAYERS = 6
+BIG_RUN_LAYERS = 8
+MIXTRAL_LAYERS = 4
+QWEN2_LAYERS = 6
 BASELINE_REPEATS = 1  # the uncompressed arm's timed runs in phase_main
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
@@ -445,6 +464,35 @@ SEQ_F32_PROMPT = 256
 SEQ_F32_LENGTHS = (256, 201)
 SEQ_F32_NEW_TOKENS = 16
 BF16_SCORE_DRIFT = 4e-4
+# Tensor and data parallelism (phase_tensor_parallel): TP_RANKS spawned
+# ranks on this one card over a gloo group, on each (data, model) mesh of
+# TP_MESHES: TinyLlama at full width and depth (B=1 on 1 x 4, B=2 on
+# 2 x 2), TP_NEW_TOKENS greedy tokens, and the float32 run at the SEQ_F32
+# shapes; on 1 x 4 also a Mixtral-8x7B-width model cut to
+# TP_MIXTRAL_LAYERS of its 32 layers, a TP_MIXTRAL_PROMPT-token prompt and
+# TP_MIXTRAL_TOKENS tokens; the deadline of the ranks and of each
+# collective.
+TP_RANKS = 4
+TP_MESHES = ((1, 4), (2, 2))
+TP_NEW_TOKENS = 32
+TP_MIXTRAL_LAYERS = 8
+TP_MIXTRAL_PROMPT = 1024
+TP_MIXTRAL_TOKENS = 16
+TP_TIMEOUT = 600
+# bf16 importance scores of a tensor-parallel prefill against the
+# one-rank prefill's (NVIDIA H100 80GB HBM3 at 700 W, PERF.md):
+# TinyLlama drifts 8.0e-5 to 3.78e-4 a layer (the ranks' matmuls over
+# their column blocks round apart from the whole ones), so TP_SCORE_DRIFT
+# is twice the worst. In a MoE model a rounding difference flips the
+# router's top-2 choice for tokens whose expert probabilities are near
+# equal (7 to 55 of 1024 tokens a layer from layer 1 on at Mixtral's
+# width), and such a token's hidden state moves by a whole expert's
+# output: the layers after the first flip drift 2.64e-3 to 4.56e-3, so
+# they are held to TP_MOE_SCORE_DRIFT, twice the worst (rounded up); the
+# layers up to the first flip to TP_SCORE_DRIFT (Mixtral's layer 1:
+# 8.2e-5).
+TP_SCORE_DRIFT = 8e-4
+TP_MOE_SCORE_DRIFT = 1e-2
 
 
 def _arg(argv: list, flag: str) -> str:
@@ -749,8 +797,9 @@ def phase_k1_activations(device, mcfg, prompt: int = 1024) -> float:
     calls = []
     original = llama.flash_prefill_with_prompt_mass
 
-    def recording(q, k, v, prompt_len, prompt_lens=None):
-        result = original(q, k, v, prompt_len, prompt_lens=prompt_lens)
+    def recording(q, k, v, prompt_len, prompt_lens=None, group=None):
+        result = original(q, k, v, prompt_len, prompt_lens=prompt_lens,
+                          group=group)
         calls.append((q, k, v, prompt_len, prompt_lens, result))
         return result
 
@@ -3469,9 +3518,12 @@ def _engine_calls(eng) -> dict:
 
 
 @contextlib.contextmanager
-def _held_to_plain(audit: dict):
+def _held_to_plain(audit: dict, stride: int = 1):
     """While active, each call the model makes to K1 mode (a), K1 mode (b),
-    K1 mode (d), the diagonal pair and K2 is held against its plain version
+    K1 mode (d), the diagonal pair and K2 (with `stride` > 1, each
+    kernel's first call and every stride-th after it: with stride = the
+    layer count, layer 0's calls of each forward) is held against its plain
+    version
     on its own inputs as soon as it returns: K1 row by row (the rows are
     independent; modes (d) and the pair whole) on float32 copies under the
     bf16 limit with 2^-8 sum p|v|/l, its prompt mass within TOL_MASS
@@ -3486,7 +3538,10 @@ def _held_to_plain(audit: dict):
     TOL_LSE) times max(1, max|reference|): float32 rounding grows with the
     values summed, and the tolerances were set on random-weight outputs of
     magnitude 1 or less (a trained recall model's reach 8.4). The prompt
-    mass is held to TOL_MASS as an absolute limit. Mode (d) and the pair
+    mass is held to TOL_MASS as an absolute limit. Under tensor
+    parallelism the K1 calls carry the model axis's group: the plain
+    versions take it too, so both masses are means over every rank's
+    heads (each rank of the group holds the same number of calls). Mode (d) and the pair
     are wrapped where `flash_compressed_prefix_attention` finds them, in
     the kernel module; their launches there are added back to the
     wrappers' counts on exit."""
@@ -3513,7 +3568,15 @@ def _held_to_plain(audit: dict):
                                 f"{max_err(out, ref):.3e}, max|ref| "
                                 f"{float(ref.float().abs().max()):.3e})")
 
+    seen = {}
+
+    def held(key) -> bool:
+        seen[key] = seen.get(key, -1) + 1
+        return seen[key] % stride == 0
+
     def k1(key, plain, q, k, v, args, prompt_lens, result):
+        if not held(key):
+            return
         o, pm = result
         for b in range(q.shape[0]):
             lens = None if prompt_lens is None else prompt_lens[b:b + 1]
@@ -3528,23 +3591,29 @@ def _held_to_plain(audit: dict):
         "flash_prefill_with_prompt_mass",
         "flash_chunk_attention_with_prompt_mass", "fused_decode_attention")}
 
-    def prefill(q, k, v, prompt_len, prompt_lens=None):
+    def prefill(q, k, v, prompt_len, prompt_lens=None, group=None):
         result = originals["flash_prefill_with_prompt_mass"](
-            q, k, v, prompt_len, prompt_lens=prompt_lens)
-        k1("K1", prefill_attention_with_prompt_mass, q, k, v, (prompt_len,),
+            q, k, v, prompt_len, prompt_lens=prompt_lens, group=group)
+        k1("K1", functools.partial(prefill_attention_with_prompt_mass,
+                                   group=group), q, k, v, (prompt_len,),
            prompt_lens, result)
         return result
 
-    def chunk(q, k_buf, v_buf, q_offset, prompt_len, prompt_lens=None):
+    def chunk(q, k_buf, v_buf, q_offset, prompt_len, prompt_lens=None,
+              group=None):
         result = originals["flash_chunk_attention_with_prompt_mass"](
-            q, k_buf, v_buf, q_offset, prompt_len, prompt_lens=prompt_lens)
-        k1("K1b", chunk_attention_with_prompt_mass, q, k_buf, v_buf,
+            q, k_buf, v_buf, q_offset, prompt_len, prompt_lens=prompt_lens,
+            group=group)
+        k1("K1b", functools.partial(chunk_attention_with_prompt_mass,
+                                    group=group), q, k_buf, v_buf,
            (q_offset, prompt_len), prompt_lens, result)
         return result
 
     def decode(q, cache, recent, q_pos, cfg, pool=None):
         out = originals["fused_decode_attention"](q, cache, recent, q_pos,
                                                   cfg, pool=pool)
+        if not held("K2"):
+            return out
         ref = decode_attention_plain(q, cache, recent, q_pos, cfg, pool=pool)
         note("K2", [(out, ref, TOL_K2_F32, None)],
              f"K2 {tuple(q.shape)} at positions "
@@ -3553,6 +3622,8 @@ def _held_to_plain(audit: dict):
 
     def with_lse(key, plain, q, k, v, args, result):
         """Mode (d) or the pair: `_check_partial`."""
+        if not held(key):
+            return
         _check_partial(key, f"{key} {tuple(q.shape)} over {k.shape[1]} "
                             f"keys", result, plain, q, k, v, args, audit)
 
@@ -4097,6 +4168,471 @@ def phase_seq_parallel(device, mcfg, main_run) -> dict:
         log(f"seq parallel {path} launches over the ranks: {paths[path]}; "
             f"per rank {[res[part]['launches'] for res in ranks]}")
     log(f"seq parallel phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": paths, "audit": audit}
+
+
+def _layered_params(mcfg, device, mesh=None, group=None):
+    """A `mcfg` model's bf16 weights drawn one layer at a time (layer i from
+    a one-layer init at SEED + 40 + i; the embedding, norm and head from a
+    zero-layer init at SEED + 39), each cut to this rank's slice on `mesh`
+    (`shard_params`) before the next is drawn. The ranks of `group` (on
+    one card) draw in turn, each returning its drawing's memory to the card
+    before the next: one full layer is on the card at a time. Returns the
+    tree (sharded: with its layout)."""
+    import torch.distributed as dist
+
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        comm, shard_layout, shard_params)
+
+    rank, n = comm.rank_and_size(group)
+
+    def part(seed, layers):
+        cfg = dataclasses.replace(mcfg, num_layers=layers)
+        for turn in range(n):
+            if turn == rank:
+                tree = llama.init_params(seed, cfg, device)
+                if mesh is not None:
+                    tree = shard_params(tree, mesh, cfg)
+                torch.cuda.empty_cache()
+            if group is not None:
+                dist.barrier(group)
+        return tree
+
+    tree = dict(part(SEED + 39, 0))
+    tree["layers"] = [part(SEED + 40 + i, 1)["layers"][0]
+                      for i in range(mcfg.num_layers)]
+    return tree if mesh is None else shard_layout(mcfg, mesh).wrap(tree)
+
+
+def _tensor_parallel_rank(rank: int, n: int, group, device, mcfg, ids_by_mesh,
+                          small, small_ids, small_lengths, mixtral,
+                          mix_ids) -> dict:
+    """One rank of phase_tensor_parallel, spawned on `device` (cuda:0) over
+    a gloo group; every failed check raises, which fails the phase. On each
+    (data, model) mesh of TP_MESHES: the float32 run at tiny_test_model
+    width (query-guided "both", ragged), then TinyLlama bf16 from the main
+    run's seed (every rank's full tree compared by digest over the group
+    first), sharded and fused, on that mesh's prompt; each prefill and its
+    greedy decode counted (K1 mode (a) once a layer, K2 once a layer and
+    step), timed (CUDA events and host wall, after a barrier; the host
+    staging of the collectives counted), layer 0's K1 and K2 calls held to
+    their plain versions (`_held_to_plain(stride=layers)`) and each
+    layer's prompt mass recorded. Then the Mixtral-width model on the
+    1 x 4 mesh, built a layer at a time and sharded as it is drawn
+    (experts on the model axis), the same way. Returns host copies of what
+    the parent compares."""
+    import torch.distributed as dist
+
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        comm, create_mesh, shard_params)
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        expert_parallel as ep)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    host = lambda state: llama.map_decode_state(  # noqa: E731
+        state, lambda t: t.cpu(), state.ring_fill)
+    out = {}
+
+    def counted(label, fn, expect):
+        _zero_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = _launches()
+        want = {**{key: 0 for key in KERNELS}, **expect}
+        check(got == want, f"rank {rank} {label}: launches {got} (expect "
+                           f"{want})")
+        return result, got
+
+    def timed(fn):
+        """fn() after a barrier, timed by CUDA events and the host clock,
+        with the host staging of its collectives: (result, reading)."""
+        comm.reset_stage_counts()
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return result, {"event_ms": start.elapsed_time(end),
+                        "wall_ms": (time.perf_counter() - t0) * 1e3,
+                        "staged": (comm.stage.seconds, comm.stage.bytes,
+                                   comm.stage.calls)}
+
+    def run(label, sp, cfg, ccfg, ids, steps, lengths=None):
+        layers, audit, records, reading = cfg.num_layers, {}, {}, {}
+        original = llama.compress_layer_kv
+        llama.compress_layer_kv = _recording_compress(original, records)
+        try:
+            with _held_to_plain(audit, stride=layers):
+                ((logits, state, stats), reading["prefill"]), pre = counted(
+                    f"{label} prefill", lambda: timed(
+                        lambda: llama.prefill_compressed(
+                            sp, ids, cfg, ccfg, max_decode_len=steps + 8,
+                            use_flash=True, lengths=lengths,
+                            mesh=sp.layout.mesh)), {"K1": layers})
+                first = torch.argmax(logits, -1)
+                ((toks, _), reading["decode"]), dec = counted(
+                    f"{label} decode", lambda: timed(
+                        lambda: llama.decode_loop(
+                            sp, first, state, steps, cfg, ccfg,
+                            use_fused=True)), {"K2": layers * steps})
+        finally:
+            llama.compress_layer_kv = original
+        return {"logits": logits.float().cpu(), "caches": host(state).caches,
+                "tokens": torch.cat([first[:, None], toks], 1).cpu(),
+                "masses": {li: (m.cpu(), None if q is None else q.cpu())
+                           for (li, _), (m, _, q) in records.items()},
+                "kept": [st["kept_tokens"].cpu() for st in stats],
+                "launches": pre, "decode_launches": dec, "audit": audit,
+                "kv_heads": state.caches[0].tiers[0].k_scale.shape[2],
+                "timed": reading}
+
+    full = llama.init_params(SEED, mcfg, dev)
+    digests = comm.all_gather_tensors([_params_digest(full)], group)
+    check(all(torch.equal(d[0], digests[0][0]) for d in digests),
+          f"rank {rank}: every rank holds the same weights")
+    sccfg = CompressionConfig(num_layers=small.num_layers,
+                              importance_source="both", query_mass_pool=4)
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    for data, model in TP_MESHES:
+        mesh = create_mesh(data, model)
+        sp32 = shard_params(llama.init_params(SEED + 30, small, dev), mesh,
+                            small)
+        out[("f32", data, model)] = run(
+            f"float32 {data}x{model}", sp32, small, sccfg, small_ids.to(dev),
+            SEQ_F32_NEW_TOKENS - 1, lengths=small_lengths.to(dev))
+        del sp32
+        sp = llama.fuse_params(shard_params(full, mesh, mcfg))
+        out[("tiny", data, model)] = run(
+            f"tinyllama {data}x{model}", sp, mcfg, ccfg,
+            ids_by_mesh[(data, model)].to(dev), TP_NEW_TOKENS - 1)
+        del sp
+    del full
+    torch.cuda.empty_cache()
+    out["memory_gib"] = {"before_mixtral": torch.cuda.memory_allocated()
+                         / 2 ** 30}
+    torch.cuda.reset_peak_memory_stats()
+    sp = _layered_params(mixtral, dev, create_mesh(1, 4), group)
+    out["memory_gib"]["mixtral_built"] = (torch.cuda.memory_allocated()
+                                          / 2 ** 30)
+    out["memory_gib"]["mixtral_build_peak"] = (
+        torch.cuda.max_memory_allocated() / 2 ** 30)
+    routes = []
+    with _recording_routes(ep, routes, TP_MIXTRAL_PROMPT,
+                           mixtral.num_layers):
+        out[("mixtral", 1, 4)] = run(
+            "mixtral 1x4", sp, mixtral,
+            CompressionConfig(num_layers=mixtral.num_layers),
+            mix_ids.to(dev), TP_MIXTRAL_TOKENS - 1)
+    out[("mixtral", 1, 4)]["routes"] = routes
+    del sp
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _recording_routes(module, routes: list, tokens: int, layers: int):
+    """While active, the first `layers` calls of `module.router_topk` over
+    `tokens` tokens (a prefill's, one a layer) append their expert ids to
+    `routes` (on the host)."""
+    real = module.router_topk
+
+    def recording(x2, gate, k, *a, **kw):
+        w, ids = real(x2, gate, k, *a, **kw)
+        if x2.shape[0] == tokens and len(routes) < layers:
+            routes.append(ids.cpu())
+        return w, ids
+
+    module.router_topk = recording
+    try:
+        yield routes
+    finally:
+        module.router_topk = real
+
+
+def _nonzero(counts: dict) -> dict:
+    return {key: n for key, n in counts.items() if n}
+
+
+def _stack_rows(parts, device):
+    """Per layer, the tiers' positions and validity (what
+    `_selection_drift` and `_kept_positions` read) of `parts`, one data
+    rank's caches each, concatenated along the batch in data-rank order."""
+    return [types.SimpleNamespace(tiers=[types.SimpleNamespace(**{
+        f: torch.cat([getattr(p[li].tiers[ti], f) for p in parts]).to(device)
+        for f in ("positions", "valid")})
+        for ti in range(len(parts[0][li].tiers))])
+        for li in range(len(parts[0]))]
+
+
+def phase_tensor_parallel(device, mcfg, main_run, mixtral) -> dict:
+    """Tensor and data parallelism (`parallel/sharding.py`,
+    `expert_parallel.py`) on this one card: TP_RANKS ranks spawned as
+    processes on cuda:0 over a gloo group (the collectives staged through
+    the host), each rank's work `_tensor_parallel_rank`, on a 1 x 4 and a
+    2 x 2 (data x model) mesh. A rank that raises or hangs past TP_TIMEOUT
+    fails the phase.
+
+    Per rank, launches exact: K1 mode (a) once a layer of each prefill
+    (over the rank's 32 / m query heads) and K2 once a layer and step of
+    each decode (over its kv heads: TinyLlama 8 / 1 on 1 x 4, 16 / 2 on
+    2 x 2, n_rep 8; Mixtral 8 / 2, n_rep 4), and every K1 and K2 call of
+    layer 0 held to its plain version on its own inputs. Against the port's one-rank
+    prefill on this card, with the same weights and prompts:
+    - TinyLlama bf16 (22 layers, the main run's weights), B=1 on 1 x 4 (the
+      main prompt) and B=2 on 2 x 2 (the main prompt and a second seeded
+      row), 32 greedy tokens: the logits, kept positions and tokens the
+      same on every rank; the logits no further from a float32 one-rank
+      prefill over the same bf16 weights than twice the bf16 one-rank
+      prefill's distance (plus 1e-3); where a layer keeps other positions,
+      each tier change a rank reversal between scores within 2 delta of
+      the boundary's, delta the two runs' largest score difference, at
+      most TP_SCORE_DRIFT (`_selection_drift`), and otherwise the kept
+      counts equal and the 32 tokens equal the one-rank path's up to a
+      near tie (a one-rank top-2 gap within twice the two prefills' logit
+      difference);
+    - the Mixtral-width model (32 / 8 heads, d=128, 8 experts, top 2,
+      TP_MIXTRAL_LAYERS layers, weights drawn a layer at a time,
+      `_layered_params`) on 1 x 4 with a TP_MIXTRAL_PROMPT-token prompt and
+      TP_MIXTRAL_TOKENS tokens, experts on the model axis: the same rules,
+      but for the float32 logits (a float32 one-rank model would not fit
+      beside the ranks), whose distance is logged, and the score drift,
+      held to TP_MOE_SCORE_DRIFT after the first layer whose router sends
+      a token to another expert pair than the one-rank run's (the tokens
+      so routed are counted per layer);
+    - float32 at tiny_test_model width (SEQ_F32_LAYERS layers,
+      query-guided, ragged B=2): logits within TOL_LOGITS, kept positions
+      and every token equal to the one-rank path's.
+    Logs TTFT by CUDA events for the one-rank prefill and each rank's
+    counted one (with its host wall and staging), each rank's decode rate
+    over the counted decode, each rank's device memory, and the card's
+    nvidia-smi line. Returns {"launches": the paths' launches summed
+    over the ranks, "audit": per kernel [calls, worst max abs err, worst
+    share of a limit, worst prompt mass err] over every rank}."""
+    from realtime_kv_cache_compression_tpu_torch import (CompressionConfig,
+                                                         tiny_test_model)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops import moe as moe_ops
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+
+    params, ccfg = main_run["params"], main_run["ccfg"]
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 31)
+    ids1 = main_run["ids"].cpu()
+    ids_by_mesh = {(1, 4): ids1, (2, 2): torch.cat([ids1, torch.randint(
+        0, mcfg.vocab_size, ids1.shape, generator=gen)])}
+    mix_ids = torch.randint(0, mixtral.vocab_size, (1, TP_MIXTRAL_PROMPT),
+                            generator=gen)
+    small = tiny_test_model(num_layers=SEQ_F32_LAYERS,
+                            max_position_embeddings=SEQ_F32_PROMPT + 64)
+    small_ids = torch.randint(0, small.vocab_size, (len(SEQ_F32_LENGTHS),
+                                                    SEQ_F32_PROMPT),
+                              generator=gen)
+    small_lengths = torch.tensor(SEQ_F32_LENGTHS)
+
+    def reference(p, cfg, c, ids, steps, lengths=None):
+        records, original = {}, llama.compress_layer_kv
+        llama.compress_layer_kv = _recording_compress(original, records)
+        try:
+            logits, state, stats = llama.prefill_compressed(
+                p, ids.to(device), cfg, c, max_decode_len=steps + 8,
+                lengths=None if lengths is None else lengths.to(device))
+        finally:
+            llama.compress_layer_kv = original
+        toks, step_logits = _greedy_from(p, logits, state, cfg, c, steps,
+                                         kernels=True)
+        return {"logits": logits.float().cpu(), "caches": state.caches,
+                "records": records, "tokens": toks,
+                "step_logits": step_logits,
+                "kept": [st["kept_tokens"].cpu() for st in stats]}
+
+    refs = {("tiny",) + key: reference(params, mcfg, ccfg, ids,
+                                       TP_NEW_TOKENS - 1)
+            for key, ids in ids_by_mesh.items()}
+    _, ttft1 = cuda_ms(lambda: llama.prefill_compressed(
+        params, ids1.to(device), mcfg, ccfg, max_decode_len=TP_NEW_TOKENS
+        + 8))
+    f32 = dataclasses.replace(mcfg, dtype="float32")
+    params32 = _map_tree(params, lambda t: t.float())
+    logits32 = {key: llama.prefill_compressed(
+        params32, ids.to(device), f32, ccfg, max_decode_len=8)[0].cpu()
+        for key, ids in ids_by_mesh.items()}
+    del params32
+    sccfg = CompressionConfig(num_layers=small.num_layers,
+                              importance_source="both", query_mass_pool=4)
+    small_ref = reference(llama.init_params(SEED + 30, small, device), small,
+                          sccfg, small_ids, SEQ_F32_NEW_TOKENS - 1,
+                          small_lengths)
+    mix_params = _layered_params(mixtral, device)
+    mccfg = CompressionConfig(num_layers=mixtral.num_layers)
+    routes1 = []
+    with _recording_routes(moe_ops, routes1, TP_MIXTRAL_PROMPT,
+                           mixtral.num_layers):
+        refs[("mixtral", 1, 4)] = reference(mix_params, mixtral, mccfg,
+                                            mix_ids, TP_MIXTRAL_TOKENS - 1)
+    _, ttft_mix = cuda_ms(lambda: llama.prefill_compressed(
+        mix_params, mix_ids.to(device), mixtral, mccfg,
+        max_decode_len=TP_MIXTRAL_TOKENS + 8))
+    del mix_params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"tensor parallel: one-rank references in "
+        f"{time.perf_counter() - t0:.1f} s; this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+
+    t1 = time.perf_counter()
+    ranks = run_ranks(_tensor_parallel_rank, TP_RANKS, args=(
+        str(device), mcfg, ids_by_mesh, small, small_ids, small_lengths,
+        mixtral, mix_ids), timeout=TP_TIMEOUT)
+    memory = [{k: round(v, 3) for k, v in r["memory_gib"].items()}
+              for r in ranks]
+    log(f"tensor parallel: {TP_RANKS} ranks spawned, run and joined in "
+        f"{time.perf_counter() - t1:.1f} s; device memory per rank (GiB) "
+        f"{memory}")
+
+    def rows_of(key, part):
+        """Rank results of one run in data-rank order (model rank 0 of
+        each data rank), and all ranks' results."""
+        _, data, model = key
+        return [ranks[d * model][key][part] for d in range(data)]
+
+    audit, paths = {}, {}
+    for key in [("f32",) + m for m in TP_MESHES] + [
+            ("tiny",) + m for m in TP_MESHES] + [("mixtral", 1, 4)]:
+        kind, data, model = key
+        label = f"tensor parallel {kind} {data}x{model}"
+        res = [r[key] for r in ranks]
+        first = res[0]
+        for r, got in enumerate(res):
+            check(torch.equal(got["logits"], first["logits"])
+                  and torch.equal(got["tokens"], first["tokens"]),
+                  f"{label} rank {r}: logits and tokens equal to rank 0's")
+            same_rows = ranks[(r // model) * model][key]
+            check(_kept_positions(got["caches"])
+                  == _kept_positions(same_rows["caches"]),
+                  f"{label} rank {r}: kept positions equal to its data "
+                  f"row's model rank 0")
+        for got in res:
+            for k_, rec in got["audit"].items():
+                agg = audit.setdefault(k_, [0, 0.0, 0.0, 0.0])
+                agg[0] += rec[0]
+                for i in (1, 2, 3):
+                    agg[i] = max(agg[i], rec[i])
+        if kind != "f32":
+            paths[f"{'tinyllama' if kind == 'tiny' else 'mixtral'}"
+                  f"_tensor_parallel_{data}x{model}"] = {
+                k_: sum(g["launches"][k_] + g["decode_launches"][k_]
+                        for g in res) for k_ in KERNELS}
+        caches = _stack_rows(rows_of(key, "caches"), device)
+        if kind == "f32":
+            check_close(first["logits"], small_ref["logits"], TOL_LOGITS,
+                        f"{label}: logits vs one-rank")
+            check(_kept_positions(caches)
+                  == _kept_positions(small_ref["caches"]),
+                  f"{label}: kept positions equal to the one-rank path's")
+            check(torch.equal(first["tokens"], small_ref["tokens"]),
+                  f"{label}: {SEQ_F32_NEW_TOKENS} tokens equal to the "
+                  f"one-rank path's")
+            log(f"{label}: logits, kept positions and "
+                f"{SEQ_F32_NEW_TOKENS} tokens equal to the one-rank "
+                f"path's on every rank (kv heads a rank "
+                f"{first['kv_heads']})")
+            continue
+        ref = refs[key]
+        s = ids1.shape[1] if kind == "tiny" else TP_MIXTRAL_PROMPT
+        d_pair = max_err(first["logits"], ref["logits"])
+        peak = float(ref["logits"].abs().max())
+        if kind == "tiny":
+            ref32 = logits32[(data, model)]
+            d_tp, d_one = (max_err(x, ref32) for x in (first["logits"],
+                                                       ref["logits"]))
+            log(f"{label} bf16 logits: ranks vs one-rank {d_pair:.3e}; vs "
+                f"the float32 one-rank: ranks {d_tp:.3e}, one-rank "
+                f"{d_one:.3e} (max|logit| {float(ref32.abs().max()):.3e})")
+            check(d_tp <= 2 * d_one + 1e-3, f"{label}: bf16 logits no "
+                  f"further from float32 than twice the one-rank's")
+        else:
+            check(bool(torch.isfinite(first["logits"]).all()),
+                  f"{label}: logits finite")
+            log(f"{label} bf16 logits: ranks vs one-rank max abs diff "
+                f"{d_pair:.3e} (max|logit| {peak:.3e})")
+        masses = [ranks[d * model][key]["masses"] for d in range(data)]
+        records_tp = {(li, 0): (torch.cat([m[li][0] for m in masses]).to(
+            device), None, None) for li in masses[0]}
+        limit = TP_SCORE_DRIFT
+        if kind == "mixtral":
+            # Tokens routed to another expert pair than the one-rank run's,
+            # per layer; past the first such layer the MoE limit applies.
+            flips = [int((torch.sort(a, -1).values
+                          != torch.sort(b, -1).values).any(-1).sum())
+                     for a, b in zip(ranks[0][key]["routes"], routes1)]
+            first_flip = next((li for li, f in enumerate(flips) if f),
+                              len(flips))
+            limit = [TP_SCORE_DRIFT if li <= first_flip
+                     else TP_MOE_SCORE_DRIFT for li in range(len(flips))]
+            log(f"{label}: tokens routed to another expert pair than the "
+                f"one-rank prefill's, per layer: {flips}")
+        drift = _selection_drift(label, {True: records_tp,
+                                         False: ref["records"]},
+                                 [caches, ref["caches"]],
+                                 ccfg if kind == "tiny" else mccfg, s,
+                                 limit=limit)
+        log(f"{label} selection against the one-rank prefill: "
+            f"{drift['log']}")
+        if not drift["rows"]:
+            # The stats come back with every row's (gathered over data).
+            check(all(torch.equal(a, b) for a, b in zip(first["kept"],
+                                                        ref["kept"])),
+                  f"{label}: kept counts equal")
+            for row in range(first["tokens"].shape[0]):
+                held = _held_to_reference(
+                    f"{label} row {row}", first["tokens"][row],
+                    ref["tokens"][row], ref["step_logits"][row],
+                    near=2 * d_pair)
+                log(f"{label} row {row}: every layer keeps the one-rank "
+                    f"prefill's positions; {held} of "
+                    f"{first['tokens'].shape[1]} tokens held equal")
+        else:
+            log(f"{label}: kept positions part from the one-rank "
+                f"prefill's (held by the swap rule above); tokens "
+                f"{first['tokens'].tolist()} against "
+                f"{ref['tokens'].tolist()}")
+        pre, dec = ([r[key]["timed"][part] for r in ranks]
+                    for part in ("prefill", "decode"))
+        steps = first["tokens"].shape[1] - 1
+
+        def ms(readings, field="event_ms"):
+            return [round(t[field], 3) for t in readings]
+
+        log(f"{label} (bf16, S={s}, B={first['tokens'].shape[0]}; the "
+            f"counted runs, layer 0's kernel calls held to the plain "
+            f"versions inside them): TTFT one-rank (B=1) "
+            f"{ttft1 if kind == 'tiny' else ttft_mix:.3f} ms; per rank by "
+            f"CUDA events {ms(pre)} ms, host wall {ms(pre, 'wall_ms')} ms, "
+            f"host staging {[round(t['staged'][0] * 1e3, 3) for t in pre]} "
+            f"ms for {[t['staged'][1] for t in pre]} bytes in "
+            f"{[t['staged'][2] for t in pre]} copies; decode of {steps} "
+            f"steps per rank {ms(dec)} ms by events "
+            f"({[round(steps * 1e3 / t['event_ms'], 2) for t in dec]} "
+            f"steps/s), staging "
+            f"{[round(t['staged'][0] * 1e3, 3) for t in dec]} ms in "
+            f"{[t['staged'][2] for t in dec]} copies; launches per rank "
+            f"{[_nonzero(r[key]['launches']) for r in ranks]} (prefill), "
+            f"{[_nonzero(r[key]['decode_launches']) for r in ranks]} "
+            f"(decode)")
+    check(audit.get("K1", [0])[0] > 0 and audit.get("K2", [0])[0] > 0,
+          "tensor parallel: K1 and K2 calls held to their plain versions")
+    log(f"tensor parallel audit (calls, worst max abs err, worst share of a "
+        f"limit, worst prompt mass err): {audit}")
+    log(nvidia_smi_line())
+    log(f"tensor parallel phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": paths, "audit": audit}
 
 
@@ -4768,12 +5304,13 @@ def _greedy_from(params, logits, state, mcfg, ccfg, steps: int,
 
 
 def _selection_drift(label: str, records: dict, caches: list, ccfg,
-                     s: int, limit: float = TOL_LOGITS) -> dict:
+                     s: int, limit=TOL_LOGITS) -> dict:
     """Where the kernel prefill (records[True], caches[0]) and the plain
     prefill (records[False], caches[1]) keep other positions, holds the
     difference to the scores the compressor ranked. Per layer, the two
     runs' importance scores (from the recorded prompt and query masses)
-    lie within `limit` of each other (TOL_LOGITS, the limit of the two
+    lie within `limit` of each other (a float, or one per layer;
+    TOL_LOGITS, the limit of the two
     float32 paths' logits: their rounding drifts through the layers: layer
     0's scores agree exactly where they come from the plain query mass,
     and the query-guided scores of a trained recall model sit 1.46e-5
@@ -4803,9 +5340,10 @@ def _selection_drift(label: str, records: dict, caches: list, ccfg,
                   for k in (True, False))
         delta = float((sk.double() - sp.double()).abs().max())
         deltas.append(delta)
-        check(delta <= limit, f"{label} layer {li}: scores of the two "
-                              f"prefills {delta:.3e} apart (limit "
-                              f"{limit:.1e})")
+        lim = limit[li] if isinstance(limit, (list, tuple)) else limit
+        check(delta <= lim, f"{label} layer {li}: scores of the two "
+                            f"prefills {delta:.3e} apart (limit "
+                            f"{lim:.1e})")
         flips = assign_precision(sk, ccfg)[0] != assign_precision(sp, ccfg)[0]
         sp = sp.double()
         for r in range(sp.shape[0]):
@@ -4842,9 +5380,11 @@ def _selection_drift(label: str, records: dict, caches: list, ccfg,
                           f"moves from tier {b} to {a}, its plain score "
                           f"{gap:.3e} from the boundary's (2 delta "
                           f"{2 * delta:.3e})")
-    return {"rows": rows, "log": (
+    shown = (f"{limit:.1e}" if not isinstance(limit, (list, tuple)) else
+             f"per layer {[f'{x:.1e}' for x in limit]}")
+    return {"rows": rows, "deltas": deltas, "log": (
         f"score delta per layer {[f'{d:.2e}' for d in deltas]} (limit "
-        f"{limit:.1e}), {moves} tier boundary crossings at worst "
+        f"{shown}), {moves} tier boundary crossings at worst "
         f"{worst:.3f} of 2 delta from the boundary's score, {recounts} "
         f"kept counts moved by a label flip")}
 
@@ -5108,7 +5648,8 @@ def _eval_f32_check(device, mcfg) -> None:
 
 
 def phase_eval_path(device, mcfg) -> dict:
-    """The LongBench harness at TinyLlama's full width and depth (bf16):
+    """The LongBench harness at TinyLlama's full width (bf16; the depth of
+    `mcfg`, TINY_PATH_LAYERS in the smoke):
     the port's run_compression_experiment entry point in-process
     (`--model tinyllama --baseline`, narrativeqa and gov_report, 2
     synthetic samples each of EVAL_CONTEXT_WORDS words, so the prompts are
@@ -5135,7 +5676,8 @@ def phase_eval_path(device, mcfg) -> dict:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         for batch in (1, 2):
-            argv = ["--model", "tinyllama", "--device", device, "--baseline",
+            argv = ["--model", "tinyllama", "--layers",
+                    str(mcfg.num_layers), "--device", device, "--baseline",
                     "--tasks", "narrativeqa", "gov_report",
                     "--max-samples", "2",
                     "--max-new-tokens", str(EVAL_NEW_TOKENS),
@@ -5152,7 +5694,8 @@ def phase_eval_path(device, mcfg) -> dict:
 
 
 def phase_benchmark_suite(device, mcfg) -> dict:
-    """The port's CompressionBenchmark at TinyLlama's full width and depth
+    """The port's CompressionBenchmark at TinyLlama's full width (the depth
+    of `mcfg`, TINY_PATH_LAYERS in the smoke)
     (bf16 params from `init_params(0)`): all six named scenarios at
     sequence length PROMPT, 50 new tokens, B=1. No scenario errors; every
     record printed with the device's memory statistics; launches held to
@@ -5232,7 +5775,8 @@ def _worst(into: dict, audit: dict) -> None:
 
 
 def phase_ablation(device, mcfg, errors: dict) -> dict:
-    """The port's ablation_study CLI at TinyLlama's full width and depth
+    """The port's ablation_study CLI at TinyLlama's full width (the depth
+    of `mcfg`, TINY_PATH_LAYERS in the smoke, through `--layers`)
     (bf16, its own `init_params(0)`): the five studies' configs held to
     ABLATION_CONFIGS; then `--study component` and `--study bits`
     (ABLATION_ARGS: narrativeqa and qasper, 1 synthetic sample each, cut
@@ -5272,6 +5816,7 @@ def phase_ablation(device, mcfg, errors: dict) -> dict:
             run, launches[f"tinyllama_ablation_{study}"], _ = _cli_launches(
                 f"ablation {study}", lambda: ablation_study.main(
                     ABLATION_ARGS + ["--device", device, "--study", study,
+                                     "--layers", str(layers),
                                      "--output-dir", tmp]),
                 lambda run: {
                     "K1": layers * sum(c["prefill"] for c in
@@ -5713,6 +6258,10 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     seq = phase_seq_parallel(device, tiny, tiny_run)
     launches.update(seq["launches"])
     mark("tinyllama sequence-parallel runs")
+    tp = phase_tensor_parallel(device, tiny, tiny_run, dataclasses.replace(
+        mixtral, num_layers=TP_MIXTRAL_LAYERS))
+    launches.update(tp["launches"])
+    mark("tensor- and expert-parallel runs")
     del tiny_run
     torch.cuda.empty_cache()
     tiny_paths = dataclasses.replace(tiny, num_layers=TINY_PATH_LAYERS,
@@ -5733,16 +6282,14 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     mark("trainer parity and tinyllama training")
     launches["quality_demo_recall"] = phase_quality_demo(device)
     mark("quality demo")
-    launches.update(phase_eval_path(
-        device, dataclasses.replace(tiny, max_position_embeddings=PROMPT
-                                    + 512)))
+    launches.update(phase_eval_path(device, tiny_paths))
     mark("tinyllama eval harness")
-    launches["tinyllama_benchmark_suite"] = phase_benchmark_suite(device,
-                                                                  tiny)
+    launches["tinyllama_benchmark_suite"] = phase_benchmark_suite(
+        device, tiny_paths)
     mark("tinyllama benchmark suite")
     # The experiment CLIs; each audit's worst error per kernel.
     exp_err = {}
-    launches.update(phase_ablation(device, tiny, exp_err))
+    launches.update(phase_ablation(device, tiny_paths, exp_err))
     mark("ablation study")
     launches["tuning_compare"] = phase_tuning(device, exp_err)
     mark("hyperparameter tuning")
@@ -5798,10 +6345,11 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                    f"{PROMPT // CHUNK} chunks summed, one layer's prefill")
     pair_note = (f"B={PREFIX_BATCH} S_q=S_k={CHUNK}, Hq={{}} Hkv={{}} d={{}}, "
                  f"bf16")
-    k2_err = max(serving_err["K2"], *(r["max_abs_err"] for r in (
-        k2, k2_tiny, k2p_tiny, k2p_big, k2_beam,
-        *(g[m][p] for m in g for p in ("K2", "K2pool")),
-        *(q2[m]["K2"] for m in q2))))
+    k2_err = max(serving_err["K2"], tp["audit"]["K2"][1],
+                 *(r["max_abs_err"] for r in (
+                     k2, k2_tiny, k2p_tiny, k2p_big, k2_beam,
+                     *(g[m][p] for m in g for p in ("K2", "K2pool")),
+                     *(q2[m]["K2"] for m in q2))))
     serving_note = ("tinyllama_serving (one-shot and chunked): every call "
                     "of one admission of B=4 ragged rows over the "
                     f"{PROMPT}-token bucket and of its decode chunk over "
@@ -5828,6 +6376,16 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
 
     k1_note = f"B=1 S={PROMPT} Hq={{}} Hkv={{}} d={{}}"
 
+    def tp_note(rec):
+        return {"calls": rec[0], "max_abs_err": rec[1],
+                "worst_share_of_limit": rec[2], "prompt_mass_max_abs_err":
+                rec[3], "shape": "every call of the tensor-parallel runs "
+                                 "on every rank: TinyLlama bf16 on 1x4 "
+                                 f"(B=1) and 2x2 (B=2) at S={PROMPT}, "
+                                 f"Mixtral width on 1x4 at S="
+                                 f"{TP_MIXTRAL_PROMPT}, float32 at "
+                                 f"tiny_test_model width"}
+
     def seq_note(rec):
         return {"calls": rec[0], "max_abs_err": rec[1],
                 "worst_share_of_limit": rec[2], "prompt_mass_max_abs_err":
@@ -5839,9 +6397,10 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                                  f"{tiny.num_kv_heads} d={tiny.head_dim}, "
                                  f"bf16"}
     kernels = [
-        entry("K1", {**k1, "max_abs_err": worst(
+        entry("K1", {**k1, "max_abs_err": max(worst(
             k1, k1_tiny, *(g[m]["K1"] for m in g),
-            *(q2[m]["K1"] for m in q2), serving="K1")}, "llama2_7b_int4", {
+            *(q2[m]["K1"] for m in q2), serving="K1"),
+            tp["audit"]["K1"][1])}, "llama2_7b_int4", {
             "mode": "a (square causal)",
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
@@ -5851,6 +6410,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             **{m: {**q2[m]["K1"], "shape": k1_note.format(*heads(q2_cfgs[m]))}
                for m in q2},
             "model_activations_max_abs_err": k1_activations,
+            "tensor_parallel_audit": tp_note(tp["audit"]["K1"]),
             **serving_extra("K1")}),
         entry("K1b", {**k1b_tiny, "max_abs_err": worst(
             k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g), serving="K1b")},
@@ -5912,6 +6472,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "device_us_per_call": k2["device_us"],
             "tinyllama": k2_tiny,
             "beam": k2_beam,  # the beam path's B·W rows
+            "tensor_parallel_audit": tp_note(tp["audit"]["K2"]),
             **serving_extra("K2"),
             **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
                                           f"state, 8/4/2, tiers + ring, bf16"}

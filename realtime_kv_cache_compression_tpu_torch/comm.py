@@ -126,7 +126,9 @@ def all_gather_tensors(tensors: Sequence[torch.Tensor], group
     for part in parts:
         part = stage(part, dev) if staged else part
         sizes = [t.numel() * t.element_size() for t in tensors]
-        out.append([_from_bytes(b, t).clone() for b, t in
+        # Each tensor's bytes copied out first: a view of another dtype
+        # needs its offset aligned to that dtype's size.
+        out.append([_from_bytes(b.clone(), t) for b, t in
                     zip(torch.split(part, sizes), tensors)])
     return out
 

@@ -67,6 +67,8 @@ def compress_layer_kv(
     chunk_lengths: torch.Tensor = None,
     query_mass: torch.Tensor = None,
     group=None,
+    data_group=None,
+    kv_heads_total: int = None,
 ) -> Tuple[CompressedLayerCache, Dict[str, torch.Tensor]]:
     """Compress one layer's prefill K/V into packed tier pools.
 
@@ -96,6 +98,11 @@ def compress_layer_kv(
     budget split evenly, and the stats come back aggregated over the group
     (the same on every rank). The rank's pools record their packing chunk,
     so the ranks' caches concatenate along the slot axis in rank order.
+    Under tensor and data parallelism (`parallel/sharding.py`) k and v
+    hold a rank's rows and kv heads: `data_group` sums the batch-wide
+    counts of the label and byte stats over the data axis, and
+    `kv_heads_total` (default: k's) is the model's kv-head count, the
+    width the byte stats count, so both are the whole model's and batch's.
     Returns (cache, stats): the layer's `CompressedLayerCache` and a dict of
     per-row statistics with the reference's keys.
     """
@@ -119,7 +126,7 @@ def compress_layer_kv(
         lengths=score_lengths, prompt_lens=prompt_lens,
         position_offset=shard_offset, total_len=total, minmax=minmax,
         group=group, query_mass=query_mass)
-    labels, prec_stats = assign_precision(scores, cfg)
+    labels, prec_stats = assign_precision(scores, cfg, group=data_group)
     # A chunk covering the whole sequence is the plain path, exactly.
     local_window = sharded and seq_len != total
     sel = select_tokens(scores, labels, layer_idx, cfg,
@@ -154,11 +161,11 @@ def compress_layer_kv(
     ], dim=-1)
     kept_valid = torch.cat(sel.valid, dim=-1)
     mem = memory_report(kept_labels, kept_valid, cfg,
-                        head_dim * num_kv_heads,
+                        head_dim * (kv_heads_total or num_kv_heads),
                         original_tokens=(token_valid.sum()
                                          if token_valid is not None
                                          else batch * seq_len),
-                        group_size=group_size)
+                        group_size=group_size, group=data_group)
 
     kept = sel.kept_mask.sum(dim=-1)
     true_len = (lengths if lengths is not None

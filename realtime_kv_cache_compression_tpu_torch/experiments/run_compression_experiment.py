@@ -17,9 +17,11 @@ On the port: `--device` (cuda by default) replaces `--platform`, and
 `--flash` goes: on a CUDA device the compressed arm runs K1 in prefill
 and K2 in decode and the baseline K1 in prefill; --checkpoint loads a
 local HF checkpoint with the port's `load_hf_checkpoint`.
-Multi-device meshes (--mesh-data / --mesh-model > 1) raise
-NotImplementedError: they wait for `sharding.py` and `mesh=` on the
-prefill drivers, in the rest of ROADMAP item 18.
+`--mesh-data D --mesh-model M` (D·M > 1) runs the evaluation on D·M
+ranks, one spawned process each over a gloo group (`parallel.run_ranks`;
+on one CUDA device every rank shares it), each on its slice of the
+weights (`parallel.shard_params` on a D x M mesh), as the JAX script
+shards its params over its mesh; rank 0 writes the artifacts.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .. import (LLAMA2_13B, LLAMA2_7B, TINYLLAMA_1_1B, CompressionConfig,
                 tiny_test_model)
 from ..eval.longbench import LongBenchEvaluator, ModelRunner
 from ..models import llama, weights
+from ..parallel import create_mesh, run_ranks, shard_params
 from ..utils.data import save_json
 from ..utils.memory import MemoryMonitor
 from ..utils.tokenizer import load_tokenizer
@@ -127,6 +130,11 @@ def build_configs(args):
     return mcfg, ccfg
 
 
+# The ranks of a mesh run the whole evaluation; this bounds it (and each
+# collective).
+RANK_TIMEOUT = 4 * 3600.0
+
+
 def load_params(args, mcfg):
     if args.checkpoint:
         return weights.load_hf_checkpoint(args.checkpoint, mcfg,
@@ -134,16 +142,52 @@ def load_params(args, mcfg):
     return llama.init_params(0, mcfg, device=args.device)
 
 
+def evaluate_arms(args, out_dir, mesh=None):
+    """The compressed arm (and with --baseline the baseline arm) over the
+    tasks: (results, model_calls) per arm. Artifacts go under out_dir (None:
+    none); `mesh` shards the weights over a (data, model) mesh of ranks."""
+    device = torch.device(args.device)
+    mcfg, ccfg = build_configs(args)
+    params = load_params(args, mcfg)
+    if mesh is not None:
+        params = shard_params(params, mesh, mcfg)
+    tokenizer = load_tokenizer(args.checkpoint)
+    syn = {"context_words": args.synthetic_context_words}
+
+    results, model_calls = {}, {}
+    arms = [("compressed", ccfg)] + ([("baseline", None)]
+                                     if args.baseline else [])
+    for arm, arm_ccfg in arms:
+        mon = MemoryMonitor(device=device)
+        mon.start()
+        runner = ModelRunner(params, mcfg, arm_ccfg,
+                             max_new_tokens=args.max_new_tokens)
+        ev = LongBenchEvaluator(
+            runner, tokenizer,
+            output_dir=os.path.join(out_dir, arm) if out_dir else None,
+            max_length=args.max_length, data_dir=args.data_dir,
+            synthetic_kwargs=syn)
+        results[arm] = ev.evaluate_all_tasks(
+            args.tasks, args.max_samples, batch_size=args.eval_batch)
+        results[arm]["memory_monitor"] = mon.stop()
+        model_calls[arm] = dict(runner.model_calls)
+    return results, model_calls
+
+
+def _rank_arms(rank: int, n: int, group, args, out_dir):
+    """One rank of a mesh run: `evaluate_arms` on its slice; rank 0
+    writes the artifacts."""
+    mesh = create_mesh(args.mesh_data, args.mesh_model)
+    return evaluate_arms(args, out_dir if rank == 0 else None, mesh)
+
+
 def main(argv=None) -> Dict[str, Any]:
     """Runs the experiment; returns {"out_dir", "results" (per arm, as the
     evaluator gives them), "summary", "model_calls" (per arm, the runner's
-    own schedule)} for in-process callers."""
+    own schedule)} for in-process callers. Over a mesh they are rank 0's
+    (every rank has the same)."""
     args = parse_args(argv)
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError(
-            "--mesh-data / --mesh-model > 1: the runner's meshes wait for "
-            "sharding.py and mesh= on the prefill drivers, in the rest of "
-            "ROADMAP item 18")
+    ranks = args.mesh_data * args.mesh_model
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
@@ -155,27 +199,12 @@ def main(argv=None) -> Dict[str, Any]:
               {**vars(args), "experiment_name": name})
 
     try:
-        mcfg, ccfg = build_configs(args)
-        params = load_params(args, mcfg)
-        tokenizer = load_tokenizer(args.checkpoint)
-        syn = {"context_words": args.synthetic_context_words}
-
-        results, model_calls = {}, {}
-        arms = [("compressed", ccfg)] + ([("baseline", None)]
-                                         if args.baseline else [])
-        for arm, arm_ccfg in arms:
-            mon = MemoryMonitor(device=device)
-            mon.start()
-            runner = ModelRunner(params, mcfg, arm_ccfg,
-                                 max_new_tokens=args.max_new_tokens)
-            ev = LongBenchEvaluator(
-                runner, tokenizer, output_dir=os.path.join(out_dir, arm),
-                max_length=args.max_length, data_dir=args.data_dir,
-                synthetic_kwargs=syn)
-            results[arm] = ev.evaluate_all_tasks(
-                args.tasks, args.max_samples, batch_size=args.eval_batch)
-            results[arm]["memory_monitor"] = mon.stop()
-            model_calls[arm] = dict(runner.model_calls)
+        if ranks > 1:
+            results, model_calls = run_ranks(
+                _rank_arms, ranks, args=(args, out_dir),
+                timeout=RANK_TIMEOUT)[0]
+        else:
+            results, model_calls = evaluate_arms(args, out_dir)
 
         summary = {
             "experiment_name": name,

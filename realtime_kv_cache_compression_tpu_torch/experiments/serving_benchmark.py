@@ -20,7 +20,8 @@ every decode chunk K2, on the CPU their plain versions. The warm-up
 leaves no request or aggregate behind, so the summary counts the timed
 requests only (the JAX script's engine summary also counts the
 warm-up's). `--mesh` (sharded serving) raises NotImplementedError: it
-waits for `ServingEngine(mesh=)`, in the rest of ROADMAP item 18.
+waits for `ServingEngine(mesh=)`, which comes after `pipeline.py` and
+`multihost.py`, in the rest of ROADMAP item 18.
 """
 
 from __future__ import annotations
@@ -66,8 +67,9 @@ def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: sharded serving waits for ServingEngine(mesh=), in the "
-            "rest of ROADMAP item 18 (after sharding.py)")
+            "--mesh: sharded serving waits for ServingEngine(mesh=), which "
+            "comes after pipeline.py and multihost.py, in the rest of "
+            "ROADMAP item 18")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")

@@ -165,6 +165,7 @@ def beam_search(
     per-layer prefill stats); with `return_all_beams`, [B, W, T] and
     [B, W], best first.
     """
+    llama.refuse_sharded(params, "beam_search")
     logits, state, stats = llama.prefill_compressed(
         params, input_ids, cfg, ccfg, max_decode_len=max_new_tokens,
         use_flash=use_flash)

@@ -35,6 +35,19 @@ stacks run K3's expert-indexed GEMV in decode (ops/moe.py). The reference's
 `lax.scan` decode is a Python loop here, and decode updates the recent
 rings, the decode pools (and the baseline arm's dense cache) in place, as
 chunked prefill does its K/V buffers.
+
+Tensor and data parallelism: a tree sharded by `parallel.shard_params`
+carries its layout (`parallel/sharding.py`), and the prefill functions,
+`decode_step` / `decode_loop` and the uncompressed arm run on it, one
+process per rank: each rank takes its data block of the rows and its
+model block of the heads, MLP columns, experts and vocabulary, and the
+layer helpers run the collectives over the mesh's groups (the masked
+embedding lookup and the `wo` / `w_down` partial sums all-reduced, the
+per-head prompt masses and the logits gathered). Their arguments and
+results are global, as JAX's are: ids, lengths and tokens [B, ...] in,
+logits [B, V] and per-row stats [B] out, the same on every rank; the
+decode state is the rank's own. `forward_logits` and the other models'
+entry points refuse a sharded tree.
 """
 
 from __future__ import annotations
@@ -183,8 +196,9 @@ def _concat_weights(ws):
 def fuse_params(params: Params) -> Params:
     """Fuse each layer's q/k/v projections into one `wqkv` and gate/up into
     one `w_gateup` weight (concatenated along the output axis); raw or
-    quantized trees. MoE layers stay unfused, as in the reference: their
-    attention runs wq, wk, wv and wo apart."""
+    quantized trees, or a rank's sharded slice (which keeps its layout).
+    MoE layers stay unfused, as in the reference: their attention runs
+    wq, wk, wv and wo apart."""
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = []
     for layer in params["layers"]:
@@ -199,7 +213,8 @@ def fuse_params(params: Params) -> Params:
             lo["w_gateup"] = _concat_weights([lo.pop("w_gate"),
                                               lo.pop("w_up")])
         out["layers"].append(lo)
-    return out
+    layout = getattr(params, "layout", None)  # a rank's sharded slice
+    return out if layout is None else layout.wrap(out)
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +251,11 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _embed_lookup(embed, input_ids: torch.Tensor, dtype,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, layout=None) -> torch.Tensor:
     ids = input_ids.long()
-    if isinstance(embed, QuantizedTensor):  # per-row int8
+    if layout is not None and layout.vocab_split:
+        out = layout.embed(embed, ids, dtype)
+    elif isinstance(embed, QuantizedTensor):  # per-row int8
         out = (embed.q[ids].float() * embed.scale[ids][..., None]).to(dtype)
     else:
         out = embed[ids].to(dtype)
@@ -322,36 +339,95 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(f"unknown hidden_act {name!r}")
 
 
-def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _row_parallel(x: torch.Tensor, w, layout) -> torch.Tensor:
+    """x @ w for a weight sharded by rows over the model axis: each rank's
+    partial product in float32 (bf16 operands widened: exact products),
+    the partials summed over the axis in float32 and rounded once to x's
+    dtype (`ShardLayout.reduce`)."""
+    return layout.reduce(x.float() @ w.float(), x.dtype)
+
+
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
+         layout=None) -> torch.Tensor:
     if "moe" in layer:  # Mixtral-style sparse MLP
+        if layout is not None and layout.experts_split:
+            return layout.moe(layer["moe"], x, cfg)  # expert parallel
         return moe_mlp(layer["moe"], x, cfg)
     act = cfg.hidden_act
     if "w_gateup" in layer:
         gu = _matmul(x, layer["w_gateup"])
         i = gu.shape[-1] // 2
-        return _matmul(_act(gu[..., :i], act) * gu[..., i:], layer["w_down"])
-    return _matmul(_act(_matmul(x, layer["w_gate"]), act)
-                   * _matmul(x, layer["w_up"]), layer["w_down"])
+        a = _act(gu[..., :i], act) * gu[..., i:]
+    else:
+        a = (_act(_matmul(x, layer["w_gate"]), act)
+             * _matmul(x, layer["w_up"]))
+    if layout is not None and layout.inter_split:
+        return _row_parallel(a, layer["w_down"], layout)
+    return _matmul(a, layer["w_down"])
 
 
 def logits_from_hidden(params: Params, h: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
+    """Logits [..., V] of hidden states; under a sharded tree each rank's
+    block of the vocabulary is gathered over the model axis."""
     h = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         embed = params["embed"]
         if isinstance(embed, QuantizedTensor):  # per-row scale = per logit
             return _int8_weight_only(h, embed.q.T, embed.scale)
-        return h @ embed.T
-    return _matmul(h, params["lm_head"])
+        logits = h @ embed.T
+    else:
+        logits = _matmul(h, params["lm_head"])
+    layout = getattr(params, "layout", None)
+    if layout is not None and layout.vocab_split:
+        logits = layout.gather_vocab(logits)
+    return logits
 
 
 def _attn_out(layer: Params, h: torch.Tensor, attn: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """Residual add of the attention output, then the gated-MLP block."""
+              cfg: ModelConfig, layout=None) -> torch.Tensor:
+    """Residual add of the attention output, then the gated-MLP block
+    (row-parallel `wo` and `w_down` under a sharded tree)."""
     b, s = h.shape[:2]
-    h = h + _matmul(attn.reshape(b, s, cfg.q_dim), layer["wo"])
+    a = attn.reshape(b, s, cfg.q_dim)
+    if layout is not None and layout.heads_split:
+        h = h + _row_parallel(a, layer["wo"], layout)
+    else:
+        h = h + _matmul(a, layer["wo"])
     return h + _mlp(layer, rmsnorm(h, layer["post_norm"], cfg.rms_norm_eps),
-                    cfg)
+                    cfg, layout)
+
+
+def _sharded(params: Params, cfg: ModelConfig, mesh=None):
+    """(layout, the config at this rank's counts) for a tree sharded by
+    `parallel.shard_params`; (None, cfg) for a whole one. `mesh`, where a
+    prefill function takes it, must be the tree's."""
+    layout = getattr(params, "layout", None)
+    if mesh is not None and (layout is None or layout.mesh != mesh):
+        raise ValueError("mesh= needs params sharded over that mesh "
+                         "(parallel.shard_params)")
+    if layout is None:
+        return None, cfg
+    return layout, layout.local_config(cfg)
+
+
+def refuse_sharded(params: Params, what: str) -> None:
+    """Raises NotImplementedError for a sharded tree in an entry point
+    that has no tensor-parallel path."""
+    if getattr(params, "layout", None) is not None:
+        raise NotImplementedError(
+            f"{what} takes no sharded params: tensor parallelism covers the "
+            f"prefill functions, decode_step / decode_loop and the "
+            f"uncompressed arm")
+
+
+def _sharded_outputs(layout, logits, state, stats, batch: int):
+    """A prefill's results under a sharded tree: the data ranks' logits
+    and per-row stats gathered, the state checked against the specs
+    (`ShardLayout.finish`)."""
+    if layout is None:
+        return logits, state, stats
+    return layout.finish(logits, state, stats, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -440,12 +516,15 @@ def decode_state_tensors(state: DecodeState) -> List[torch.Tensor]:
         if isinstance(v, torch.Tensor)]
 
 
-def _prefill_attention(q, k, v, prompt_len, use_flash, prompt_lens=None):
+def _prefill_attention(q, k, v, prompt_len, use_flash, prompt_lens=None,
+                       group=None):
     if use_flash:
         return flash_prefill_with_prompt_mass(q, k, v, prompt_len,
-                                              prompt_lens=prompt_lens)
+                                              prompt_lens=prompt_lens,
+                                              group=group)
     return prefill_attention_with_prompt_mass(q, k, v, prompt_len,
-                                              prompt_lens=prompt_lens)
+                                              prompt_lens=prompt_lens,
+                                              group=group)
 
 
 def _prompt_lens(lengths: torch.Tensor, ccfg: CompressionConfig,
@@ -456,9 +535,10 @@ def _prompt_lens(lengths: torch.Tensor, ccfg: CompressionConfig,
                        1, prompt_len)
 
 
-def _prefill_start(params, input_ids, cfg):
+def _prefill_start(params, input_ids, cfg, layout=None):
     b, s = input_ids.shape
-    h = _embed_lookup(params["embed"], input_ids, model_dtype(cfg), cfg)
+    h = _embed_lookup(params["embed"], input_ids, model_dtype(cfg), cfg,
+                      layout)
     positions = torch.arange(s, device=input_ids.device)[None].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -494,6 +574,7 @@ def prefill_compressed(
     max_decode_len: int = 128,
     use_flash: Optional[bool] = None,
     lengths: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
     """Full-sequence prefill with per-layer real-time KV compression.
 
@@ -505,13 +586,20 @@ def prefill_compressed(
     (those K1 took) also give the observation-window mass of the last
     `ccfg.query_window_for(S)` queries, ending at each row's true length on
     ragged rows. Returns (logits for the last position [B, V], decode
-    state, per-layer stats).
+    state, per-layer stats). A sharded tree runs tensor and data parallel
+    (the module's docstring); `mesh` must then be its mesh or None.
     """
     if use_flash is None:
         use_flash = input_ids.is_cuda
+    layout, lcfg = _sharded(params, cfg, mesh)
+    batch = input_ids.shape[0]
+    if layout is not None:
+        input_ids, lengths = layout.rows(input_ids), layout.rows(lengths)
+    group = layout.head_group if layout is not None else None
+    data_group = layout.data_group if layout is not None else None
     b, s = input_ids.shape
     prompt_len = ccfg.prompt_length(s)
-    h, positions, cos, sin = _prefill_start(params, input_ids, cfg)
+    h, positions, cos, sin = _prefill_start(params, input_ids, cfg, layout)
     token_valid = prompt_lens = None
     if lengths is not None:
         lengths = lengths.to(h.device)
@@ -523,22 +611,24 @@ def prefill_compressed(
     caches, recents, pools, all_stats = [], [], [], []
     for layer_idx, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn, prompt_mass = _prefill_attention(q, k, v, prompt_len,
-                                               use_flash, prompt_lens)
+                                               use_flash, prompt_lens, group)
         qmass = (query_attention_mass(q, k, ccfg.query_window_for(s),
                                       lengths=q_lengths,
-                                      pool=ccfg.query_mass_pool)
+                                      pool=ccfg.query_mass_pool, group=group)
                  if need_qmass else None)
         cache, stats = compress_layer_kv(k, v, prompt_mass, layer_idx, ccfg,
                                          cfg, token_valid=token_valid,
                                          prompt_lens=prompt_lens,
-                                         query_mass=qmass)
+                                         query_mass=qmass,
+                                         data_group=data_group,
+                                         kv_heads_total=cfg.num_kv_heads)
         caches.append(cache)
         all_stats.append(stats)
-        recent, pool = _decode_buffers(b, max_decode_len, cfg, ccfg,
+        recent, pool = _decode_buffers(b, max_decode_len, lcfg, ccfg,
                                        h.device)
         recents.append(recent)
         pools.append(pool)
@@ -548,12 +638,12 @@ def prefill_compressed(
             k_d, v_d, pos_c, valid = dequantize_layer_cache(cache, ccfg)
             attn = attention_over_tokens(q, k_d.to(q.dtype), v_d.to(q.dtype),
                                          pos_c, valid, positions)
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
     logits = logits_from_hidden(params, _last_hidden(h, lengths), cfg)
     state = DecodeState(caches=tuple(caches), recents=tuple(recents),
                         position=_end_positions(b, s, lengths, h.device),
                         pools=tuple(pools))
-    return logits, state, all_stats
+    return _sharded_outputs(layout, logits, state, all_stats, batch)
 
 
 def prefill_uncompressed(
@@ -567,21 +657,27 @@ def prefill_uncompressed(
     (K, V)) with K/V stacked over layers: [L, B, S, H_kv, D]. With
     `lengths`, right-padded ragged rows take their logits at their true
     last position (causality isolates them from the padding keys, and
-    decode overwrites the pad slots)."""
+    decode overwrites the pad slots). Under a sharded tree the K/V are the
+    rank's rows and kv heads, the logits [B, V] every row's."""
     if use_flash is None:
         use_flash = input_ids.is_cuda
-    h, _, cos, sin = _prefill_start(params, input_ids, cfg)
+    layout, lcfg = _sharded(params, cfg)
+    if layout is not None:
+        input_ids, lengths = layout.rows(input_ids), layout.rows(lengths)
+    h, _, cos, sin = _prefill_start(params, input_ids, cfg, layout)
     ks, vs = [], []
     for layer in params["layers"]:
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn, _ = _prefill_attention(q, k, v, 1, use_flash)
         ks.append(k)
         vs.append(v)
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
     logits = logits_from_hidden(params, _last_hidden(h, lengths), cfg)
+    if layout is not None:
+        logits, _ = layout.gather_outputs(logits)
     return logits, (torch.stack(ks), torch.stack(vs))
 
 
@@ -633,6 +729,7 @@ def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
     on a CUDA device it is called with a deterministic backward
     (`_EfficientCausalAttention`), on the CPU through SDPA.
     """
+    refuse_sharded(params, "forward_logits")
     if use_flash is None:
         use_flash = input_ids.is_cuda
     n_rep = cfg.num_heads // cfg.num_kv_heads
@@ -736,12 +833,19 @@ def prefill_chunked_step(
     the host offset and the device lengths: no device value is read).
     Per-row softmax over the buffer equals full-sequence causal attention,
     so caches and logits match the one-shot `prefill_compressed`. Returns
-    the state with `offset` advanced by c.
+    the state with `offset` advanced by c. Under a sharded tree chunk_ids
+    and lengths are global and `st` the rank's own (as the sharded
+    `prefill_compressed_chunked` builds it).
     """
     if use_flash is None:
         use_flash = chunk_ids.is_cuda
     attend = (flash_chunk_attention_with_prompt_mass if use_flash
               else chunk_attention_with_prompt_mass)
+    layout, lcfg = _sharded(params, cfg)
+    group = None
+    if layout is not None:
+        chunk_ids, lengths = layout.rows(chunk_ids), layout.rows(lengths)
+        group = layout.head_group
     b, c = chunk_ids.shape
     off = st.offset
     s_total = st.k_bufs[0].shape[1]
@@ -751,7 +855,8 @@ def prefill_chunked_step(
         lengths = lengths.to(chunk_ids.device)
         prompt_lens = _prompt_lens(lengths, ccfg, prompt_len)
 
-    h = _embed_lookup(params["embed"], chunk_ids, model_dtype(cfg), cfg)
+    h = _embed_lookup(params["embed"], chunk_ids, model_dtype(cfg), cfg,
+                      layout)
     positions = (off + torch.arange(c, device=chunk_ids.device))[None]
     cos, sin = rope_tables(positions.expand(b, c), cfg.head_dim,
                            cfg.rope_theta, cfg.rope_scaling)
@@ -761,23 +866,23 @@ def prefill_chunked_step(
         t_in_chunk = ((tail_pos >= off) & (tail_pos < off + c))[
             :, :, None, None]
         t_idx = torch.clamp(tail_pos - off, 0, c - 1).long()[
-            :, :, None, None].expand(b, w_win, cfg.num_heads, cfg.head_dim)
+            :, :, None, None].expand(b, w_win, lcfg.num_heads, cfg.head_dim)
     for li, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         k_buf, v_buf = st.k_bufs[li], st.v_bufs[li]
         k_buf[:, off:off + c] = k
         v_buf[:, off:off + c] = v
         attn, mass_c = attend(q, k_buf, v_buf, off, prompt_len,
-                              prompt_lens=prompt_lens)
+                              prompt_lens=prompt_lens, group=group)
         st.masses[li][:, off:off + c] = mass_c
         if st.q_tails:
             q_tail = st.q_tails[li]
             q_tail.copy_(torch.where(t_in_chunk, torch.gather(q, 1, t_idx),
                                      q_tail))
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
 
     # Capture the hidden state at each row's final position if it falls in
     # this chunk (rows keep their earlier capture otherwise).
@@ -797,6 +902,7 @@ def prefill_chunked_finish(
     ccfg: CompressionConfig,
     max_decode_len: int = 128,
     lengths: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
     """Compress the filled buffers into the decode state + last logits.
 
@@ -804,7 +910,15 @@ def prefill_chunked_finish(
     one-shot prefill's per-layer `compress_layer_kv` does: chunking changes
     when the attention runs, not what is compressed. With `q_tails` the
     query mass of the buffered window rows is computed here, over the
-    complete K buffers."""
+    complete K buffers. Under a sharded tree `st` is the rank's own and
+    `lengths` global; `mesh` as in `prefill_compressed`."""
+    layout, lcfg = _sharded(params, cfg, mesh)
+    group = data_group = None
+    batch = st.masses[0].shape[0]
+    if layout is not None:
+        batch *= layout.data_size
+        lengths = layout.rows(lengths)
+        group, data_group = layout.head_group, layout.data_group
     b, s = st.masses[0].shape
     dev = st.last_h.device
     token_valid = prompt_lens = None
@@ -822,21 +936,23 @@ def prefill_chunked_finish(
         if st.q_tails:
             qmass = window_attention_mass(
                 st.q_tails[li], torch.clamp(tail_pos, min=0), tail_pos >= 0,
-                st.k_bufs[li], key_ok, pool=ccfg.query_mass_pool)
+                st.k_bufs[li], key_ok, pool=ccfg.query_mass_pool,
+                group=group)
         cache, stats = compress_layer_kv(
             st.k_bufs[li], st.v_bufs[li], st.masses[li], li, ccfg, cfg,
             token_valid=token_valid, prompt_lens=prompt_lens,
-            query_mass=qmass)
+            query_mass=qmass, data_group=data_group,
+            kv_heads_total=cfg.num_kv_heads)
         caches.append(cache)
         all_stats.append(stats)
-        recent, pool = _decode_buffers(b, max_decode_len, cfg, ccfg, dev)
+        recent, pool = _decode_buffers(b, max_decode_len, lcfg, ccfg, dev)
         recents.append(recent)
         pools.append(pool)
     logits = logits_from_hidden(params, st.last_h, cfg)
     state = DecodeState(caches=tuple(caches), recents=tuple(recents),
                         position=_end_positions(b, s, lengths, dev),
                         pools=tuple(pools))
-    return logits, state, all_stats
+    return _sharded_outputs(layout, logits, state, all_stats, batch)
 
 
 def prefill_compressed_chunked(
@@ -848,17 +964,19 @@ def prefill_compressed_chunked(
     max_decode_len: int = 128,
     lengths: Optional[torch.Tensor] = None,
     use_flash: Optional[bool] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
     """init → one `prefill_chunked_step` per chunk → finish: the chunked
     equivalent of `prefill_compressed` (the same caches and logits to
     float tolerance). input_ids: [B, S] with S a multiple of chunk_size.
     The serving engine calls the three phases itself to interleave chunks
-    with decode."""
+    with decode. A sharded tree runs tensor and data parallel; `mesh` as
+    in `prefill_compressed`."""
     st = _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
                          use_flash)
     return prefill_chunked_finish(params, st, cfg, ccfg,
                                   max_decode_len=max_decode_len,
-                                  lengths=lengths)
+                                  lengths=lengths, mesh=mesh)
 
 
 def _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
@@ -866,10 +984,13 @@ def _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
     """init → one `prefill_chunked_step` per chunk: the filled carry that
     `prefill_chunked_finish` compresses (its masses are the per-layer
     prompt masses the compression scores)."""
+    layout, lcfg = _sharded(params, cfg)
     b, s = input_ids.shape
     if s % chunk_size:
         raise ValueError(f"seq len {s} not a multiple of chunk {chunk_size}")
-    st = prefill_chunked_init(b, s, cfg, ccfg, device=input_ids.device)
+    if layout is not None:
+        b = layout.rows(input_ids).shape[0]
+    st = prefill_chunked_init(b, s, lcfg, ccfg, device=input_ids.device)
     for off in range(0, s, chunk_size):
         st = prefill_chunked_step(params, input_ids[:, off:off + chunk_size],
                                   st, cfg, ccfg, lengths=lengths,
@@ -948,21 +1069,27 @@ def prefill_chunked_compressed_step(
     `positioned_attention_with_prompt_mass`); then the chunk is compressed
     with its own prompt mass (chunk-local min-max, global positions) and
     written into its slot range of the state's caches in place. Returns the
-    state with `offset` advanced by c.
+    state with `offset` advanced by c. Under a sharded tree chunk_ids are
+    global and `st` the rank's own.
     """
     if use_flash is None:
         use_flash = chunk_ids.is_cuda
+    layout, lcfg = _sharded(params, cfg)
+    group = None
+    if layout is not None:
+        chunk_ids, group = layout.rows(chunk_ids), layout.head_group
     b, c = chunk_ids.shape
     off = st.offset
     prompt_len = ccfg.prompt_length(total_len)
-    h = _embed_lookup(params["embed"], chunk_ids, model_dtype(cfg), cfg)
+    h = _embed_lookup(params["embed"], chunk_ids, model_dtype(cfg), cfg,
+                      layout)
     positions = (off + torch.arange(c, device=chunk_ids.device))[None] \
         .expand(b, c)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
     for li, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         cache = st.caches[li]
@@ -970,14 +1097,15 @@ def prefill_chunked_compressed_step(
                                                           q.dtype)
         if use_flash:
             attn, mass_c = flash_compressed_prefix_attention(
-                q, k_p, v_p, pos_p, valid_p, k, v, off, prompt_len)
+                q, k_p, v_p, pos_p, valid_p, k, v, off, prompt_len,
+                group=group)
         else:
             attn, mass_c = positioned_attention_with_prompt_mass(
                 q, torch.cat([k_p, k], dim=1), torch.cat([v_p, v], dim=1),
                 torch.cat([pos_p, positions.to(torch.int32)], dim=1),
                 torch.cat([valid_p, torch.ones((b, c), dtype=torch.bool,
                                                device=q.device)], dim=1),
-                positions, prompt_len)
+                positions, prompt_len, group=group)
         mn = mass_c.amin(dim=-1, keepdim=True)
         mx = mass_c.amax(dim=-1, keepdim=True)
         # A chunk whose mass is (near-)constant, e.g. one inside the prompt
@@ -990,7 +1118,7 @@ def prefill_chunked_compressed_step(
             k, v, mass_c, li, ccfg, cfg, shard_offset=off,
             total_len=total_len, minmax=(mn, mx))
         update_cache_chunk(cache, chunk_cache, off // c)
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
     last_h = st.last_h
     if off <= total_len - 1 < off + c:
         last_h = h[:, total_len - 1 - off]
@@ -1003,13 +1131,17 @@ def prefill_chunked_compressed_finish(
     cfg: ModelConfig,
     ccfg: CompressionConfig,
     max_decode_len: int = 128,
+    mesh=None,
 ) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
     """Last-position logits + the decode state over the caches the chunks
     built (they are the decode caches: no second compression pass). Stats
     are the reference's four keys per layer, counted from the tiers'
     `valid`: seq_len, kept_tokens, compression_ratio and
     token_memory_savings (so `summarize_layer_stats`, which wants the full
-    set, raises KeyError on them, as the reference's does)."""
+    set, raises KeyError on them, as the reference's does). Under a
+    sharded tree `st` is the rank's own; `mesh` as in
+    `prefill_compressed`."""
+    layout, lcfg = _sharded(params, cfg, mesh)
     b = st.last_h.shape[0]
     dev = st.last_h.device
     total = float(max(st.offset, 1))
@@ -1024,13 +1156,14 @@ def prefill_chunked_compressed_finish(
             "token_memory_savings": 1.0 - kept / total,
         })
     logits = logits_from_hidden(params, st.last_h, cfg)
-    buffers = [_decode_buffers(b, max_decode_len, cfg, ccfg, dev)
+    buffers = [_decode_buffers(b, max_decode_len, lcfg, ccfg, dev)
                for _ in st.caches]
     state = DecodeState(
         caches=st.caches, recents=tuple(r for r, _ in buffers),
         position=torch.full((b,), st.offset, dtype=torch.int32, device=dev),
         pools=tuple(p for _, p in buffers))
-    return logits, state, all_stats
+    return _sharded_outputs(layout, logits, state, all_stats,
+                            b * (layout.data_size if layout else 1))
 
 
 def prefill_compressed_prefix_chunked(
@@ -1041,19 +1174,26 @@ def prefill_compressed_prefix_chunked(
     chunk_size: int,
     max_decode_len: int = 128,
     use_flash: Optional[bool] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, DecodeState, List[Dict[str, torch.Tensor]]]:
     """init → one `prefill_chunked_compressed_step` per chunk → finish,
     for a uniform batch input_ids [B, S] with S a multiple of chunk_size.
-    Returns (last-position logits [B, V], decode state, per-layer stats)."""
+    Returns (last-position logits [B, V], decode state, per-layer stats).
+    A sharded tree runs tensor and data parallel; `mesh` as in
+    `prefill_compressed`."""
+    layout, lcfg = _sharded(params, cfg, mesh)
     b, s = input_ids.shape
-    st = prefill_chunked_compressed_init(b, s, chunk_size, cfg, ccfg,
+    if layout is not None:
+        b = layout.rows(input_ids).shape[0]
+    st = prefill_chunked_compressed_init(b, s, chunk_size, lcfg, ccfg,
                                          device=input_ids.device)
     for off in range(0, s, chunk_size):
         st = prefill_chunked_compressed_step(
             params, input_ids[:, off:off + chunk_size], st, cfg, ccfg,
             total_len=s, use_flash=use_flash)
     return prefill_chunked_compressed_finish(params, st, cfg, ccfg,
-                                             max_decode_len=max_decode_len)
+                                             max_decode_len=max_decode_len,
+                                             mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1087,10 +1227,16 @@ def decode_step(
     full rows only; the state's host-side per-row `ring_fill` says when any
     row is full), so no ring overflows. The state's rings and pools are
     updated in place; returns (logits [B, V], the state with position + 1).
+    Under a sharded tree `token` and the logits are global, the state the
+    rank's own (its rows and kv heads): K2 runs over the rank's heads.
     """
     if use_fused is None:
         use_fused = token.is_cuda
-    h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg)[:, None]
+    layout, lcfg = _sharded(params, cfg)
+    if layout is not None:
+        token = layout.rows(token)
+    h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg,
+                      layout)[:, None]
     q_pos = state.position[:, None]
     cos, sin = rope_tables(q_pos, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -1101,11 +1247,11 @@ def decode_step(
     for layer, cache, recent, pool in zip(params["layers"], state.caches,
                                           state.recents, pools):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if flush:
-            flush_recent(recent, pool, ccfg, cfg)
+            flush_recent(recent, pool, ccfg, lcfg)
         append_recent(recent, k, v, q_pos)
         if use_fused:
             attn = fused_decode_attention(q, cache, recent, q_pos, ccfg,
@@ -1113,8 +1259,10 @@ def decode_step(
         else:
             attn = decode_attention_plain(q, cache, recent, q_pos, ccfg,
                                           dtype=q.dtype, pool=pool)
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
     logits = logits_from_hidden(params, h[:, 0], cfg)
+    if layout is not None:
+        logits, _ = layout.gather_outputs(logits)
     state = dataclasses.replace(state, position=state.position + 1,
                                 ring_fill=ring_fill)
     return logits, state
@@ -1193,10 +1341,16 @@ def decode_step_uncompressed(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Baseline decode over a padded dense KV cache (K, V) [L, B, M, H, D];
     slots < `position` are live. Writes this step's K/V into the cache in
-    place."""
+    place. Under a sharded tree `token`, `position` and the logits are
+    global and the cache is the rank's own (`prefill_uncompressed`'s)."""
+    layout, lcfg = _sharded(params, cfg)
     ks, vs = kv
     b, m = ks.shape[1], ks.shape[2]
-    h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg)[:, None]
+    step_pos = position
+    if layout is not None:
+        token, position = layout.rows(token), layout.rows(position)
+    h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg,
+                      layout)[:, None]
     q_pos = position[:, None]
     cos, sin = rope_tables(q_pos, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -1206,16 +1360,18 @@ def decode_step_uncompressed(
     pos_l = position.long()
     for layer_idx, layer in enumerate(params["layers"]):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         ks[layer_idx][bidx, pos_l] = k[:, 0]
         vs[layer_idx][bidx, pos_l] = v[:, 0]
         attn = attention_over_tokens(q, ks[layer_idx], vs[layer_idx],
                                      pos_all, valid, q_pos)
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
     logits = logits_from_hidden(params, h[:, 0], cfg)
-    return logits, kv, position + 1
+    if layout is not None:
+        logits, _ = layout.gather_outputs(logits)
+    return logits, kv, step_pos + 1
 
 
 def decode_loop_uncompressed(

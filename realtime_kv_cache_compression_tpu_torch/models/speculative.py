@@ -102,6 +102,7 @@ def verify_forward(params: Params, tokens: torch.Tensor, state: DecodeState,
     the block. Returns (logits [B, T, V], per-layer [(k_blk, v_blk)] for
     `commit_block`).
     """
+    llama.refuse_sharded(params, "speculative decoding")
     b, t = tokens.shape
     dev = tokens.device
     h = _embed_lookup(params["embed"], tokens, model_dtype(cfg), cfg)

@@ -12,6 +12,10 @@ importance (`importance_source` "query" / "both"), and
 `sharded_window_attention_mass` the same mass with the keys sharded over
 a process group (sequence-parallel prefill); they are plain code in the
 reference too, with no kernel behind them.
+Under tensor parallelism each rank holds a block of the heads: the
+functions that give a head-averaged mass take the model axis's `group`,
+and gather the per-head masses over it before the mean (`head_mean`), so
+every rank averages the same [B, H, ...] tensor.
 Logits and accumulation are float32 as in the reference: bf16 operands are
 widened before the products, and probabilities are cast to the value dtype
 before the value product, like the reference's bf16 einsums with
@@ -39,6 +43,18 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, h * n_rep, d)
 
 
+def head_mean(per_head: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over the head axis (dim 1) of a per-head mass [B, H, ...].
+    With `group` (tensor parallelism's model axis, each rank holding a
+    contiguous block of the heads in rank order) every rank's heads are
+    gathered first: each rank then takes the one-rank mean over all
+    heads, bit for bit the same on every rank (an all-reduce of partial
+    means would reorder the float32 sum)."""
+    if group is not None:
+        per_head = comm.all_gather(per_head, 1, group)
+    return per_head.mean(dim=1)
+
+
 def prefill_attention_with_prompt_mass(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -46,13 +62,15 @@ def prefill_attention_with_prompt_mass(
     prompt_len: int,
     causal: bool = True,
     prompt_lens: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense causal attention + prompt attention mass.
 
     q: [B, S, H_q, D]; k, v: [B, S, H_kv, D]; prompt_lens: optional [B]
     per-row prompt lengths <= prompt_len. Returns (out [B, S, H_q, D] in
     q's dtype, prompt_mass [B, S] float32 = mean over heads of the softmax
-    mass on key columns < the row's prompt length).
+    mass on key columns < the row's prompt length; with `group`, over the
+    heads of every rank of the group, `head_mean`).
     """
     b, s, hq, d = q.shape
     n_rep = hq // k.shape[2]
@@ -72,7 +90,10 @@ def prefill_attention_with_prompt_mass(
         prompt_probs = torch.where(
             col[None, None, None, :] < prompt_lens[:, None, None, None],
             prompt_probs, torch.zeros((), device=q.device))
-    prompt_mass = prompt_probs.mean(dim=1).sum(dim=-1)
+    if group is None:
+        prompt_mass = prompt_probs.mean(dim=1).sum(dim=-1)
+    else:
+        prompt_mass = head_mean(prompt_probs.sum(dim=-1), group)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v.float())
     return out.to(q.dtype), prompt_mass
 
@@ -117,6 +138,7 @@ def chunk_attention_with_prompt_mass(
     q_offset: int,
     prompt_len: int,
     prompt_lens: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rectangular causal attention of one prefill chunk over the KV buffer.
 
@@ -126,7 +148,7 @@ def chunk_attention_with_prompt_mass(
     positions, so causality hides them); prompt_lens: optional [B] per-row
     prompt lengths <= prompt_len. Returns (out [B, c, H_q, D] in q's dtype,
     prompt_mass [B, c] float32), as `prefill_attention_with_prompt_mass`
-    gives for the same rows of the whole sequence.
+    gives for the same rows of the whole sequence (`group`: as there).
     """
     b, c, hq, d = q.shape
     s, hkv = k_buf.shape[1], k_buf.shape[2]
@@ -146,7 +168,11 @@ def chunk_attention_with_prompt_mass(
         prompt_probs = torch.where(
             col < prompt_lens.to(q.device)[:, None, None, None, None],
             prompt_probs, torch.zeros((), device=q.device))
-    prompt_mass = prompt_probs.sum(dim=-1).mean(dim=(1, 2))   # [B, c]
+    if group is None:
+        prompt_mass = prompt_probs.sum(dim=-1).mean(dim=(1, 2))  # [B, c]
+    else:
+        prompt_mass = head_mean(prompt_probs.sum(dim=-1).flatten(1, 2),
+                                group)
     out = torch.einsum("bhrqk,bkhd->bqhrd", attn.to(v_buf.dtype).float(),
                        v_buf.float())
     return out.reshape(b, c, hq, d).to(q.dtype), prompt_mass
@@ -158,6 +184,7 @@ def query_attention_mass(
     window: int,
     lengths: Optional[torch.Tensor] = None,
     pool: int = 0,
+    group=None,
 ) -> torch.Tensor:
     """Observation-window mass: the attention each key receives from the
     last `window` prefill queries (importance_source "query" / "both").
@@ -167,7 +194,8 @@ def query_attention_mass(
     at their true lengths (rows before position 0, when a length is below
     the window, are masked out); pool: max-pool width over key positions
     (0 or 1: none). Returns [B, S] float32: per key column, the mean over
-    heads of the softmax summed over the window rows.
+    heads of the softmax summed over the window rows (with `group`, over
+    the heads of every rank of the group, `head_mean`).
     """
     b, s = q.shape[:2]
     w = min(window, s)
@@ -184,7 +212,8 @@ def query_attention_mass(
             b, w, *q.shape[2:]))
         q_pos = idx
         key_ok = torch.arange(s, device=q.device)[None] < lengths[:, None]
-    return window_attention_mass(q_w, q_pos, row_ok, k, key_ok, pool=pool)
+    return window_attention_mass(q_w, q_pos, row_ok, k, key_ok, pool=pool,
+                                 group=group)
 
 
 def window_attention_mass(
@@ -194,6 +223,7 @@ def window_attention_mass(
     k: torch.Tensor,
     key_ok: torch.Tensor,
     pool: int = 0,
+    group=None,
 ) -> torch.Tensor:
     """Core of `query_attention_mass` over an already-gathered window (the
     chunked prefill buffers the window's query rows across chunks and calls
@@ -218,7 +248,10 @@ def window_attention_mass(
     attn = torch.softmax(logits, dim=-1)                        # [B,h,r,W,S]
     attn = torch.where(row_ok[:, None, None, :, None], attn,
                        torch.zeros((), device=k.device))
-    mass = attn.mean(dim=(1, 2)).sum(dim=1)                     # [B, S]
+    if group is None:
+        mass = attn.mean(dim=(1, 2)).sum(dim=1)                 # [B, S]
+    else:
+        mass = head_mean(attn.sum(dim=3).flatten(1, 2), group)
     if pool and pool > 1:
         lo = (pool - 1) // 2
         padded = F.pad(mass[:, None], (lo, pool - 1 - lo), value=-torch.inf)
@@ -235,6 +268,7 @@ def positioned_attention_with_prompt_mass(
     k_valid: torch.Tensor,
     q_positions: torch.Tensor,
     prompt_len: int,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention of chunk queries over a positioned token set, with the
     prompt-mass side channel: the dense form of the compressed-prefix
@@ -244,8 +278,9 @@ def positioned_attention_with_prompt_mass(
     q_positions[i]; it is a prompt column iff it is valid and k_positions[j]
     < prompt_len. q: [B, c, H_q, D]; k, v: [B, N, H_kv, D]; k_positions:
     [B, N] int; k_valid: [B, N] bool; q_positions: [B, c]. Returns (out
-    [B, c, H_q, D] in q's dtype, prompt_mass [B, c] float32, head-averaged);
-    a row that sees no key gets zeros in both. (The reference's per-row
+    [B, c, H_q, D] in q's dtype, prompt_mass [B, c] float32, head-averaged,
+    over every rank's heads with `group`); a row that sees no key gets
+    zeros in both. (The reference's per-row
     `prompt_lens` has no caller and is not ported.)
     """
     b, sq, hq, d = q.shape
@@ -262,7 +297,10 @@ def positioned_attention_with_prompt_mass(
     is_prompt = (k_positions < prompt_len) & k_valid          # [B, N]
     pmass = torch.where(is_prompt[:, None, None, None], attn,
                         torch.zeros((), device=q.device))
-    prompt_mass = pmass.sum(dim=-1).mean(dim=(1, 2))          # [B, c]
+    if group is None:
+        prompt_mass = pmass.sum(dim=-1).mean(dim=(1, 2))      # [B, c]
+    else:
+        prompt_mass = head_mean(pmass.sum(dim=-1).flatten(1, 2), group)
     out = torch.einsum("bhrqk,bkhd->bqhrd", attn.to(v.dtype).float(),
                        v.float())
     any_valid = mask.any(dim=-1)                              # [B, c]

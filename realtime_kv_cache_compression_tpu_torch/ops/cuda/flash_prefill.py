@@ -51,7 +51,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..attention import (chunk_attention_with_prompt_mass,
+from ..attention import (chunk_attention_with_prompt_mass, head_mean,
                          prefill_attention_with_prompt_mass)
 from . import _build
 
@@ -236,24 +236,28 @@ def flash_prefill_with_prompt_mass(
     v: torch.Tensor,
     prompt_len: int,
     prompt_lens: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mode (a): causal attention + prompt attention mass, the contract of
     `prefill_attention_with_prompt_mass`.
 
     q: [B, S, H_q, D]; k, v: [B, S, H_kv, D]; prompt_lens: optional [B]
     per-row prompt lengths <= prompt_len. Returns (out [B, S, H_q, D] in q's
-    dtype, prompt_mass [B, S] float32 averaged over heads).
+    dtype, prompt_mass [B, S] float32 averaged over heads: the kernel's
+    per-head mass, gathered over `group` first under tensor parallelism,
+    `head_mean`).
     """
     if q.device.type == "cpu":
         return prefill_attention_with_prompt_mass(q, k, v, prompt_len,
-                                                  prompt_lens=prompt_lens)
+                                                  prompt_lens=prompt_lens,
+                                                  group=group)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash prefill: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
     out, _, pm = _launch(q, k, v, 0, _prompt_len_rows(q, prompt_len,
                                                       prompt_lens))
     flash_prefill_with_prompt_mass.launches += 1
-    return out, pm.mean(dim=1)
+    return out, head_mean(pm, group)
 
 
 def flash_chunk_attention_with_prompt_mass(
@@ -263,6 +267,7 @@ def flash_chunk_attention_with_prompt_mass(
     q_offset: int,
     prompt_len: int,
     prompt_lens: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mode (b): one prefill chunk over the position-ordered KV buffer, the
     contract of `chunk_attention_with_prompt_mass`.
@@ -270,17 +275,18 @@ def flash_chunk_attention_with_prompt_mass(
     q: [B, c, H_q, D] at positions q_offset .. q_offset + c - 1 (a host
     int: the chunk loop runs on the host); k_buf, v_buf: [B, S, H_kv, D]
     with the chunk written, q_offset + c <= S. Returns (out [B, c, H_q, D]
-    in q's dtype, prompt_mass [B, c] float32).
+    in q's dtype, prompt_mass [B, c] float32; `group` as in mode (a)).
     """
     q_offset = int(q_offset)
     if q.device.type == "cpu":
         return chunk_attention_with_prompt_mass(q, k_buf, v_buf, q_offset,
                                                 prompt_len,
-                                                prompt_lens=prompt_lens)
+                                                prompt_lens=prompt_lens,
+                                                group=group)
     out, _, pm = _launch(q, k_buf, v_buf, q_offset,
                          _prompt_len_rows(q, prompt_len, prompt_lens))
     flash_chunk_attention_with_prompt_mass.launches += 1
-    return out, pm.mean(dim=1)
+    return out, head_mean(pm, group)
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +450,7 @@ def flash_compressed_prefix_attention(
     v_chunk: torch.Tensor,
     q_offset: int,
     prompt_len: int,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk attention over {compressed pools} ++ {own chunk}, flash form:
     mode (d) over the dequantized pools, the diagonal pair over the chunk's
@@ -454,7 +461,8 @@ def flash_compressed_prefix_attention(
 
     q: [B, c, Hq, D] at q_offset (host int); k_pool, v_pool: [B, N, Hkv, D]
     in q's dtype; pos_pool [B, N] int32, valid_pool [B, N] bool; k_chunk,
-    v_chunk: [B, c, Hkv, D]. Returns (out [B, c, Hq, D], prompt_mass [B, c]).
+    v_chunk: [B, c, Hkv, D]. Returns (out [B, c, Hq, D], prompt_mass [B, c];
+    `group` as in mode (a)).
     """
     b, c = q.shape[:2]
     q_offset = int(q_offset)
@@ -467,7 +475,7 @@ def flash_compressed_prefix_attention(
     part_self = flash_pair_attention(q, k_chunk, v_chunk, plen_local,
                                      causal=True)
     out, pm = merge_attention_partials([part_pool, part_self])
-    return out.to(q.dtype), pm.mean(dim=1)
+    return out.to(q.dtype), head_mean(pm, group)
 
 
 flash_prefill_with_prompt_mass.launches = 0

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import comm
 from ..config import HIGH, LOW, MID, CompressionConfig
 
 
@@ -24,15 +25,23 @@ from ..config import HIGH, LOW, MID, CompressionConfig
 # Precision assignment
 # ---------------------------------------------------------------------------
 
-def assign_precision(scores: torch.Tensor, cfg: CompressionConfig
+def assign_precision(scores: torch.Tensor, cfg: CompressionConfig,
+                     group=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Threshold-based precision labels: 2=HIGH, 1=MID, 0=LOW."""
+    """Threshold-based precision labels: 2=HIGH, 1=MID, 0=LOW. The stats
+    count the whole batch; with `group` (the data axis, each rank holding
+    an equal block of its rows) the counts are summed over the group
+    first, so the ratios are the whole batch's."""
     high = scores >= cfg.theta_h
     mid = (scores >= cfg.theta_m) & ~high
     labels = high.to(torch.int32) * HIGH + mid.to(torch.int32) * MID
     total = scores.numel()
     n_high = high.sum()
     n_mid = mid.sum()
+    if group is not None:
+        n_high, n_mid = comm.all_reduce_sum(torch.stack([n_high, n_mid]),
+                                            group)
+        total *= comm.rank_and_size(group)[1]
     n_low = total - n_high - n_mid
     stats = {
         "high_count": n_high, "medium_count": n_mid, "low_count": n_low,
@@ -224,13 +233,15 @@ def storage_bytes(shape_tokens: int, head_dim: int, num_kv_heads: int,
 
 def memory_report(labels: torch.Tensor, valid: torch.Tensor,
                   cfg: CompressionConfig, head_dim: int,
-                  original_tokens=None, group_size: int = 0
+                  original_tokens=None, group_size: int = 0, group=None
                   ) -> Dict[str, torch.Tensor]:
     """Per-tier element counts and compressed/original byte ratio.
 
     `head_dim` is the fused token-vector width; `original_tokens` the true
     pre-compression token count. Scale + zero-point bytes (float32, one pair
-    per group) are charged for every stored token.
+    per group) are charged for every stored token. With `group` (the data
+    axis, each rank holding an equal block of the rows) the counts are
+    summed over the group first: the ratio is the whole batch's.
     """
     lab = torch.where(valid, labels, torch.full_like(labels, -1))
     n_high = (lab == HIGH).sum()
@@ -238,6 +249,14 @@ def memory_report(labels: torch.Tensor, valid: torch.Tensor,
     n_low = (lab == LOW).sum()
     total_tokens = (original_tokens if original_tokens is not None
                     else labels.shape[-1] * labels.shape[0])
+    if group is not None:
+        counted = isinstance(total_tokens, torch.Tensor)
+        sums = comm.all_reduce_sum(torch.stack(
+            [n_high, n_mid, n_low] + ([total_tokens] if counted else [])),
+            group)
+        n_high, n_mid, n_low = sums[:3]
+        total_tokens = (sums[3] if counted else
+                        total_tokens * comm.rank_and_size(group)[1])
     original_bytes = total_tokens * head_dim * 2.0
     n_groups = head_dim // (group_size or head_dim)
     param_bytes_per_token = n_groups * 4 * 2

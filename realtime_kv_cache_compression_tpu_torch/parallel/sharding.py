@@ -1,0 +1,408 @@
+"""Tensor and data parallelism over a (data, model) mesh of ranks.
+
+Port of the JAX package's `parallel/sharding.py`. JAX places each leaf on
+a device mesh by a PartitionSpec and lets GSPMD partition the program; the
+port runs one process per rank, so each rank keeps only its slice of
+every leaf (`shard_params`) and the model code runs the Megatron-style
+collectives itself (`comm.py`, over the mesh's groups):
+
+- `model` axis: whole attention heads (query heads r·Hq/m .. (r+1)·Hq/m - 1
+  on model rank r, with the kv heads they read), the MLP's intermediate
+  columns, the experts of a MoE layer and the vocabulary. `wq`, `wk`,
+  `wv` (and Qwen2's biases) by column, `wo` by row, then one SUM
+  all-reduce; `w_gate` / `w_up` by column, `w_down` by row, then one SUM
+  all-reduce; `embed` by vocab row (a masked lookup and one SUM
+  all-reduce, exact: one rank gives each row, the others zeros);
+  `lm_head` (or the tied `embed`) by vocab column, the logits gathered
+  over the axis before any argmax or sampling; the experts by their
+  [E] axis (`expert_parallel.ep_moe_mlp`); norms and the router
+  replicated. The partial sums of `wo` and `w_down` are products in
+  float32 (bf16 operands widened, exact products), reduced in float32 and
+  rounded once to the model dtype: against one rank, whose matmul rounds
+  its float32 accumulation once, only the order of the float32 sum
+  differs.
+- `data` axis: the batch rows; the model's functions take each data
+  rank's rows of the ids and lengths, and gather the logits and the
+  per-row stats.
+
+A dimension the axis does not divide is replicated instead, the outcome
+of JAX's `_feasible_spec`, but in whole heads: the attention is sharded
+only when `model` divides the query heads and either divides the kv heads
+or gives every rank query heads of one kv head (Gemma-2B's single kv head
+is then held, with its caches, by every rank); otherwise every rank runs
+every head. JAX splits such a head's columns and lets GSPMD mend it.
+
+The prompt mass each rank's attention gives per head is gathered over
+`model` before the mean over heads (`ops/attention.head_mean`), so every
+model rank scores and selects the same tokens by construction. The byte
+stats count the model's whole kv width, and over `data` the batch-wide
+counts are all-reduced before the ratios are formed: the stats are those
+of JAX's global arrays.
+
+A sharded tree (`ShardedParams`) carries its `ShardLayout`, and the
+prefill and decode functions of `models/llama.py` pick it up: `mesh=` on
+them (where JAX has it) checks the state they return
+(`constrain_decode_state`, a check here: there is no GSPMD to re-lay a
+state). Quantized and fused trees are refused: JAX's specs cover float
+trees under the unfused names; a rank may fuse its slice after sharding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .. import comm
+from ..config import ModelConfig
+from .expert_parallel import ep_moe_mlp
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+
+Params = Dict[str, Any]
+Spec = Tuple[Optional[str], ...]  # one mesh axis (or None) per dimension
+
+_ATTN_Q = ("wq", "bq", "wo")
+_ATTN_KV = ("wk", "bk", "wv", "bv")
+_DENSE_MLP = ("w_gate", "w_up", "w_down")
+_TIER_FIELDS = ("k_stored", "v_stored", "k_scale", "k_zp", "v_scale",
+                "v_zp")
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The spec tree of `models.llama.init_params`'s tree (JAX's
+    `param_specs`, a tuple per leaf for its PartitionSpec)."""
+    layer = {
+        "wq": (None, MODEL_AXIS),        # [H, Hq*D]: heads by column
+        "wk": (None, MODEL_AXIS),        # [H, Hkv*D]
+        "wv": (None, MODEL_AXIS),
+        "wo": (MODEL_AXIS, None),        # [Hq*D, H]: by row (all-reduce)
+        "input_norm": (),
+        "post_norm": (),
+    }
+    if cfg.qkv_bias:
+        layer.update(bq=(MODEL_AXIS,), bk=(MODEL_AXIS,), bv=(MODEL_AXIS,))
+    if cfg.num_experts:
+        layer["moe"] = {"gate": (),                        # [H, E]
+                        "w_gate": (MODEL_AXIS, None, None),  # [E, H, I]
+                        "w_up": (MODEL_AXIS, None, None),
+                        "w_down": (MODEL_AXIS, None, None)}  # [E, I, H]
+    else:
+        layer.update(w_gate=(None, MODEL_AXIS), w_up=(None, MODEL_AXIS),
+                     w_down=(MODEL_AXIS, None))
+    specs = {"embed": (MODEL_AXIS, None),                  # [V, H]
+             "layers": [dict(layer) for _ in range(cfg.num_layers)],
+             "final_norm": ()}
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (None, MODEL_AXIS)              # [H, V]
+    return specs
+
+
+def _block(n: int, parts: int, index: int) -> Tuple[int, int]:
+    return index * n // parts, (index + 1) * n // parts
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """This rank's slice of a model on a (data, model) mesh: the global
+    ranges of the query heads, kv heads, intermediate columns, experts and
+    vocabulary it holds (the whole range where that dimension is
+    replicated), and the collectives the model code runs over them."""
+
+    mesh: Mesh
+    cfg: ModelConfig
+    q_heads: Tuple[int, int]
+    kv_heads: Tuple[int, int]
+    inter: Tuple[int, int]
+    experts: Tuple[int, int]
+    vocab: Tuple[int, int]
+
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape[DATA_AXIS]
+
+    @property
+    def model_group(self):
+        return self.mesh.group(MODEL_AXIS)
+
+    @property
+    def data_group(self):
+        return self.mesh.group(DATA_AXIS)
+
+    def _split(self, rng: Tuple[int, int], total: int) -> bool:
+        return rng[1] - rng[0] != total
+
+    @property
+    def heads_split(self) -> bool:
+        return self._split(self.q_heads, self.cfg.num_heads)
+
+    @property
+    def inter_split(self) -> bool:
+        return self._split(self.inter, self.cfg.intermediate_size)
+
+    @property
+    def experts_split(self) -> bool:
+        return self._split(self.experts, self.cfg.num_experts)
+
+    @property
+    def vocab_split(self) -> bool:
+        return self._split(self.vocab, self.cfg.vocab_size)
+
+    @property
+    def head_group(self):
+        """The group over which the per-head masses are gathered (None
+        when every rank runs every head)."""
+        return self.model_group if self.heads_split else None
+
+    def local_config(self, cfg: Optional[ModelConfig] = None) -> ModelConfig:
+        """`cfg` (default: the sharded one) at this rank's head, kv-head
+        and intermediate counts, for the model's reshapes and buffers; the
+        vocabulary and expert counts stay global (the logits are gathered,
+        and the router is replicated). Raises ValueError when `cfg`'s
+        shapes are not those the tree was sharded for."""
+        cfg = self.cfg if cfg is None else cfg
+        dims = ("num_heads", "num_kv_heads", "head_dim", "hidden_size",
+                "intermediate_size", "vocab_size", "num_experts",
+                "num_layers", "qkv_bias", "tie_word_embeddings")
+        if any(getattr(cfg, f) != getattr(self.cfg, f) for f in dims):
+            raise ValueError("the config's shapes are not those the params "
+                             "were sharded for")
+        return dataclasses.replace(
+            cfg, num_heads=self.q_heads[1] - self.q_heads[0],
+            num_kv_heads=self.kv_heads[1] - self.kv_heads[0],
+            intermediate_size=self.inter[1] - self.inter[0])
+
+    # -- the data axis -----------------------------------------------------
+
+    def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This data rank's block of the rows of x (None stays None)."""
+        return None if x is None else shard_batch(x, self.mesh)
+
+    def gather_outputs(self, logits: torch.Tensor,
+                       stats: Optional[List[Dict[str, torch.Tensor]]] = None
+                       ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+        """The logits and the per-row stats of every data rank's rows, in
+        one all-gather over `data` (the batch-wide stats are already
+        global). Returns (logits [B, V], stats)."""
+        if self.data_group is None:
+            return logits, stats
+        b = logits.shape[0]
+        keys = [(i, key) for i, st in enumerate(stats or [])
+                for key, x in st.items() if x.dim() and x.shape[0] == b]
+        parts = comm.all_gather_tensors(
+            [logits] + [stats[i][key] for i, key in keys], self.data_group)
+        logits = torch.cat([p[0] for p in parts])
+        if stats is None:
+            return logits, None
+        stats = [dict(st) for st in stats]
+        for j, (i, key) in enumerate(keys, start=1):
+            stats[i][key] = torch.cat([p[j] for p in parts])
+        return logits, stats
+
+    # -- the model axis ----------------------------------------------------
+
+    def reduce(self, partial: torch.Tensor, dtype) -> torch.Tensor:
+        """The float32 SUM of every model rank's partial product, rounded
+        once to `dtype`."""
+        return comm.all_reduce_sum(partial.float(),
+                                   self.model_group).to(dtype)
+
+    def embed(self, embed: torch.Tensor, ids: torch.Tensor,
+              dtype) -> torch.Tensor:
+        """Embedding rows of `ids` from the vocab-sharded table: each rank
+        looks up the ids in its range (zeros elsewhere) and one SUM
+        all-reduce assembles them, exactly."""
+        lo, hi = self.vocab
+        local = ids.long() - lo
+        here = (local >= 0) & (local < hi - lo)
+        rows = embed[torch.clamp(local, 0, hi - lo - 1)].float()
+        rows = torch.where(here[..., None], rows,
+                           torch.zeros((), device=rows.device))
+        return comm.all_reduce_sum(rows, self.model_group).to(dtype)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """[..., V/m] logits of every model rank, concatenated: [..., V]."""
+        return comm.all_gather(logits.contiguous(), logits.dim() - 1,
+                               self.model_group)
+
+    def moe(self, moe: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+        """The expert-parallel MoE MLP over this rank's experts (lossless
+        capacity), summed over `model`."""
+        return ep_moe_mlp(moe, x, cfg, self.mesh)
+
+    def finish(self, logits, state, stats, batch: int):
+        """A prefill's results: the logits and per-row stats gathered over
+        `data` (`gather_outputs`), the state checked
+        (`constrain_decode_state`)."""
+        logits, stats = self.gather_outputs(logits, stats)
+        return logits, constrain_decode_state(state, self, batch), stats
+
+    def wrap(self, tree: Params) -> "ShardedParams":
+        return ShardedParams(tree, self)
+
+
+class ShardedParams(dict):
+    """A rank's params tree (a plain dict of its slices) carrying its
+    `ShardLayout`, which the model's prefill and decode functions read."""
+
+    def __init__(self, tree: Params, layout: ShardLayout):
+        super().__init__(tree)
+        self.layout = layout
+
+
+def shard_layout(cfg: ModelConfig, mesh: Mesh) -> ShardLayout:
+    """This rank's `ShardLayout` of a `cfg` model on `mesh`: each model
+    dimension split in contiguous blocks by the rank's `model`
+    coordinate where the axis divides it (in whole heads for the
+    attention), else whole."""
+    m, r = mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    n_rep = hq // hkv
+    q = kv = None
+    if m > 1 and hq % m == 0:
+        q = _block(hq, m, r)
+        kv = (q[0] // n_rep, (q[1] - 1) // n_rep + 1)
+        # Local GQA must map local q head i to local kv head i // n_rep':
+        # contiguous whole groups, or one kv head for all of them.
+        if not (hkv % m == 0 or n_rep % (hq // m) == 0):
+            q = kv = None
+    if q is None:
+        q, kv = (0, hq), (0, hkv)
+
+    def block(n: int) -> Tuple[int, int]:
+        return _block(n, m, r) if n and n % m == 0 else (0, n)
+
+    return ShardLayout(mesh=mesh, cfg=cfg, q_heads=q, kv_heads=kv,
+                       inter=block(cfg.intermediate_size),
+                       experts=block(cfg.num_experts),
+                       vocab=block(cfg.vocab_size))
+
+
+def _leaf_range(name: str, lay: ShardLayout) -> Tuple[int, int]:
+    """The range a sharded leaf keeps along its `model` dimension."""
+    d = lay.cfg.head_dim
+    if name in _ATTN_Q:
+        return lay.q_heads[0] * d, lay.q_heads[1] * d
+    if name in _ATTN_KV:
+        return lay.kv_heads[0] * d, lay.kv_heads[1] * d
+    if name in _DENSE_MLP:
+        return lay.inter
+    if name in ("embed", "lm_head"):
+        return lay.vocab
+    raise KeyError(name)
+
+
+def _slice(x, spec: Spec, name: str, lay: ShardLayout, in_moe: bool):
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"shard_params takes float trees: {name} is a "
+                         f"{type(x).__name__} (quantized trees are not "
+                         f"sharded, as in the JAX package)")
+    if MODEL_AXIS not in spec:
+        return x
+    dim = spec.index(MODEL_AXIS)
+    lo, hi = lay.experts if in_moe else _leaf_range(name, lay)
+    if hi - lo == x.shape[dim]:
+        return x
+    # A copy of its own: a block of leading rows would be a contiguous
+    # view, which keeps the whole tensor alive.
+    return x.narrow(dim, lo, hi - lo).clone(
+        memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Params, mesh: Mesh,
+                 cfg: ModelConfig) -> ShardedParams:
+    """This rank's slice of every leaf of a float params tree, by its
+    coordinates on `mesh` and `param_specs` (whole heads; a dimension the
+    axis does not divide stays whole). The result carries its layout, so
+    the model's prefill and decode functions run sharded on it. Raises
+    ValueError for a fused tree (`wqkv`, `w_gateup`: fuse after sharding)
+    or a quantized one."""
+    lay = shard_layout(cfg, mesh)
+    specs = param_specs(cfg)
+    out = {}
+    for key, value in params.items():
+        if key == "layers":
+            continue
+        if key not in specs:
+            raise ValueError(f"shard_params: no spec for {key!r}")
+        out[key] = _slice(value, specs[key], key, lay, False)
+    out["layers"] = []
+    for layer, lspec in zip(params["layers"], specs["layers"]):
+        fused = {"wqkv", "bqkv", "w_gateup"} & set(layer)
+        if fused:
+            raise ValueError(f"shard_params takes the unfused tree (JAX's "
+                             f"specs address wq/wk/wv, w_gate/w_up), not "
+                             f"{sorted(fused)}: fuse each rank's slice "
+                             f"after sharding")
+        if set(layer) != set(lspec):
+            raise ValueError(f"shard_params: layer keys {sorted(layer)} "
+                             f"are not the spec's {sorted(lspec)}")
+        lo = {}
+        for name, value in layer.items():
+            if name == "moe":
+                lo[name] = {n: _slice(v, lspec[name][n], n, lay, True)
+                            for n, v in value.items()}
+            else:
+                lo[name] = _slice(value, lspec[name], name, lay, False)
+        out["layers"].append(lo)
+    return ShardedParams(out, lay)
+
+
+def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This data rank's rows of x (ids [B, S], lengths [B], tokens [B]):
+    JAX's `data_sharding` placement, one block of B / data rows a rank.
+    Raises ValueError when the data axis does not divide B."""
+    n = mesh.shape[DATA_AXIS]
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} is not a multiple of the {n} "
+                         f"data ranks")
+    lo, hi = _block(x.shape[0], n, mesh.coords[DATA_AXIS])
+    return x[lo:hi]
+
+
+
+def tier_cache_specs() -> Dict[str, Spec]:
+    """Specs of one TierCache's tensors: kv heads on `model`, batch on
+    `data`; positions and validity replicated over `model`."""
+    four = (DATA_AXIS, None, MODEL_AXIS, None)
+    return {**{f: four for f in _TIER_FIELDS},
+            "positions": (DATA_AXIS, None), "valid": (DATA_AXIS, None)}
+
+
+def constrain_decode_state(state, layout: ShardLayout, batch: int):
+    """Checks that a decode state is laid out as the specs say for this
+    rank: every tier, ring and decode-pool tensor holds this data rank's
+    rows (batch / data) and, on its kv-head axis, this rank's kv heads
+    (all of them where they are replicated); positions and validity the
+    rank's rows. Raises ValueError otherwise; returns the state."""
+    rows = batch // layout.data_size
+    kv = layout.kv_heads[1] - layout.kv_heads[0]
+    four = (DATA_AXIS, None, MODEL_AXIS, None)
+    want = {DATA_AXIS: rows, MODEL_AXIS: kv}
+
+    def check(t: torch.Tensor, spec: Spec, what: str) -> None:
+        for dim, axis in enumerate(spec):
+            if axis is not None and t.shape[dim] != want[axis]:
+                raise ValueError(f"decode state {what}: shape "
+                                 f"{tuple(t.shape)}, dimension {dim} on "
+                                 f"{axis} should be {want[axis]}")
+
+    specs = tier_cache_specs()
+    for li, cache in enumerate(state.caches):
+        for t in cache.tiers:
+            for f, spec in specs.items():
+                check(getattr(t, f), spec, f"layer {li} {f}")
+    for li, r in enumerate(state.recents):
+        check(r.k, four, f"layer {li} ring k")
+        check(r.v, four, f"layer {li} ring v")
+        check(r.positions, (DATA_AXIS, None), f"layer {li} ring positions")
+    for li, p in enumerate(state.pools):
+        if p is not None:
+            for f in _TIER_FIELDS:
+                check(getattr(p, f), four, f"layer {li} pool {f}")
+            check(p.positions, (DATA_AXIS, None), f"layer {li} pool "
+                                                  f"positions")
+    check(state.position, (DATA_AXIS,), "position")
+    return state

@@ -24,9 +24,10 @@ Port of the JAX package's `serving/engine.py`, with its names. Design:
     prompts re-admit with zero prefill work. Decode updates rings, pools
     and positions in place, so an entry owns its tensors (a row sliced,
     then cloned) and the slot state never aliases one: admission copies.
-  * Sharded serving (`mesh=`) is not ported: it waits for the rest of
-    ROADMAP item 18 (`sharding.py` and `mesh=` on the prefill drivers,
-    then `ServingEngine(mesh=)`).
+  * Sharded serving (`mesh=`) is not ported: tensor and data parallel
+    prefill and decode are (`parallel/sharding.py`), and the engine over
+    them waits for `pipeline.py` and `multihost.py`, in the rest of
+    ROADMAP item 18. A sharded params tree is refused too.
 """
 
 from __future__ import annotations
@@ -169,11 +170,11 @@ class ServingEngine:
         """use_flash / use_fused_decode None: K1 / K2 on CUDA params (the
         port's rule); the engine runs on the params' device and never
         moves them."""
-        if mesh is not None:
+        if mesh is not None or getattr(params, "layout", None) is not None:
             raise NotImplementedError(
                 "sharded serving (ServingEngine(mesh=)) is not ported yet: "
-                "it waits for the rest of ROADMAP item 18 (sharding.py and "
-                "mesh= on the prefill drivers)")
+                "it comes after pipeline.py and multihost.py, in the rest "
+                "of ROADMAP item 18")
         self.mcfg = mcfg
         self.ccfg = ccfg
         self.num_slots = num_slots

@@ -24,6 +24,7 @@ cancellation carries. K4: equal bit for bit (integer sums, one epilogue in
 the same order).
 """
 
+import dataclasses
 import time
 
 import pytest
@@ -1398,3 +1399,33 @@ def test_seq_parallel_prefill_on_two_ranks_runs_the_ring_kernels(cuda):
             for tg, tw in zip(got.tiers, want.tiers):
                 assert (set(tg.positions[0][tg.valid[0]].tolist())
                         == set(tw.positions[0][tw.valid[0]].cpu().tolist()))
+
+
+def test_tensor_parallel_on_two_ranks_runs_k1_and_k2(cuda):
+    """Two spawned ranks on this card (gloo, staged through the host), each
+    with its half of a 2-layer float32 model of TinyLlama's widths (16 / 2
+    heads a rank), run the tensor-parallel prefill and 8 greedy steps:
+    each rank launches K1 once a layer and K2 once a layer and step, and
+    its logits are within 1e-4 and its tokens equal to the one-rank run's
+    on the card."""
+    import torch_ranks
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+
+    mcfg = dataclasses.replace(rt.TINYLLAMA_1_1B, num_layers=2,
+                               dtype="float32")
+    ccfg = rt.CompressionConfig(num_layers=2)
+    steps = 8
+    res = run_ranks(torch_ranks.tensor_parallel_on_card, 2,
+                    args=(mcfg, ccfg, 512, steps), timeout=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = llama.init_params(0, mcfg, cuda)
+    ids = torch.randint(0, mcfg.vocab_size, (1, 512),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
+                                                max_decode_len=steps + 4)
+    toks, _ = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                steps, mcfg, ccfg)
+    for r in res:
+        assert r["launches"] == (2, 2 * steps)
+        assert float((r["logits"] - logits.cpu()).abs().max()) <= 1e-4
+        assert torch.equal(r["tokens"], toks.cpu())

@@ -160,3 +160,113 @@ def seq_parallel_on_card(rank, n, group, cfg, ccfg, s):
             "caches": _state_cpu(state).caches,
             "launches": (fp.flash_diagonal_pair_attention.launches,
                          fp.flash_full_pair_attention.launches)}
+
+
+def _kept(state, row0):
+    """Per layer and tier, each row's kept positions as a sorted list,
+    keyed by the row's global index (row0 + local row)."""
+    out = {}
+    for li, cache in enumerate(state.caches):
+        for ti, t in enumerate(cache.tiers):
+            for r in range(t.positions.shape[0]):
+                out[(li, ti, row0 + r)] = sorted(
+                    t.positions[r][t.valid[r]].tolist())
+    return out
+
+
+def tensor_parallel_runs(rank, n, group, meshes, cases, steps):
+    """Per mesh (data, model) in `meshes`, each entry of `cases` (name ->
+    (params, cfg, ccfg, prefill, ids, lengths, chunk)) on this rank's
+    slice of the params (`shard_params`) through the named prefill with
+    mesh=;
+    the "base" case also runs `decode_step` at token 7 from a copy of its
+    state and `decode_loop` for `steps` greedy steps. Returns, per mesh
+    and case, the logits, the kept positions of this rank's rows, the
+    stats, the rank's kv heads per cache and the decode results."""
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        shard_params)
+
+    out = {}
+    for data, model in meshes:
+        mesh = create_mesh(data, model)
+        row0 = mesh.coords["data"] * (4 // data)
+        for name, (params, cfg, ccfg, prefill, ids, lengths, chunk) in \
+                cases.items():
+            sp = shard_params(params, mesh, cfg)
+            kw = {"lengths": lengths} if lengths is not None else {}
+            if chunk:
+                kw["chunk_size"] = chunk
+            logits, state, stats = getattr(llama, prefill)(
+                sp, ids, cfg, ccfg, max_decode_len=steps + 4, mesh=mesh,
+                **kw)
+            res = {"logits": logits, "kept": _kept(state, row0),
+                   "stats": stats,
+                   "kv_heads": state.caches[0].tiers[0].k_scale.shape[2]}
+            if name == "base":
+                step_logits, _ = llama.decode_step(
+                    sp, torch.full((ids.shape[0],), 7), llama.
+                    clone_decode_state(state), cfg, ccfg)
+                toks, _ = llama.decode_loop(sp, torch.argmax(logits, -1),
+                                            state, steps, cfg, ccfg)
+                res.update(step_logits=step_logits, tokens=toks)
+            out[(data, model, name)] = res
+    return out
+
+
+def expert_parallel_runs(rank, n, group, meshes, moe, xs, cfg, factors,
+                         params, ids, ccfg, steps):
+    """Per mesh (data, model): `ep_moe_mlp` on this rank's expert slice of
+    `moe` for each input of `xs` at each capacity factor of `factors`,
+    then the MoE model's `prefill_compressed` on its sharded `params`
+    (mesh=) and `decode_loop` for `steps` greedy steps."""
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        ep_moe_mlp, shard_params)
+
+    out = {}
+    for data, model in meshes:
+        mesh = create_mesh(data, model)
+        sp = shard_params(params, mesh, cfg)
+        local = sp["layers"][0]["moe"]
+        assert torch.equal(local["w_gate"], _mine(moe["w_gate"], mesh.coords[
+            "model"], model, dim=0))
+        out[(data, model, "ep")] = {
+            (i, f): ep_moe_mlp(local, x, cfg, mesh, capacity_factor=f)
+            for i, x in enumerate(xs) for f in factors}
+        logits, state, stats = llama.prefill_compressed(
+            sp, ids, cfg, ccfg, max_decode_len=steps + 4, mesh=mesh)
+        toks, _ = llama.decode_loop(sp, torch.argmax(logits, -1), state,
+                                    steps, cfg, ccfg)
+        out[(data, model, "prefill")] = {
+            "logits": logits, "kept": _kept(state, mesh.coords["data"]
+                                            * (ids.shape[0] // data)),
+            "stats": stats, "tokens": toks}
+    return out
+
+
+def tensor_parallel_on_card(rank, n, group, cfg, ccfg, s, steps):
+    """`prefill_compressed` and `decode_loop` on cuda:0 over a 1 x n mesh,
+    from init_params(0) cut to this rank's slice and ids from a seeded CPU
+    generator; returns the logits, the tokens and this rank's (K1, K2)
+    launches, on the host."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
+        decode_attention as da)
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import \
+        flash_prefill as fp
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        shard_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(1, n)
+    params = shard_params(llama.init_params(0, cfg, "cuda"), mesh, cfg)
+    ids = torch.randint(0, cfg.vocab_size, (1, s),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    fp.flash_prefill_with_prompt_mass.launches = 0
+    da.fused_decode_attention.launches = 0
+    logits, state, _ = llama.prefill_compressed(
+        params, ids, cfg, ccfg, max_decode_len=steps + 4, mesh=mesh)
+    toks, _ = llama.decode_loop(params, torch.argmax(logits, -1), state,
+                                steps, cfg, ccfg)
+    torch.cuda.synchronize()
+    return {"logits": logits.cpu(), "tokens": toks.cpu(),
+            "launches": (fp.flash_prefill_with_prompt_mass.launches,
+                         da.fused_decode_attention.launches)}
