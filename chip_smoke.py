@@ -66,7 +66,7 @@ each with every launch count set to 0 just before it and read just after:
   group, each holding its slice of the weights, on a 1 x 4 and a 2 x 2
   (data x model) mesh: TinyLlama at full width and depth on the main
   run's weights (B=1 on 1 x 4, B=2 on 2 x 2, prompt 4096, 32 greedy
-  tokens) and a Mixtral-8x7B-width model cut to 8 layers on 1 x 4
+  tokens) and a Mixtral-8x7B-width model cut to 4 layers on 1 x 4
   (prompt 1024, 16 tokens, experts on the model axis), K1 mode (a) and K2
   on every rank over its heads, launches exact per rank, every K1 and K2
   call held to its plain version, selection and tokens held to the
@@ -289,7 +289,8 @@ NEW_TOKENS = 128
 # joined, to keep the script well inside its time limit; every check
 # stays. TinyLlama's and Mixtral's counts were cut once more (2 -> 1) when the
 # experiment CLIs joined, so every path now times one run after its
-# counted one.
+# counted one; the sampled decode's and beam search's turns went 2 -> 1
+# when the pipeline and sharded serving joined.
 REPEATS = 1
 REPEATS_7B = 1
 REPEATS_MIXTRAL = 1
@@ -303,7 +304,10 @@ REPEATS_MIXTRAL = 1
 # host) cut these once more, by about half, when it joined: TinyLlama's
 # paths 11 -> 6 layers (the eval harness, the benchmark suite and the
 # ablation study follow them), the 7B runs 16 -> 8, Mixtral 8 -> 4,
-# Qwen2-0.5B 12 -> 6.
+# Qwen2-0.5B 12 -> 6. When the pipeline, sharded serving and the
+# multi-process driver joined (about 65 s on a fast host, after the
+# sampled decode's and beam search's timed turns went 2 -> 1),
+# phase_tensor_parallel's Mixtral went 8 -> 4 layers.
 TINY_PATH_LAYERS = 6
 BIG_RUN_LAYERS = 8
 MIXTRAL_LAYERS = 4
@@ -475,7 +479,7 @@ BF16_SCORE_DRIFT = 4e-4
 TP_RANKS = 4
 TP_MESHES = ((1, 4), (2, 2))
 TP_NEW_TOKENS = 32
-TP_MIXTRAL_LAYERS = 8
+TP_MIXTRAL_LAYERS = 4  # 8 before the pipeline and sharded serving joined
 TP_MIXTRAL_PROMPT = 1024
 TP_MIXTRAL_TOKENS = 16
 TP_TIMEOUT = 600
@@ -493,6 +497,38 @@ TP_TIMEOUT = 600
 # 8.2e-5).
 TP_SCORE_DRIFT = 8e-4
 TP_MOE_SCORE_DRIFT = 1e-2
+# Pipeline parallelism (phase_pipeline): TinyLlama's 22 layers in
+# PIPE_RANKS stages (11 a rank) spawned on this one card over gloo, on the
+# main run's weights and prompt, PIPE_NEW_TOKENS greedy tokens; the
+# deadline of the ranks and of each collective. The float32 pipeline at
+# tiny_test_model width (4 layers) over SS_RANKS stages and the GPipe
+# train step (PIPE_TRAIN_*: batch, length, microbatches, lr) run in
+# phase_sharded_serving's spawn.
+PIPE_RANKS = 2
+PIPE_NEW_TOKENS = 32
+PIPE_TIMEOUT = 600
+PIPE_TRAIN_BATCH, PIPE_TRAIN_SEQ, PIPE_TRAIN_MICRO = 4, 128, 2
+PIPE_TRAIN_LR = 1e-3
+# Sharded serving (phase_sharded_serving): SS_RANKS spawned ranks on an
+# SS_MESH (data x model) mesh. TinyLlama at full width and
+# TINY_PATH_LAYERS layers (bf16, fused after sharding), SERVE_SLOTS slots
+# over an SS_CONTEXT bucket, SERVE_PROMPTS prompts and budgets drawn as
+# phase_serving_path draws its traffic, at SS_CONTEXT; one chunked
+# admission of three prompts in chunks of SS_PREFILL_CHUNK; the float32
+# run at the JAX package's sharded-serving test shape (SS_F32_DIMS,
+# SS_F32_ENGINE: tests/test_serving.py:114); the deadline.
+SS_RANKS = 4
+SS_MESH = (2, 2)
+SS_CONTEXT = 1024
+SS_PREFILL_CHUNK = 256
+SS_TIMEOUT = 600
+SS_F32_DIMS = dict(num_layers=2, num_heads=8, num_kv_heads=4, head_dim=16,
+                   hidden_size=128, intermediate_size=256)
+SS_F32_ENGINE = dict(num_slots=2, context_len=64, max_new_tokens=9,
+                     decode_chunk=4)
+# The sharded engines' runs, (name, prefill_chunk): the main traffic and
+# the three short prompts' chunked admission.
+SS_RUNS = (("main", None), ("chunked", SS_PREFILL_CHUNK))
 
 
 def _arg(argv: list, flag: str) -> str:
@@ -2939,7 +2975,7 @@ def phase_exact_greedy(device, s: int = PROMPT, layer: int = 1) -> None:
 
 
 def phase_sampled(label: str, device, mcfg, main_run,
-                  repeats: int = 2) -> dict:
+                  repeats: int = 1) -> dict:
     """The sampled decode on the main run's prefill (its params, prompt and
     compression): SAMPLING for NEW_TOKENS - 1 steps through K2, counted
     (launches held exactly; the returned counts a bincount of the first and
@@ -3213,7 +3249,7 @@ def _zero_counts() -> None:
 
 
 def phase_beam_path(label: str, device, mcfg, main_run,
-                    repeats: int = 2) -> dict:
+                    repeats: int = 1) -> dict:
     """Beam search at full width and depth on the main run's params and
     prompt (PROMPT, B=1): README's call, W=BEAM_WIDTH, BEAM_NEW_TOKENS new
     tokens, eos_token_id BEAM_EOS. Counted once (K1 once per layer for the
@@ -3754,6 +3790,42 @@ def _params_digest(params) -> torch.Tensor:
     return torch.stack(out).cpu()
 
 
+def _rank_counted(rank: int, label: str, fn, expect: dict):
+    """fn() with every launch count set to 0 just before and read just
+    after (a rank's own counts); fails unless they are `expect` (0 for
+    every other kernel). Returns (fn's result, the counts)."""
+    _zero_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    got = _launches()
+    want = {**{key: 0 for key in KERNELS}, **expect}
+    check(got == want, f"rank {rank} {label}: launches {got} (expect "
+                       f"{want})")
+    return result, got
+
+
+def _rank_timed(group, fn):
+    """fn() after a barrier of `group`, timed by CUDA events and the host
+    clock, with the host staging of its collectives: (result, reading)."""
+    import torch.distributed as dist
+
+    from realtime_kv_cache_compression_tpu_torch import comm
+
+    comm.reset_stage_counts()
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, {"event_ms": start.elapsed_time(end),
+                    "wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "staged": (comm.stage.seconds, comm.stage.bytes,
+                               comm.stage.calls)}
+
+
 def _seq_parallel_rank(rank: int, n: int, group, device, mcfg, ids, small,
                        small_ids, small_lengths) -> dict:
     """One rank of phase_seq_parallel, spawned on `device` (cuda:0) over a
@@ -3783,16 +3855,7 @@ def _seq_parallel_rank(rank: int, n: int, group, device, mcfg, ids, small,
     host = lambda state: llama.map_decode_state(  # noqa: E731
         state, lambda t: t.cpu(), state.ring_fill)
     out = {}
-
-    def counted(label, fn, expect):
-        _zero_counts()
-        result = fn()
-        torch.cuda.synchronize()
-        got = _launches()
-        want = {**{key: 0 for key in KERNELS}, **expect}
-        check(got == want, f"rank {rank} {label}: launches {got} (expect "
-                           f"{want})")
-        return result, got
+    counted = functools.partial(_rank_counted, rank)
 
     # float32 parity at tiny_test_model width.
     sp_params = llama.init_params(SEED + 20, small, dev)
@@ -4222,8 +4285,6 @@ def _tensor_parallel_rank(rank: int, n: int, group, device, mcfg, ids_by_mesh,
     1 x 4 mesh, built a layer at a time and sharded as it is drawn
     (experts on the model axis), the same way. Returns host copies of what
     the parent compares."""
-    import torch.distributed as dist
-
     from realtime_kv_cache_compression_tpu_torch import CompressionConfig
     from realtime_kv_cache_compression_tpu_torch.models import llama
     from realtime_kv_cache_compression_tpu_torch.parallel import (
@@ -4237,33 +4298,8 @@ def _tensor_parallel_rank(rank: int, n: int, group, device, mcfg, ids_by_mesh,
     host = lambda state: llama.map_decode_state(  # noqa: E731
         state, lambda t: t.cpu(), state.ring_fill)
     out = {}
-
-    def counted(label, fn, expect):
-        _zero_counts()
-        result = fn()
-        torch.cuda.synchronize()
-        got = _launches()
-        want = {**{key: 0 for key in KERNELS}, **expect}
-        check(got == want, f"rank {rank} {label}: launches {got} (expect "
-                           f"{want})")
-        return result, got
-
-    def timed(fn):
-        """fn() after a barrier, timed by CUDA events and the host clock,
-        with the host staging of its collectives: (result, reading)."""
-        comm.reset_stage_counts()
-        torch.cuda.synchronize()
-        dist.barrier(group)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        start.record()
-        result = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return result, {"event_ms": start.elapsed_time(end),
-                        "wall_ms": (time.perf_counter() - t0) * 1e3,
-                        "staged": (comm.stage.seconds, comm.stage.bytes,
-                                   comm.stage.calls)}
+    counted = functools.partial(_rank_counted, rank)
+    timed = functools.partial(_rank_timed, group)
 
     def run(label, sp, cfg, ccfg, ids, steps, lengths=None):
         layers, audit, records, reading = cfg.num_layers, {}, {}, {}
@@ -4636,6 +4672,645 @@ def phase_tensor_parallel(device, mcfg, main_run, mixtral) -> dict:
     return {"launches": paths, "audit": audit}
 
 
+def _pipeline_rank(rank: int, n: int, group, device, mcfg, ids, digest,
+                   steps: int) -> dict:
+    """One rank of phase_pipeline, spawned on `device` (cuda:0) over a
+    gloo group: stage `rank` of TinyLlama (the main run's bf16 weights from
+    SEED, fused; every rank's checked against the parent's digest) through
+    `PipelineInference`, which keeps the stage's layers only. Its prefill
+    of the main prompt and `steps` greedy steps are counted (K1 mode (a)
+    once per layer of the stage, K2 once per layer and step), audited
+    (the stage's first layer's K1 and K2 calls held to their plain
+    versions) and timed (CUDA events and host wall after a barrier, with
+    the host staging of the hops; the audit's plain versions count in the
+    times). Returns host copies of what the parent compares."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        PipelineInference, create_pipe_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    counted = functools.partial(_rank_counted, rank)
+    timed = functools.partial(_rank_timed, group)
+    params = llama.fuse_params(llama.init_params(SEED, mcfg, dev))
+    check(torch.equal(_params_digest(params), digest),
+          f"pipeline rank {rank}: the main run's weights")
+    pipe = PipelineInference(params, mcfg,
+                             CompressionConfig(num_layers=mcfg.num_layers),
+                             create_pipe_mesh(n), max_decode_len=steps + 8,
+                             use_flash=True, use_fused=True)
+    del params
+    torch.cuda.empty_cache()
+    per, audit, reading = pipe.per, {}, {}
+    with _held_to_plain(audit, stride=per):
+        ((logits, stats), reading["prefill"]), pre = counted(
+            "pipeline prefill", lambda: timed(lambda: pipe.prefill(
+                ids.to(dev))), {"K1": per})
+        first = torch.argmax(logits, -1)
+        (toks, reading["decode"]), dec = counted(
+            "pipeline decode", lambda: timed(lambda: pipe.decode(
+                first, steps)), {"K2": per * steps})
+    return {"logits": logits.float().cpu(),
+            "tokens": torch.cat([first[:, None], toks], 1).cpu(),
+            "kept": [st["kept_tokens"].cpu() for st in stats],
+            "launches": pre, "decode_launches": dec, "audit": audit,
+            "timed": reading, "layers": (pipe.layer_offset, per),
+            "memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _audit_merge(into: dict, audit: dict) -> None:
+    """Folds one rank's `_held_to_plain` audit into `into`: calls summed,
+    the worst errors and shares kept."""
+    for key, rec in audit.items():
+        agg = into.setdefault(key, [0, 0.0, 0.0, 0.0])
+        agg[0] += rec[0]
+        for i in (1, 2, 3):
+            agg[i] = max(agg[i], rec[i])
+
+
+def _rank_lines(readings, steps: int) -> str:
+    """Per rank: TTFT by CUDA events and host wall, host staging, and the
+    decode's steps per second (of `readings`, each rank's {"prefill",
+    "decode"} `_rank_timed` readings)."""
+    pre = [r["prefill"] for r in readings]
+    dec = [r["decode"] for r in readings]
+    return (f"TTFT per rank by CUDA events "
+            f"{[round(t['event_ms'], 3) for t in pre]} ms, host wall "
+            f"{[round(t['wall_ms'], 3) for t in pre]} ms, host staging "
+            f"{[round(t['staged'][0] * 1e3, 3) for t in pre]} ms for "
+            f"{[t['staged'][1] for t in pre]} bytes in "
+            f"{[t['staged'][2] for t in pre]} copies; decode of {steps} "
+            f"steps per rank {[round(t['event_ms'], 3) for t in dec]} ms "
+            f"({[round(steps * 1e3 / t['event_ms'], 2) for t in dec]} "
+            f"steps/s), staging "
+            f"{[round(t['staged'][0] * 1e3, 3) for t in dec]} ms in "
+            f"{[t['staged'][2] for t in dec]} copies")
+
+
+def phase_pipeline(device, mcfg, main_run) -> dict:
+    """Pipeline parallelism (`parallel/pipeline.py`) on this one card:
+    TinyLlama (22 layers, the main run's bf16 weights and 4096-token
+    prompt) over PIPE_RANKS stages of 11 layers, one spawned process each
+    (`_pipeline_rank`; gloo, every hop staged through the host), and
+    PIPE_NEW_TOKENS greedy tokens. Per rank, launches exact: K1 mode (a)
+    11 a prefill, K2 11 a step; each stage's first layer's K1 and K2 calls
+    held to their plain versions. Against the port's one-rank path on the
+    same weights and prompt: the logits and tokens the same on every rank,
+    and bit-equal to the one-rank path's (no matmul is split: a hop moves
+    bytes), the kept counts equal. Logs TTFT by CUDA events (one-rank,
+    and per rank with its host wall and staging, from the audited run),
+    decode steps per second per rank, the launches and the card's
+    nvidia-smi line: multi-rank times on one card are the
+    overheads of ranks sharing it, not scaling. Returns {"launches",
+    "audit"}."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    params, ccfg, ids = main_run["params"], main_run["ccfg"], main_run["ids"]
+    steps = PIPE_NEW_TOKENS - 1
+    logits, state, stats = llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=steps + 8)
+    kept = [st["kept_tokens"].cpu() for st in stats]
+    ref_toks, ref_logits = _greedy_from(params, logits, state, mcfg, ccfg,
+                                        steps, kernels=True)
+    del state
+    _, ttft1 = cuda_ms(lambda: llama.prefill_compressed(
+        params, ids, mcfg, ccfg, max_decode_len=steps + 8))
+    ranks = run_ranks(_pipeline_rank, PIPE_RANKS, args=(
+        str(device), mcfg, ids.cpu(), _params_digest(params), steps),
+        timeout=PIPE_TIMEOUT)
+    label = f"pipeline {PIPE_RANKS} stages"
+    first = ranks[0]
+    for r, got in enumerate(ranks):
+        check(torch.equal(got["logits"], first["logits"])
+              and torch.equal(got["tokens"], first["tokens"]),
+              f"{label} rank {r}: logits and tokens equal to rank 0's")
+        check(all(torch.equal(a, b) for a, b in zip(got["kept"], kept)),
+              f"{label} rank {r}: kept counts equal to the one-rank's")
+    d = max_err(first["logits"], ref_logits[:, 0])
+    check(torch.equal(first["logits"], ref_logits[:, 0])
+          and torch.equal(first["tokens"], ref_toks),
+          f"{label}: logits and all {steps + 1} tokens bit-equal to the "
+          f"one-rank path's (logits max abs diff {d:.3e})")
+    log(f"{label} (TinyLlama bf16, S={ids.shape[1]}, {steps + 1} tokens; "
+        f"stages hold layers {[r['layers'] for r in ranks]} as (first, "
+        f"count)): logits and tokens bit-equal to the one-rank path's")
+    audit = {}
+    for r in ranks:
+        _audit_merge(audit, r["audit"])
+    check(audit.get("K1", [0])[0] > 0 and audit.get("K2", [0])[0] > 0,
+          f"{label}: K1 and K2 calls held to their plain versions")
+    log(f"{label} (timed on the counted run, which held each stage's first "
+        f"layer's kernel calls to the plain versions; their time counts): "
+        f"TTFT one-rank "
+        f"{ttft1:.3f} ms; {_rank_lines([r['timed'] for r in ranks], steps)}"
+        f"; launches per rank {[_nonzero(r['launches']) for r in ranks]} "
+        f"(prefill), {[_nonzero(r['decode_launches']) for r in ranks]} "
+        f"(decode); peak device memory per rank (GiB) "
+        f"{[round(r['memory_gib'], 3) for r in ranks]}; audit (calls, "
+        f"worst max abs err, worst share of a limit, worst prompt mass "
+        f"err) {audit}")
+    log(nvidia_smi_line())
+    log(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": {f"tinyllama_pipeline_{PIPE_RANKS}": {
+        k: sum(r["launches"][k] + r["decode_launches"][k] for r in ranks)
+        for k in KERNELS}}, "audit": audit}
+
+
+def _leaf_items(tree, path=()):
+    """(path, tensor) of every tensor of a tree of dicts and lists, dict
+    keys in sorted order."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaf_items(tree[key], path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_items(v, path + (i,))
+
+
+def _serve_recorded(eng, traffic) -> dict:
+    """Serve `traffic` ((prompt, token budget) pairs, submitted at once) to
+    the end and record, per request in submission order: its tokens, stop
+    reason, kept ratio, byte savings, TTFT, the logits of its first token,
+    and the top-2 gap of the logits behind each of its tokens (the
+    engine's own: on a mesh the gathered, global ones); also the host
+    seconds spent in decode chunks, the run's wall and the engine's
+    schedule."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    gaps, firsts, pending, chunk, activating = {}, {}, [], [], []
+    decode_s = [0.0]
+    real_step = llama.decode_step
+    real = {n: getattr(eng, n) for n in ("_first_token", "_activate",
+                                         "_deliver", "_decode")}
+
+    def top2(logits):
+        v = torch.topk(logits.float(), 2, dim=-1).values
+        return (v[:, 0] - v[:, 1]).tolist()
+
+    def step(*a, **kw):
+        logits, st = real_step(*a, **kw)
+        chunk.append(top2(logits))
+        return logits, st
+
+    def first(logits):
+        pending.extend(zip(top2(logits), logits.float().cpu()))
+        return real["_first_token"](logits)
+
+    def activate(req, slot, tok0, lp0):
+        gaps[req.rid], firsts[req.rid] = [pending[0][0]], pending[0][1]
+        del pending[0]
+        activating.append(req.rid)
+        try:
+            return real["_activate"](req, slot, tok0, lp0)
+        finally:
+            activating.pop()
+
+    def deliver(slot, new, lps):
+        if not activating:
+            gaps[eng._slots[slot].rid].extend(chunk[t][slot]
+                                              for t in range(len(new)))
+        return real["_deliver"](slot, new, lps)
+
+    def decode():
+        chunk.clear()
+        t = time.perf_counter()
+        res = real["_decode"]()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        decode_s[0] += time.perf_counter() - t
+        return res
+
+    llama.decode_step = step
+    for name, fn in (("_first_token", first), ("_activate", activate),
+                     ("_deliver", deliver), ("_decode", decode)):
+        setattr(eng, name, fn)
+    try:
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in traffic]
+        eng.run()
+        wall = time.perf_counter() - t0
+    finally:
+        llama.decode_step = real_step
+        for name in real:
+            delattr(eng, name)
+    reqs = [eng.completed[r] for r in rids]
+    return {"tokens": [r.tokens for r in reqs],
+            "stop": [r.stop_reason for r in reqs],
+            "ratio": [r.prefill_stats["avg_compression_ratio"] for r in reqs],
+            "savings": [r.prefill_stats["avg_memory_savings"] for r in reqs],
+            "ttft_ms": [r.ttft * 1e3 for r in reqs],
+            "gaps": [gaps[r] for r in rids],
+            "first": torch.stack([firsts[r] for r in rids]),
+            "decode_s": decode_s[0], "wall_s": wall,
+            "calls": dict(eng.model_calls)}
+
+
+def _engine_counted(rank: int, label: str, eng, fn):
+    """fn() with the engine's schedule and every launch count set to 0
+    just before; fails unless the launches follow the schedule exactly (K1
+    mode (a) once a layer per prefill, mode (b) once a layer per chunk
+    step, K2 once a layer per decode step). Returns (fn's result, the
+    launches)."""
+    calls = _engine_calls(eng)
+    torch.cuda.synchronize()
+    _zero_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    got = _launches()
+    layers = eng.mcfg.num_layers
+    want = {**{key: 0 for key in KERNELS}, "K1": layers * calls["prefill"],
+            "K1b": layers * calls["chunk_step"],
+            "K2": layers * eng.decode_chunk * calls["decode"]}
+    check(got == want, f"rank {rank} {label}: launches {got} (expect {want}"
+                       f"; engine schedule {calls})")
+    return result, got
+
+
+def _sharded_serving_rank(rank: int, n: int, group, device, cfg, digest,
+                          traffic, chunk_traffic, f32, f32_traffic, small,
+                          small_ids, train_ids) -> dict:
+    """One rank of phase_sharded_serving, spawned on `device` (cuda:0) over
+    a gloo group. On a pipe mesh of the n ranks: the float32
+    `PipelineInference` at tiny_test_model width (one layer a stage) and
+    one `pipeline_train_step`. On the SS_MESH (data x model) mesh:
+    `ServingEngine(mesh=)` in float32 at the JAX test shape, then
+    TinyLlama (bf16 weights from SEED, checked against the parent's
+    digest, sharded and fused) on the main traffic and on one chunked
+    admission, each counted against the engine's schedule and audited
+    (every layer-0 K1 and K2 call held to its plain version), with the
+    rank's host staging. Returns host copies of what the parent
+    compares."""
+    from realtime_kv_cache_compression_tpu_torch import (CompressionConfig,
+                                                         comm)
+    from realtime_kv_cache_compression_tpu_torch.models import llama, train
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        PipelineInference, create_mesh, create_pipe_mesh,
+        pipeline_train_step, shard_params, stack_pipeline_params,
+        unstack_pipeline_params)
+    from realtime_kv_cache_compression_tpu_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    counted = functools.partial(_rank_counted, rank)
+    out = {}
+
+    pipe_mesh = create_pipe_mesh(n)
+    ps = llama.init_params(SEED + 33, small, dev)
+    sccfg = CompressionConfig(num_layers=small.num_layers)
+    pipe = PipelineInference(ps, small, sccfg, pipe_mesh,
+                             max_decode_len=SEQ_F32_NEW_TOKENS + 8)
+    (logits, _), pre = counted(
+        "float32 pipeline prefill", lambda: pipe.prefill(small_ids.to(dev)),
+        {"K1": pipe.per})
+    first = torch.argmax(logits, -1)
+    toks, dec = counted("float32 pipeline decode", lambda: pipe.decode(
+        first, SEQ_F32_NEW_TOKENS - 1),
+        {"K2": pipe.per * (SEQ_F32_NEW_TOKENS - 1)})
+    out["pipe_f32"] = {"logits": logits.cpu(),
+                       "tokens": torch.cat([first[:, None], toks], 1).cpu(),
+                       "launches": {k: pre[k] + dec[k] for k in KERNELS}}
+    stacked = stack_pipeline_params(ps, pipe_mesh)
+    opt = train.make_optimizer(stacked, lr=PIPE_TRAIN_LR)
+    loss, _ = counted("pipeline train step", lambda: pipeline_train_step(
+        stacked, opt, train_ids.to(dev), small, pipe_mesh,
+        PIPE_TRAIN_MICRO), {})
+    out["train"] = {"loss": float(loss), "norm": float(opt.last_grad_norm),
+                    "params": _map_tree(unstack_pipeline_params(
+                        stacked, pipe_mesh), lambda t: t.cpu())}
+    opt.release()
+    del pipe, ps, stacked, opt
+
+    mesh = create_mesh(*SS_MESH)
+    p32 = shard_params(llama.init_params(SEED + 32, f32, dev), mesh, f32)
+    eng = ServingEngine(p32, f32, CompressionConfig(num_layers=f32.num_layers),
+                        mesh=mesh, **SS_F32_ENGINE)
+    out["f32"], out["f32_launches"] = _engine_counted(
+        rank, "float32 sharded serving", eng,
+        lambda: _serve_recorded(eng, f32_traffic))
+    del eng, p32
+
+    full = llama.init_params(SEED, cfg, dev)
+    check(torch.equal(_params_digest(full), digest),
+          f"sharded serving rank {rank}: the parent's weights")
+    sp = llama.fuse_params(shard_params(full, mesh, cfg))
+    del full
+    torch.cuda.empty_cache()
+    ccfg = CompressionConfig(num_layers=cfg.num_layers)
+    kw = dict(num_slots=SERVE_SLOTS, context_len=SS_CONTEXT,
+              max_new_tokens=SERVE_NEW_TOKENS, decode_chunk=SERVE_CHUNK)
+    for name, chunk in SS_RUNS:
+        tr = traffic if name == "main" else chunk_traffic
+        eng = ServingEngine(sp, cfg, ccfg, mesh=mesh, prefill_chunk=chunk,
+                            **kw)
+        audit = {}
+        comm.reset_stage_counts()
+        with _held_to_plain(audit, stride=cfg.num_layers):
+            res, launches = _engine_counted(
+                rank, f"sharded serving {name}", eng,
+                lambda: _serve_recorded(eng, tr))
+        res.update(launches=launches, audit=audit,
+                   async_admission=eng.async_admission,
+                   rows=eng._state.position.shape[0],
+                   staged=(comm.stage.seconds, comm.stage.bytes,
+                           comm.stage.calls))
+        out[name] = res
+    out["memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _sharded_serving_traffic(cfg):
+    """phase_serving_path's draw at SS_CONTEXT: SERVE_PROMPTS prompts of
+    SS_CONTEXT/4-SS_CONTEXT tokens with budgets of
+    SERVE_NEW_TOKENS/4-SERVE_NEW_TOKENS; then three prompts (full, 5/8
+    and 3/8 of the bucket) with a budget of SERVE_CHUNK + 1 for the
+    chunked admission; and the JAX test's four 64-token prompts with
+    budgets of 6 for the float32 run."""
+    import numpy as np
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    lengths = torch.randint(SS_CONTEXT // 4, SS_CONTEXT + 1, (SERVE_PROMPTS,),
+                            generator=gen).tolist()
+    budgets = torch.randint(SERVE_NEW_TOKENS // 4, SERVE_NEW_TOKENS + 1,
+                            (SERVE_PROMPTS,), generator=gen).tolist()
+    traffic = [(prompt(n), m) for n, m in zip(lengths, budgets)]
+    chunk_traffic = [(prompt(n), SERVE_CHUNK + 1) for n in (
+        SS_CONTEXT, SS_CONTEXT * 5 // 8, SS_CONTEXT * 3 // 8 + 1)]
+    f32_traffic = [(np.random.default_rng(i).integers(1, 250, 64).tolist(),
+                    6) for i in range(4)]
+    return traffic, chunk_traffic, f32_traffic
+
+
+def phase_sharded_serving(device, mcfg) -> dict:
+    """Sharded serving (`ServingEngine(mesh=)`) and the pipeline's float32
+    runs on this one card: SS_RANKS ranks spawned on cuda:0 over a gloo
+    group, each rank's work `_sharded_serving_rank`, every rank running
+    the same engines on the same submissions.
+
+    On the SS_MESH mesh (slots over `data`, weights over `model`):
+    - TinyLlama at full width and TINY_PATH_LAYERS layers, bf16, on
+      phase_serving_path's traffic at SS_CONTEXT (SERVE_SLOTS slots,
+      SERVE_PROMPTS prompts): per rank, launches exact against the
+      engine's own schedule (K1 mode (a) per layer and admission over the
+      rank's heads, every admission's rows whole on every data rank; K2
+      per layer and step over the rank's kv heads); every rank the same
+      tokens, and against the one-rank engine on the same weights: each
+      request's tokens equal up to the first near tie (a one-rank top-2
+      gap within twice the largest first-token logit difference, which is
+      held to at most twice the one-rank engine's distance from the
+      float32 one-rank engine's first tokens, plus 1e-3, as
+      phase_tensor_parallel caps its own), and where they part, the
+      one-rank engine's top-2 gap under that near tie; stop reasons
+      equal, kept ratio and byte savings within 1e-6;
+    - one chunked admission of three prompts and its decode chunk (K1
+      mode (b), SS_PREFILL_CHUNK) the same way, against the one-rank
+      chunked engine;
+    every layer-0 K1 and K2 call held to its plain version inside the
+    runs that are timed (as phase_tensor_parallel's: timed repeats cost
+    the script's limit);
+    - float32 at the JAX package's test shape: tokens and stop reasons
+      equal to the one-rank engine's, stats within 1e-6.
+    On a pipe mesh of the SS_RANKS ranks (tiny_test_model width, float32,
+    one layer a stage): `PipelineInference` launches exact (K1 1, K2 1 a
+    step per rank), logits within TOL_LOGITS and all SEQ_F32_NEW_TOKENS
+    tokens equal to the one-rank path's; one `pipeline_train_step`
+    (PIPE_TRAIN_MICRO microbatches) against one one-rank `train_step`
+    with the same plain attention: loss within TOL_TRAIN_LOSS, global
+    gradient norm within 1e-5 relative, parameters as phase_parity_train
+    holds them. Logs per rank: TTFT, host staging, decode steps per second
+    and launches, and the card's nvidia-smi line (overheads of ranks
+    sharing one card, not scaling). Returns {"launches", "audit"}."""
+    from realtime_kv_cache_compression_tpu_torch import (CompressionConfig,
+                                                         tiny_test_model)
+    from realtime_kv_cache_compression_tpu_torch.models import llama, train
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+    from realtime_kv_cache_compression_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, num_layers=TINY_PATH_LAYERS,
+                              max_position_embeddings=SS_CONTEXT
+                              + SERVE_NEW_TOKENS)
+    traffic, chunk_traffic, f32_traffic = _sharded_serving_traffic(cfg)
+    log(f"sharded serving traffic: prompt lengths "
+        f"{[len(p) for p, _ in traffic]}, token budgets "
+        f"{[m for _, m in traffic]}")
+    full = llama.init_params(SEED, cfg, device)
+    digest = _params_digest(full)
+    params = llama.fuse_params(full)
+    ccfg = CompressionConfig(num_layers=cfg.num_layers)
+    # Synchronous admission: the byte savings are batch-wide, so the
+    # one-rank engine must batch its admissions as the ranks' lockstep
+    # engine does, whatever the events' timing.
+    kw = dict(num_slots=SERVE_SLOTS, context_len=SS_CONTEXT,
+              max_new_tokens=SERVE_NEW_TOKENS, decode_chunk=SERVE_CHUNK,
+              async_admission=False)
+    refs = {name: _serve_recorded(ServingEngine(
+        params, cfg, ccfg, prefill_chunk=chunk, **kw),
+        traffic if name == "main" else chunk_traffic)
+        for name, chunk in SS_RUNS}
+    # The float32 one-rank engine's first tokens on the same weights, which
+    # cap the bf16 first-token logit difference that sets the near tie.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _map_tree(full, lambda t: t.float())
+    firsts32 = {name: _serve_recorded(ServingEngine(
+        params32, cfg32, ccfg, prefill_chunk=chunk, **kw),
+        [(p, 1) for p, _ in (traffic if name == "main" else chunk_traffic)]
+    )["first"] for name, chunk in SS_RUNS}
+    del full, params, params32
+    f32 = tiny_test_model(**SS_F32_DIMS)
+    refs["f32"] = _serve_recorded(ServingEngine(
+        llama.init_params(SEED + 32, f32, device), f32,
+        CompressionConfig(num_layers=f32.num_layers), async_admission=False,
+        **SS_F32_ENGINE), f32_traffic)
+    small = tiny_test_model(max_position_embeddings=SEQ_F32_PROMPT + 64)
+    sccfg = CompressionConfig(num_layers=small.num_layers)
+    gen = torch.Generator().manual_seed(SEED + 34)
+    small_ids = torch.randint(0, small.vocab_size, (2, SEQ_F32_PROMPT),
+                              generator=gen)
+    train_ids = torch.randint(0, small.vocab_size, (PIPE_TRAIN_BATCH,
+                                                    PIPE_TRAIN_SEQ),
+                              generator=gen)
+    ps = llama.init_params(SEED + 33, small, device)
+    logits, state, _ = llama.prefill_compressed(
+        ps, small_ids.to(device), small, sccfg,
+        max_decode_len=SEQ_F32_NEW_TOKENS + 8)
+    pipe_toks, _ = _greedy_from(ps, logits, state, small, sccfg,
+                                SEQ_F32_NEW_TOKENS - 1, kernels=True)
+    pipe_logits = logits.float().cpu()
+    opt = train.make_optimizer(ps, lr=PIPE_TRAIN_LR)
+    before = {k: t.detach().clone() for k, t in _leaf_items(ps)}
+    loss1 = float(train.train_step(ps, opt, train_ids.to(device), small,
+                                   use_flash=False))
+    norm1 = float(opt.last_grad_norm)
+    log(f"sharded serving and float32 pipeline: one-rank references in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    ranks = run_ranks(_sharded_serving_rank, SS_RANKS, args=(
+        str(device), cfg, digest, traffic, chunk_traffic, f32, f32_traffic,
+        small, small_ids, train_ids), timeout=SS_TIMEOUT)
+    log(f"sharded serving: {SS_RANKS} ranks spawned, run and joined in "
+        f"{time.perf_counter() - t1:.1f} s; peak device memory per rank "
+        f"(GiB) {[round(r['memory_gib'], 3) for r in ranks]}")
+
+    # The float32 pipeline over SS_RANKS stages and its train step.
+    label = f"float32 pipeline {SS_RANKS} stages"
+    for r, got in enumerate(ranks):
+        res = got["pipe_f32"]
+        check(torch.equal(res["tokens"], pipe_toks),
+              f"{label} rank {r}: {SEQ_F32_NEW_TOKENS} tokens equal to the "
+              f"one-rank path's")
+        check_close(res["logits"], pipe_logits, TOL_LOGITS,
+                    f"{label} rank {r}: logits vs one-rank")
+        tr = got["train"]
+        check(abs(tr["loss"] - loss1) <= TOL_TRAIN_LOSS
+              and abs(tr["norm"] - norm1) <= 1e-5 * norm1,
+              f"pipeline train step rank {r}: loss {tr['loss']:.7f} / "
+              f"{loss1:.7f}, global norm {tr['norm']:.6f} / {norm1:.6f}")
+        got_p, want_p = dict(_leaf_items(tr["params"])), dict(
+            _leaf_items(ps))
+        check(got_p.keys() == want_p.keys(), f"pipeline train step rank "
+                                             f"{r}: the tree's leaves")
+        worst, off, total, moved = 0.0, 0, 0, 0.0
+        for key, want_t in want_p.items():
+            err = (got_p[key] - want_t.detach().cpu()).abs()
+            worst = max(worst, float(err.max()))
+            off += int((err > TOL_TRAIN_PARAMS).sum())
+            total += err.numel()
+            moved = max(moved, float((want_t.detach()
+                                      - before[key]).abs().max()))
+        check(worst <= PIPE_TRAIN_LR
+              and off <= TRAIN_SENSITIVE_SHARE * total
+              and moved > PIPE_TRAIN_LR / 2,
+              f"pipeline train step rank {r}: parameters (worst {worst:.3e}"
+              f", {off} of {total} beyond {TOL_TRAIN_PARAMS:.0e})")
+    log(f"{label}: logits within {TOL_LOGITS:.0e} and {SEQ_F32_NEW_TOKENS} "
+        f"tokens equal to the one-rank path's on every rank, launches per "
+        f"rank {[_nonzero(r['pipe_f32']['launches']) for r in ranks]}; "
+        f"pipeline train step ({PIPE_TRAIN_MICRO} microbatches of "
+        f"{PIPE_TRAIN_BATCH // PIPE_TRAIN_MICRO} x {PIPE_TRAIN_SEQ}): loss "
+        f"{ranks[0]['train']['loss']:.7f} against one rank's {loss1:.7f}, "
+        f"global gradient norm {ranks[0]['train']['norm']:.6f} against "
+        f"{norm1:.6f} (clip 1.0), parameters within {TOL_TRAIN_PARAMS:.0e} "
+        f"but for a share at most {TRAIN_SENSITIVE_SHARE}")
+    opt.release()
+
+    # Sharded serving.
+    data, model = SS_MESH
+    audit, launches = {}, {}
+    for name in ("f32",) + tuple(name for name, _ in SS_RUNS):
+        label = f"sharded serving {name} {data}x{model}"
+        ref, res = refs[name], [r[name] for r in ranks]
+        for r, got in enumerate(res):
+            check(got["tokens"] == res[0]["tokens"]
+                  and got["stop"] == ref["stop"],
+                  f"{label} rank {r}: tokens equal to rank 0's, stop "
+                  f"reasons to the one-rank engine's")
+            check(max(abs(a - b) for a, b in zip(
+                got["ratio"] + got["savings"],
+                ref["ratio"] + ref["savings"])) <= 1e-6,
+                f"{label} rank {r}: kept ratio and byte savings equal to "
+                f"the one-rank engine's ({got['ratio']}, {got['savings']}"
+                f" against {ref['ratio']}, {ref['savings']})")
+        got = res[0]
+        if name == "f32":
+            check(got["tokens"] == ref["tokens"], f"{label}: every token "
+                  f"equal to the one-rank engine's")
+            log(f"{label} (float32, JAX's test shape): every token, stop "
+                f"reason and kept ratio equal to the one-rank engine's on "
+                f"every rank; launches per rank "
+                f"{[_nonzero(r['f32_launches']) for r in ranks]}")
+            continue
+        d = max_err(got["first"], ref["first"])
+        d_ss, d_one = (max_err(x, firsts32[name]) for x in (got["first"],
+                                                            ref["first"]))
+        check(d_ss <= 2 * d_one + 1e-3, f"{label}: bf16 first-token logits "
+              f"no further from float32 than twice the one-rank engine's "
+              f"(ranks {d_ss:.3e}, one-rank {d_one:.3e})")
+        held = [_held_to_gaps(f"{label} request {i}", t, rt, g, 2 * d)
+                for i, (t, rt, g) in enumerate(zip(
+                    got["tokens"], ref["tokens"], ref["gaps"]))]
+        same = [next((i for i, (a, b) in enumerate(zip(t, rt)) if a != b),
+                     len(rt)) for t, rt in zip(got["tokens"], ref["tokens"])]
+        parting = [f"{g[k]:.3e}" if k < len(rt) else None
+                   for k, g, rt in zip(same, ref["gaps"], ref["tokens"])]
+        check(all(k >= len(rt) or g[k] < 2 * d for k, g, rt in zip(
+            same, ref["gaps"], ref["tokens"])),
+            f"{label}: tokens part from the one-rank engine's only at a "
+            f"near tie (top-2 gap under {2 * d:.3e}; gaps there {parting})")
+        for r in res:
+            _audit_merge(audit, r["audit"])
+            check(not r["async_admission"]
+                  and r["rows"] == SERVE_SLOTS // data,
+                  f"{label}: lockstep admission, {SERVE_SLOTS // data} "
+                  f"slot rows a rank")
+        launches[f"tinyllama_sharded_serving_{name}_{data}x{model}"] = {
+            k: sum(r["launches"][k] for r in res) for k in KERNELS}
+        steps = got["calls"]["decode"] * SERVE_CHUNK
+        ttft = [round(sum(r["ttft_ms"]) / len(r["ttft_ms"]), 1)
+                for r in res]
+        log(f"{label} (bf16, {TINY_PATH_LAYERS} layers, {SERVE_SLOTS} "
+            f"slots over {SS_CONTEXT}; first-token logits max abs diff "
+            f"{d:.3e}, vs float32: ranks {d_ss:.3e}, one-rank {d_one:.3e}"
+            f"): tokens held equal per request {held} of "
+            f"{[len(t) for t in ref['tokens']]}, equal before the first "
+            f"difference {same} (one-rank top-2 gap there {parting}); "
+            f"engine schedule "
+            f"{got['calls']}; per rank (the counted, audited run): "
+            f"TTFT ms (mean over requests, queueing included) "
+            f"{ttft} (one-rank "
+            f"{sum(ref['ttft_ms']) / len(ref['ttft_ms']):.1f}), "
+            f"wall {[round(r['wall_s'], 3) for r in res]} s (one-rank "
+            f"{ref['wall_s']:.3f}), host staging "
+            f"{[round(r['staged'][0], 3) for r in res]} s for "
+            f"{[r['staged'][1] for r in res]} bytes in "
+            f"{[r['staged'][2] for r in res]} copies, decode "
+            f"{[round(steps / r['decode_s'], 2) for r in res]} steps/s "
+            f"(one-rank {steps / ref['decode_s']:.2f}); launches per rank "
+            f"{[_nonzero(r['launches']) for r in res]}")
+    check(all(audit.get(k, [0])[0] > 0 for k in ("K1", "K1b", "K2")),
+          "sharded serving: K1, K1 mode (b) and K2 calls held to their "
+          "plain versions")
+    log(f"sharded serving audit (calls, worst max abs err, worst share of a "
+        f"limit, worst prompt mass err): {audit}")
+    launches[f"float32_pipeline_{SS_RANKS}"] = {
+        k: sum(r["pipe_f32"]["launches"][k] for r in ranks) for k in KERNELS}
+    log(nvidia_smi_line())
+    log(f"sharded serving phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "audit": audit}
+
+
+def phase_multihost(device) -> None:
+    """The multi-process driver (`parallel/multihost.py`): two worker
+    processes started with `subprocess` on this card, joined over a
+    loopback TCP coordinator and gloo, each one rank of a 2 x 1 mesh,
+    running JAX's SPMD and serving checks (tokens against the
+    single-process path each computes itself, through K1 and K2)."""
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        launch_local_sim)
+
+    t0 = time.perf_counter()
+    out = launch_local_sim(num_processes=2, arm="both", device=str(device),
+                           timeout=300)
+    check("MULTIHOST_SIM_OK" in out and out.count("token match = True") == 2,
+          f"multihost: both checks passed on process 0:\n{out}")
+    for line in out.splitlines():
+        if line.startswith("[p0]"):
+            log(f"multihost: {line}")
+    log(f"multihost phase (2 processes, start to join): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def _map_tree(tree, fn):
     """`tree` with fn applied to every tensor: dicts, lists, tuples and
     dataclasses (caches, tiers) rebuilt, anything else kept."""
@@ -4740,9 +5415,15 @@ def _held_to_reference(label: str, toks, ref_toks, ref_logits,
     """Tokens equal to the reference's up to its first near tie (top-2 gap
     below `near`, NEAR_TIE where float32 paths may part); returns how
     many were held."""
-    for t in range(len(ref_toks)):
-        top2 = torch.topk(ref_logits[t], 2).values
-        gap = float(top2[0] - top2[1])
+    top2 = torch.topk(ref_logits.float(), 2, dim=-1).values
+    return _held_to_gaps(label, toks, ref_toks,
+                         (top2[:, 0] - top2[:, 1]).tolist(), near)
+
+
+def _held_to_gaps(label: str, toks, ref_toks, gaps, near: float) -> int:
+    """`_held_to_reference` on the reference's top-2 logit gap behind each
+    of its tokens."""
+    for t, gap in enumerate(gaps[:len(ref_toks)]):
         if gap < near:
             log(f"{label}: step {t} is a near tie (reference top-2 gap "
                 f"{gap:.3e}); tokens held to step {t - 1}")
@@ -6262,8 +6943,16 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
         mixtral, num_layers=TP_MIXTRAL_LAYERS))
     launches.update(tp["launches"])
     mark("tensor- and expert-parallel runs")
+    pipe = phase_pipeline(device, tiny, tiny_run)
+    launches.update(pipe["launches"])
+    mark("tinyllama pipeline runs")
     del tiny_run
     torch.cuda.empty_cache()
+    ss = phase_sharded_serving(device, tiny)
+    launches.update(ss["launches"])
+    mark("sharded serving and float32 pipeline runs")
+    phase_multihost(device)
+    mark("multi-process driver")
     tiny_paths = dataclasses.replace(tiny, num_layers=TINY_PATH_LAYERS,
                                      max_position_embeddings=PROMPT + 512)
     launches["tinyllama_chunked"] = phase_chunked_path(device, tiny_paths)
@@ -6346,6 +7035,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     pair_note = (f"B={PREFIX_BATCH} S_q=S_k={CHUNK}, Hq={{}} Hkv={{}} d={{}}, "
                  f"bf16")
     k2_err = max(serving_err["K2"], tp["audit"]["K2"][1],
+                 pipe["audit"]["K2"][1], ss["audit"]["K2"][1],
                  *(r["max_abs_err"] for r in (
                      k2, k2_tiny, k2p_tiny, k2p_big, k2_beam,
                      *(g[m][p] for m in g for p in ("K2", "K2pool")),
@@ -6386,6 +7076,21 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                                  f"{TP_MIXTRAL_PROMPT}, float32 at "
                                  f"tiny_test_model width"}
 
+    def audit_note(rec, shape):
+        return {"calls": rec[0], "max_abs_err": rec[1],
+                "worst_share_of_limit": rec[2],
+                "prompt_mass_max_abs_err": rec[3], "shape": shape}
+
+    pipe_shape = (f"layer 0 of each stage of tinyllama_pipeline_"
+                  f"{PIPE_RANKS} ({tiny.num_layers // PIPE_RANKS} layers a "
+                  f"rank): B=1 S={PROMPT}, then {PIPE_NEW_TOKENS - 1} "
+                  f"decode steps, bf16")
+    ss_shape = (f"layer 0 of every call of the sharded engines on "
+                f"{SS_MESH[0]}x{SS_MESH[1]} (TinyLlama width, "
+                f"{TINY_PATH_LAYERS} layers, {SERVE_SLOTS} slots over "
+                f"{SS_CONTEXT}, each admission's rows whole over the "
+                f"model rank's heads), bf16")
+
     def seq_note(rec):
         return {"calls": rec[0], "max_abs_err": rec[1],
                 "worst_share_of_limit": rec[2], "prompt_mass_max_abs_err":
@@ -6400,7 +7105,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
         entry("K1", {**k1, "max_abs_err": max(worst(
             k1, k1_tiny, *(g[m]["K1"] for m in g),
             *(q2[m]["K1"] for m in q2), serving="K1"),
-            tp["audit"]["K1"][1])}, "llama2_7b_int4", {
+            tp["audit"]["K1"][1], pipe["audit"]["K1"][1],
+            ss["audit"]["K1"][1])}, "llama2_7b_int4", {
             "mode": "a (square causal)",
             "shape": "B=1 S=4096 Hq=Hkv=32 d=128 bf16",
             "library": "scaled_dot_product_attention, causal, no prompt "
@@ -6411,9 +7117,13 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                for m in q2},
             "model_activations_max_abs_err": k1_activations,
             "tensor_parallel_audit": tp_note(tp["audit"]["K1"]),
+            "pipeline_audit": audit_note(pipe["audit"]["K1"], pipe_shape),
+            "sharded_serving_audit": audit_note(ss["audit"]["K1"],
+                                                ss_shape),
             **serving_extra("K1")}),
-        entry("K1b", {**k1b_tiny, "max_abs_err": worst(
-            k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g), serving="K1b")},
+        entry("K1b", {**k1b_tiny, "max_abs_err": max(worst(
+            k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g), serving="K1b"),
+            ss["audit"]["K1b"][1])},
               "tinyllama_chunked", {
             "mode": "b (rectangular causal at q_offset, chunked prefill)",
             "shape": chunk_note.format(tiny.num_heads, tiny.num_kv_heads,
@@ -6422,7 +7132,9 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                        "[c, S_k] causal mask, no prompt mass",
             "llama2_7b": {**k1b_big, "shape": chunk_note.format(
                 big.num_heads, big.num_kv_heads, big.head_dim)},
-            **d256("K1b", chunk_note), **serving_extra("K1b")}),
+            **d256("K1b", chunk_note), **serving_extra("K1b"),
+            "sharded_serving_audit": audit_note(ss["audit"]["K1b"],
+                                                ss_shape)}),
         entry("K1c", {**k1c_tiny, "max_abs_err": max(worst(
             k1c_tiny, k1c_big, *(g[m]["K1c"] for m in g)),
             seq["audit"]["K1c"][1])}, "tinyllama_seq_parallel", {
@@ -6473,6 +7185,9 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "tinyllama": k2_tiny,
             "beam": k2_beam,  # the beam path's B·W rows
             "tensor_parallel_audit": tp_note(tp["audit"]["K2"]),
+            "pipeline_audit": audit_note(pipe["audit"]["K2"], pipe_shape),
+            "sharded_serving_audit": audit_note(ss["audit"]["K2"],
+                                                ss_shape),
             **serving_extra("K2"),
             **{m: {**g[m]["K2"], "shape": f"layer 0 of a 4096-token {m} "
                                           f"state, 8/4/2, tiers + ring, bf16"}

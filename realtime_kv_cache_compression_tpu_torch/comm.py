@@ -13,7 +13,10 @@ collective it issues goes through this module:
 - `ring_shift`: the ring's `ppermute`, rank r sends to r + 1 and receives
   from r - 1 (mod n);
 - `neighbour_shift`: the pool halo's open-ended `ppermute`, each rank
-  sends to one neighbour and the rank at the end receives zeros.
+  sends to one neighbour and the rank at the end receives zeros;
+- `send_to`, `recv_from`: one point-to-point hop (the pipeline's
+  activations and their gradients, stage to stage);
+- `broadcast`: one rank's tensor on every rank (the pipeline's tokens).
 
 `group=None` is a group of one rank: every collective returns its input
 (a copy where the contract gives a new tensor) and issues nothing.
@@ -184,3 +187,27 @@ def neighbour_shift(t: torch.Tensor, step: int, group) -> torch.Tensor:
     src = r - step if 0 <= r - step < n else None
     got = None if n == 1 else _exchange(t, dst, src, group)
     return torch.zeros_like(t) if got is None else got
+
+
+def send_to(t: torch.Tensor, dst: int, group) -> None:
+    """Sends `t` to group rank `dst`, which takes it with `recv_from`."""
+    _exchange(t, dst, None, group)
+
+
+def recv_from(like: torch.Tensor, src: int, group) -> torch.Tensor:
+    """The tensor that group rank `src` sends with `send_to`; `like` gives
+    its shape, dtype and device (its values are not read)."""
+    return _exchange(like, None, src, group)
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Group rank `src`'s `t` on every rank of the group, as a new tensor.
+    Every rank passes a tensor of the same shape and dtype (only `src`'s
+    values are read)."""
+    if group is None:
+        return t.clone()
+    staged = _staged(group, t)
+    buf = _as_bytes(stage(t, "cpu") if staged else t).clone()
+    dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
+    out = _from_bytes(buf, t)
+    return stage(out, t.device) if staged else out

@@ -19,9 +19,11 @@ On the port: `--device` (cuda by default) replaces `--platform`, and
 every decode chunk K2, on the CPU their plain versions. The warm-up
 leaves no request or aggregate behind, so the summary counts the timed
 requests only (the JAX script's engine summary also counts the
-warm-up's). `--mesh` (sharded serving) raises NotImplementedError: it
-waits for `ServingEngine(mesh=)`, which comes after `pipeline.py` and
-`multihost.py`, in the rest of ROADMAP item 18.
+warm-up's). `--mesh DATAxMODEL` serves over a mesh of D·M ranks
+(`parallel.run_ranks`, one process each over gloo, on one device):
+every rank builds the same weights and runs `ServingEngine(mesh=)` on the
+same submissions, the weights split over `model` and the slots over
+`data`; rank 0 prints and reports.
 """
 
 from __future__ import annotations
@@ -36,7 +38,12 @@ import torch
 
 from .. import TINYLLAMA_1_1B, CompressionConfig, tiny_test_model
 from ..models import llama
+from ..parallel import create_mesh, run_ranks
 from ..serving.engine import ServingEngine
+
+# The ranks of a mesh run the whole benchmark; this bounds it (and each
+# collective).
+RANK_TIMEOUT = 3600.0
 
 
 def parse_args(argv=None):
@@ -55,25 +62,25 @@ def parse_args(argv=None):
                     help="skip the warm-up admissions (the timed run then "
                          "includes the kernels' first-use builds)")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL mesh (not ported: raises)")
+                    help="DATAxMODEL mesh, e.g. 2x2: D*M ranks, slots "
+                         "sharded over data, weights tensor-parallel")
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Runs the benchmark; returns {"summary": the engine's, "wall_s",
-    "warmup_s", "completed": {rid: request}, "model_calls": the engine's
-    schedule over the warm-up and the timed run, "engine"} for in-process
-    callers."""
-    args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded serving waits for ServingEngine(mesh=), which "
-            "comes after pipeline.py and multihost.py, in the rest of "
-            "ROADMAP item 18")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
+def _mesh_shape(spec: str):
+    try:
+        data, model = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {spec!r}: expected DATAxMODEL, e.g. 2x2")
+    if data < 1 or model < 1:
+        raise ValueError(f"--mesh {spec!r}: sizes must be positive")
+    return data, model
 
+
+def run(args, mesh=None, verbose: bool = True) -> Dict[str, Any]:
+    """The benchmark on this process: the whole engine, or this rank's
+    part of a sharded one over `mesh`. Returns `main`'s dict."""
+    device = torch.device(args.device)
     mcfg = (tiny_test_model() if args.model == "tiny-test"
             else TINYLLAMA_1_1B)
     if args.layers:
@@ -89,11 +96,13 @@ def main(argv=None) -> Dict[str, Any]:
     eng = ServingEngine(params, mcfg, ccfg, num_slots=args.slots,
                         context_len=args.context,
                         max_new_tokens=args.new_tokens,
-                        decode_chunk=args.decode_chunk)
+                        decode_chunk=args.decode_chunk, mesh=mesh)
+    del params
+    say = print if verbose else (lambda *a, **k: None)
     warmup_s = 0.0
     if not args.no_warmup:
         warmup_s = eng.warmup()["wall_s"]
-        print(f"warmup: {warmup_s:.1f}s")
+        say(f"warmup: {warmup_s:.1f}s")
     rng = np.random.default_rng(0)
     t0 = time.time()
     for _ in range(args.requests):
@@ -102,13 +111,42 @@ def main(argv=None) -> Dict[str, Any]:
     done = eng.run()
     wall = time.time() - t0
     s = eng.summary()
-    print(f"requests={len(done)} wall={wall:.2f}s "
-          f"throughput={s['total_tokens'] / wall:.1f} tok/s "
-          f"avg_ttft={s['avg_ttft_s'] * 1e3:.1f}ms "
-          f"avg_savings={s['avg_memory_savings']:.3f}")
+    if mesh is not None:
+        say(f"mesh: data={mesh.shape['data']} model={mesh.shape['model']}")
+    say(f"requests={len(done)} wall={wall:.2f}s "
+        f"throughput={s['total_tokens'] / wall:.1f} tok/s "
+        f"avg_ttft={s['avg_ttft_s'] * 1e3:.1f}ms "
+        f"avg_savings={s['avg_memory_savings']:.3f}")
     return {"summary": s, "wall_s": wall, "warmup_s": warmup_s,
             "completed": dict(done), "model_calls": dict(eng.model_calls),
             "engine": eng}
+
+
+def _rank_run(rank: int, n: int, group, args) -> Dict[str, Any]:
+    """One rank of a mesh run; rank 0 prints. The engine (which holds
+    the rank's process groups) stays on the rank."""
+    out = run(args, create_mesh(*_mesh_shape(args.mesh)), verbose=rank == 0)
+    out["engine"] = None
+    return out
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Runs the benchmark; returns {"summary": the engine's, "wall_s",
+    "warmup_s", "completed": {rid: request}, "model_calls": the engine's
+    schedule over the warm-up and the timed run, "engine"} for in-process
+    callers. Over a mesh of more than one rank they are rank 0's, and
+    "engine" is None."""
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    if not args.mesh:
+        return run(args)
+    data, model = _mesh_shape(args.mesh)
+    if data * model == 1:
+        return run(args, create_mesh(1, 1))
+    return run_ranks(_rank_run, data * model, args=(args,),
+                     timeout=RANK_TIMEOUT)[0]
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ into, so a generation may outlive the ring; greedily, or sampled
 from a `torch.Generator`). The baseline arm is `prefill_uncompressed` +
 `decode_loop_uncompressed`. `forward_logits` gives the logits at every
 position without a cache (scoring); `models/beam_search.py` and
-`models/speculative.py` build on `prefill_compressed` and `decode_step`.
+`models/speculative.py` build on `prefill_compressed` and `decode_step`. The
+layer loops of `prefill_compressed` and `decode_step` are
+`prefill_layers_compressed` and `decode_layers_step`, which pipeline
+stages also run over their own layer ranges (`parallel/pipeline.py`).
 Mixtral-style layers carry a "moe" dict in place of the dense MLP
 (`ops/moe.py`); `models/weights.py` loads HF checkpoints of every family
 into this tree.
@@ -53,7 +56,7 @@ entry points refuse a sharded tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -417,8 +420,10 @@ def refuse_sharded(params: Params, what: str) -> None:
     if getattr(params, "layout", None) is not None:
         raise NotImplementedError(
             f"{what} takes no sharded params: tensor parallelism covers the "
-            f"prefill functions, decode_step / decode_loop and the "
-            f"uncompressed arm")
+            f"prefill functions, decode_step / decode_loop, the "
+            f"uncompressed arm and the serving engine; forward_logits (and "
+            f"so the trainer), beam_search and speculative decoding wait "
+            f"for sharded training, in the rest of ROADMAP item 18")
 
 
 def _sharded_outputs(layout, logits, state, stats, batch: int):
@@ -566,6 +571,77 @@ def _decode_buffers(b: int, max_decode_len: int, cfg: ModelConfig,
             init_decode_pool(b, max_decode_len, ccfg, cfg, device=device))
 
 
+def prefill_layers_compressed(
+    layer_params: List[Params],
+    layer_offset: int,
+    h: torch.Tensor,
+    positions: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    prompt_len: int,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    max_decode_len: int,
+    use_flash: Optional[bool] = None,
+    token_valid: Optional[torch.Tensor] = None,
+    prompt_lens: Optional[torch.Tensor] = None,
+    layout=None,
+):
+    """Compressed prefill over a contiguous range of layers: the per-layer
+    body of `prefill_compressed`, which pipeline stages
+    (parallel/pipeline.py) run over the hidden states they receive.
+
+    h: [B, S, hidden] entering layer_params[0]; `layer_offset` is that
+    layer's absolute depth, which the layer-group ratios and layer weights
+    of the compression follow. positions, cos, sin, token_valid and
+    prompt_lens as `prefill_compressed` makes them. use_flash=None runs K1
+    mode (a) on CUDA inputs. `layout` is a sharded tree's `ShardLayout`
+    (the rows and heads of h, q, k, v are then the rank's). Returns (h,
+    caches, recents, pools, stats), one entry per layer in the lists.
+    """
+    if use_flash is None:
+        use_flash = h.is_cuda
+    lcfg = layout.local_config(cfg) if layout is not None else cfg
+    group = layout.head_group if layout is not None else None
+    data_group = layout.data_group if layout is not None else None
+    b, s = h.shape[:2]
+    need_qmass = ccfg.importance_source != "prompt"
+    q_lengths = (token_valid.sum(dim=-1)
+                 if need_qmass and token_valid is not None else None)
+    caches, recents, pools, all_stats = [], [], [], []
+    for i, layer in enumerate(layer_params):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, lcfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn, prompt_mass = _prefill_attention(q, k, v, prompt_len,
+                                               use_flash, prompt_lens, group)
+        qmass = (query_attention_mass(q, k, ccfg.query_window_for(s),
+                                      lengths=q_lengths,
+                                      pool=ccfg.query_mass_pool, group=group)
+                 if need_qmass else None)
+        cache, stats = compress_layer_kv(k, v, prompt_mass, layer_offset + i,
+                                         ccfg, cfg, token_valid=token_valid,
+                                         prompt_lens=prompt_lens,
+                                         query_mass=qmass,
+                                         data_group=data_group,
+                                         kv_heads_total=cfg.num_kv_heads)
+        caches.append(cache)
+        all_stats.append(stats)
+        recent, pool = _decode_buffers(b, max_decode_len, lcfg, ccfg,
+                                       h.device)
+        recents.append(recent)
+        pools.append(pool)
+        if ccfg.recompute_prefill_attention:
+            # Reference-parity mode: recompute the prefill output against
+            # the compressed K/V at the survivors' exact positions.
+            k_d, v_d, pos_c, valid = dequantize_layer_cache(cache, ccfg)
+            attn = attention_over_tokens(q, k_d.to(q.dtype), v_d.to(q.dtype),
+                                         pos_c, valid, positions)
+        h = _attn_out(layer, h, attn, lcfg, layout)
+    return h, caches, recents, pools, all_stats
+
+
 def prefill_compressed(
     params: Params,
     input_ids: torch.Tensor,
@@ -587,16 +663,15 @@ def prefill_compressed(
     `ccfg.query_window_for(S)` queries, ending at each row's true length on
     ragged rows. Returns (logits for the last position [B, V], decode
     state, per-layer stats). A sharded tree runs tensor and data parallel
-    (the module's docstring); `mesh` must then be its mesh or None.
+    (the module's docstring); `mesh` must then be its mesh or None. The
+    layers run through `prefill_layers_compressed`.
     """
     if use_flash is None:
         use_flash = input_ids.is_cuda
-    layout, lcfg = _sharded(params, cfg, mesh)
+    layout, _ = _sharded(params, cfg, mesh)
     batch = input_ids.shape[0]
     if layout is not None:
         input_ids, lengths = layout.rows(input_ids), layout.rows(lengths)
-    group = layout.head_group if layout is not None else None
-    data_group = layout.data_group if layout is not None else None
     b, s = input_ids.shape
     prompt_len = ccfg.prompt_length(s)
     h, positions, cos, sin = _prefill_start(params, input_ids, cfg, layout)
@@ -605,40 +680,10 @@ def prefill_compressed(
         lengths = lengths.to(h.device)
         token_valid = positions < lengths[:, None]
         prompt_lens = _prompt_lens(lengths, ccfg, prompt_len)
-    need_qmass = ccfg.importance_source != "prompt"
-    q_lengths = (token_valid.sum(dim=-1)
-                 if need_qmass and token_valid is not None else None)
-    caches, recents, pools, all_stats = [], [], [], []
-    for layer_idx, layer in enumerate(params["layers"]):
-        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, lcfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        attn, prompt_mass = _prefill_attention(q, k, v, prompt_len,
-                                               use_flash, prompt_lens, group)
-        qmass = (query_attention_mass(q, k, ccfg.query_window_for(s),
-                                      lengths=q_lengths,
-                                      pool=ccfg.query_mass_pool, group=group)
-                 if need_qmass else None)
-        cache, stats = compress_layer_kv(k, v, prompt_mass, layer_idx, ccfg,
-                                         cfg, token_valid=token_valid,
-                                         prompt_lens=prompt_lens,
-                                         query_mass=qmass,
-                                         data_group=data_group,
-                                         kv_heads_total=cfg.num_kv_heads)
-        caches.append(cache)
-        all_stats.append(stats)
-        recent, pool = _decode_buffers(b, max_decode_len, lcfg, ccfg,
-                                       h.device)
-        recents.append(recent)
-        pools.append(pool)
-        if ccfg.recompute_prefill_attention:
-            # Reference-parity mode: recompute the prefill output against
-            # the compressed K/V at the survivors' exact positions.
-            k_d, v_d, pos_c, valid = dequantize_layer_cache(cache, ccfg)
-            attn = attention_over_tokens(q, k_d.to(q.dtype), v_d.to(q.dtype),
-                                         pos_c, valid, positions)
-        h = _attn_out(layer, h, attn, lcfg, layout)
+    h, caches, recents, pools, all_stats = prefill_layers_compressed(
+        params["layers"], 0, h, positions, cos, sin, prompt_len, cfg, ccfg,
+        max_decode_len, use_flash=use_flash, token_valid=token_valid,
+        prompt_lens=prompt_lens, layout=layout)
     logits = logits_from_hidden(params, _last_hidden(h, lengths), cfg)
     state = DecodeState(caches=tuple(caches), recents=tuple(recents),
                         position=_end_positions(b, s, lengths, h.device),
@@ -732,9 +777,19 @@ def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
     refuse_sharded(params, "forward_logits")
     if use_flash is None:
         use_flash = input_ids.is_cuda
-    n_rep = cfg.num_heads // cfg.num_kv_heads
     h, _, cos, sin = _prefill_start(params, input_ids, cfg)
-    for layer in params["layers"]:
+    h = forward_layers(params["layers"], h, cos, sin, cfg, use_flash)
+    return logits_from_hidden(params, h, cfg)
+
+
+def forward_layers(layers: Sequence[Params], h: torch.Tensor, cos, sin,
+                   cfg: ModelConfig, use_flash: bool) -> torch.Tensor:
+    """`layers` (a contiguous range, each a layer's dict) over the hidden
+    states h [B, S, D] with causal attention and no KV cache: the layer
+    loop of `forward_logits` (which see for the two attention routes), and
+    a pipeline stage's (`parallel/pipeline.py`, use_flash=False)."""
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    for layer in layers:
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, x, cfg)
         q = apply_rope(q, cos, sin)
@@ -754,7 +809,7 @@ def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
         else:
             attn, _ = prefill_attention_with_prompt_mass(q, k, v, 1)
         h = _attn_out(layer, h, attn, cfg)
-    return logits_from_hidden(params, h, cfg)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -782,11 +837,20 @@ class ChunkedPrefillState:
 
 def prefill_chunked_init(batch: int, seq_len: int, cfg: ModelConfig,
                          ccfg: Optional[CompressionConfig] = None,
-                         device="cuda") -> ChunkedPrefillState:
+                         device="cuda", params=None) -> ChunkedPrefillState:
     """Zero-initialised chunked-prefill carry for a [batch, seq_len]
     bucket, on `device`. `ccfg` matters only when it selects query-guided
     importance: the carry then holds the per-layer window query buffers
-    (`q_tails`, W = ccfg.query_window_for(seq_len))."""
+    (`q_tails`, W = ccfg.query_window_for(seq_len)). With a sharded tree
+    `params` the carry is this rank's: its block of the batch's rows (the
+    data axis must divide `batch`) and its kv and query heads, which
+    `prefill_chunked_step` and `prefill_chunked_finish` on that tree take."""
+    layout, cfg = (None, cfg) if params is None else _sharded(params, cfg)
+    if layout is not None:
+        if batch % layout.data_size:
+            raise ValueError(f"batch {batch} is not a multiple of the "
+                             f"{layout.data_size} data ranks")
+        batch //= layout.data_size
     dtype = model_dtype(cfg)
 
     def zeros(shape, dt=dtype):
@@ -984,13 +1048,11 @@ def _prefill_chunks(params, input_ids, cfg, ccfg, chunk_size, lengths,
     """init → one `prefill_chunked_step` per chunk: the filled carry that
     `prefill_chunked_finish` compresses (its masses are the per-layer
     prompt masses the compression scores)."""
-    layout, lcfg = _sharded(params, cfg)
     b, s = input_ids.shape
     if s % chunk_size:
         raise ValueError(f"seq len {s} not a multiple of chunk {chunk_size}")
-    if layout is not None:
-        b = layout.rows(input_ids).shape[0]
-    st = prefill_chunked_init(b, s, lcfg, ccfg, device=input_ids.device)
+    st = prefill_chunked_init(b, s, cfg, ccfg, device=input_ids.device,
+                              params=params)
     for off in range(0, s, chunk_size):
         st = prefill_chunked_step(params, input_ids[:, off:off + chunk_size],
                                   st, cfg, ccfg, lengths=lengths,
@@ -1213,6 +1275,56 @@ def ring_fill_step(ring_fill: Tuple[int, ...], capacity: int,
                         for f, n in zip(full, ring_fill))
 
 
+def decode_layers_step(
+    layer_params: List[Params],
+    h: torch.Tensor,
+    caches,
+    recents,
+    pools,
+    q_pos: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cfg: ModelConfig,
+    ccfg: CompressionConfig,
+    use_fused: Optional[bool] = None,
+    flush: bool = False,
+    layout=None,
+) -> torch.Tensor:
+    """One decode step over a contiguous range of layers: the per-layer
+    body of `decode_step`, which pipeline stages (parallel/pipeline.py)
+    run over the hidden states they receive.
+
+    h: [B, 1, hidden] entering layer_params[0]; `caches`, `recents` and
+    `pools` are the range's own (entry i belongs to layer_params[i]; pools
+    may be empty or hold Nones). With `flush` (`ring_fill_step`'s
+    decision) the full rings are flushed into the pools before the
+    append. use_fused=None runs K2 on CUDA inputs. Rings and pools are
+    updated in place; returns h after the last layer of the range.
+    `layout` as in `prefill_layers_compressed`.
+    """
+    if use_fused is None:
+        use_fused = h.is_cuda
+    lcfg = layout.local_config(cfg) if layout is not None else cfg
+    pools = pools or (None,) * len(caches)
+    for layer, cache, recent, pool in zip(layer_params, caches, recents,
+                                          pools):
+        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, x, lcfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if flush:
+            flush_recent(recent, pool, ccfg, lcfg)
+        append_recent(recent, k, v, q_pos)
+        if use_fused:
+            attn = fused_decode_attention(q, cache, recent, q_pos, ccfg,
+                                          pool=pool)
+        else:
+            attn = decode_attention_plain(q, cache, recent, q_pos, ccfg,
+                                          dtype=q.dtype, pool=pool)
+        h = _attn_out(layer, h, attn, lcfg, layout)
+    return h
+
+
 def decode_step(
     params: Params,
     token: torch.Tensor,
@@ -1228,11 +1340,12 @@ def decode_step(
     row is full), so no ring overflows. The state's rings and pools are
     updated in place; returns (logits [B, V], the state with position + 1).
     Under a sharded tree `token` and the logits are global, the state the
-    rank's own (its rows and kv heads): K2 runs over the rank's heads.
+    rank's own (its rows and kv heads): K2 runs over the rank's heads. The
+    layers run through `decode_layers_step`.
     """
     if use_fused is None:
         use_fused = token.is_cuda
-    layout, lcfg = _sharded(params, cfg)
+    layout, _ = _sharded(params, cfg)
     if layout is not None:
         token = layout.rows(token)
     h = _embed_lookup(params["embed"], token, model_dtype(cfg), cfg,
@@ -1244,22 +1357,9 @@ def decode_step(
     capacity = state.recents[0].capacity if state.recents else 0
     flush, ring_fill = ring_fill_step(state.ring_fill, capacity,
                                       pools[0] is not None)
-    for layer, cache, recent, pool in zip(params["layers"], state.caches,
-                                          state.recents, pools):
-        x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, lcfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if flush:
-            flush_recent(recent, pool, ccfg, lcfg)
-        append_recent(recent, k, v, q_pos)
-        if use_fused:
-            attn = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                          pool=pool)
-        else:
-            attn = decode_attention_plain(q, cache, recent, q_pos, ccfg,
-                                          dtype=q.dtype, pool=pool)
-        h = _attn_out(layer, h, attn, lcfg, layout)
+    h = decode_layers_step(params["layers"], h, state.caches, state.recents,
+                           pools, q_pos, cos, sin, cfg, ccfg,
+                           use_fused=use_fused, flush=flush, layout=layout)
     logits = logits_from_hidden(params, h[:, 0], cfg)
     if layout is not None:
         logits, _ = layout.gather_outputs(logits)

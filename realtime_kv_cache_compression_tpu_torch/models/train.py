@@ -34,6 +34,14 @@ from .llama import forward_logits
 Params = Dict[str, Any]
 
 
+def token_nll(logits: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy per target position, [B, S-1] float32, of
+    logits [B, S, V] over input_ids [B, S] (`lm_loss`, and a pipeline's
+    last stage per microbatch)."""
+    logp = torch.log_softmax(logits.float()[:, :-1], dim=-1)
+    return -torch.gather(logp, -1, input_ids[:, 1:, None].long())[..., 0]
+
+
 def lm_loss(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
             use_flash: Optional[bool] = None,
             loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -45,11 +53,8 @@ def lm_loss(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
     gradient share collapses with 1/S. None → plain mean over all
     positions.
     """
-    logits = forward_logits(params, input_ids, cfg,
-                            use_flash=use_flash).float()
-    targets = input_ids[:, 1:].long()
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    nll = token_nll(forward_logits(params, input_ids, cfg,
+                                   use_flash=use_flash), input_ids)
     if loss_mask is not None:
         w = loss_mask.to(nll.dtype)
         return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
@@ -118,10 +123,11 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
-    def _clip(self) -> None:
+    def _clip(self, norm_of=None) -> None:
         grads = [t.grad for t in self.tensors]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads, 2, dtype=torch.float32)))
+        norms = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32))
+        norm = (torch.linalg.vector_norm(norms) if norm_of is None
+                else norm_of(norms))
         self.last_grad_norm = norm
         keep = norm < self.clip_norm
         div = torch.where(keep, torch.ones_like(norm), norm)
@@ -130,10 +136,14 @@ class Optimizer:
         torch._foreach_div_(grads, div)  # (g / ‖g‖) * clip_norm, as optax
         torch._foreach_mul_(grads, mul)  # orders it
 
-    def step(self) -> None:
-        """One update from the gradients in `.grad`."""
+    def step(self, norm_of: Optional[Callable[[torch.Tensor],
+                                              torch.Tensor]] = None) -> None:
+        """One update from the gradients in `.grad`. `norm_of` maps the
+        per-tensor gradient norms [n] (float32) to the global norm that the
+        clip takes; by default their 2-norm (a pipeline stage's sums the
+        squares over its stages: `parallel/pipeline.py`)."""
         with torch.no_grad():
-            self._clip()
+            self._clip(norm_of)
         for group in self.adamw.param_groups:
             group["lr"] = self.lr_at(self.count)
         self.adamw.step()

@@ -5,7 +5,8 @@ of one process's device grid; here the world's ranks (one process each)
 are laid out row-major on a (data, model) grid, and each axis carries the
 process group of the ranks that share this rank's other coordinate:
   data  — batch / data parallelism;
-  model — tensor parallelism over heads, MLP hidden and vocab.
+  model — tensor parallelism over heads, MLP hidden and vocab;
+  pipe  — pipeline stages, contiguous layer ranges (`pipeline.py`).
 A one-rank axis carries no group (None): the collectives of
 `comm.py` then issue nothing. Every rank must build the same
 meshes in the same order (`torch.distributed.new_group` is collective).
@@ -20,6 +21,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,3 +102,9 @@ def single_device_mesh() -> Mesh:
                 shape={DATA_AXIS: 1, MODEL_AXIS: 1},
                 coords={DATA_AXIS: 0, MODEL_AXIS: 0},
                 groups={DATA_AXIS: None, MODEL_AXIS: None})
+
+
+def create_pipe_mesh(n: Optional[int] = None) -> Mesh:
+    """A one-axis `pipe` mesh over the world's n ranks (default: all of
+    them); rank r is stage r."""
+    return grid_mesh((PIPE_AXIS,), (world_size() if n is None else n,))

@@ -240,6 +240,21 @@ class ShardLayout:
     def wrap(self, tree: Params) -> "ShardedParams":
         return ShardedParams(tree, self)
 
+    def rows_whole(self) -> "ShardLayout":
+        """This layout with the data axis folded away: every rank takes
+        every row of a batch (the weights stay split over `model`, the
+        collectives over `data` issue nothing). The sharded serving
+        engine's admission prefill runs on it, so that a batch smaller
+        than the data axis needs no padding and its batch-wide stats are
+        the whole batch's."""
+        if self.data_size == 1:
+            return self
+        m = self.mesh
+        return dataclasses.replace(self, mesh=Mesh(
+            axis_names=m.axis_names, shape={**m.shape, DATA_AXIS: 1},
+            coords={**m.coords, DATA_AXIS: 0},
+            groups={**m.groups, DATA_AXIS: None}))
+
 
 class ShardedParams(dict):
     """A rank's params tree (a plain dict of its slices) carrying its

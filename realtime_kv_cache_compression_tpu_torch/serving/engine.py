@@ -24,10 +24,25 @@ Port of the JAX package's `serving/engine.py`, with its names. Design:
     prompts re-admit with zero prefill work. Decode updates rings, pools
     and positions in place, so an entry owns its tensors (a row sliced,
     then cloned) and the slot state never aliases one: admission copies.
-  * Sharded serving (`mesh=`) is not ported: tensor and data parallel
-    prefill and decode are (`parallel/sharding.py`), and the engine over
-    them waits for `pipeline.py` and `multihost.py`, in the rest of
-    ROADMAP item 18. A sharded params tree is refused too.
+  * Sharded serving (`mesh=`, a (data, model) mesh of ranks,
+    `parallel/mesh.create_mesh`): every rank runs this same engine on the
+    same submissions. The weights are split over `model`
+    (`parallel.shard_params`) and the slots over `data`: a rank keeps its
+    data block of the slot state (its slots' rows, its kv heads), checked
+    by `constrain_decode_state` at every insert. Decode runs through the
+    sharded `decode_step`, whose tokens and logits are global, so every
+    rank's scheduler sees every token and makes the same decisions (stop
+    reasons, prefix hits, slot choice; a sampled engine's generator is
+    seeded alike on every rank). The admission prefill runs with its rows
+    whole on every data rank (`ShardLayout.rows_whole`: weights still
+    split over `model`, K1 over the rank's heads), and each data rank
+    inserts the rows of the slots it owns: an admission of fewer rows than
+    the data axis needs no padding, and its batch-wide stats are those of
+    the whole batch, as in JAX, where GSPMD replicates such a batch. With
+    more than one rank, admission is synchronous: a rank's readiness
+    signal must not decide when a collective issues (JAX turns async
+    admission off over processes for the same reason). A registered
+    prefix (`extend_prefill`) is not served over a mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from ..config import CompressionConfig, ModelConfig
 from ..models import llama, speculative
 from ..models.quantized_params import params_num_weights
 from ..ops.sampling import SamplingParams, sample_logits
+from ..parallel.mesh import DATA_AXIS
 from ..utils.data import truncate_middle
 
 # Effective throughput of the analytic prefill estimate below, measured:
@@ -150,7 +166,8 @@ def _extract_row(state: llama.DecodeState, row: int) -> llama.DecodeState:
 
 
 class ServingEngine:
-    """Greedy/sampled continuous-batching engine on one device."""
+    """Greedy/sampled continuous-batching engine on one device, or on the
+    ranks of a (data, model) mesh (`mesh=`)."""
 
     def __init__(self, params, mcfg: ModelConfig, ccfg: CompressionConfig,
                  num_slots: int = 4, context_len: int = 2048,
@@ -169,12 +186,35 @@ class ServingEngine:
                  mesh=None):
         """use_flash / use_fused_decode None: K1 / K2 on CUDA params (the
         port's rule); the engine runs on the params' device and never
-        moves them."""
-        if mesh is not None or getattr(params, "layout", None) is not None:
-            raise NotImplementedError(
-                "sharded serving (ServingEngine(mesh=)) is not ported yet: "
-                "it comes after pipeline.py and multihost.py, in the rest "
-                "of ROADMAP item 18")
+        moves them. With `mesh` the whole float `params` are cut to this
+        rank's slice (`parallel.shard_params`); a tree sharded already
+        (its layout's mesh `mesh`, or mesh None) is taken as it is, fused
+        or not. Raises ValueError when the data axis does not divide
+        `num_slots`."""
+        if prefill_chunk == "auto":
+            prefill_chunk = resolve_prefill_chunk(params, mcfg, context_len)
+        layout = getattr(params, "layout", None)
+        if layout is not None and mesh is not None and layout.mesh != mesh:
+            raise ValueError("params sharded over another mesh than mesh=")
+        if mesh is None and layout is not None:
+            mesh = layout.mesh
+        if mesh is not None and num_slots % mesh.shape[DATA_AXIS]:
+            raise ValueError(f"num_slots={num_slots} must be a multiple of "
+                             f"the data-axis size ({mesh.shape[DATA_AXIS]})")
+        if mesh is not None and layout is None:
+            from ..parallel.sharding import shard_params
+
+            params = shard_params(params, mesh, mcfg)
+            layout = params.layout
+        self.layout = layout
+        self._slot_lo, self._local_slots = 0, num_slots
+        self._admit_params = params
+        if layout is not None:
+            self._local_slots = num_slots // layout.data_size
+            self._slot_lo = mesh.coords[DATA_AXIS] * self._local_slots
+            self._admit_params = layout.rows_whole().wrap(params)
+            if any(n > 1 for n in layout.mesh.shape.values()):
+                async_admission = False  # lockstep: see the module docstring
         self.mcfg = mcfg
         self.ccfg = ccfg
         self.num_slots = num_slots
@@ -214,8 +254,6 @@ class ServingEngine:
         # by one chunk's time instead of a full-prompt prefill. "auto"
         # chunks only when the estimated one-shot prefill exceeds the
         # head-of-line budget (resolve_prefill_chunk).
-        if prefill_chunk == "auto":
-            prefill_chunk = resolve_prefill_chunk(params, mcfg, context_len)
         if prefill_chunk and context_len % prefill_chunk:
             raise ValueError(
                 f"context_len={context_len} must be a multiple of "
@@ -269,19 +307,24 @@ class ServingEngine:
     def _prefill(self, ids: torch.Tensor, lengths: torch.Tensor):
         self.model_calls["prefill"] += 1
         return llama.prefill_compressed(
-            self.params, ids, self.mcfg, self.ccfg,
+            self._admit_params, ids, self.mcfg, self.ccfg,
             max_decode_len=self._ring_cap, use_flash=self.use_flash,
             lengths=lengths)
+
+    def _chunk_init(self, batch: int):
+        return llama.prefill_chunked_init(
+            batch, self.context_len, self.mcfg, self.ccfg,
+            device=self.device, params=self._admit_params)
 
     def _chunk_step(self, chunk_ids, st, lengths):
         self.model_calls["chunk_step"] += 1
         return llama.prefill_chunked_step(
-            self.params, chunk_ids, st, self.mcfg, self.ccfg,
+            self._admit_params, chunk_ids, st, self.mcfg, self.ccfg,
             lengths=lengths, use_flash=self.use_flash)
 
     def _chunk_finish(self, st, lengths):
         return llama.prefill_chunked_finish(
-            self.params, st, self.mcfg, self.ccfg,
+            self._admit_params, st, self.mcfg, self.ccfg,
             max_decode_len=self._ring_cap, lengths=lengths)
 
     def _decode(self):
@@ -374,6 +417,7 @@ class ServingEngine:
             raise ValueError(
                 "register_prefix requires prefix_continue_budget > 0 "
                 "(ring headroom for the continuation suffix)")
+        llama.refuse_sharded(self.params, "register_prefix (extend_prefill)")
         ids, length = self._bucket_ids(input_ids)
         key = tuple(ids[:length])
         if key in self._registered:
@@ -434,8 +478,8 @@ class ServingEngine:
     def _ready_event(self) -> Optional[torch.cuda.Event]:
         """An event after the work queued so far on the device's current
         stream (None on the CPU, where work is done when the call
-        returns)."""
-        if self.device.type != "cuda":
+        returns, and under synchronous admission, which polls nothing)."""
+        if self.device.type != "cuda" or not self.async_admission:
             return None
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
@@ -505,9 +549,7 @@ class ServingEngine:
             # finish pass masks everything past each row's true length.
             n_chunks = -(-max(lengths) // self.prefill_chunk)
             rec = {"keyed": keyed, "ids": ids_arr, "lens": len_arr,
-                   "st": llama.prefill_chunked_init(
-                       len(rows), self.context_len, self.mcfg, self.ccfg,
-                       device=self.device),
+                   "st": self._chunk_init(len(rows)),
                    "end": n_chunks * self.prefill_chunk}
             if not self._advance_chunked(rec):  # dispatch the first chunk
                 self._chunked.append(rec)
@@ -555,7 +597,7 @@ class ServingEngine:
         for i, (req, slot, key, row) in enumerate(pairs):
             req.ttft = time.time() - req.submitted_at
             req.prefill_stats = row_stats[row]
-            self._state = _tree_insert_row(self._state, state, row, slot)
+            self._insert(state, row, slot)
             if (self._prefix_cache is not None
                     and key not in self._prefix_cache):
                 self._prefix_cache[key] = (
@@ -566,16 +608,35 @@ class ServingEngine:
                     self._prefix_cache.popitem(last=False)  # LRU
             self._activate(req, slot, toks[i], None if lps is None else lps[i])
 
+    def _insert(self, multi: llama.DecodeState, row: int, slot: int):
+        """Copy row `row` of `multi` into slot `slot` of the slot state,
+        where this rank holds that slot (a sharded engine's data block),
+        and check the slot state's layout."""
+        local = slot - self._slot_lo
+        if not 0 <= local < self._local_slots:
+            return
+        self._state = _tree_insert_row(self._state, multi, row, local)
+        self._check_layout()
+
+    def _check_layout(self):
+        if self.layout is not None:
+            from ..parallel.sharding import constrain_decode_state
+
+            constrain_decode_state(self._state, self.layout, self.num_slots)
+
     def _ensure_state(self, template_state: llama.DecodeState):
         """Materialize the batched slot state (lazily, at first admission):
-        every slot a copy of row 0 of `template_state`, in new tensors."""
+        every slot a copy of row 0 of `template_state`, in new tensors
+        (this rank's slots over a mesh). The last tokens and counts are
+        every slot's."""
         if self._state is not None:
             return
-        n = self.num_slots
+        n, local = self.num_slots, self._local_slots
         self._state = llama.map_decode_state(
             template_state,
-            lambda t: t[:1].repeat(n, *(1,) * (t.dim() - 1)),
-            (template_state.ring_fill[0],) * n)
+            lambda t: t[:1].repeat(local, *(1,) * (t.dim() - 1)),
+            (template_state.ring_fill[0],) * local)
+        self._check_layout()
         self._last_tokens = torch.zeros((n,), dtype=torch.int64,
                                         device=self.device)
         if self._track_counts:
@@ -591,7 +652,7 @@ class ServingEngine:
         toks, lps = self._first_token(logits_row)
         req.ttft = time.time() - req.submitted_at
         req.prefill_stats = dict(stats_row)
-        self._state = _tree_insert_row(self._state, state_row, 0, slot)
+        self._insert(state_row, 0, slot)
         self._activate(req, slot, toks[0], None if lps is None else lps[0])
 
     def _activate(self, req: Request, slot: int, tok0: int,

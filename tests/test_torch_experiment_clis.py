@@ -14,7 +14,7 @@ both packages (`torch_parity.jax_tree`); the ids come from the port's
   equal to greedy's (asserted inside), and greedy's equal to JAX's
   `decode_loop` from the same prefill state (`torch_parity.state_to_jax`);
 - `serving_benchmark.main` on `tiny-test` completes every request, and
-  `--mesh` raises NotImplementedError;
+  a malformed `--mesh` raises ValueError;
 - the two recall CLIs' and the tuning CLI's `main(argv)` write their
   artifacts (the ablation CLI's: tests/test_torch_ablation.py).
 """
@@ -152,8 +152,10 @@ def test_serving_benchmark_completes_every_request():
 
 
 def test_serving_benchmark_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsb.main(SERVE + ["--mesh", "2x1"])
+    # A mesh run itself is held in tests/test_torch_sharded_serving.py.
+    for spec in ("2x", "2y1", "0x2"):
+        with pytest.raises(ValueError, match="--mesh"):
+            tsb.main(SERVE + ["--mesh", spec])
 
 
 @pytest.mark.parametrize("cli", ["chunked_prefix_quality",

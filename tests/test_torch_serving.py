@@ -318,5 +318,28 @@ def test_helpers_match_jax(model, monkeypatch):
 
 
 def test_mesh_raises(model):
+    """The sharded engine's refusals, which issue no collective: slots
+    that the data axis does not divide, a tree sharded over another mesh
+    than mesh=, and a registered prefix (its partial hits run
+    `extend_prefill`, which takes no sharded tree). Meshes of coordinates
+    without groups stand in for the ranks (slicing needs none)."""
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        Mesh, shard_params)
+
+    def mesh(data, model_):
+        return Mesh(axis_names=("data", "model"),
+                    shape={"data": data, "model": model_},
+                    coords={"data": 0, "model": 0},
+                    groups={"data": None, "model": None})
+
+    with pytest.raises(ValueError, match="data-axis"):
+        make(model, "torch", num_slots=3, mesh=mesh(2, 1))
+    sharded = shard_params(model["params"], mesh(1, 2), model["tcfg"])
+    with pytest.raises(ValueError, match="another mesh"):
+        te.ServingEngine(sharded, model["tcfg"],
+                         rt.CompressionConfig(num_layers=2),
+                         mesh=mesh(1, 1), **ENGINE)
+    eng = make(model, "torch", mesh=mesh(1, 2), **PREFIX)
+    assert not eng.async_admission  # lockstep over more than one rank
     with pytest.raises(NotImplementedError, match="item 18"):
-        make(model, "torch", mesh=object())
+        eng.register_prefix(model["prompts"][0])

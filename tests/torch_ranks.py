@@ -270,3 +270,60 @@ def tensor_parallel_on_card(rank, n, group, cfg, ccfg, s, steps):
     return {"logits": logits.cpu(), "tokens": toks.cpu(),
             "launches": (fp.flash_prefill_with_prompt_mass.launches,
                          da.fused_decode_attention.launches)}
+
+
+def pipeline_runs(rank, n, group, params, cfg, ccfg, ids, steps, loss_mbs,
+                  train_mbs, lr):
+    """On a pipe mesh of the n ranks: `PipelineInference` prefill and
+    `steps` - 1 greedy decode steps; the stack / unstack round trip;
+    `pipeline_lm_loss` at each microbatch count of `loss_mbs`; with
+    `train_mbs`, one `pipeline_train_step` (AdamW at `lr`) and the whole
+    model unstacked after it."""
+    from realtime_kv_cache_compression_tpu_torch.models import train
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        PipelineInference, create_pipe_mesh, pipeline_lm_loss,
+        pipeline_train_step, stack_pipeline_params, unstack_pipeline_params)
+
+    mesh = create_pipe_mesh(n)
+    pipe = PipelineInference(params, cfg, ccfg, mesh, max_decode_len=16)
+    logits, stats = pipe.prefill(ids)
+    first = torch.argmax(logits, dim=-1)
+    toks = pipe.decode(first, steps - 1)
+    stacked = stack_pipeline_params(params, mesh)
+    out = {"logits": logits, "stats": stats,
+           "tokens": torch.cat([first[:, None], toks], dim=1),
+           "stage_wq": stacked["layers"]["wq"].clone(),
+           "roundtrip": unstack_pipeline_params(stacked, mesh),
+           "loss": {mb: pipeline_lm_loss(stacked, ids, cfg, mesh, mb)
+                    for mb in loss_mbs}}
+    if train_mbs:
+        opt = train.make_optimizer(stacked, lr=lr)
+        out["train_loss"] = pipeline_train_step(stacked, opt, ids, cfg, mesh,
+                                                train_mbs)
+        out["grad_norm"] = opt.last_grad_norm
+        out["trained"] = unstack_pipeline_params(stacked, mesh)
+    return out
+
+
+def sharded_serving_runs(rank, n, group, params, cfg, ccfg, runs, prompts):
+    """Per entry of `runs` (name -> (mesh (data, model), engine keyword
+    arguments)), a `ServingEngine(mesh=)` on this rank serving `prompts`
+    (each a (ids, max_new_tokens) pair) to the end. Returns per run the
+    tokens, stop reasons and prefill stats of every request, the engine's
+    summary and schedule, and this rank's slot-state rows."""
+    from realtime_kv_cache_compression_tpu_torch.serving.engine import \
+        ServingEngine
+
+    out = {}
+    for name, (shape, kw) in runs.items():
+        eng = ServingEngine(params, cfg, ccfg, mesh=create_mesh(*shape), **kw)
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in prompts]
+        done = eng.run()
+        out[name] = {"tokens": [done[r].tokens for r in rids],
+                     "stop": [done[r].stop_reason for r in rids],
+                     "stats": [done[r].prefill_stats for r in rids],
+                     "summary": eng.summary(),
+                     "calls": dict(eng.model_calls),
+                     "rows": eng._state.position.shape[0],
+                     "async": eng.async_admission}
+    return out
