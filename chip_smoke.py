@@ -27,7 +27,7 @@ each with every launch count set to 0 just before it and read just after:
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
-  tokens, tiers 8/4/2, counted once and timed REPEATS times, plus the
+  tokens, tiers 8/4/2, counted once (that run timed), plus the
   uncompressed arm and a torch.profiler breakdown; then the sampled decode
   on the same prefill (temperature 0.8, top-k 50, top-p 0.9, repetition
   penalty 1.1; 127 steps through K2), with its counts and logprobs checked,
@@ -57,10 +57,15 @@ each with every launch count set to 0 just before it and read just after:
   one-shot, tier changes as rank reversals within the measured score
   drift), fully sharded compression byte for byte against
   `compress_layer_kv_chunked`, 32 greedy tokens through K2 from each
-  state (the sharded one gathered), a float32 run at tiny_test_model
-  width (query-guided, ragged) whose tokens equal the one-shot path's,
-  and TTFT by CUDA events for the one-shot and the 4-rank prefill with
-  each rank's host staging;
+  state (the sharded one decoded from the shards with no gather, K2's
+  lse mode 22 times a rank and step, each call held to its plain
+  version, against the decode from the gathered state), float32 runs at
+  tiny_test_model width (query-guided, ragged) whose tokens equal the
+  one-shot path's and, from the shards, the gathered state's, TTFT by
+  CUDA events for the one-shot and the 4-rank prefill with each rank's
+  host staging, each rank's decode steps/s and tier bytes from the
+  shards and from the gathered state, and K2's lse mode timed on a
+  rank's shard;
 - tensor, data and expert parallelism (`parallel/sharding.py`,
   `expert_parallel.py`): 4 ranks spawned on this one card over a gloo
   group, each holding its slice of the weights, on a 1 x 4 and a 2 x 2
@@ -73,16 +78,22 @@ each with every launch count set to 0 just before it and read just after:
   one-rank prefill's, a float32 run at tiny_test_model width whose tokens
   equal the one-rank path's, and each rank's TTFT, staging and decode
   rate;
-- Llama-2-7B (BIG_RUN_LAYERS = 8 of its 32 layers, hidden 4096, 32/32
+- training over a sharded tree on a 2 x 2 mesh and beam search and
+  speculative decoding over one on a 1 x 4 mesh (4 ranks on this one
+  card, TinyLlama width at 2 layers, float32): losses and each rank's
+  weights held to the one-rank trainer's, ms a step and peak MB a rank;
+  beam sequences and scores and speculative tokens equal to one rank's,
+  K1 mode (a) and K2 launches exact per rank;
+- Llama-2-7B (BIG_RUN_LAYERS = 4 of its 32 layers, hidden 4096, 32/32
   heads, d=128), bf16 random
   weights quantized with `quantize_params_streaming(bits=4)` and fused:
   every layer matmul through K3, embed and lm_head int8 weight-only; the
-  same prompt, tiers and generation, counted once and timed REPEATS_7B
-  times, the uncompressed arm, and a profile;
+  same prompt, tiers and generation, counted once (that run timed), the
+  uncompressed arm, and a profile;
 - the same model under `quantize_params(bits=8, act_quant=True)`: every
   layer matmul and lm_head through K4, counted by route (the prefill's 128
   layer matmuls on the int8 tensor cores, every M=1 call on the GEMV);
-- TinyLlama (TINY_PATH_LAYERS = 6 of its 22 layers here and in the next
+- TinyLlama (TINY_PATH_LAYERS = 4 of its 22 layers here and in the next
   two paths) on the ragged, chunked, long-generation path: batch 2
   with lengths (4096, 3000) right-padded to 4096,
   `prefill_compressed_chunked` in 4 chunks of 1024 (K1 mode (b)), then 383
@@ -108,8 +119,8 @@ each with every launch count set to 0 just before it and read just after:
 - Gemma-2B (18 layers, hidden 2048, 8 query heads over 1 kv head,
   head_dim 256, vocab 256000, GeGLU, (1 + w) norms, scaled embeddings,
   tied head), bf16 random weights from SEED, fused: TinyLlama's traffic
-  (prompt 4096, batch 1, 128 new tokens, tiers 8/4/2), counted once, timed
-  REPEATS_NEW times, the uncompressed arm, and a profile;
+  (prompt 4096, batch 1, 128 new tokens, tiers 8/4/2), counted once (that
+  run timed), the uncompressed arm, and a profile;
 - Qwen2-0.5B (QWEN2_LAYERS = 6 of its 24 layers, 14 query heads over
   2, d=64, q/k/v biases, tied head), bf16 random weights from SEED written as HF-named safetensors
   shards with an index and a config.json (the port's writer), read back
@@ -121,8 +132,8 @@ each with every launch count set to 0 just before it and read just after:
   8 experts, top 2), built layer by layer (a one-layer bf16 init from SEED + i, then
   `quantize_params_streaming(bits=4)`): TinyLlama's traffic, counted by
   kernel and by K3 route (unfused attention on the tensor cores and the
-  GEMV, every routed expert projection on the expert GEMV), timed
-  REPEATS_MIXTRAL times, the uncompressed arm and a profile; then a
+  GEMV, every routed expert projection on the expert GEMV), the counted
+  run timed, the uncompressed arm and a profile; then a
   checkpoint round trip of its layer 0, embedding and head, bit-equal;
 - TinyLlama served by the continuous-batching engine (`serving/`): bf16
   fused weights, 4 slots over a 4096-token bucket, decode chunks of 8,
@@ -223,7 +234,8 @@ from realtime_kv_cache_compression_tpu_torch.utils.timing import (
 
 PKG = "realtime_kv_cache_compression_tpu_torch"
 JAX_PKG = "realtime_kv_cache_compression_tpu"
-KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
+KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel
+    #                [, the wrapper's counter when not `launches`])
     "K1": ("flash_prefill", "flash_prefill_with_prompt_mass",
            f"{PKG}/csrc/flash_prefill.cu",
            f"{JAX_PKG}/ops/pallas/flash_prefill.py:39"),
@@ -242,6 +254,12 @@ KERNELS = {  # key: (wrapper module, wrapper name, source, TPU kernel)
     "K2": ("decode_attention", "fused_decode_attention",
            f"{PKG}/csrc/decode_attention.cu",
            f"{JAX_PKG}/ops/pallas/decode_attention.py:143"),
+    # K2's lse mode (return_lse=True: a slot shard's partial), counted on
+    # the wrapper's `lse_launches`.
+    "K2l": ("decode_attention", "fused_decode_attention",
+            f"{PKG}/csrc/decode_attention.cu",
+            f"{JAX_PKG}/ops/pallas/decode_attention.py:143",
+            "lse_launches"),
     "K3": ("int4_matmul", "int4_matmul", f"{PKG}/csrc/int4_matmul.cu",
            f"{JAX_PKG}/ops/pallas/int4_matmul.py:46"),
     "K4": ("int8_matmul", "int8_matmul", f"{PKG}/csrc/int8_matmul.cu",
@@ -290,10 +308,12 @@ NEW_TOKENS = 128
 # stays. TinyLlama's and Mixtral's counts were cut once more (2 -> 1) when the
 # experiment CLIs joined, so every path now times one run after its
 # counted one; the sampled decode's and beam search's turns went 2 -> 1
-# when the pipeline and sharded serving joined.
-REPEATS = 1
-REPEATS_7B = 1
-REPEATS_MIXTRAL = 1
+# when the pipeline and sharded serving joined. When the decode from the
+# sequence-sharded state, sharded training and the sharded decoders
+# joined, `phase_main`'s paths (TinyLlama, Gemma-2B, the 7B arms,
+# Qwen2-0.5B, Mixtral) and the sampled decode stopped timing a run after
+# their counted one: their counted run is timed (its first call of that
+# model, so a TTFT that may carry first-call costs).
 # Depth of later paths, cut to keep the script inside its limit as the
 # experiment CLIs joined: every check stays at full width, and the launch
 # counts follow the layer count. TinyLlama's chunked pooled,
@@ -307,12 +327,18 @@ REPEATS_MIXTRAL = 1
 # Qwen2-0.5B 12 -> 6. When the pipeline, sharded serving and the
 # multi-process driver joined (about 65 s on a fast host, after the
 # sampled decode's and beam search's timed turns went 2 -> 1),
-# phase_tensor_parallel's Mixtral went 8 -> 4 layers.
-TINY_PATH_LAYERS = 6
-BIG_RUN_LAYERS = 8
+# phase_tensor_parallel's Mixtral went 8 -> 4 layers. When the decode
+# from the sequence-sharded state, sharded training and the sharded
+# decoders joined (about 100 s on a slow host, whose whole run then took
+# 1204 s; NVIDIA H100 80GB HBM3 at 700 W) the timed runs went first (above; the uncompressed arms decode
+# BASELINE_STEPS steps, the chunked path and beam search time their
+# counted runs), then TinyLlama's paths 6 -> 4 layers and the 7B runs
+# 8 -> 4.
+TINY_PATH_LAYERS = 4
+BIG_RUN_LAYERS = 4
 MIXTRAL_LAYERS = 4
 QWEN2_LAYERS = 6
-BASELINE_REPEATS = 1  # the uncompressed arm's timed runs in phase_main
+BASELINE_STEPS = 16  # the uncompressed arms' timed decode steps
 # Llama-2-7B fused matmul shapes (K, N): wqkv, wo, w_gateup, w_down.
 SHAPES_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
 LM_HEAD_7B = (4096, 32000)
@@ -462,6 +488,7 @@ SERVE_BENCH_ARGS = ["--model", "tinyllama"]  # the CLI's defaults
 # and each kernel call as they were (PERF.md, PR 14, has the readings).
 SEQ_RANKS = 4
 SEQ_NEW_TOKENS = 32
+SEQ_TIMED_STEPS = 10  # the timed decodes, from the shards and gathered
 SEQ_TIMEOUT = 600
 SEQ_F32_LAYERS = 3
 SEQ_F32_PROMPT = 256
@@ -529,6 +556,28 @@ SS_F32_ENGINE = dict(num_slots=2, context_len=64, max_new_tokens=9,
 # The sharded engines' runs, (name, prefill_chunk): the main traffic and
 # the three short prompts' chunked admission.
 SS_RUNS = (("main", None), ("chunked", SS_PREFILL_CHUNK))
+# Sharded training and the decoders over a sharded tree
+# (phase_sharded_train_decoders): TSD_RANKS spawned ranks; TinyLlama width
+# in float32 at TSD_LAYERS layers. Training on the TSD_TRAIN_MESH (data x
+# model) mesh: TSD_TRAIN_STEPS steps of AdamW at TSD_TRAIN_LR (clip
+# TSD_TRAIN_CLIP) on TSD_TRAIN_BATCH rows of TSD_TRAIN_SEQ tokens. The
+# decoders on the TSD_DECODE_MESH: beam search (BEAM_WIDTH beams,
+# TSD_BEAM_TOKENS tokens, B=1) and speculative decoding (TSD_SPEC_STEPS
+# steps, N_DRAFT oracle drafts; the adaptive controller in chunks of
+# TSD_SPEC_CHUNK with adversarial drafts) over a TSD_PROMPT-token prompt.
+TSD_RANKS = 4
+TSD_LAYERS = 2
+TSD_TRAIN_MESH = (2, 2)
+TSD_TRAIN_STEPS = 3
+TSD_TRAIN_LR = 1e-3
+TSD_TRAIN_CLIP = 1.0
+TSD_TRAIN_BATCH, TSD_TRAIN_SEQ = 4, 512
+TSD_DECODE_MESH = (1, 4)
+TSD_PROMPT = 1024
+TSD_BEAM_TOKENS = 16
+TSD_SPEC_STEPS = 32
+TSD_SPEC_CHUNK = 8
+TSD_TIMEOUT = 600
 
 
 def _arg(argv: list, flag: str) -> str:
@@ -549,9 +598,13 @@ def wrapper(key: str):
     return getattr(importlib.import_module(f"{PKG}.ops.cuda.{module}"), name)
 
 
+def _counter(key: str) -> str:
+    return KERNELS[key][4] if len(KERNELS[key]) > 4 else "launches"
+
+
 def _launches() -> dict:
     """Each kernel wrapper's launch count."""
-    return {key: wrapper(key).launches for key in KERNELS}
+    return {key: getattr(wrapper(key), _counter(key)) for key in KERNELS}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -938,6 +991,58 @@ def phase_k2(device, mcfg, prompt: int = PROMPT, decode_steps: int = 5,
                     f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
         del params
     return {"max_abs_err": worst, **timing}
+
+
+def phase_k2_lse(device, mcfg, ccfg, cache, recent, s: int,
+                 reps: int = 20) -> dict:
+    """K2's lse mode (`return_lse=True`) timed on a slot shard: layer 0 of
+    rank 0's shard of the sequence-parallel state (1/SEQ_RANKS of the
+    slots of an s-token prompt) with its ring after the decode, as that
+    rank calls it, bf16 q; against `decode_attention_plain(return_lse=
+    True)` (o rounded to bf16 under the ulp limit, lse within TOL_LSE), its
+    device time per call and its bound (the shard, the ring and q read;
+    o in float32 and the lse written). No single PyTorch call computes it
+    (library_ms null)."""
+    from realtime_kv_cache_compression_tpu_torch.compression import (
+        cache_storage_bytes)
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import decode_attention_plain, fused_decode_attention
+
+    cache = _map_tree(cache, lambda t: t.to(device))
+    recent = llama._map_tensors(recent, lambda t: t.to(device))
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    q = torch.randn((1, 1, mcfg.num_heads, mcfg.head_dim), generator=gen,
+                    device=device).to(torch.bfloat16)
+    q_pos = torch.full((1, 1), s + int(recent.length[0]), dtype=torch.int32,
+                       device=device)
+    kernel = lambda: fused_decode_attention(  # noqa: E731
+        q, cache, recent, q_pos, ccfg, return_lse=True)
+    plain = lambda: decode_attention_plain(  # noqa: E731
+        q, cache, recent, q_pos, ccfg, return_lse=True)
+    (o, lse), (o_ref, lse_ref) = kernel(), plain()
+    what = (f"K2 lse mode, layer 0 of a 1/{SEQ_RANKS} slot shard of an "
+            f"{s}-token state, ring {int(recent.length[0])}")
+    check_close(o.to(q.dtype), o_ref, TOL_K2_F32, f"{what}: o in bf16")
+    lse_err = max_err(lse, lse_ref)
+    check(lse_err <= TOL_LSE * max(1.0, float(lse_ref.abs().max())),
+          f"{what}: lse max abs err {lse_err:.3e}")
+    ms, plain_ms = kernel_and_plain_ms(kernel, plain, reps)
+    n_ring = int(recent.length.sum())
+    n_keys = sum(int(t.valid.sum()) for t in cache.tiers) + n_ring
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "max_abs_err": max_err(o, o_ref),
+           **bound(cache_storage_bytes(cache)
+                   + 2 * n_ring * nbytes(recent.k[0, 0]) + nbytes(q)
+                   + nbytes(o, lse),
+                   4 * mcfg.num_heads * mcfg.head_dim * n_keys,
+                   torch.bfloat16),
+           "device_us": _device_us_per_call(kernel, match="decode")}
+    log(f"{what} ({n_keys} keys): kernel {ms:.4f} ms per call, device "
+        f"{out['device_us']:.3f} us per call, plain {plain_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}); o (float32) max abs "
+        f"err {out['max_abs_err']:.3e}, lse max abs err {lse_err:.3e}")
+    return out
 
 
 def _pooled_ccfg(num_layers: int, group_size: int = GROUP_SIZE,
@@ -1940,12 +2045,29 @@ def phase_parity_query(device, mcfg, prompt: int = 1024,
                                            f"chunked and one-shot prefill")
 
 
+def _uncompressed_run(params, ids, mcfg, pos, pad, steps: int,
+                      lengths=None):
+    """The uncompressed arm once, timed by CUDA events: its prefill (TTFT
+    ms) and `steps` greedy steps over the dense cache, which `pad` widens
+    (decode tok/s over every row)."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+
+    (lo, (ks, vs)), ttft = cuda_ms(lambda: llama.prefill_uncompressed(
+        params, ids, mcfg, lengths=lengths))
+    tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
+    del ks, vs
+    _, dec_ms = cuda_ms(lambda: llama.decode_loop_uncompressed(
+        params, tok, kv, pos, steps, mcfg))
+    return ttft, ids.shape[0] * steps / (dec_ms / 1e3)
+
+
 def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
-               new_tokens: int = NEW_TOKENS, repeats: int = REPEATS) -> dict:
-    """One path at full width: counted once (the warm-up; every launch count
-    set to 0 just before, read just after and held to `expect`, a dict of
-    kernel key -> launches), then timed `repeats` times; then the
-    uncompressed arm, timed the same way."""
+               new_tokens: int = NEW_TOKENS) -> dict:
+    """One path at full width: counted once (every launch count set to 0
+    just before, read just after and held to `expect`, a dict of kernel
+    key -> launches), that run timed by CUDA events (TTFT and decode
+    tok/s); then the uncompressed arm, one run timed (its prefill and
+    BASELINE_STEPS decode steps)."""
     from realtime_kv_cache_compression_tpu_torch import CompressionConfig
     from realtime_kv_cache_compression_tpu_torch.compression import (
         summarize_layer_stats)
@@ -1965,16 +2087,15 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
     torch.cuda.reset_peak_memory_stats()
     routed = [key for key in KERNELS
               if hasattr(wrapper(key), "route_launches")]
-    for key in KERNELS:
-        wrapper(key).launches = 0
+    _zero_counts()
     for key in routed:
         wrapper(key).route_launches = dict.fromkeys(
             wrapper(key).route_launches, 0)
-    logits, state, stats = prefill()
+    (logits, state, stats), ttft = cuda_ms(prefill)
     first = torch.argmax(logits, -1)
-    toks, state = llama.decode_loop(params, first, state, n_steps, mcfg,
-                                    ccfg)
-    torch.cuda.synchronize()
+    (toks, state), dec_ms = cuda_ms(lambda: llama.decode_loop(
+        params, first, state, n_steps, mcfg, ccfg))
+    rate = n_steps / (dec_ms / 1e3)
     launches = _launches()
     routes = {key: dict(wrapper(key).route_launches) for key in routed}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1991,37 +2112,19 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
         f"{params_bytes(params) / 2**20:.1f} MB, peak memory {peak_mb:.1f} "
         f"MB")
 
-    ttft, rate = [], []
-    for _ in range(repeats):
-        (logits, state, _), ms = cuda_ms(prefill)
-        tok = torch.argmax(logits, -1)
-        _, dec_ms = cuda_ms(lambda: llama.decode_loop(
-            params, tok, state, n_steps, mcfg, ccfg))
-        ttft.append(ms)
-        rate.append(n_steps / (dec_ms / 1e3))
-    log(f"{label} (compressed), {repeats} timed runs: TTFT ms "
-        f"{_spread(ttft)}; decode tok/s {_spread(rate)}")
+    log(f"{label} (compressed), the counted run timed: TTFT ms {ttft:.3f}; "
+        f"decode tok/s {rate:.3f}")
 
     # Uncompressed arm (its prefill runs K1 as well).
     pad = lambda a: torch.nn.functional.pad(  # noqa: E731
         a, (0, 0, 0, 0, 0, new_tokens))
     pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
-    ttft_u, rate_u = [], []
-    for i in range(BASELINE_REPEATS + 1):  # the first: a warm-up, 2 steps
-        (lo, (ks, vs)), ms = cuda_ms(
-            lambda: llama.prefill_uncompressed(params, ids, mcfg))
-        tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
-        del ks, vs
-        _, dec_ms = cuda_ms(lambda: llama.decode_loop_uncompressed(
-            params, tok, kv, pos, n_steps if i else 2, mcfg))
-        del kv
-        if i:
-            ttft_u.append(ms)
-            rate_u.append(n_steps / (dec_ms / 1e3))
-    log(f"{label} (uncompressed arm), {BASELINE_REPEATS} timed runs: TTFT "
-        f"ms {_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
+    steps_u = min(BASELINE_STEPS, n_steps)
+    ttft_u, rate_u = _uncompressed_run(params, ids, mcfg, pos, pad, steps_u)
+    log(f"{label} (uncompressed arm), one run timed: TTFT ms {ttft_u:.3f}; "
+        f"decode tok/s {rate_u:.3f} over {steps_u} steps")
     return {"launches": launches, "routes": routes, "params": params,
-            "ids": ids, "ccfg": ccfg,
+            "ids": ids, "ccfg": ccfg, "decode_tok_s": rate,
             "tokens": torch.cat([first[:, None], toks], 1).cpu()}
 
 
@@ -2137,7 +2240,7 @@ def run_7b_arm(arm: str, device, mcfg):
         gemv = (4 * n_layers + 1) * n_steps + 1  # + lm_head at prefill
         other = {}
     run = phase_main(f"llama2-7b {arm} main run", device, mcfg, params,
-                     expect, repeats=REPEATS_7B)
+                     expect)
     routes = run["routes"][key]
     check(routes == {"gemv": gemv, tc: 4 * n_layers, "tile": 0, **other},
           f"llama2-7b {arm}: {key} launches by route {routes}")
@@ -2160,8 +2263,7 @@ def run_gemma(device, mcfg) -> dict:
     log(f"gemma-2b: init + fuse {time.perf_counter() - t0:.1f} s")
     expect = {key: 0 for key in KERNELS}
     expect.update(K1=mcfg.num_layers, K2=mcfg.num_layers * (NEW_TOKENS - 1))
-    run = phase_main("gemma-2b main run", device, mcfg, params, expect,
-                     repeats=REPEATS_NEW)
+    run = phase_main("gemma-2b main run", device, mcfg, params, expect)
     phase_profile("gemma-2b", mcfg, run)
     launches = run["launches"]
     del run, params
@@ -2382,7 +2484,7 @@ def run_mixtral(device, mcfg) -> dict:
     expect.update(K1=n_layers, K2=n_layers * n_steps,
                   K3=sum(routes.values()))
     run = phase_main("mixtral-8x7b int4 main run", device, mcfg, params,
-                     expect, repeats=REPEATS_MIXTRAL)
+                     expect)
     check(run["routes"]["K3"] == routes,
           f"mixtral: K3 launches by route {run['routes']['K3']}")
     phase_profile("mixtral-8x7b int4", mcfg, run)
@@ -2482,7 +2584,7 @@ def run_qwen2_from_disk(device, mcfg) -> dict:
     expect.update(K1=mcfg.num_layers,
                   K2=mcfg.num_layers * (NEW_TOKENS - 1))
     run = phase_main("qwen2-0.5b (loaded) main run", device, mcfg,
-                     llama.fuse_params(loaded), expect, repeats=REPEATS_NEW)
+                     llama.fuse_params(loaded), expect)
     # The same prompt (phase_main's) through the in-memory params.
     p, ccfg = llama.fuse_params(params), run["ccfg"]
     n_new = run["tokens"].shape[1]
@@ -2516,15 +2618,15 @@ def _host_ms(fn, runs: int = 6) -> list:
     return times[1:]
 
 
-def phase_chunked_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
+def phase_chunked_path(device, mcfg) -> dict:
     """The ragged, chunked, long-generation path at full width (run_all
     cuts its depth to TINY_PATH_LAYERS):
     batch 2 with LENGTHS right-padded to PROMPT, `prefill_compressed_chunked`
     in chunks of CHUNK (K1 mode (b)), DECODE_STEPS greedy steps over a
     RING-token ring and a POOL_BLOCKS x POOL_BITS-bit decode pool with 2
     scale groups (K2 with the pool). Counted once (launches and flushes per
-    layer held exactly), timed `repeats` times, the uncompressed arm with
-    the same lengths, the bf16 chunked-vs-one-shot kept-position reading,
+    layer held exactly; that run timed), the uncompressed arm with the
+    same lengths (one run timed), the bf16 chunked-vs-one-shot reading,
     the flush's cost alone, and a profile whose decode window holds a
     flush."""
     from realtime_kv_cache_compression_tpu_torch.compression import (
@@ -2553,14 +2655,12 @@ def phase_chunked_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in KERNELS:
-        wrapper(key).launches = 0
+    _zero_counts()
     llama.flush_recent = counting_flush
     try:
-        logits, state, stats = prefill()
-        toks, state = llama.decode_loop(params, torch.argmax(logits, -1),
-                                        state, n, mcfg, ccfg)
-        torch.cuda.synchronize()
+        (logits, state, stats), ttft = cuda_ms(prefill)
+        (toks, state), dec_ms = cuda_ms(lambda: llama.decode_loop(
+            params, torch.argmax(logits, -1), state, n, mcfg, ccfg))
     finally:
         llama.flush_recent = flush_recent
     launches = _launches()
@@ -2593,34 +2693,18 @@ def phase_chunked_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
         f"{sum(LENGTHS) + b * n} tokens (savings {1 - stored / dense:.4f}); "
         f"peak memory {peak_mb:.1f} MB")
 
-    ttft, rate = [], []
-    for _ in range(repeats):
-        (logits, state, _), ms = cuda_ms(prefill)
-        tok = torch.argmax(logits, -1)
-        _, dec_ms = cuda_ms(lambda: llama.decode_loop(
-            params, tok, state, n, mcfg, ccfg))
-        ttft.append(ms)
-        rate.append(b * n / (dec_ms / 1e3))
-    log(f"{label} (compressed), {repeats} timed runs: chunked-prefill TTFT "
-        f"ms {_spread(ttft)}; decode tok/s (both rows) {_spread(rate)}")
+    log(f"{label} (compressed), the counted run timed: chunked-prefill "
+        f"TTFT ms {ttft:.3f}; decode tok/s (both rows) "
+        f"{b * n / (dec_ms / 1e3):.3f}")
 
     pad = lambda a: torch.nn.functional.pad(  # noqa: E731
-        a, (0, 0, 0, 0, 0, n))
-    pos = lengths.to(torch.int32)
-    ttft_u, rate_u = [], []
-    for i in range(repeats + 1):  # the first is a warm-up of 2 steps
-        (lo, (ks, vs)), ms = cuda_ms(lambda: llama.prefill_uncompressed(
-            params, ids, mcfg, lengths=lengths))
-        tok, kv = torch.argmax(lo, -1), (pad(ks), pad(vs))
-        del ks, vs
-        _, dec_ms = cuda_ms(lambda: llama.decode_loop_uncompressed(
-            params, tok, kv, pos, n if i else 2, mcfg))
-        del kv
-        if i:
-            ttft_u.append(ms)
-            rate_u.append(b * n / (dec_ms / 1e3))
-    log(f"{label} (uncompressed arm, same lengths), {repeats} timed runs: "
-        f"TTFT ms {_spread(ttft_u)}; decode tok/s {_spread(rate_u)}")
+        a, (0, 0, 0, 0, 0, BASELINE_STEPS))
+    ttft_u, rate_u = _uncompressed_run(params, ids, mcfg,
+                                       lengths.to(torch.int32), pad,
+                                       BASELINE_STEPS, lengths=lengths)
+    log(f"{label} (uncompressed arm, same lengths), one run timed: TTFT ms "
+        f"{ttft_u:.3f}; decode tok/s (both rows) {rate_u:.3f} over "
+        f"{BASELINE_STEPS} steps")
 
     # Reading, not a check: bf16 chunked vs one-shot kept positions.
     _, chunked, _ = prefill()
@@ -2715,8 +2799,7 @@ def phase_prefix_path(device, mcfg, repeats: int = REPEATS_NEW) -> dict:
     for form, prefill in forms.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for key in KERNELS:
-            wrapper(key).launches = 0
+        _zero_counts()
         logits, state, _ = prefill()
         toks, state = llama.decode_loop(params, torch.argmax(logits, -1),
                                         state, n, mcfg, ccfg)
@@ -2800,8 +2883,7 @@ def _counted_run(label: str, prefill, decode, expect: dict):
     ms by CUDA events)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in KERNELS:
-        wrapper(key).launches = 0
+    _zero_counts()
     logits, state, stats = prefill()
     (toks, state), dec_ms = cuda_ms(lambda: decode(logits, state))
     launches = _launches()
@@ -2974,16 +3056,15 @@ def phase_exact_greedy(device, s: int = PROMPT, layer: int = 1) -> None:
         f"{_spread(times['exact_greedy'])}; kept {kept}")
 
 
-def phase_sampled(label: str, device, mcfg, main_run,
-                  repeats: int = 1) -> dict:
+def phase_sampled(label: str, device, mcfg, main_run) -> dict:
     """The sampled decode on the main run's prefill (its params, prompt and
     compression): SAMPLING for NEW_TOKENS - 1 steps through K2, counted
     (launches held exactly; the returned counts a bincount of the first and
     emitted tokens; every logprob finite and <= 0); top_k 1 at the same
     temperature, no penalty, against greedy (equal tokens up to an exact
     tie of two logits); greedy `decode_loop` against `decode_step` +
-    argmax (equal tokens); then greedy and sampled
-    decode timed `repeats` times each, in turns, and a profile of 10
+    argmax (equal tokens); the counted sampled decode's tok/s (CUDA
+    events) beside the main run's counted greedy decode; a profile of 10
     sampled steps. Returns the sampled run's launches."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
     from realtime_kv_cache_compression_tpu_torch.ops.sampling import (
@@ -3010,8 +3091,9 @@ def phase_sampled(label: str, device, mcfg, main_run,
 
     expect = {key: 0 for key in KERNELS}
     expect.update(K1=layers, K2=layers * n)
-    toks, launches = _counted_run(f"{label} sampled", prefill,
-                                  counted_decode, expect)[2:4]
+    counted = _counted_run(f"{label} sampled", prefill, counted_decode,
+                           expect)
+    toks, launches, sampled_ms = counted[2], counted[3], counted[6]
     emitted = torch.cat([out["first"][:, None], toks], 1)
     bincount = torch.stack([torch.bincount(row, minlength=mcfg.vocab_size)
                             for row in emitted]).to(torch.int32)
@@ -3057,21 +3139,9 @@ def phase_sampled(label: str, device, mcfg, main_run,
     check(torch.equal(torch.stack(manual, 1), greedy),
           f"{label}: greedy decode_loop equals decode_step + argmax")
 
-    rates = {"greedy": [], "sampled": []}
-    for i in range(repeats):
-        order = ("greedy", "sampled") if i % 2 == 0 else ("sampled",
-                                                          "greedy")
-        for arm in order:
-            logits, state, _ = prefill()
-            if arm == "greedy":
-                fn = lambda: llama.decode_loop(  # noqa: E731
-                    params, torch.argmax(logits, -1), state, n, mcfg, ccfg)
-            else:
-                fn = lambda: sampled(logits, state)  # noqa: E731
-            _, ms = cuda_ms(fn)
-            rates[arm].append(n / (ms / 1e3))
-    log(f"{label} decode tok/s, {repeats} timed runs each, in turns: greedy "
-        f"{_spread(rates['greedy'])}; sampled {_spread(rates['sampled'])}")
+    log(f"{label} decode tok/s, the counted runs timed: greedy "
+        f"{main_run['decode_tok_s']:.3f} (the main run); sampled "
+        f"{n / (sampled_ms / 1e3):.3f}")
     logits, state, _ = prefill()
     _profile_window(label, "sampled decode 10 steps",
                     lambda: llama.decode_loop(
@@ -3245,19 +3315,18 @@ def phase_parity_speculative(device, mcfg, prompt: int = 1024,
 
 def _zero_counts() -> None:
     for key in KERNELS:
-        wrapper(key).launches = 0
+        setattr(wrapper(key), _counter(key), 0)
 
 
-def phase_beam_path(label: str, device, mcfg, main_run,
-                    repeats: int = 1) -> dict:
+def phase_beam_path(label: str, device, mcfg, main_run) -> dict:
     """Beam search at full width and depth on the main run's params and
     prompt (PROMPT, B=1): README's call, W=BEAM_WIDTH, BEAM_NEW_TOKENS new
     tokens, eos_token_id BEAM_EOS. Counted once (K1 once per layer for the
     one prefill at B rows, K2 once per layer and step at B·W rows; peak
     memory); `num_beams=1` against `generate` (equal tokens: same kernels,
-    same shapes); then beam and greedy `generate` of the same length timed
-    `repeats` times in turns (ms per generated token; TTFT as the call
-    with one new token); K2 at this path's shape: the B·W-row state after
+    same shapes); the counted beam and greedy `generate` calls timed (ms
+    per generated token; TTFT as the call with one new token); K2 at this
+    path's shape: the B·W-row state after
     BEAM_K2_STEPS beam steps, each with its gather, every layer against
     the plain version on the same q, tiers and ring (bf16 limit as in
     phase_k2); the reindexing of the rings and positions alone and the
@@ -3280,13 +3349,12 @@ def phase_beam_path(label: str, device, mcfg, main_run,
         return llama.generate(params, ids, mcfg, ccfg, max_new_tokens=tokens,
                               eos_token_id=BEAM_EOS)
 
-    peaks = {}
+    peaks, ms, ttft = {}, {}, {}
     for arm, fn in (("greedy", greedy), ("beam", beam)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
-        out = fn()
-        torch.cuda.synchronize()
+        out, ms[arm] = cuda_ms(fn)
         peaks[arm] = torch.cuda.max_memory_allocated() / 2**20
     seqs, scores, _ = out
     launches = _launches()
@@ -3303,18 +3371,12 @@ def phase_beam_path(label: str, device, mcfg, main_run,
     check(torch.equal(one, greedy()[0]),
           f"{label}: beam_search(num_beams=1) equals generate")
 
-    ms = {"beam": [], "greedy": []}
-    ttft = {"beam": [], "greedy": []}
-    for i in range(repeats):
-        order = ("beam", "greedy") if i % 2 == 0 else ("greedy", "beam")
-        for arm in order:
-            fn = beam if arm == "beam" else greedy
-            ms[arm].append(cuda_ms(fn)[1] / n)
-            ttft[arm].append(cuda_ms(lambda: fn(1))[1])
-    log(f"{label} beam (W={w}) vs greedy generate, {n} tokens, {repeats} "
-        f"timed runs each, in turns: ms per generated token beam "
-        f"{_spread(ms['beam'])}, greedy {_spread(ms['greedy'])}; TTFT ms "
-        f"beam {_spread(ttft['beam'])}, greedy {_spread(ttft['greedy'])}")
+    for arm, fn in (("beam", beam), ("greedy", greedy)):
+        ttft[arm] = cuda_ms(lambda: fn(1))[1]
+    log(f"{label} beam (W={w}) vs greedy generate, {n} tokens, the counted "
+        f"calls timed: ms per generated token beam {ms['beam'] / n:.3f}, "
+        f"greedy {ms['greedy'] / n:.3f}; TTFT ms beam {ttft['beam']:.3f}, "
+        f"greedy {ttft['greedy']:.3f}")
 
     logits, state, _ = llama.prefill_compressed(params, ids, mcfg, ccfg,
                                                 max_decode_len=n)
@@ -3766,6 +3828,73 @@ def _ring_held_to_plain(audit: dict):
             setattr(ra, name, kernel)
 
 
+@contextlib.contextmanager
+def _slot_held_to_plain(audit: dict):
+    """While active, every call of K2's lse mode (`return_lse=True`: a
+    rank's partial over its own slots of a slot-sharded state) is held to
+    `decode_attention_plain(return_lse=True)` on its own inputs as it
+    returns: the lse within TOL_LSE times max(1, max|lse|) on rows that
+    see a key and -inf exactly on the others; o, which the kernel keeps in
+    float32, within TOL_K2_F32 times max(1, max|o|) for float32 q, and
+    rounded to q's dtype under the bf16 ulp limit for bf16 q (the merged
+    partials round once, to q's dtype). `audit["K2l"]` collects [calls,
+    worst o max abs err, worst share of a limit, worst lse max abs err].
+    The default calls pass through unchecked. The plain version launches
+    nothing."""
+    from realtime_kv_cache_compression_tpu_torch.models import llama
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda.decode_attention \
+        import decode_attention_plain
+
+    kernel = llama.fused_decode_attention
+
+    def call(q, cache, recent, q_pos, cfg, pool=None, return_lse=False):
+        result = kernel(q, cache, recent, q_pos, cfg, pool=pool,
+                        return_lse=return_lse)
+        if not return_lse:
+            return result
+        o, lse = result
+        o_ref, lse_ref = decode_attention_plain(q, cache, recent, q_pos, cfg,
+                                                pool=pool, return_lse=True)
+        if q.dtype == torch.float32:
+            share = limit_share(o, o_ref, TOL_K2_F32 * max(
+                1.0, float(o_ref.abs().max())))
+        else:
+            share = limit_share(o.to(q.dtype), o_ref, TOL_K2_F32)
+        sees = torch.isfinite(lse_ref)
+        check(torch.equal(sees, torch.isfinite(lse))
+              and bool((lse[~sees] == -torch.inf).all()),
+              "K2 lse mode: lse is -inf exactly on the rows that see no key")
+        lse_err = max_err(lse[sees], lse_ref[sees]) if bool(sees.any()) \
+            else 0.0
+        tol = TOL_LSE * max(1.0, float(lse_ref[sees].abs().max())
+                            if bool(sees.any()) else 1.0)
+        rec = audit.setdefault("K2l", [0, 0.0, 0.0, 0.0])
+        rec[0] += 1
+        rec[1] = max(rec[1], max_err(o, o_ref))
+        rec[2] = max(rec[2], share, lse_err / tol)
+        rec[3] = max(rec[3], lse_err)
+        check(share <= 1.0 and lse_err <= tol,
+              f"K2 lse mode {tuple(q.shape)} {q.dtype} at positions "
+              f"{q_pos[:, 0].tolist()}: o at {share:.3f} of its limit, lse "
+              f"max abs err {lse_err:.3e} (tol {tol:.3e})")
+        return result
+
+    llama.fused_decode_attention = call
+    try:
+        yield audit
+    finally:
+        llama.fused_decode_attention = kernel
+
+
+def _tier_bytes(state) -> int:
+    """Bytes of every layer's tier tensors in a decode state."""
+    from realtime_kv_cache_compression_tpu_torch.compression.compressor \
+        import _TIER_FIELDS
+
+    return sum(nbytes(getattr(t, f)) for c in state.caches for t in c.tiers
+               for f in _TIER_FIELDS + ("positions", "valid"))
+
+
 def _params_digest(params) -> torch.Tensor:
     """Per tensor of a params tree, in a fixed order: the float64 sum of
     its values and of their squares times their flat index (a digest that
@@ -3872,7 +4001,31 @@ def _seq_parallel_rank(rank: int, n: int, group, device, mcfg, ids, small,
     out["f32"] = {"logits": logits.cpu(), "caches": host(state).caches,
                   "tokens": torch.cat([torch.argmax(logits, -1)[:, None],
                                        toks], 1).cpu()}
-    del sp_params, logits, state
+    # float32 sharded compression (prompt-scored), decoded from the shards
+    # with no gather (K2's lse mode) and from the gathered state (K2).
+    pccfg = CompressionConfig(num_layers=small.num_layers)
+    f32_steps = SEQ_F32_NEW_TOKENS - 1
+    (logits, state, _), _ = counted(
+        "float32 sharded prefill", lambda: seq_parallel_prefill(
+            sp_params, small_ids.to(dev), small, pccfg, group,
+            max_decode_len=SEQ_F32_NEW_TOKENS + 4,
+            lengths=small_lengths.to(dev), sharded_compression=True),
+        {"K1p": small.num_layers, "K1c": small.num_layers * rank})
+    full = llama.clone_decode_state(gather_sharded_state(state, group))
+    f32_audit = {}
+    with _slot_held_to_plain(f32_audit):
+        (toks_sh, _), _ = counted(
+            "float32 decode from the shards", lambda: _greedy_from(
+                sp_params, logits, state, small, pccfg, f32_steps,
+                kernels=True, slot_group=group),
+            {"K2l": small.num_layers * f32_steps})
+    (toks_full, _), _ = counted(
+        "float32 decode from the gathered state", lambda: _greedy_from(
+            sp_params, logits, full, small, pccfg, f32_steps, kernels=True),
+        {"K2": small.num_layers * f32_steps})
+    out["f32_sharded"] = {"tokens": toks_sh, "gathered_tokens": toks_full,
+                          "audit": f32_audit}
+    del sp_params, logits, state, full
 
     params = llama.fuse_params(llama.init_params(SEED, mcfg, dev))
     digests = comm.all_gather_tensors([_params_digest(params)], group)
@@ -3945,19 +4098,53 @@ def _seq_parallel_rank(rank: int, n: int, group, device, mcfg, ids, small,
                 sharded_compression=True), ring)
     finally:
         sp.compress_layer_kv = real
-    full = gather_sharded_state(state, group)
+    # The gathered state (the reference), and copies of the shards for
+    # the timed decodes: decode writes rings and pools in place.
+    full = llama.clone_decode_state(gather_sharded_state(state, group))
+    full_timed = llama.clone_decode_state(full)
+    shard_timed = llama.clone_decode_state(state)
     first = torch.argmax(logits, -1)
     out["sharded"] = {
         "logits": logits.float().cpu(), "inputs": inputs,
         "full_caches": host(full).caches if rank == 0 else None,
         "shard_slots": [c.tiers[0].positions.shape[1] for c in state.caches],
         "full_slots": [c.tiers[0].positions.shape[1] for c in full.caches],
+        "bytes": (_tier_bytes(state), _tier_bytes(full)),
         "stats": [{k_: v_.cpu() for k_, v_ in st.items()} for st in stats],
         "launches": launches}
-    (toks, _), out["sharded"]["decode_launches"] = counted(
-        "sharded decode", lambda: llama.decode_loop(
-            params, first, full, steps, mcfg, ccfg), {"K2": layers * steps})
-    out["sharded"]["tokens"] = torch.cat([first[:, None], toks], 1).cpu()
+    # Decode from the shards, no gather: K2's lse mode 22 times a step on
+    # every rank, each call held to its plain version; then from the
+    # gathered state through K2.
+    audit = {}
+    with _slot_held_to_plain(audit):
+        (toks, step_logits), out["sharded"]["decode_launches"] = counted(
+            "decode from the shards", lambda: _greedy_from(
+                params, logits, state, mcfg, ccfg, steps, kernels=True,
+                slot_group=group),
+            {"K2l": layers * steps})
+    out["sharded"].update(tokens=toks, audit=audit, slots_after=[
+        c.tiers[0].positions.shape[1] for c in state.caches])
+    (toks_full, logits_full), out["sharded"]["gathered_launches"] = counted(
+        "decode from the gathered state", lambda: _greedy_from(
+            params, logits, full, mcfg, ccfg, steps, kernels=True),
+        {"K2": layers * steps})
+    out["sharded"].update(gathered_tokens=toks_full,
+                          gathered_logits=logits_full)
+    # Both decodes timed (no audit, no host copy a step), after a barrier.
+    n_timed = SEQ_TIMED_STEPS
+    (toks_t, _), out["sharded"]["timed"] = _rank_timed(
+        group, lambda: llama.decode_loop(params, first, shard_timed, n_timed,
+                                         mcfg, ccfg, slot_group=group))
+    check(torch.equal(toks_t.cpu(), toks[:, 1:n_timed + 1]),
+          f"rank {rank}: the timed decode from the shards gives the "
+          f"counted one's tokens")
+    _, out["sharded"]["gathered_timed"] = _rank_timed(
+        group, lambda: llama.decode_loop(params, first, full_timed, n_timed,
+                                         mcfg, ccfg))
+    if rank == 0:  # layer 0's shard and ring, for K2's lse-mode timing
+        out["sharded"]["layer0"] = (host(state).caches[0],
+                                    llama._map_tensors(state.recents[0],
+                                                       lambda t: t.cpu()))
     return out
 
 
@@ -4099,6 +4286,24 @@ def phase_seq_parallel(device, mcfg, main_run) -> dict:
         f"lengths {SEQ_F32_LENGTHS}, query-guided): logits, kept positions "
         f"and {SEQ_F32_NEW_TOKENS} tokens equal to the one-shot path's on "
         f"every rank")
+    f32_steps = SEQ_F32_NEW_TOKENS - 1
+    slot_audit = {"K2l": [0, 0.0, 0.0, 0.0]}
+    for r, res in enumerate(ranks):
+        got = res["f32_sharded"]
+        check(torch.equal(got["tokens"], got["gathered_tokens"])
+              and torch.equal(got["tokens"],
+                              ranks[0]["f32_sharded"]["tokens"]),
+              f"seq parallel f32 rank {r}: {SEQ_F32_NEW_TOKENS} tokens "
+              f"decoded from the shards (no gather) equal to the gathered "
+              f"state's")
+        _audit_merge(slot_audit, got["audit"])
+    check(slot_audit["K2l"][0] == SEQ_RANKS * SEQ_F32_LAYERS * f32_steps,
+          f"seq parallel f32: every K2 lse-mode call held to its plain "
+          f"version {slot_audit}")
+    log(f"seq parallel f32 sharded compression: {SEQ_F32_NEW_TOKENS} tokens "
+        f"from the shards with no gather equal to the gathered state's on "
+        f"every rank {ranks[0]['f32_sharded']['tokens'].tolist()}; K2 lse "
+        f"mode audit {slot_audit['K2l']}")
 
     # bf16, replicated.
     rep = [res["replicated"] for res in ranks]
@@ -4202,14 +4407,51 @@ def phase_seq_parallel(device, mcfg, main_run) -> dict:
     first = sh[0]["tokens"][:, 0].to(device)
     toks_ref, _ = llama.decode_loop(params, first, state_ref, steps, mcfg,
                                     ccfg)
-    check(torch.equal(sh[0]["tokens"][:, 1:], toks_ref.cpu()),
+    check(all(torch.equal(res["gathered_tokens"][:, 1:], toks_ref.cpu())
+              for res in sh),
           "seq parallel sharded: tokens from the gathered state equal the "
-          "decode over the chunked reference's caches")
+          "decode over the chunked reference's caches on every rank")
     del state_ref, ref_caches
     log(f"seq parallel sharded: caches of {layers} layers equal to "
         f"compress_layer_kv_chunked(n_chunks={SEQ_RANKS}), stats equal, "
         f"{SEQ_NEW_TOKENS} tokens from the gathered state on every rank "
-        f"{sh[0]['tokens'][0].tolist()}")
+        f"{sh[0]['gathered_tokens'][0].tolist()}")
+    # The decode from the shards (no gather): K2's lse mode on each rank's
+    # own slots, the partials merged over the ranks.
+    for r, res in enumerate(sh):
+        check(res["slots_after"] == res["shard_slots"],
+              f"seq parallel sharded rank {r}: 1/{SEQ_RANKS} of the slots "
+              f"after decoding")
+        _audit_merge(slot_audit, {"K2l": res["audit"]["K2l"]})
+    check(slot_audit["K2l"][0] == SEQ_RANKS * (
+        SEQ_F32_LAYERS * f32_steps + layers * steps),
+          f"seq parallel: every K2 lse-mode call held to its plain version "
+          f"{slot_audit}")
+    near = BF16_ULPS * _bf16_ulp(float(sh[0]["gathered_logits"].abs().max()))
+    held = _held_to_reference(
+        "seq parallel bf16 decode from the shards", sh[0]["tokens"][0],
+        sh[0]["gathered_tokens"][0], sh[0]["gathered_logits"][0], near=near)
+    same = int((sh[0]["tokens"] == sh[0]["gathered_tokens"]).sum())
+    log(f"seq parallel bf16 decode from the shards, no gather: tokens the "
+        f"same on every rank, {held} of {SEQ_NEW_TOKENS} held to the "
+        f"gathered state's (near tie: a top-2 gap under {near:.3e}), "
+        f"{same} of {SEQ_NEW_TOKENS} equal in all "
+        f"{sh[0]['tokens'][0].tolist()}; K2 lse-mode audit (calls, worst o "
+        f"err, worst share of a limit, worst lse err) {slot_audit['K2l']}")
+    rate = lambda t: SEQ_TIMED_STEPS / (t["event_ms"] / 1e3)  # noqa: E731
+    log(f"seq parallel decode ({SEQ_TIMED_STEPS} steps, {SEQ_RANKS} ranks "
+        f"on one card, overheads not scaling): from the shards "
+        f"{[round(rate(res['timed']), 2) for res in sh]} steps/s a rank "
+        f"(CUDA events; host wall "
+        f"{[round(res['timed']['wall_ms'], 1) for res in sh]} ms, staging "
+        f"{[round(res['timed']['staged'][0] * 1e3, 1) for res in sh]} ms), "
+        f"tiers held {[res['bytes'][0] for res in sh]} bytes a rank; from "
+        f"the gathered state "
+        f"{[round(rate(res['gathered_timed']), 2) for res in sh]} steps/s "
+        f"a rank, tiers held {[res['bytes'][1] for res in sh]} bytes a "
+        f"rank")
+    k2l = phase_k2_lse(device, mcfg, ccfg, *sh[0]["layer0"], s)
+    k2l["max_abs_err"] = max(k2l["max_abs_err"], slot_audit["K2l"][1])
 
     timed = [res["timed"] for res in ranks]
     log(f"seq parallel TTFT (bf16, S={s}, {layers} layers): one-shot "
@@ -4231,7 +4473,7 @@ def phase_seq_parallel(device, mcfg, main_run) -> dict:
         log(f"seq parallel {path} launches over the ranks: {paths[path]}; "
             f"per rank {[res[part]['launches'] for res in ranks]}")
     log(f"seq parallel phase: {time.perf_counter() - t0:.1f} s")
-    return {"launches": paths, "audit": audit}
+    return {"launches": paths, "audit": {**audit, **slot_audit}, "k2l": k2l}
 
 
 def _layered_params(mcfg, device, mesh=None, group=None):
@@ -5290,6 +5532,271 @@ def phase_sharded_serving(device, mcfg) -> dict:
     return {"launches": launches, "audit": audit}
 
 
+def _sharded_train_decoders_rank(rank: int, n: int, group, device, cfg,
+                                 train_ids, prompt_ids, ref_tokens) -> dict:
+    """One rank of phase_sharded_train_decoders, spawned on `device`
+    (cuda:0) over a gloo group; every failed check raises. On the
+    TSD_TRAIN_MESH: the one-rank trainer's TSD_TRAIN_STEPS steps on the
+    whole float32 model (this rank's reference, cut to its slice), then
+    the same steps on the rank's slice (`shard_params`), each step timed
+    by CUDA events after a barrier, the peak memory of the sharded steps,
+    no port kernel launched; the losses and the slice held to the
+    reference's. On the TSD_DECODE_MESH: beam search and speculative
+    decoding (oracle drafts: `ref_tokens`, one rank's greedy tokens, so
+    that blocks of drafts commit; then the adaptive controller with
+    adversarial drafts) over the rank's slice of another float32 model,
+    launches exact per rank (K1 mode (a) once a layer a prefill, K2 once a
+    layer and step of beam search and of the adaptive plain chunks), each
+    timed. Returns host copies of what the parent compares."""
+    import torch.distributed as dist
+
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import (
+        beam_search, llama, speculative, train)
+    from realtime_kv_cache_compression_tpu_torch.parallel import (
+        create_mesh, shard_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    counted = functools.partial(_rank_counted, rank)
+    train_mesh = create_mesh(*TSD_TRAIN_MESH)
+    decode_mesh = create_mesh(*TSD_DECODE_MESH)
+    out = {}
+
+    # Training: the one-rank reference, then the rank's slice.
+    params = llama.init_params(SEED + 50, cfg, dev)
+    ids = train_ids.to(dev)
+    ref = _map_tree(params, lambda t: t.clone())
+    opt = train.make_optimizer(ref, lr=TSD_TRAIN_LR,
+                               clip_norm=TSD_TRAIN_CLIP)
+    ref_losses = [float(train.train_step(ref, opt, ids, cfg))
+                  for _ in range(TSD_TRAIN_STEPS)]
+    opt.release()
+    ref_slice = _map_tree(dict(shard_params(ref, train_mesh, cfg)),
+                          lambda t: t.detach().cpu())
+    del ref, opt
+    sp = shard_params(params, train_mesh, cfg)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = train.make_optimizer(sp, lr=TSD_TRAIN_LR,
+                               clip_norm=TSD_TRAIN_CLIP)
+    losses, norms, step_ms = [], [], []
+    _zero_counts()
+    for _ in range(TSD_TRAIN_STEPS):
+        loss, reading = _rank_timed(group, lambda: train.train_step(
+            sp, opt, ids, cfg))
+        losses.append(float(loss))
+        norms.append(float(opt.last_grad_norm))
+        step_ms.append(reading["event_ms"])
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = _launches()
+    check(not any(launches.values()), f"rank {rank} sharded training: no "
+                                      f"port kernel launched {launches}")
+    worst, off, total = 0.0, 0, 0
+    for (path, t), (ref_path, r) in zip(_leaf_items(dict(sp)),
+                                        _leaf_items(ref_slice), strict=True):
+        check(path == ref_path and t.shape == r.shape,
+              f"rank {rank} sharded training: {path} against {ref_path}")
+        err = (t.detach().cpu() - r).abs()
+        worst = max(worst, float(err.max()))
+        off += int((err > TOL_TRAIN_PARAMS).sum())
+        total += err.numel()
+    out["train"] = {"losses": losses, "ref_losses": ref_losses,
+                    "norms": norms, "step_ms": step_ms, "peak_mb": peak_mb,
+                    "params": (worst, off, total)}
+    opt.release()
+    del sp, opt
+    torch.cuda.empty_cache()
+
+    # The decoders over the rank's heads.
+    layers = cfg.num_layers
+    ccfg = CompressionConfig(num_layers=layers)
+    sp = shard_params(llama.init_params(SEED + 51, cfg, dev), decode_mesh,
+                      cfg)
+    prompt = prompt_ids.to(dev)
+    t = time.perf_counter()
+    (seqs, scores, _), out["beam_launches"] = counted(
+        "beam search", lambda: beam_search.beam_search(
+            sp, prompt, cfg, ccfg, num_beams=BEAM_WIDTH,
+            max_new_tokens=TSD_BEAM_TOKENS, return_all_beams=True),
+        {"K1": layers, "K2": layers * (TSD_BEAM_TOKENS - 1)})
+    out["beam"] = (seqs.cpu(), scores.cpu(), time.perf_counter() - t)
+    (logits, state, _), pre = counted(
+        "prefill", lambda: llama.prefill_compressed(
+            sp, prompt, cfg, ccfg, max_decode_len=TSD_SPEC_STEPS + 16),
+        {"K1": layers})
+    first = torch.argmax(logits, -1)
+    oracle, adversarial = _spec_proposers(ref_tokens.to(dev), TSD_SPEC_STEPS,
+                                          cfg.vocab_size)
+    t = time.perf_counter()
+    (toks, _, stats), _ = counted(
+        "speculative decoding", lambda: speculative.speculative_decode_loop(
+            sp, first, llama.clone_decode_state(state), TSD_SPEC_STEPS, cfg,
+            ccfg, prompt, n_draft=N_DRAFT, proposer=oracle), {})
+    out["spec"] = (toks.cpu(), stats, time.perf_counter() - t)
+    _zero_counts()
+    toks_a, _, stats_a = speculative.adaptive_speculative_decode(
+        sp, first, state, TSD_SPEC_STEPS, cfg, ccfg, prompt, n_draft=N_DRAFT,
+        chunk=TSD_SPEC_CHUNK, proposer=adversarial)
+    torch.cuda.synchronize()
+    plain = sum(min(TSD_SPEC_CHUNK, TSD_SPEC_STEPS - i * TSD_SPEC_CHUNK)
+                for i, (arm, _) in enumerate(stats_a["arms"])
+                if arm == "plain")
+    got = _launches()
+    check(plain > 0 and got == {**{k: 0 for k in KERNELS},
+                                "K2": layers * plain},
+          f"rank {rank} adaptive speculative decoding: launches {got} "
+          f"(K2 {layers} x {plain} plain tokens)")
+    out["adaptive"] = (toks_a.cpu(), stats_a["arms"], got)
+    out["decode_launches"] = {k: pre[k] + got[k] for k in KERNELS}
+    dist.barrier(group)
+    return out
+
+
+def phase_sharded_train_decoders(device, mcfg) -> dict:
+    """Training and the decoders over a sharded tree on this one card:
+    TSD_RANKS ranks spawned as processes on cuda:0 over a gloo group (the
+    collectives staged through the host; times measure overheads, not
+    scaling), each rank's work `_sharded_train_decoders_rank`. TinyLlama's
+    width (`mcfg`'s) at TSD_LAYERS layers, float32, random weights from
+    SEED + 50 and SEED + 51.
+    - Training on the TSD_TRAIN_MESH (data x model) mesh: TSD_TRAIN_STEPS
+      `train_step`s on each rank's slice, the rows split over `data`; the
+      losses the same on every rank and within TOL_TRAIN_LOSS of the
+      one-rank trainer's, each rank's slice within TOL_TRAIN_PARAMS of
+      the one-rank trainer's but for a TRAIN_SENSITIVE_SHARE of its
+      elements and every element within one update's size (the rule of
+      phase_parity_train); no port kernel launched; ms a step and peak MB
+      a rank.
+    - The decoders on the TSD_DECODE_MESH over each rank's heads: beam
+      search (W=BEAM_WIDTH, TSD_BEAM_TOKENS tokens: K1 mode (a) once a
+      layer, K2 once a layer and step), its sequences equal and scores
+      within TOL_SCORE_REL relative to one rank's; speculative decoding
+      with oracle drafts (one rank's greedy tokens, so that blocks of
+      drafts commit; no kernel past the prefill's K1) and the
+      adaptive controller with adversarial drafts (K2 once a layer and
+      plain token), their tokens equal to one rank's `decode_loop`; every
+      launch count exact per rank.
+    Returns {"launches": per path, summed over the ranks}."""
+    from realtime_kv_cache_compression_tpu_torch import CompressionConfig
+    from realtime_kv_cache_compression_tpu_torch.models import (
+        beam_search, llama, speculative)
+    from realtime_kv_cache_compression_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(
+        mcfg, num_layers=TSD_LAYERS, dtype="float32",
+        max_position_embeddings=TSD_PROMPT + TSD_SPEC_STEPS + 32)
+    gen = torch.Generator().manual_seed(SEED + 52)
+    train_ids = torch.randint(0, cfg.vocab_size,
+                              (TSD_TRAIN_BATCH, TSD_TRAIN_SEQ), generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (1, TSD_PROMPT), generator=gen)
+
+    # One rank's decoders on the whole model.
+    ccfg = CompressionConfig(num_layers=TSD_LAYERS)
+    params = llama.init_params(SEED + 51, cfg, device)
+    p_dev = prompt.to(device)
+    t = time.perf_counter()
+    seqs1, scores1, _ = beam_search.beam_search(
+        params, p_dev, cfg, ccfg, num_beams=BEAM_WIDTH,
+        max_new_tokens=TSD_BEAM_TOKENS, return_all_beams=True)
+    beam_s1 = time.perf_counter() - t
+    logits, state, _ = llama.prefill_compressed(
+        params, p_dev, cfg, ccfg, max_decode_len=TSD_SPEC_STEPS + 16)
+    first = torch.argmax(logits, -1)
+    greedy1, _ = llama.decode_loop(params, first,
+                                   llama.clone_decode_state(state),
+                                   TSD_SPEC_STEPS, cfg, ccfg)
+    oracle, _ = _spec_proposers(greedy1, TSD_SPEC_STEPS, cfg.vocab_size)
+    t = time.perf_counter()
+    toks1, _, _ = speculative.speculative_decode_loop(
+        params, first, state, TSD_SPEC_STEPS, cfg, ccfg, p_dev,
+        n_draft=N_DRAFT, proposer=oracle)
+    spec_s1 = time.perf_counter() - t
+    check(torch.equal(toks1, greedy1), "one rank f32: speculative tokens "
+                                       "equal to decode_loop's")
+    seqs1, scores1, greedy1 = seqs1.cpu(), scores1.cpu(), greedy1.cpu()
+    del params, state, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    ranks = run_ranks(_sharded_train_decoders_rank, TSD_RANKS, args=(
+        str(device), cfg, train_ids, prompt, greedy1), timeout=TSD_TIMEOUT)
+    log(f"sharded training and decoders: {TSD_RANKS} ranks spawned, run "
+        f"and joined in {time.perf_counter() - t1:.1f} s")
+
+    mesh = "x".join(map(str, TSD_TRAIN_MESH))
+    tr = [res["train"] for res in ranks]
+    for r, res in enumerate(tr):
+        check(res["losses"] == tr[0]["losses"],
+              f"sharded training rank {r}: losses the same on every rank")
+        for i, (got, want) in enumerate(zip(res["losses"],
+                                            res["ref_losses"])):
+            check(abs(got - want) <= TOL_TRAIN_LOSS,
+                  f"sharded training rank {r} step {i}: loss {got:.7f} "
+                  f"against one rank's {want:.7f}")
+        worst, off, total = res["params"]
+        check(worst <= TSD_TRAIN_LR and off <= TRAIN_SENSITIVE_SHARE * total,
+              f"sharded training rank {r}: slice after {TSD_TRAIN_STEPS} "
+              f"steps, worst difference {worst:.3e}, {off} of {total} "
+              f"elements beyond {TOL_TRAIN_PARAMS:.0e}")
+    log(f"sharded training ({mesh}, TinyLlama width, {TSD_LAYERS} layers, "
+        f"float32, B={TSD_TRAIN_BATCH} x {TSD_TRAIN_SEQ}): losses "
+        f"{tr[0]['losses']} against one rank's {tr[0]['ref_losses']}; "
+        f"global grad norms {tr[0]['norms']} (clip {TSD_TRAIN_CLIP}); "
+        f"worst parameter difference per rank "
+        f"{[res['params'][0] for res in tr]}, elements beyond "
+        f"{TOL_TRAIN_PARAMS:.0e} {[res['params'][1] for res in tr]} of "
+        f"{[res['params'][2] for res in tr]}")
+    log(f"sharded training ({TSD_RANKS} ranks on one card, overheads not "
+        f"scaling): ms a step per rank (CUDA events) "
+        f"{[[round(x, 2) for x in res['step_ms']] for res in tr]}; peak "
+        f"{[round(res['peak_mb'], 1) for res in tr]} MB a rank")
+
+    for r, res in enumerate(ranks):
+        seqs, scores, _ = res["beam"]
+        check(torch.equal(seqs, seqs1), f"sharded beam search rank {r}: "
+                                        f"sequences equal to one rank's")
+        rel = float(((scores - scores1).abs()
+                     / scores1.abs().clamp_min(1e-30)).max())
+        check(rel <= TOL_SCORE_REL, f"sharded beam search rank {r}: "
+                                    f"scores within {rel:.3e} relative")
+        check(torch.equal(res["spec"][0], greedy1),
+              f"sharded speculative decoding rank {r}: tokens equal to one "
+              f"rank's decode_loop")
+        check(torch.equal(res["adaptive"][0], greedy1),
+              f"sharded adaptive speculative decoding rank {r}: tokens "
+              f"equal to one rank's decode_loop")
+    dmesh = "x".join(map(str, TSD_DECODE_MESH))
+    stats = ranks[0]["spec"][1]
+    log(f"sharded decoders ({dmesh}, TinyLlama width, {TSD_LAYERS} layers, "
+        f"float32, prompt {TSD_PROMPT}): beam search "
+        f"W={BEAM_WIDTH} x {TSD_BEAM_TOKENS} tokens equal to one rank's on "
+        f"every rank, {[round(res['beam'][2], 3) for res in ranks]} s a "
+        f"rank against {beam_s1:.3f} s on one; speculative with oracle "
+        f"drafts ({TSD_SPEC_STEPS} steps, {N_DRAFT} drafts, "
+        f"{stats['iterations']} "
+        f"forwards, draft rate {stats['draft_rate']:.3f}) equal to one "
+        f"rank's decode_loop, {[round(res['spec'][2], 3) for res in ranks]} "
+        f"s a rank against {spec_s1:.3f} s on one; adaptive with "
+        f"adversarial drafts, arms {ranks[0]['adaptive'][1]}, K2 "
+        f"{ranks[0]['adaptive'][2]['K2']} a rank")
+    log(nvidia_smi_line())
+    launches = {
+        "tinyllama_sharded_train": {k: 0 for k in KERNELS},
+        "tinyllama_sharded_decoders": {
+            k: sum(res["beam_launches"][k] + res["decode_launches"][k]
+                   for res in ranks) for k in KERNELS}}
+    log(f"sharded decoders launches over the ranks: "
+        f"{launches['tinyllama_sharded_decoders']}")
+    log(f"sharded training and decoders phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
 def phase_multihost(device) -> None:
     """The multi-process driver (`parallel/multihost.py`): two worker
     processes started with `subprocess` on this card, joined over a
@@ -5968,17 +6475,19 @@ def phase_train_path(device, mcfg, steps: int = TRAIN_STEPS) -> dict:
 
 
 def _greedy_from(params, logits, state, mcfg, ccfg, steps: int,
-                 kernels: bool):
+                 kernels: bool, slot_group=None):
     """Greedy decode of `steps` steps from a prefill's logits and state, one
-    step at a time, on K2 or on its plain version: (tokens [B, steps + 1],
-    logits [B, steps + 1, V]) on the host. Updates `state` in place."""
+    step at a time, on K2 or on its plain version (with `slot_group`, from
+    a slot-sharded state with no gather): (tokens [B, steps + 1], logits
+    [B, steps + 1, V]) on the host. Updates `state` in place."""
     from realtime_kv_cache_compression_tpu_torch.models import llama
 
     out = [logits.float().cpu()]
     for _ in range(steps):
         logits, state = llama.decode_step(params, torch.argmax(logits, -1),
                                           state, mcfg, ccfg,
-                                          use_fused=kernels)
+                                          use_fused=kernels,
+                                          slot_group=slot_group)
         out.append(logits.float().cpu())
     logits = torch.stack(out, dim=1)
     return torch.argmax(logits, -1), logits
@@ -6951,6 +7460,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     ss = phase_sharded_serving(device, tiny)
     launches.update(ss["launches"])
     mark("sharded serving and float32 pipeline runs")
+    launches.update(phase_sharded_train_decoders(device, tiny)["launches"])
+    mark("sharded training and decoders")
     phase_multihost(device)
     mark("multi-process driver")
     tiny_paths = dataclasses.replace(tiny, num_layers=TINY_PATH_LAYERS,
@@ -7005,13 +7516,14 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     def entry(key, result, path, extra=None):
-        _, name, source, replaces = KERNELS[key]
+        _, name, source, replaces = KERNELS[key][:4]
         fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[path][key],
                 **{f: result[f] for f in fields},
-                "launches_by_path": {p: c[key] for p, c in launches.items()},
+                "launches_by_path": {p: c.get(key, 0)
+                                     for p, c in launches.items()},
                 **({"experiments_max_abs_err": exp_err[key]}
                    if key in exp_err else {}),
                 **(extra or {})}
@@ -7202,6 +7714,24 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                     "Llama-2-7B", k2p_big["variant"])},
                 **{m: {**g[m]["K2pool"], "shape": pool_note.format(
                     m, g[m]["K2pool"]["variant"])} for m in g}}}),
+        entry("K2l", seq["k2l"], "tinyllama_seq_parallel_sharded", {
+            "mode": "lse (return_lse=True): a rank's partial over its own "
+                    "slots of a sequence-sharded state, o in float32 and "
+                    "the log-sum-exp, merged over the ranks",
+            "shape": f"ms, plain_ms, bound_ms: layer 0 of rank 0's 1/"
+                     f"{SEQ_RANKS} slot shard of a {PROMPT}-token TinyLlama "
+                     f"state with its ring, bf16 q",
+            "kernels_per_call": 1,
+            "device_us_per_call": seq["k2l"]["device_us"],
+            "seq_parallel_audit": {
+                "calls": seq["audit"]["K2l"][0],
+                "max_abs_err": seq["audit"]["K2l"][1],
+                "worst_share_of_limit": seq["audit"]["K2l"][2],
+                "lse_max_abs_err": seq["audit"]["K2l"][3],
+                "shape": f"every call of the decodes from the shards on "
+                         f"every rank: TinyLlama bf16 over {SEQ_RANKS} "
+                         f"ranks ({SEQ_NEW_TOKENS - 1} steps), float32 "
+                         f"at tiny_test_model width"}}),
         entry("K3", {**k3, "max_abs_err": worst(k3, k3_mixtral, k3_expert)},
               "llama2_7b_int4", {
             "shape": shape_note.format(""), "prefill": k3["prefill"],

@@ -18,6 +18,19 @@ collective it issues goes through this module:
   activations and their gradients, stage to stage);
 - `broadcast`: one rank's tensor on every rank (the pipeline's tokens).
 
+Three of them have differentiable forms for training over a sharded tree,
+the usual tensor-parallel pairs (autograd Functions; with no gradient
+wanted they are the plain collectives):
+
+- `reduce_sum`: all-reduce SUM forward, identity backward (a row-parallel
+  product's partial sums, the masked embedding lookup, a data rank's loss
+  sum);
+- `enter_split`: identity forward, all-reduce SUM of the gradient backward
+  (the input of column-parallel products: each rank's products give part
+  of its gradient);
+- `gather_split`: all-gather forward, this rank's slice of the gradient
+  backward (the vocab-split logits).
+
 `group=None` is a group of one rank: every collective returns its input
 (a copy where the contract gives a new tensor) and issues nothing.
 
@@ -211,3 +224,64 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
     out = _from_bytes(buf, t)
     return stage(out, t.device) if staged else out
+
+
+def _wants_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.float(), ctx.group).to(grad.dtype), None
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.size = dim, t.shape[dim]
+        ctx.start = rank_and_size(group)[0] * t.shape[dim]
+        return all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.start, ctx.size), None, None
+
+
+def reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """`all_reduce_sum` whose gradient passes through unchanged: every rank
+    holds the same gradient of the sum, which is each partial's."""
+    if group is None or not _wants_grad(t):
+        return all_reduce_sum(t, group)
+    return _ReduceSum.apply(t, group)
+
+
+def enter_split(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` as it is, whose gradient is summed over `group` in the backward:
+    the input of products split over the group's ranks."""
+    if group is None or not _wants_grad(t):
+        return t
+    return _EnterSplit.apply(t, group)
+
+
+def gather_split(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`all_gather` whose gradient is this rank's slice of the gathered
+    tensor's."""
+    if group is None or not _wants_grad(t):
+        return all_gather(t, dim, group)
+    return _GatherSplit.apply(t, dim, group)

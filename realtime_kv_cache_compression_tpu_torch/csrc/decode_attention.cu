@@ -60,6 +60,11 @@
 //    log-sum-exp in split order, writes the output and resets the ticket.
 //    The scratch is the wrapper's, cached per device and stream; every
 //    call gives the same bits.
+//  - With an lse pointer (a decode over one rank's slot shard of a
+//    sequence-sharded state) the merging block also writes each row's
+//    log-sum-exp M + log L in float32 (-inf where no key was seen) and
+//    writes O / L in float32, not in q's dtype, so that the ranks'
+//    partials merge exactly and round once. Without it nothing changes.
 //  - The parameter struct is __grid_constant__, so the runtime segment
 //    index reads it where it lies instead of copying it to local memory.
 
@@ -104,7 +109,8 @@ struct DecodeParams {
   float* part_m;          // [B, Hkv, splits, REP]
   float* part_l;
   int* ticket;            // [B, Hkv], zero between calls
-  void* out;              // [B, Hq, D], q dtype
+  void* out;              // [B, Hq, D], q dtype (float32 with lse)
+  float* lse;             // [B, Hq] log-sum-exp, or null
   int n_seg, total_splits, B, Hkv, rep, D, dtype;
   int G, gshift;          // scale groups per head; log2(D / G)
   float sm_scale;
@@ -676,6 +682,7 @@ decode_attention_kernel(const __grid_constant__ DecodeParams p) {
   const int S = p.total_splits;
   float* sw = reinterpret_cast<float*>(smem);  // [S][REP] weights
   float* sL = sw + kMaxSplits * REP;           // [REP]
+  float* sM = sL + REP;                        // [REP]
   {
     const int warp = tid / 32, lane = tid % 32;
     for (int r = warp; r < REP; r += kWarps) {
@@ -691,7 +698,10 @@ decode_attention_kernel(const __grid_constant__ DecodeParams p) {
         L = fmaf(w, __ldcg(&p.part_l[(bh * S + s) * REP + r]), L);
       }
       L = rkv::warp_sum(L);
-      if (lane == 0) sL[r] = L;
+      if (lane == 0) {
+        sL[r] = L;
+        sM[r] = M;
+      }
     }
   }
   __syncthreads();
@@ -722,11 +732,21 @@ decode_attention_kernel(const __grid_constant__ DecodeParams p) {
       }
     }
     const float L = sL[r];
+    const long long o = (bh * rep + r) * D + 4 * d4;
+    if (p.lse) {
+      // The partial of a slot shard: O / L kept in float32, rounded once
+      // after the ranks' partials merge.
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[(bh * rep + r) * D + 4 * d4 + e] = from_f<T>(L > 0.f ? O[e] / L
-                                                              : 0.f);
+      for (int e = 0; e < 4; ++e)
+        static_cast<float*>(p.out)[o + e] = L > 0.f ? O[e] / L : 0.f;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[o + e] = from_f<T>(L > 0.f ? O[e] / L : 0.f);
+    }
   }
+  if (p.lse && tid < rep)
+    p.lse[bh * rep + tid] = sL[tid] > 0.f ? sM[tid] + logf(sL[tid]) : kNegInf;
   if (tid == 0) p.ticket[bh] = 0;  // ready for the next call
 }
 
@@ -802,7 +822,9 @@ extern "C" int decode_attention_launch(const DecodeParams* p, void* stream) {
       !(p->D == 16 || p->D == 32 || p->D == 64 || p->D == 128 ||
         p->D == 256) ||
       (p->D >> p->gshift) != p->G || (p->D >> p->gshift) << p->gshift != p->D ||
-      (p->G > 1 && p->gshift < 3) || p->ticket == nullptr)
+      (p->G > 1 && p->gshift < 3) || p->ticket == nullptr ||
+      p->q == nullptr || p->q_pos == nullptr || p->out == nullptr ||
+      reinterpret_cast<uintptr_t>(p->lse) % alignof(float) != 0)
     return cudaErrorInvalidValue;
   const int elem = p->dtype == rkv::kFloat32 ? 4 : 2;
   for (int i = 0; i < p->n_seg; ++i)

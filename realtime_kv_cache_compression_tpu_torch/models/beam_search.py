@@ -9,6 +9,14 @@ of every batch row. Finished beams are frozen: their next-token
 distribution is {EOS: 0, else: NEG_INF}, so their score stops
 accumulating while they keep competing for the final ranking.
 
+Over a sharded tree (`parallel.shard_params`) every rank runs the same
+search: the prefill and each `decode_step` run over the rank's heads (K1
+and K2) and its data block of the rows, their logits gathered over the
+vocabulary and the data axis, so the top-W and the ranking see the whole
+batch, and each rank reorders the beam rows it holds. A data rank must
+hold whole prompts (B a multiple of the data ranks), so that every
+beam's parent lies on its own rank.
+
 Ties: the reference takes the top W with `lax.top_k`, which puts the
 lower index first among equal values (frozen beams tie across the whole
 vocabulary, since s + NEG_INF rounds to NEG_INF in float32), and ranks
@@ -83,6 +91,9 @@ def _search(params, logits: torch.Tensor, state: llama.DecodeState,
                             cfg.vocab_size)
     dev = logits.device
     eos = -1 if eos_token_id is None else eos_token_id
+    layout = getattr(params, "layout", None)
+    # This data rank's beam rows: a block of whole prompts' beams.
+    row0 = 0 if layout is None else layout.row_start(b * w)
 
     # First expansion: the top W distinct first tokens per batch row.
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -113,7 +124,10 @@ def _search(params, logits: torch.Tensor, state: llama.DecodeState,
         scores, flat = _top(total, w)                             # [B, W]
         parent = flat // vocab
         tokens = flat % vocab
-        state = _gather_beams(state, (batch_base + parent).reshape(b * w))
+        flat_parent = (batch_base + parent).reshape(b * w)
+        if layout is not None:
+            flat_parent = layout.rows(flat_parent) - row0
+        state = _gather_beams(state, flat_parent)
         seqs = torch.take_along_dim(seqs, parent[:, :, None], dim=1)
         seqs[:, :, t] = tokens
         finished = torch.take_along_dim(finished, parent, dim=1)
@@ -163,9 +177,17 @@ def beam_search(
 
     Returns (sequences [B, T], scores [B] length-normalised log-probs,
     per-layer prefill stats); with `return_all_beams`, [B, W, T] and
-    [B, W], best first.
+    [B, W], best first. Under a sharded tree every rank gets the same
+    results; raises ValueError where the data axis does not divide B
+    (it would split one prompt's beams over data ranks).
     """
-    llama.refuse_sharded(params, "beam_search")
+    layout = getattr(params, "layout", None)
+    if layout is not None and input_ids.shape[0] % layout.data_size:
+        raise ValueError(
+            f"beam_search over {layout.data_size} data ranks needs whole "
+            f"prompts on each data rank: batch {input_ids.shape[0]} is not "
+            f"a multiple of the data ranks, so one prompt's beams would be "
+            f"split over ranks")
     logits, state, stats = llama.prefill_compressed(
         params, input_ids, cfg, ccfg, max_decode_len=max_new_tokens,
         use_flash=use_flash)

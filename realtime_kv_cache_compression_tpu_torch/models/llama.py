@@ -49,8 +49,11 @@ embedding lookup and the `wo` / `w_down` partial sums all-reduced, the
 per-head prompt masses and the logits gathered). Their arguments and
 results are global, as JAX's are: ids, lengths and tokens [B, ...] in,
 logits [B, V] and per-row stats [B] out, the same on every rank; the
-decode state is the rank's own. `forward_logits` and the other models'
-entry points refuse a sharded tree.
+decode state is the rank's own. `forward_logits` runs on it too, through
+collectives that are differentiable (the trainer's: `models/train.py`),
+and so do beam search, speculative decoding and `extend_prefill`. A
+slot-sharded state (`parallel.seq_parallel_prefill(sharded_compression=
+True)`) decodes with whole weights and `slot_group=` (`decode_step`).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import comm
 from ..compression.compressor import (compress_layer_kv,
                                       dequantize_layer_cache,
                                       empty_layer_cache, update_cache_chunk)
@@ -362,6 +366,8 @@ def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
         i = gu.shape[-1] // 2
         a = _act(gu[..., :i], act) * gu[..., i:]
     else:
+        if layout is not None and layout.inter_split:
+            x = layout.enter(x)
         a = (_act(_matmul(x, layer["w_gate"]), act)
              * _matmul(x, layer["w_up"]))
     if layout is not None and layout.inter_split:
@@ -374,6 +380,9 @@ def logits_from_hidden(params: Params, h: torch.Tensor,
     """Logits [..., V] of hidden states; under a sharded tree each rank's
     block of the vocabulary is gathered over the model axis."""
     h = rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
+    layout = getattr(params, "layout", None)
+    if layout is not None and layout.vocab_split:
+        h = layout.enter(h)
     if cfg.tie_word_embeddings:
         embed = params["embed"]
         if isinstance(embed, QuantizedTensor):  # per-row scale = per logit
@@ -381,7 +390,6 @@ def logits_from_hidden(params: Params, h: torch.Tensor,
         logits = h @ embed.T
     else:
         logits = _matmul(h, params["lm_head"])
-    layout = getattr(params, "layout", None)
     if layout is not None and layout.vocab_split:
         logits = layout.gather_vocab(logits)
     return logits
@@ -412,18 +420,6 @@ def _sharded(params: Params, cfg: ModelConfig, mesh=None):
     if layout is None:
         return None, cfg
     return layout, layout.local_config(cfg)
-
-
-def refuse_sharded(params: Params, what: str) -> None:
-    """Raises NotImplementedError for a sharded tree in an entry point
-    that has no tensor-parallel path."""
-    if getattr(params, "layout", None) is not None:
-        raise NotImplementedError(
-            f"{what} takes no sharded params: tensor parallelism covers the "
-            f"prefill functions, decode_step / decode_loop, the "
-            f"uncompressed arm and the serving engine; forward_logits (and "
-            f"so the trainer), beam_search and speculative decoding wait "
-            f"for sharded training, in the rest of ROADMAP item 18")
 
 
 def _sharded_outputs(layout, logits, state, stats, batch: int):
@@ -773,25 +769,50 @@ def forward_logits(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
     call rather than the math backend, which keeps [B, H, S, S] a layer;
     on a CUDA device it is called with a deterministic backward
     (`_EfficientCausalAttention`), on the CPU through SDPA.
+
+    Under a sharded tree `input_ids` and the logits are global, as for the
+    prefill functions; the forward (`forward_rows`) is differentiable
+    through its collectives, so `models/train.py` trains on it.
     """
-    refuse_sharded(params, "forward_logits")
+    layout = getattr(params, "layout", None)
+    if layout is None:
+        return forward_rows(params, input_ids, cfg, use_flash)
+    logits = forward_rows(params, layout.rows(input_ids), cfg, use_flash)
+    return layout.gather_outputs(logits)[0]
+
+
+def forward_rows(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
+                 use_flash: Optional[bool] = None) -> torch.Tensor:
+    """`forward_logits` of the rows given, not gathered over `data`: under
+    a sharded tree `input_ids` are this data rank's rows (the trainer's
+    loss sums its own rows), and the logits [b, S, V] cover the whole
+    vocabulary (gathered over `model`)."""
     if use_flash is None:
         use_flash = input_ids.is_cuda
-    h, _, cos, sin = _prefill_start(params, input_ids, cfg)
-    h = forward_layers(params["layers"], h, cos, sin, cfg, use_flash)
+    layout, _ = _sharded(params, cfg)
+    h, _, cos, sin = _prefill_start(params, input_ids, cfg, layout)
+    h = forward_layers(params["layers"], h, cos, sin, cfg, use_flash,
+                       layout)
     return logits_from_hidden(params, h, cfg)
 
 
 def forward_layers(layers: Sequence[Params], h: torch.Tensor, cos, sin,
-                   cfg: ModelConfig, use_flash: bool) -> torch.Tensor:
+                   cfg: ModelConfig, use_flash: bool,
+                   layout=None) -> torch.Tensor:
     """`layers` (a contiguous range, each a layer's dict) over the hidden
     states h [B, S, D] with causal attention and no KV cache: the layer
     loop of `forward_logits` (which see for the two attention routes), and
-    a pipeline stage's (`parallel/pipeline.py`, use_flash=False)."""
-    n_rep = cfg.num_heads // cfg.num_kv_heads
+    a pipeline stage's (`parallel/pipeline.py`, use_flash=False).
+    `layout` runs a sharded tree's layers over this rank's heads and MLP
+    columns, the inputs of the column-parallel products entered through
+    `ShardLayout.enter` (their gradients summed over `model`)."""
+    lcfg = layout.local_config(cfg) if layout is not None else cfg
+    n_rep = lcfg.num_heads // lcfg.num_kv_heads
     for layer in layers:
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        if layout is not None and layout.heads_split:
+            x = layout.enter(x)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if use_flash:
@@ -808,7 +829,7 @@ def forward_layers(layers: Sequence[Params], h: torch.Tensor, cos, sin,
                     enable_gqa=gqa and n_rep > 1).transpose(1, 2)
         else:
             attn, _ = prefill_attention_with_prompt_mass(q, k, v, 1)
-        h = _attn_out(layer, h, attn, cfg)
+        h = _attn_out(layer, h, attn, lcfg, layout)
     return h
 
 
@@ -1289,6 +1310,7 @@ def decode_layers_step(
     use_fused: Optional[bool] = None,
     flush: bool = False,
     layout=None,
+    slot_group=None,
 ) -> torch.Tensor:
     """One decode step over a contiguous range of layers: the per-layer
     body of `decode_step`, which pipeline stages (parallel/pipeline.py)
@@ -1300,12 +1322,25 @@ def decode_layers_step(
     decision) the full rings are flushed into the pools before the
     append. use_fused=None runs K2 on CUDA inputs. Rings and pools are
     updated in place; returns h after the last layer of the range.
-    `layout` as in `prefill_layers_compressed`.
+    `layout` as in `prefill_layers_compressed`. `slot_group`: the
+    sequence group of a slot-sharded state (`parallel.seq_parallel`): each
+    rank attends over its own tier shard (K2's lse mode), group rank 0
+    adds the replicated ring and pool, and the partials merge over the
+    group (`merge_slot_partials`); every rank appends and flushes its
+    replicated ring and pool as always.
     """
     if use_fused is None:
         use_fused = h.is_cuda
+    if slot_group is not None and layout is not None:
+        raise ValueError("a slot-sharded state decodes with whole weights: "
+                         "slot_group and a sharded tree do not combine")
     lcfg = layout.local_config(cfg) if layout is not None else cfg
     pools = pools or (None,) * len(caches)
+    merge = None
+    if slot_group is not None:
+        # (imported here: parallel/seq_parallel.py imports this module)
+        from ..parallel.seq_parallel import merge_slot_partials as merge
+        first = comm.rank_and_size(slot_group)[0] == 0
     for layer, cache, recent, pool in zip(layer_params, caches, recents,
                                           pools):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
@@ -1315,7 +1350,18 @@ def decode_layers_step(
         if flush:
             flush_recent(recent, pool, ccfg, lcfg)
         append_recent(recent, k, v, q_pos)
-        if use_fused:
+        if merge is not None:
+            # The replicated ring and pool join one rank's partial only.
+            ring, tail = (recent, pool) if first else (None, None)
+            if use_fused:
+                part = fused_decode_attention(q, cache, ring, q_pos, ccfg,
+                                              pool=tail, return_lse=True)
+            else:
+                part = decode_attention_plain(q, cache, ring, q_pos, ccfg,
+                                              dtype=q.dtype, pool=tail,
+                                              return_lse=True)
+            attn = merge(*part, slot_group).to(q.dtype)
+        elif use_fused:
             attn = fused_decode_attention(q, cache, recent, q_pos, ccfg,
                                           pool=pool)
         else:
@@ -1332,6 +1378,7 @@ def decode_step(
     cfg: ModelConfig,
     ccfg: CompressionConfig,
     use_fused: Optional[bool] = None,
+    slot_group=None,
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step over the compressed caches. token: [B] ids.
     use_fused=None runs K2 on CUDA inputs. With decode pools, full rings
@@ -1341,7 +1388,11 @@ def decode_step(
     updated in place; returns (logits [B, V], the state with position + 1).
     Under a sharded tree `token` and the logits are global, the state the
     rank's own (its rows and kv heads): K2 runs over the rank's heads. The
-    layers run through `decode_layers_step`.
+    layers run through `decode_layers_step`. `slot_group` decodes a
+    slot-sharded state (`seq_parallel_prefill(sharded_compression=True)`)
+    with no gather: each rank over its own tier shard, the partials merged
+    over the group (`decode_layers_step`); token, logits and the state's
+    rings are the same on every rank.
     """
     if use_fused is None:
         use_fused = token.is_cuda
@@ -1359,7 +1410,8 @@ def decode_step(
                                       pools[0] is not None)
     h = decode_layers_step(params["layers"], h, state.caches, state.recents,
                            pools, q_pos, cos, sin, cfg, ccfg,
-                           use_fused=use_fused, flush=flush, layout=layout)
+                           use_fused=use_fused, flush=flush, layout=layout,
+                           slot_group=slot_group)
     logits = logits_from_hidden(params, h[:, 0], cfg)
     if layout is not None:
         logits, _ = layout.gather_outputs(logits)
@@ -1382,13 +1434,14 @@ def decode_loop(
     counts: Optional[torch.Tensor] = None,
     return_counts: bool = False,
     return_logprobs: bool = False,
+    slot_group=None,
 ):
-    """n_steps of decode. With decode pools (ccfg.decode_pool_blocks > 0)
-    any n_steps is supported: full rings flush into the quantized pool, and
-    past ring * (blocks + 1) decode tokens the oldest pool block is
-    overwritten (the prefill tiers are never evicted). Without pools the
-    recent rings must hold n_steps tokens (appends past a full ring are
-    dropped).
+    """n_steps of decode (`slot_group` as in `decode_step`). With decode
+    pools (ccfg.decode_pool_blocks > 0) any n_steps is supported: full
+    rings flush into the quantized pool, and past ring * (blocks + 1)
+    decode tokens the oldest pool block is overwritten (the prefill tiers
+    are never evicted). Without pools the recent rings must hold n_steps
+    tokens (appends past a full ring are dropped).
 
     temperature 0 is greedy; above 0 samples, with noise from `generator`
     (a torch.Generator on the tokens' device; required, else ValueError).
@@ -1412,7 +1465,8 @@ def decode_loop(
     tok, toks, lps = first_token, [], []
     for _ in range(n_steps):
         logits, state = decode_step(params, tok, state, cfg, ccfg,
-                                    use_fused=use_fused)
+                                    use_fused=use_fused,
+                                    slot_group=slot_group)
         tok = sample_logits(logits, generator, sampling,
                             counts=counts if track_counts else None)
         if track_counts:

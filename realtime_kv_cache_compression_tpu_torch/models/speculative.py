@@ -25,6 +25,16 @@ forward reaches no kernel of the reference either: it stays plain torch.
 State: `speculative_decode_loop` and `adaptive_speculative_decode` update
 the state's rings and pools in place, as `decode_loop` does;
 `extend_prefill` leaves its input state unchanged.
+
+Over a sharded tree (`parallel.shard_params`) the tokens, prompts, keep
+counts and logits are global and the state is the rank's own, as for
+`decode_step`: the verify forward embeds its data block of the rows
+(the masked lookup), attends over the rank's heads (its dequantized
+tiers, ring, pool and the block), sums `wo` and `w_down` over `model`
+(`ShardLayout.reduce`) and gathers the logits over the vocabulary and
+the data axis, so every rank accepts the same drafts; `commit_block`
+appends the rank's rows. The data axis must divide B (each data rank
+holds whole rows).
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import comm
 from ..compression.compressor import dequantize_layer_cache
 from ..compression.kv_cache import (append_recent, dequantize_decode_pool,
                                     flush_recent)
@@ -100,12 +111,15 @@ def verify_forward(params: Params, tokens: torch.Tensor, state: DecodeState,
     drafts. Attention runs over [tiers | recent ring | decode pool | the
     block itself]; the position-based mask gives exact causality inside
     the block. Returns (logits [B, T, V], per-layer [(k_blk, v_blk)] for
-    `commit_block`).
+    `commit_block`; under a sharded tree the blocks are the rank's rows
+    and kv heads, the logits global).
     """
-    llama.refuse_sharded(params, "speculative decoding")
+    layout, lcfg = llama._sharded(params, cfg)
+    if layout is not None:
+        tokens = layout.rows(tokens)
     b, t = tokens.shape
     dev = tokens.device
-    h = _embed_lookup(params["embed"], tokens, model_dtype(cfg), cfg)
+    h = _embed_lookup(params["embed"], tokens, model_dtype(cfg), cfg, layout)
     q_pos = state.position[:, None] + torch.arange(t, device=dev)[None]
     cos, sin = rope_tables(q_pos, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -115,7 +129,7 @@ def verify_forward(params: Params, tokens: torch.Tensor, state: DecodeState,
     for layer, cache, recent, pool in zip(params["layers"], state.caches,
                                           state.recents, pools):
         x = rmsnorm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(layer, x, cfg)
+        q, k, v = _qkv(layer, x, lcfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         blocks.append((k, v))
@@ -134,8 +148,11 @@ def verify_forward(params: Params, tokens: torch.Tensor, state: DecodeState,
         attn = attention_over_tokens(
             q, torch.cat(ks, dim=1), torch.cat(vs, dim=1),
             torch.cat(ps, dim=1), torch.cat(vds, dim=1), q_pos)
-        h = _attn_out(layer, h, attn, cfg)
-    return logits_from_hidden(params, h, cfg), blocks
+        h = _attn_out(layer, h, attn, lcfg, layout)
+    logits = logits_from_hidden(params, h, cfg)
+    if layout is not None:
+        logits, _ = layout.gather_outputs(logits)
+    return logits, blocks
 
 
 def flush_full_rings(state: DecodeState, cfg: ModelConfig,
@@ -158,7 +175,8 @@ def commit_block(state: DecodeState,
                  blocks: List[Tuple[torch.Tensor, torch.Tensor]],
                  keep: torch.Tensor, cfg: ModelConfig,
                  ccfg: CompressionConfig,
-                 host_keep: Optional[Sequence[int]] = None) -> DecodeState:
+                 host_keep: Optional[Sequence[int]] = None,
+                 layout=None) -> DecodeState:
     """Append the first keep[b] tokens of each layer's block K/V to the
     recent rings, flushing into the decode pools exactly as sequential
     steps would, and advance the positions by keep. The rings and pools
@@ -169,8 +187,15 @@ def commit_block(state: DecodeState,
     reference's order is kept: at every block position j, rows whose ring
     is full flush (also rows already past their keep), then the append
     gated by j < keep; the host replays it on `ring_fill` to decide the
-    flushes.
+    flushes. Under a sharded tree's `layout`, keep (and host_keep) are
+    global and the state and blocks the rank's: it commits its data
+    block of the rows.
     """
+    if layout is not None:
+        lo = layout.row_start(keep.shape[0])
+        keep = layout.rows(keep)
+        if host_keep is not None:
+            host_keep = host_keep[lo:lo + keep.shape[0]]
     if host_keep is None:
         host_keep = keep.tolist()
     t = blocks[0][0].shape[1]
@@ -222,7 +247,8 @@ def extend_prefill(params: Params, state: DecodeState,
     logits, blocks = verify_forward(params, suffix_ids, state, cfg, ccfg)
     keep = suffix_lens.to(device=suffix_ids.device, dtype=torch.int32)
     new_state = commit_block(llama.clone_decode_state(state), blocks, keep,
-                             cfg, ccfg)
+                             cfg, ccfg, layout=getattr(params, "layout",
+                                                       None))
     last = torch.gather(logits, 1, (keep.long() - 1)[:, None, None].expand(
         -1, 1, logits.shape[-1]))[:, 0]
     return last, new_state
@@ -274,6 +300,8 @@ def speculative_decode_loop(
                                   (prompt_lens.long() - 1)[:, None])[:, 0]
     ring_cap = state.recents[0].capacity
     pooled = _pooled(state)
+    layout = getattr(params, "layout", None)
+    data_group = None if layout is None else layout.data_group
     last_tok, prev_tok = first_token.long(), prev_token.long()
     # Column n_steps takes the scatter's non-writes and is cut at the end.
     out = torch.zeros((b, n_steps + 1), dtype=torch.long, device=dev)
@@ -296,7 +324,10 @@ def speculative_decode_loop(
         if pooled:
             # Stop at the ring's end, so flushes land at an iteration's
             # start, where sequential decode flushes them.
-            m = torch.minimum(m, ring_cap - state.recents[0].length.long())
+            # (every data rank's rows: the state holds the rank's own)
+            ring_len = comm.all_gather(state.recents[0].length, 0,
+                                       data_group)
+            m = torch.minimum(m, ring_cap - ring_len.long())
         # Never commit past n_steps: the final state is sequential
         # decode's.
         active = count < n_steps
@@ -314,7 +345,7 @@ def speculative_decode_loop(
         out.scatter_(1, torch.where(write, cols, n_steps), greedy)
 
         state = commit_block(state, blocks, m.to(torch.int32), cfg, ccfg,
-                             host_keep=host_m)
+                             host_keep=host_m, layout=layout)
 
         new_last = torch.gather(greedy, 1,
                                 torch.clamp(m - 1, min=0)[:, None])[:, 0]

@@ -19,6 +19,16 @@ tree in place and returns the loss. The update is optax's
 Nothing here launches a kernel of the port's: `forward_logits` attends
 through `scaled_dot_product_attention` on CUDA inputs (its backward is
 PyTorch's), through the plain attention elsewhere.
+
+Over a (data, model) mesh (a tree cut by `parallel.shard_params`; ids and
+mask stay global, as in JAX): each data rank's loss covers its own rows
+(`ShardLayout.rows`) through the differentiable sharded forward
+(`llama.forward_rows`), and the loss is the global mean, its sum and its
+count each summed over `data`. After the backward the gradients are
+summed over `data` (and a leaf that several model ranks use in part over
+`model`: `ShardLayout.sync_grads`); the clip takes the whole model's norm
+(`ShardLayout.grad_norm_of`), and AdamW updates each rank's slice in
+place, the replicated tensors alike on every rank.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from .. import comm
 from ..config import ModelConfig
-from .llama import forward_logits
+from .llama import forward_logits, forward_rows
 
 Params = Dict[str, Any]
 
@@ -51,14 +62,30 @@ def lm_loss(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
     input_ids[:, 1:]). SFT-style masking — at long contexts an unmasked
     mean is dominated by unpredictable filler and the supervised span's
     gradient share collapses with 1/S. None → plain mean over all
-    positions.
+    positions. Under a sharded tree the global mean (see the module's
+    docstring), the same on every rank.
     """
-    nll = token_nll(forward_logits(params, input_ids, cfg,
-                                   use_flash=use_flash), input_ids)
+    layout = getattr(params, "layout", None)
+    if layout is None:
+        nll = token_nll(forward_logits(params, input_ids, cfg,
+                                       use_flash=use_flash), input_ids)
+        if loss_mask is not None:
+            w = loss_mask.to(nll.dtype)
+            return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return nll.mean()
+    ids = layout.rows(input_ids)
+    nll = token_nll(forward_rows(params, ids, cfg, use_flash=use_flash), ids)
     if loss_mask is not None:
-        w = loss_mask.to(nll.dtype)
-        return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
-    return nll.mean()
+        w = layout.rows(loss_mask).to(nll.dtype)
+        total, count = (nll * w).sum(), w.sum()
+    else:
+        total = nll.sum()
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+    total = comm.reduce_sum(total[None], layout.data_group)[0]
+    count = comm.all_reduce_sum(count[None].float(), layout.data_group)[0]
+    if loss_mask is not None:
+        count = torch.clamp(count, min=1.0)
+    return total / count
 
 
 def warmup_cosine_decay(lr: float, total_steps: int,
@@ -181,9 +208,16 @@ def train_step(params: Params, optimizer: Optimizer,
                loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One training step: the loss and its gradients, then the optimizer's
     update of `params` in place. Returns the loss (a device scalar, not
-    read to the host)."""
+    read to the host). Under a sharded tree (`optimizer` made on it) every
+    rank calls it with the same global ids and mask."""
     optimizer.zero_grad()
     loss = lm_loss(params, input_ids, cfg, use_flash, loss_mask)
     loss.backward()
-    optimizer.step()
+    layout = getattr(params, "layout", None)
+    norm_of = None
+    if layout is not None:
+        kinds = layout.leaf_kinds(params)
+        layout.sync_grads(optimizer.tensors, kinds)
+        norm_of = layout.grad_norm_of(kinds)
+    optimizer.step(norm_of)
     return loss.detach()

@@ -105,13 +105,18 @@ def attention_over_tokens(
     k_positions: torch.Tensor,
     k_valid: torch.Tensor,
     q_positions: torch.Tensor,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention of queries over an arbitrary (gathered/compressed) token set.
 
     Key j participates for query i iff it is a live slot and
     k_positions[j] <= q_positions[i]. q: [B, Sq, H_q, D]; k, v:
     [B, N, H_kv, D]; k_positions: [B, N] int; k_valid: [B, N] bool;
-    q_positions: [B, Sq]. Rows with no valid key give zeros.
+    q_positions: [B, Sq]. Rows with no valid key give zeros. With
+    `return_lse`, returns (the output in float32, unrounded; the
+    log-sum-exp of the scaled logits [B, H_q, Sq] float32, -inf on rows
+    with no valid key): a partial that `merge_attention_partials` merges
+    exactly with others over disjoint key sets.
     """
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
@@ -128,7 +133,12 @@ def attention_over_tokens(
                        v.float())
     any_valid = mask.any(dim=-1)[:, :, None, None, None]
     out = torch.where(any_valid, out, torch.zeros((), device=q.device))
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    if not return_lse:
+        return out.reshape(b, sq, hq, d).to(q.dtype)
+    lse = torch.where(any_valid[..., 0].permute(0, 2, 3, 1),
+                      torch.logsumexp(logits, dim=-1),
+                      torch.full((), -torch.inf, device=q.device))
+    return out.reshape(b, sq, hq, d), lse.reshape(b, hq, sq)
 
 
 def chunk_attention_with_prompt_mass(

@@ -24,6 +24,12 @@ does; float32 dequantizes each code before its products, since the fold's
 cancellation costs float32 the digits its parity with the plain version
 needs on a trained model's activations.
 
+The lse mode (`return_lse=True`) is the same kernel with a second
+epilogue: the merging block also writes each row's log-sum-exp and keeps
+O / L in float32, so that a rank's partial over its own slots of a
+sequence-sharded state merges exactly with the other ranks'
+(`parallel.seq_parallel.merge_slot_partials`); the ring may be left out.
+
 A CPU tensor takes the plain version, `decode_attention_plain`
 (dequantize the tiers and the pool, then `attention_over_tokens`). A CUDA
 tensor launches the kernel or raises; there is no fallback.
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -87,7 +94,7 @@ class DecodeParams(ctypes.Structure):
     _fields_ = ([("seg", DecodeSegment * _MAX_SEGMENTS)]
                 + [(n, ctypes.c_void_p) for n in (
                     "q", "q_pos", "part_acc", "part_m", "part_l", "ticket",
-                    "out")]
+                    "out", "lse")]
                 + [(n, ctypes.c_int) for n in (
                     "n_seg", "total_splits", "B", "Hkv", "rep", "D",
                     "dtype", "G", "gshift")]
@@ -95,18 +102,23 @@ class DecodeParams(ctypes.Structure):
 
 
 def decode_attention_plain(q: torch.Tensor, cache: CompressedLayerCache,
-                           recent: RecentCache, q_pos: torch.Tensor,
+                           recent: Optional[RecentCache], q_pos: torch.Tensor,
                            cfg: CompressionConfig, dtype=torch.float32,
-                           pool: DecodePool = None) -> torch.Tensor:
-    """The plain version: dequantize the tiers to `dtype`, append the ring,
-    then the dequantized decode pool if there is one, and attend with
-    `attention_over_tokens` (the reference's plain decode order). Returns
-    [B, 1, H_q, D]."""
+                           pool: DecodePool = None, return_lse: bool = False):
+    """The plain version: dequantize the tiers to `dtype`, append the ring
+    (None: no ring), then the dequantized decode pool if there is one, and
+    attend with `attention_over_tokens` (the reference's plain decode
+    order). Returns [B, 1, H_q, D]; with `return_lse`, (that output in
+    float32, the log-sum-exp [B, H_q, 1] float32, -inf on rows that see no
+    key), as the kernel's lse mode."""
     k_c, v_c, pos_c, valid_c = dequantize_layer_cache(cache, cfg, dtype)
-    rec_valid = (torch.arange(recent.capacity, device=q.device)[None]
-                 < recent.length[:, None])
-    ks, vs = [k_c, recent.k.to(dtype)], [v_c, recent.v.to(dtype)]
-    ps, vds = [pos_c, recent.positions], [valid_c, rec_valid]
+    ks, vs, ps, vds = [k_c], [v_c], [pos_c], [valid_c]
+    if recent is not None:
+        ks.append(recent.k.to(dtype))
+        vs.append(recent.v.to(dtype))
+        ps.append(recent.positions)
+        vds.append(torch.arange(recent.capacity, device=q.device)[None]
+                   < recent.length[:, None])
     if pool is not None:
         k_p, v_p, pos_p, valid_p = dequantize_decode_pool(pool, dtype)
         ks.append(k_p)
@@ -115,7 +127,7 @@ def decode_attention_plain(q: torch.Tensor, cache: CompressedLayerCache,
         vds.append(valid_p)
     return attention_over_tokens(
         q, torch.cat(ks, dim=1), torch.cat(vs, dim=1), torch.cat(ps, dim=1),
-        torch.cat(vds, dim=1), q_pos)
+        torch.cat(vds, dim=1), q_pos, return_lse=return_lse)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -227,25 +239,33 @@ def _scale_groups(cache: CompressedLayerCache, pool, d: int) -> int:
 
 
 def fused_decode_attention(q: torch.Tensor, cache: CompressedLayerCache,
-                           recent: RecentCache, q_pos: torch.Tensor,
-                           cfg: CompressionConfig,
-                           pool: DecodePool = None) -> torch.Tensor:
+                           recent: Optional[RecentCache], q_pos: torch.Tensor,
+                           cfg: CompressionConfig, pool: DecodePool = None,
+                           return_lse: bool = False):
     """Decode attention over the packed tier pools + the decode pool + the
     recent ring.
 
     q: [B, 1, H_q, D] (RoPE'd); cache: the layer's compressed pools;
-    recent: the uncompressed decode ring; q_pos: [B, 1] int32 positions;
-    pool: the layer's decode pool, or None. Returns [B, 1, H_q, D] in q's
-    dtype.
+    recent: the uncompressed decode ring, or None (a slot shard's call on
+    every rank but the one that adds the replicated ring); q_pos: [B, 1]
+    int32 positions; pool: the layer's decode pool, or None. Returns
+    [B, 1, H_q, D] in q's dtype. With `return_lse` (the lse mode: a
+    partial over one rank's slots, to be merged with the others' by
+    log-sum-exp) returns (out [B, 1, H_q, D] float32, lse [B, H_q, 1]
+    float32, -inf on rows that see no key); its launches count on
+    `fused_decode_attention.lse_launches`, the default call's on
+    `.launches`.
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache, recent, q_pos, cfg,
-                                      pool=pool)
+                                      pool=pool, return_lse=return_lse)
     dev = q.device
     b, one, hq, d = q.shape
     groups = _scale_groups(cache, pool, d)
     _require(q.is_cuda, "q must be a CUDA tensor")
-    hkv = recent.k.shape[2]
+    live = [t for t in cache.tiers if t.capacity]
+    _require(recent is not None or live, "nothing to attend over")
+    hkv = (recent.k if recent is not None else live[0].k_stored).shape[2]
     _require(one == 1, "one query token per row")
     _require(d in _HEAD_DIMS, f"head_dim {d} not in {_HEAD_DIMS}")
     _require(hq % hkv == 0 and hq // hkv <= _MAX_REP,
@@ -275,7 +295,7 @@ def fused_decode_attention(q: torch.Tensor, cache: CompressedLayerCache,
                 pool.k_scale, pool.k_zp, pool.v_scale, pool.v_zp),
             pool.positions, pool.valid, None, pool.capacity, pool.bits,
             pool.block_tokens, dev, q.dtype, groups)
-    if recent.capacity:
+    if recent is not None and recent.capacity:
         segs.append(p.seg[len(segs)])
         _segment(
             segs[-1], recent.k, recent.v, (None,) * 4, recent.positions,
@@ -288,8 +308,11 @@ def fused_decode_attention(q: torch.Tensor, cache: CompressedLayerCache,
     n_part = b * hkv * splits * rep_inst
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, ticket = _build.scratch(dev, stream, n_part * (d + 2), b * hkv)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else None)
+    lse = (torch.empty((b, hq, 1), dtype=torch.float32, device=dev)
+           if return_lse else None)
     p.q, p.q_pos, p.out = q.data_ptr(), qp.data_ptr(), out.data_ptr()
+    p.lse = lse.data_ptr() if return_lse else None
     p.part_acc = part.data_ptr()
     p.part_m = p.part_acc + 4 * n_part * d
     p.part_l = p.part_m + 4 * n_part
@@ -300,8 +323,12 @@ def fused_decode_attention(q: torch.Tensor, cache: CompressedLayerCache,
     p.G, p.gshift = groups, (d // groups).bit_length() - 1
     p.sm_scale = 1.0 / d ** 0.5
     _build.launch("decode_attention_launch", p, stream)
+    if return_lse:
+        fused_decode_attention.lse_launches += 1
+        return out, lse
     fused_decode_attention.launches += 1
     return out
 
 
 fused_decode_attention.launches = 0
+fused_decode_attention.lse_launches = 0

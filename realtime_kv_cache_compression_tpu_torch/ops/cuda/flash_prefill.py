@@ -424,8 +424,9 @@ def flash_positioned_attention(q: torch.Tensor, k: torch.Tensor,
 def merge_attention_partials(parts: Sequence[Partial]
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact log-sum-exp merge of normalized partials over disjoint key
-    sets: parts of (o [B, S, Hq, D], lse [B, Hq, S], pm [B, Hq, S]).
-    Returns (out [B, S, Hq, D] float32, pm [B, Hq, S] per head). A part
+    sets: parts of (o [B, S, Hq, D], lse [B, Hq, S], pm [B, Hq, S] or
+    None), merged in the order given. Returns (out [B, S, Hq, D] float32,
+    pm [B, Hq, S] per head, None where the parts carry none). A part
     whose lse is -inf weighs 0; rows where every part is -inf give 0."""
     lse_all = torch.stack([p[1] for p in parts])          # [T, B, Hq, S]
     m = lse_all.amax(dim=0)
@@ -436,6 +437,8 @@ def merge_attention_partials(parts: Sequence[Partial]
     w_q = w.movedim(3, 2)                                 # [T, B, S, Hq]
     out = ((o_all * w_q[..., None]).sum(dim=0)
            / w_sum.movedim(2, 1)[..., None])              # [B, S, Hq, D]
+    if parts[0][2] is None:
+        return out, None
     pm = (torch.stack([p[2] for p in parts]) * w).sum(dim=0) / w_sum
     return out, pm
 

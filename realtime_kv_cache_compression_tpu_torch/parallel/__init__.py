@@ -8,7 +8,8 @@ model) mesh (`sharding.py`: `shard_params` gives each rank its slice and
 the prefill and decode functions of `models/llama.py` run on it), expert
 parallelism (`expert_parallel.py`), ring prefill attention
 (`ring_attention.py`), the sequence-parallel compressed prefill with
-its sharded compression (`seq_parallel.py`), pipeline parallelism over a
+its sharded compression and the decode from the slot-sharded state
+(`seq_parallel.py`), pipeline parallelism over a
 `pipe` axis (`pipeline.py`: GPipe training and `PipelineInference`) and
 the multi-process driver (`multihost.py`: bring-up over a TCP
 coordinator, the SPMD and serving checks, `launch_local_sim`);
@@ -27,7 +28,7 @@ from .pipeline import (PipelineInference, pipeline_lm_loss,
                        unstack_pipeline_params)
 from .ring_attention import ring_prefill_attention
 from .seq_parallel import (SEQ_AXIS, create_seq_mesh, gather_sharded_state,
-                           seq_parallel_prefill)
+                           merge_slot_partials, seq_parallel_prefill)
 from .sharding import (ShardedParams, ShardLayout, constrain_decode_state,
                        param_specs, shard_batch, shard_layout, shard_params,
                        tier_cache_specs)
@@ -37,7 +38,8 @@ __all__ = [
     "PipelineInference", "ShardLayout", "ShardedParams",
     "constrain_decode_state", "create_mesh", "create_pipe_mesh",
     "create_seq_mesh", "ep_moe_mlp", "gather_sharded_state",
-    "global_params", "initialize", "launch_local_sim", "param_specs",
+    "global_params", "initialize", "launch_local_sim", "merge_slot_partials",
+    "param_specs",
     "pipeline_lm_loss", "pipeline_train_step", "ring_prefill_attention",
     "run_ranks", "run_serving_check", "run_spmd_check",
     "seq_parallel_prefill", "shard_batch", "shard_layout", "shard_params",

@@ -19,6 +19,10 @@ tensor-parallel layers. Each rank:
 4. scatter-adds its weighted outputs back to token order, and one float32
    SUM all-reduce over the axis is the combine (no all-to-all: the tokens
    are already everywhere).
+Under a gradient (training over a sharded tree) the input enters through
+`comm.enter_split` and the combine is `comm.reduce_sum`: the router's
+gradient on a rank covers its own experts' rows only, and
+`ShardLayout.sync_grads` sums it over the axis.
 
 Rows past capacity are dropped (standard MoE overflow);
 `capacity_factor=None` sizes the capacity at N·k, which drops nothing and
@@ -106,6 +110,11 @@ def ep_moe_mlp(moe: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         capacity = n * k
     else:
         capacity = min(n * k, int(-(-n * k * capacity_factor // p)))
-    out = _local_moe(moe, x2, cfg, capacity, mesh.coords[axis])
-    out = comm.all_reduce_sum(out, mesh.group(axis))
+    group = mesh.group(axis)
+    # Differentiable: each rank's routing and experts give part of x's
+    # gradient (summed over the axis), and the combine's gradient reaches
+    # every rank's rows as it is.
+    out = _local_moe(moe, comm.enter_split(x2, group), cfg, capacity,
+                     mesh.coords[axis])
+    out = comm.reduce_sum(out, group)
     return out.reshape(shape).to(x.dtype)

@@ -10,9 +10,13 @@ channel (`parallel/ring_attention.py`: K1's diagonal pair and mode (c));
 only compression sees more than S/n tokens, and in the replicated mode
 only one layer's K/V at a time. In the fully sharded mode
 (`sharded_compression=True`) no rank ever holds more than its own tokens:
-each keeps the slot shard of every layer's caches, and
-`gather_sharded_state` assembles the full chunk-packed state that
-`models/llama.decode_loop` (K2) decodes. No rank materialises S x S
+each keeps the slot shard of every layer's caches. `models/llama`'s
+`decode_step` / `decode_loop` decode that state as it is, with
+`slot_group=group`: each rank runs K2 in its lse mode over its own tier
+shard (rank 0 adds the ring and decode pool, which every rank holds
+alike), and `merge_slot_partials` merges the ranks' partials exactly.
+`gather_sharded_state` still assembles the full chunk-packed state (the
+reference that sharded decode is held to). No rank materialises S x S
 attention, and activation memory is S/n a rank.
 
 Collectives (`comm.py`), per layer: n - 1 ring shifts of the
@@ -22,7 +26,9 @@ exchanges with a pooled mass; then in the replicated mode two all-gathers
 (K/V, then the masses), in the sharded one a MAX all-reduce of the mass
 ranges, a SUM of the valid counts on ragged rows and three for the stats.
 After the layers, one SUM all-reduce gives every rank each row's last
-hidden state.
+hidden state. A decode step from the sharded state issues one
+collective a layer: the all-gather of the ranks' (o, lse) partials in
+`merge_slot_partials`; the tiers never move.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..compression.kv_cache import CompressedLayerCache, TierCache
 from ..config import CompressionConfig, ModelConfig
 from ..models import llama
 from ..ops.attention import sharded_window_attention_mass
+from ..ops.cuda.flash_prefill import merge_attention_partials
 from .mesh import Mesh, grid_mesh, world_size
 from .ring_attention import ring_prefill_attention
 
@@ -100,7 +107,8 @@ def seq_parallel_prefill(
     the policy and caches of `compress_layer_kv_chunked(n_chunks=n)`; the
     stats come back aggregated (the same on every rank). It raises
     ValueError if a tier would have no capacity at S/n tokens a rank.
-    Pass the returned state through `gather_sharded_state` to decode.
+    Decode the returned state with `slot_group=group` (no gather), or
+    pass it through `gather_sharded_state` first.
     The ring runs K1 on CUDA inputs and its plain version on CPU ones.
     Returns (last-position logits [B, V], DecodeState, per-layer
     stats), the same on every rank but the sharded caches.
@@ -218,3 +226,14 @@ def gather_sharded_state(state: llama.DecodeState,
                           chunk=t.chunk) for t in cache.tiers)))
         caches.append(concat_layer_caches(per_rank))
     return dataclasses.replace(state, caches=tuple(caches))
+
+
+def merge_slot_partials(o: torch.Tensor, lse: torch.Tensor,
+                        group) -> torch.Tensor:
+    """One decode attention from every rank's partial over its own slots:
+    o [B, 1, H_q, D] float32 and lse [B, H_q, 1] (K2's lse mode, or its
+    plain version) gathered over `group` in one collective, then merged by
+    log-sum-exp in rank order (`merge_attention_partials`), so every rank
+    gets the same bits. Returns [B, 1, H_q, D] float32."""
+    parts = comm.all_gather_tensors([o.float(), lse.float()], group)
+    return merge_attention_partials([(p[0], p[1], None) for p in parts])[0]

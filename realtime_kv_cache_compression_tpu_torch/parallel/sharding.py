@@ -178,6 +178,10 @@ class ShardLayout:
         """This data rank's block of the rows of x (None stays None)."""
         return None if x is None else shard_batch(x, self.mesh)
 
+    def row_start(self, batch: int) -> int:
+        """The global index of this data rank's first row of `batch`."""
+        return _block(batch, self.data_size, self.mesh.coords[DATA_AXIS])[0]
+
     def gather_outputs(self, logits: torch.Tensor,
                        stats: Optional[List[Dict[str, torch.Tensor]]] = None
                        ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
@@ -203,9 +207,14 @@ class ShardLayout:
 
     def reduce(self, partial: torch.Tensor, dtype) -> torch.Tensor:
         """The float32 SUM of every model rank's partial product, rounded
-        once to `dtype`."""
-        return comm.all_reduce_sum(partial.float(),
-                                   self.model_group).to(dtype)
+        once to `dtype` (the gradient passes to each partial as it is)."""
+        return comm.reduce_sum(partial.float(), self.model_group).to(dtype)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """x, the input of column-parallel products (fused QKV, gate/up,
+        the vocab-split head): as it is, its gradient summed over `model`
+        in the backward."""
+        return comm.enter_split(x, self.model_group)
 
     def embed(self, embed: torch.Tensor, ids: torch.Tensor,
               dtype) -> torch.Tensor:
@@ -218,12 +227,100 @@ class ShardLayout:
         rows = embed[torch.clamp(local, 0, hi - lo - 1)].float()
         rows = torch.where(here[..., None], rows,
                            torch.zeros((), device=rows.device))
-        return comm.all_reduce_sum(rows, self.model_group).to(dtype)
+        return comm.reduce_sum(rows, self.model_group).to(dtype)
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
-        """[..., V/m] logits of every model rank, concatenated: [..., V]."""
-        return comm.all_gather(logits.contiguous(), logits.dim() - 1,
-                               self.model_group)
+        """[..., V/m] logits of every model rank, concatenated: [..., V]
+        (the gradient: this rank's block of the vocabulary)."""
+        return comm.gather_split(logits.contiguous(), logits.dim() - 1,
+                                 self.model_group)
+
+    # -- training ------------------------------------------------------------
+
+    def leaf_kinds(self, tree: Params) -> List["LeafKind"]:
+        """How each tensor of this rank's tree (in the order
+        `models.train` takes them: dict values in order, list items in
+        order) is held, for the gradient sums and the clip's norm
+        (`sync_grads`, `grad_norm_of`)."""
+        m, coord = self.mesh.shape[MODEL_AXIS], self.mesh.coords[MODEL_AXIS]
+        cfg, d = self.cfg, self.cfg.head_dim
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        # kv heads held by several model ranks, each using them for part of
+        # its query heads (one kv head for all, Gemma-style, or groups cut
+        # across ranks): their gradients are partial on every holder.
+        kv_shared = self.heads_split and cfg.num_kv_heads % m != 0
+        out = []
+        for name, in_moe, _ in _named_leaves(tree):
+            if in_moe:
+                if not self.experts_split:
+                    out.append(LeafKind("replicated"))
+                elif name == "gate":
+                    # The replicated router weighs only this rank's
+                    # experts' rows.
+                    out.append(LeafKind("partial", owner=coord == 0))
+                else:
+                    out.append(LeafKind("split"))
+                continue
+            if name in _ATTN_KV and kv_shared:
+                lo, hi = self.kv_heads
+                out.append(LeafKind(
+                    "partial", owner=self.q_heads[0] == lo * n_rep,
+                    span=(lo * d, hi * d, cfg.num_kv_heads * d)))
+                continue
+            split = (self.heads_split if name in _ATTN_Q + _ATTN_KV
+                     else self.inter_split if name in _DENSE_MLP
+                     else self.vocab_split if name in ("embed", "lm_head")
+                     else False)
+            out.append(LeafKind("split" if split else "replicated"))
+        return out
+
+    def sync_grads(self, tensors: List[torch.Tensor],
+                   kinds: List["LeafKind"]) -> None:
+        """After the backward, in place: each partial gradient (`leaf_kinds`)
+        summed over `model` (placed at its columns of the whole leaf, so
+        the ranks that hold it add theirs), then every gradient summed over
+        `data` (each data rank's loss covered its own rows). One float32
+        all-reduce each."""
+        parts = [(t, k) for t, k in zip(tensors, kinds)
+                 if k.kind == "partial"]
+        if parts and self.model_group is not None:
+            padded = []
+            for t, k in parts:
+                g = t.grad.float()
+                if k.span is not None:
+                    lo, hi, total = k.span
+                    g = torch.nn.functional.pad(g, (lo, total - hi))
+                padded.append(g)
+            summed = _all_reduce_flat(padded, self.model_group)
+            for (t, k), g in zip(parts, summed):
+                if k.span is not None:
+                    g = g[..., k.span[0]:k.span[1]]
+                t.grad.copy_(g)
+        if self.data_group is not None:
+            grads = [t.grad for t in tensors]
+            for g, s in zip(grads, _all_reduce_flat(
+                    [g.float() for g in grads], self.data_group)):
+                g.copy_(s)
+
+    def grad_norm_of(self, kinds: List["LeafKind"]):
+        """`Optimizer.step`'s `norm_of` over this rank's per-tensor
+        gradient norms: the whole model's global norm. A tensor split over
+        `model` adds its squares over the model ranks; a partial one (its
+        gradient summed by `sync_grads`) once, by one of its holders; a
+        replicated one once, on every rank. The same on every rank."""
+        split = [k.kind == "split" or (k.kind == "partial" and k.owner)
+                 for k in kinds]
+        rep = [k.kind == "replicated" for k in kinds]
+
+        def norm_of(norms: torch.Tensor) -> torch.Tensor:
+            sq = norms * norms
+            w_split = torch.tensor(split, device=sq.device)
+            w_rep = torch.tensor(rep, device=sq.device)
+            total = comm.all_reduce_sum(
+                torch.where(w_split, sq, 0.0).sum()[None], self.model_group)
+            return torch.sqrt(total[0] + torch.where(w_rep, sq, 0.0).sum())
+
+        return norm_of
 
     def moe(self, moe: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
         """The expert-parallel MoE MLP over this rank's experts (lossless
@@ -254,6 +351,44 @@ class ShardLayout:
             axis_names=m.axis_names, shape={**m.shape, DATA_AXIS: 1},
             coords={**m.coords, DATA_AXIS: 0},
             groups={**m.groups, DATA_AXIS: None}))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafKind:
+    """How a rank holds one tensor of its tree: "split" (its own slice of
+    a leaf split over `model`), "replicated" (the whole leaf, used whole:
+    the same gradient on every rank) or "partial" (a leaf held by several
+    model ranks, each using it for part of the model: each holds part of
+    its gradient). A partial leaf's `span` is (first, end, whole) of its
+    last dimension within the whole leaf (None: whole), and `owner` says
+    whether this rank adds its squares to the global norm."""
+
+    kind: str
+    owner: bool = False
+    span: Optional[Tuple[int, int, int]] = None
+
+
+def _named_leaves(tree, name: str = "", in_moe: bool = False):
+    """(name, whether it lies in a "moe" dict, tensor) of every leaf, in
+    the order `models.train` takes the tensors."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _named_leaves(value, key, in_moe or key == "moe")
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _named_leaves(value, name, in_moe)
+    else:
+        yield name, in_moe, tree
+
+
+def _all_reduce_flat(tensors: List[torch.Tensor], group
+                     ) -> List[torch.Tensor]:
+    """The SUM over `group` of float32 tensors of any shapes, in one
+    all-reduce of their concatenation."""
+    flat = comm.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]),
+                               group)
+    return [x.view_as(t) for x, t in zip(
+        torch.split(flat, [t.numel() for t in tensors]), tensors)]
 
 
 class ShardedParams(dict):

@@ -42,7 +42,8 @@ Port of the JAX package's `serving/engine.py`, with its names. Design:
     more than one rank, admission is synchronous: a rank's readiness
     signal must not decide when a collective issues (JAX turns async
     admission off over processes for the same reason). A registered
-    prefix (`extend_prefill`) is not served over a mesh.
+    prefix is prefilled, and a partial hit extended (`extend_prefill`
+    over the rank's heads), with the rows whole in the same way.
 """
 
 from __future__ import annotations
@@ -417,7 +418,6 @@ class ServingEngine:
             raise ValueError(
                 "register_prefix requires prefix_continue_budget > 0 "
                 "(ring headroom for the continuation suffix)")
-        llama.refuse_sharded(self.params, "register_prefix (extend_prefill)")
         ids, length = self._bucket_ids(input_ids)
         key = tuple(ids[:length])
         if key in self._registered:
@@ -446,7 +446,8 @@ class ServingEngine:
         _, state0, stats0 = self._registered[rkey]
         suffix = list(key[len(rkey):])
         logits, state = speculative.extend_prefill(
-            self.params, state0, torch.as_tensor([suffix], device=self.device),
+            self._admit_params, state0,
+            torch.as_tensor([suffix], device=self.device),
             torch.as_tensor([len(suffix)], dtype=torch.int32,
                             device=self.device), self.mcfg, self.ccfg)
         stats = dict(stats0)

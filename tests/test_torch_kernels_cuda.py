@@ -562,6 +562,54 @@ def test_k2_gives_the_same_bits_on_every_call(cuda, dtype):
                                                 ccfg), TOL_K2_F32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_lse_mode_matches_plain_and_leaves_the_default_call(cuda, dtype):
+    """K2's lse mode (a slot shard's partial: `return_lse=True`) over
+    tiers, decode pool and ring, and over the tiers alone (no ring, as on
+    every rank of a slot-sharded decode but the first): o in float32 and
+    lse against the plain version's (lse within TOL_LSE of max(1, |lse|)
+    on rows that see a key, -inf on a row that sees none; o, float32 in
+    both dtypes, within TOL_K2_F32 of max(1, |o|), and in bf16 within
+    the bf16 limit once rounded); o rounded to q's dtype equal bit for
+    bit to the default call's output, which gives the same bits before
+    and after lse calls; launches counted on `lse_launches`."""
+    ccfg = rt.CompressionConfig(num_layers=4, decode_pool_blocks=2,
+                                decode_pool_bits=4)
+    q, cache, recent, pool, q_pos = _pooled_state(
+        cuda, dtype, ccfg, b=2, s=700, hq=32, hkv=4, d=64, ring=8,
+        steps=30, seed=11)
+    q_pos[1] = -1  # row 1 sees no key
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    default = fused_decode_attention(q, cache, recent, q_pos, ccfg,
+                                     pool=pool)
+    launches = (fused_decode_attention.launches,
+                fused_decode_attention.lse_launches)
+    for ring, tail in ((recent, pool), (None, None)):
+        o, lse = fused_decode_attention(q, cache, ring, q_pos, ccfg,
+                                        pool=tail, return_lse=True)
+        o_ref, lse_ref = decode_attention_plain(q, cache, ring, q_pos, ccfg,
+                                                pool=tail, return_lse=True)
+        assert o.dtype == lse.dtype == torch.float32
+        assert o.shape == q.shape and lse.shape == (2, 32, 1)
+        sees = torch.isfinite(lse_ref)
+        assert torch.equal(sees, torch.isfinite(lse))
+        assert bool((lse[1] == -torch.inf).all() and (o[1] == 0).all())
+        tol = TOL_LSE * max(1.0, float(lse_ref[sees].abs().max()))
+        assert float((lse[sees] - lse_ref[sees]).abs().max()) <= tol
+        _assert_close(o, o_ref, TOL_K2_F32 * max(
+            1.0, float(o_ref.abs().max())))
+        if dtype == torch.bfloat16:
+            _assert_close(o.to(dtype), o_ref, TOL_K2_F32)
+        if ring is not None:
+            assert torch.equal(o.to(dtype).view(bits), default.view(bits))
+    again = fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
+    torch.cuda.synchronize()
+    assert torch.equal(again.view(bits), default.view(bits))
+    assert (fused_decode_attention.launches,
+            fused_decode_attention.lse_launches) == (launches[0] + 1,
+                                                     launches[1] + 2)
+
+
 def test_k2_call_is_one_kernel_launch(cuda):
     """One `fused_decode_attention` call launches one kernel on the card
     (the splits merge in the same launch) and allocates only its output."""

@@ -319,10 +319,13 @@ def test_helpers_match_jax(model, monkeypatch):
 
 def test_mesh_raises(model):
     """The sharded engine's refusals, which issue no collective: slots
-    that the data axis does not divide, a tree sharded over another mesh
-    than mesh=, and a registered prefix (its partial hits run
-    `extend_prefill`, which takes no sharded tree). Meshes of coordinates
-    without groups stand in for the ranks (slicing needs none)."""
+    that the data axis does not divide, and a tree sharded over another
+    mesh than mesh=. A registered prefix is no longer refused: its
+    partial hits run the sharded `extend_prefill` (held to a one-rank
+    engine over real ranks in `tests/test_torch_sharded_decoders.py`);
+    here it is registered. Meshes of coordinates without groups stand in
+    for the ranks (slicing needs none; the values computed over one
+    rank's heads alone are not read)."""
     from realtime_kv_cache_compression_tpu_torch.parallel import (
         Mesh, shard_params)
 
@@ -341,5 +344,5 @@ def test_mesh_raises(model):
                          mesh=mesh(1, 1), **ENGINE)
     eng = make(model, "torch", mesh=mesh(1, 2), **PREFIX)
     assert not eng.async_admission  # lockstep over more than one rank
-    with pytest.raises(NotImplementedError, match="item 18"):
-        eng.register_prefix(model["prompts"][0])
+    eng.register_prefix(model["prompts"][0])
+    assert len(eng._registered) == 1

@@ -327,3 +327,152 @@ def sharded_serving_runs(rank, n, group, params, cfg, ccfg, runs, prompts):
                      "rows": eng._state.position.shape[0],
                      "async": eng.async_admission}
     return out
+
+
+def sharded_decode_runs(rank, n, group, params, ids, cfg, runs, steps):
+    """Per entry of `runs` (name -> (ccfg, ring capacity)):
+    `seq_parallel_prefill(sharded_compression=True)`, the gathered state
+    (`gather_sharded_state`, the reference, taken before decoding), then
+    `steps` greedy `decode_step`s from the rank's own slot shard with
+    `slot_group=group`, every all-gather of the decode recorded by the
+    shapes it carried. Returns the tokens, the step logits, the slots the
+    rank's tiers hold before and after, the recorded gathers and the
+    gathered state."""
+    from realtime_kv_cache_compression_tpu_torch.parallel import \
+        seq_parallel as sp
+
+    def slots(state):
+        return [[t.positions.shape[1] for t in c.tiers] for c in state.caches]
+
+    out = {}
+    for name, (ccfg, ring) in runs.items():
+        logits, state, _ = seq_parallel_prefill(
+            params, ids, cfg, ccfg, group, max_decode_len=ring,
+            sharded_compression=True)
+        full = _state_cpu(gather_sharded_state(state, group))
+        before = slots(state)
+        gathers, real = [], comm.all_gather_tensors
+
+        def recording(tensors, g):
+            gathers.append([tuple(t.shape) for t in tensors])
+            return real(tensors, g)
+
+        tok, toks, step_logits = torch.argmax(logits, -1), [], []
+        toks.append(tok)
+        sp.comm.all_gather_tensors = recording
+        try:
+            for _ in range(steps):
+                lg, state = llama.decode_step(params, tok, state, cfg, ccfg,
+                                              slot_group=group)
+                tok = torch.argmax(lg, -1)
+                toks.append(tok)
+                step_logits.append(lg)
+        finally:
+            sp.comm.all_gather_tensors = real
+        out[name] = {"tokens": torch.stack(toks, 1),
+                     "logits": torch.stack(step_logits),
+                     "slots": (before, slots(state)), "gathers": gathers,
+                     "full": full, "ring_len": state.recents[0].length}
+    return out
+
+
+def sharded_train_runs(rank, n, group, shape, params, cfg, ids, mask,
+                       steps, lr, total):
+    """On a (data, model) = `shape` mesh of the n ranks, this rank's slice
+    of `params` (`shard_params`): `lm_loss` and its gradients (summed as
+    `train_step` sums them: `ShardLayout.sync_grads`), unmasked and with
+    `mask`; then, per clip norm (0.5 with the mask, 1e6 without), `steps`
+    `train_step`s from a fresh slice (AdamW at `lr`, a schedule over
+    `total` steps). Returns the rank's mesh coordinates, the losses, the
+    gradient slices, the global gradient norms and the trained slices."""
+    from realtime_kv_cache_compression_tpu_torch.models import train
+    from realtime_kv_cache_compression_tpu_torch.parallel import shard_params
+
+    mesh = create_mesh(*shape)
+    out = {"coords": dict(mesh.coords), "shape": dict(mesh.shape),
+           "grads": {}, "train": {}}
+    # A slice of a replicated leaf is the leaf itself, and the parent's
+    # tensors reach the ranks in shared memory: every run trains copies.
+    fresh = lambda: shard_params(_tree_map(params, torch.clone),  # noqa
+                                 mesh, cfg)
+    for masked in (False, True):
+        sp = fresh()
+        opt = train.make_optimizer(sp)  # marks the slices as needing grad
+        loss = train.lm_loss(sp, ids, cfg, use_flash=False,
+                             loss_mask=mask if masked else None)
+        loss.backward()
+        sp.layout.sync_grads(opt.tensors, sp.layout.leaf_kinds(sp))
+        out["grads"][masked] = (loss.detach(), _tree_map(
+            sp, lambda t: t.grad.clone()))
+    for clip, masked in ((0.5, True), (1e6, False)):
+        sp = fresh()
+        opt = train.make_optimizer(sp, lr=lr, total_steps=total,
+                                   clip_norm=clip)
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(train.train_step(sp, opt, ids, cfg,
+                                           use_flash=False,
+                                           loss_mask=mask if masked
+                                           else None))
+            norms.append(opt.last_grad_norm.clone())
+        out["train"][clip] = (losses, norms,
+                              _tree_map(sp, lambda t: t.detach().clone()))
+    return out
+
+
+def _tree_map(tree, fn):
+    """A plain dict / list tree of fn(leaf)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def sharded_decoder_runs(rank, n, group, shape, params, cfg, ccfg, ids,
+                         beam, spec, suffix, engine):
+    """On a (data, model) = `shape` mesh, this rank's slice of `params`:
+    `beam_search` (`beam`: keyword arguments) of `ids`; the sharded
+    prefill of `ids` with ring room, then `speculative_decode_loop` from
+    it (`spec`: n_steps, n_draft) and `extend_prefill` of `suffix` (ids,
+    lengths) from another copy; with `engine` (engine keyword arguments,
+    a prefix, prompts) a `ServingEngine(mesh=)` that registers the prefix
+    and serves the prompts; and the beam-split refusal (one prompt over
+    more than one data rank). Returns what the test compares, with the
+    rank's row start and kv-head range."""
+    from realtime_kv_cache_compression_tpu_torch.models import (beam_search,
+                                                                speculative)
+    from realtime_kv_cache_compression_tpu_torch.parallel import shard_params
+    from realtime_kv_cache_compression_tpu_torch.serving.engine import \
+        ServingEngine
+
+    mesh = create_mesh(*shape)
+    sp = shard_params(params, mesh, cfg)
+    out = {"row0": sp.layout.row_start(ids.shape[0]),
+           "kv_heads": sp.layout.kv_heads}
+    out["beam"] = beam_search.beam_search(sp, ids, cfg, ccfg,
+                                          return_all_beams=True, **beam)[:2]
+    logits, state, _ = llama.prefill_compressed(sp, ids, cfg, ccfg,
+                                                max_decode_len=16)
+    first = torch.argmax(logits, -1)
+    toks, _, stats = speculative.speculative_decode_loop(
+        sp, first, llama.clone_decode_state(state), spec[0], cfg, ccfg, ids,
+        n_draft=spec[1])
+    out["spec"] = (torch.cat([first[:, None], toks], 1), stats)
+    last, ext = speculative.extend_prefill(sp, state, *suffix, cfg, ccfg)
+    out["extend"] = (last, ext.position, ext.recents[0].k.clone(),
+                     ext.recents[0].length.clone())
+    if engine is not None:
+        kw, prefix, prompts = engine
+        eng = ServingEngine(params, cfg, ccfg, mesh=mesh, **kw)
+        eng.register_prefix(prefix)
+        rids = [eng.submit(p) for p in prompts]
+        done = eng.run()
+        out["engine"] = ([done[r].tokens for r in rids],
+                         eng.prefix_partial_hits)
+    try:
+        beam_search.beam_search(sp, ids[:1], cfg, ccfg, **beam)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
