@@ -22,8 +22,18 @@ time, bound and library yardstick (K1: its share of the bound and its
 factor against SDPA; K3 and K4 at M=1 also the GEMV's device time per
 launch; K4's yardstick torch._int_mm on the weights as kept and on a
 K-major copy), and K1 mode (a) on the model's own activations (TinyLlama,
-2 layers, full width, prompt 1024, bf16). Then it drives these paths,
-each with every launch count set to 0 just before it and read just after:
+2 layers, full width, prompt 1024, bf16). K1's tuning surface
+(`phase_k1_tuning`): the `kernel_autotune` CLI at TinyLlama's and
+Llama-2-7B's heads (every built tile of mode (a) counted, held to its
+plain version and timed), every built tile of modes (b), (c), (d) and the
+diagonal pair held once to its plain version at the chunked and pair
+phases' shapes, and mode (a)'s fold_gqa, exp_bf16 and stats_via_mxu
+variants (fold_gqa also at Qwen2-0.5B's n_rep 7) each counted, held to
+its plain version and timed; the build holds every new tensor-core
+instance to no spill and wgmma in SASS, and the exp_bf16 instances to
+exp2 on bf16 lanes. Then it drives these paths, each with every launch
+count set to 0 just before it and read just after (K1 on its default
+tile and kernel: no path passes a tile or a variant):
 
 - TinyLlama-1.1B shape (22 layers, bf16, fused raw weights): compressed
   prefill with K1 and fused decode with K2, prompt 4096, batch 1, 128 new
@@ -222,6 +232,7 @@ import importlib.metadata
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -290,6 +301,19 @@ TOL_K2_F32 = 1e-5
 TOL_MASS = 1e-5
 TOL_LSE = 1e-5
 TOL_LOGITS = 1e-4  # float32 kernel path vs plain path, prefill logits
+# Calls per timed reading in the K1 phases (kernel and plain version in
+# turns).
+K1_REPS = 5
+# K1's exp_bf16 variant against the plain version with the same rounding
+# (`prefill_attention_with_prompt_mass(exp_bf16=True)`, which models the
+# card's ex2.approx.ftz.bf16x2 bit for bit and rounds against the kernel's
+# running maximum) on float32 copies of the inputs: the output within
+# `bf16_output_limit`, the prompt mass within this, absolute. What is left
+# is s - m rounding to the other bf16 neighbour where the kernel sums the
+# scores in another order. The default kernel fails these limits against
+# the same plain version (scripts/torch_ex2_bf16_probe.py at the card
+# tests' shapes, phase_k1_tuning's log at this script's; PERF.md).
+TOL_MASS_EXP_BF16 = 1e-4
 TOL_K3_REL = 1e-4
 BF16_ULPS = 2
 BF16_FLOOR = 1e-5
@@ -731,10 +755,12 @@ def phase_environment() -> None:
 
 # The tensor-core kernels phase_build holds to no spill and wgmma in SASS
 # (HGMMA for bf16, IGMMA for int8): K1's bf16 instances (3 modes x 5 head
-# dims), K3's bf16 prefill tile (one instance per k-steps per group
+# dims by default, `flash_tc_kernel`; 16 non-default tiles and 35 mode (a)
+# variants, `flash_tc_tuned_kernel`: as many as `kernel_instances()` lists
+# in bf16), K3's bf16 prefill tile (one instance per k-steps per group
 # partial: 1, 2, 4) and K4's int8 prefill tile (float32 and bf16 output).
-TC_KERNELS = {"flash_tc_kernel": 15, "int4_tc_kernel": 3,
-              "int8_tc_kernel": 2}
+TC_KERNELS = {"flash_tc_kernel": 15, "flash_tc_tuned_kernel": 51,
+              "int4_tc_kernel": 3, "int8_tc_kernel": 2}
 
 
 def phase_build() -> None:
@@ -768,14 +794,21 @@ def phase_build() -> None:
         if (tc and "spill" in line
                 and " 0 bytes spill stores, 0 bytes spill loads" not in line):
             spills.append(entry.split(tc[0])[1][:12] or tc[0])
-    for row in kernel_instances():
-        log(f"  K1 {row['mode']} {row['dtype']} d={row['head_dim']}: "
-            f"{row['regs']} registers, {row['local_bytes']} B local "
-            f"memory, {row['static_smem'] + row['dynamic_smem']} B shared "
-            f"memory, {row['threads']} threads")
+    instances = kernel_instances()
+    for row in instances:
+        what = (f"{row['mode']} {row['dtype']} d={row['head_dim']} "
+                f"{row['rows']}x{row['keys']}"
+                + (f" {row['variant']}" if row["variant"] else ""))
+        log(f"  K1 {what}: {row['regs']} registers, {row['local_bytes']} B "
+            f"local memory, {row['static_smem'] + row['dynamic_smem']} B "
+            f"shared memory, {row['threads']} threads")
         if row["dtype"] == "bfloat16" and row["local_bytes"]:
-            spills.append(f"{row['mode']} d={row['head_dim']}")
+            spills.append(what)
     check(not spills, f"tensor-core instances spill: {spills}")
+    check(sum(r["dtype"] == "bfloat16" for r in instances)
+          == TC_KERNELS["flash_tc_kernel"]
+          + TC_KERNELS["flash_tc_tuned_kernel"],
+          "K1's bf16 instances listed")
     log(f"  K2 instances: {len(k2_frames)}; stack frames / spills: "
         f"{sorted(set(k2_frames))}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -800,6 +833,24 @@ def phase_build() -> None:
     found = {k: sum(k in name for name in hgmma) for k in TC_KERNELS}
     check(found == TC_KERNELS and all(hgmma.values()),
           f"every tensor-core instance {TC_KERNELS} holds wgmma: {found}")
+    # K1's exp_bf16 instances (bit 2 of the last template argument) take
+    # exp2 on bf16 lanes: MUFU.EX2.BF16 in their SASS.
+    exp_bf16, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            args = re.search(r"flash_tc_tuned_kernelILi(\d+)ELi(\d+)ELi"
+                             r"(\d+)ELi(\d+)ELi(\d+)E", name)
+            if not (args and int(args.group(5)) & 2):
+                name = None
+            else:
+                exp_bf16[name] = 0
+        elif name and "MUFU.EX2.BF16" in line:
+            exp_bf16[name] += 1
+    log(f"  SASS: MUFU.EX2.BF16 in K1's exp_bf16 instances: "
+        f"{sorted(exp_bf16.values())}")
+    check(len(exp_bf16) == 20 and all(exp_bf16.values()),
+          "every exp_bf16 instance exponentiates on bf16 lanes")
 
 
 def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device):
@@ -812,7 +863,7 @@ def _fused_qkv(gen, b, s, hq, hkv, d, dtype, device):
             v.unflatten(-1, (hkv, d)))
 
 
-def phase_k1(device, shape, ragged=(2, 1000), reps: int = 10) -> dict:
+def phase_k1(device, shape, ragged=(2, 1000), reps: int = K1_REPS) -> dict:
     """K1 against its plain version on strided q/k/v: `shape` (B, S, Hq,
     Hkv, D) in bf16 (timed, with its bound and SDPA as the library
     yardstick) and float32, then a ragged S with per-row prompt lengths in
@@ -861,6 +912,264 @@ def phase_k1(device, shape, ragged=(2, 1000), reps: int = 10) -> dict:
                               4 * b * hq * d * s * (s + 1) / 2, dtype)}
             log_speed(f"K1 mode a {tuple(q.shape)}", timing)
     return {"max_abs_err": worst, **timing}
+
+
+# phase_k1_tuning: the TPU code each mode (a) variant of K1 replaces.
+K1_VARIANTS = {
+    "fold_gqa": f"{JAX_PKG}/ops/pallas/flash_prefill.py:261 "
+                f"(`_flash_attention_bhsd(fold_gqa=True)`)",
+    "exp_bf16": f"{JAX_PKG}/ops/pallas/flash_prefill.py:141 "
+                f"(`_flash_kernel(exp_bf16=True)`)",
+    "stats_via_mxu": f"{JAX_PKG}/ops/pallas/flash_prefill.py:101 "
+                     f"(`_flash_kernel(stats_via_mxu=True)`)"}
+TUNE_REPS = 3  # timed calls per reading of a variant and its plain version
+
+
+def _tile_name(tile) -> str:
+    return tile if isinstance(tile, str) else f"{tile[0]}x{tile[1]}"
+
+
+def _k1_tiles(mcfg) -> dict:
+    """K1 mode (a)'s launches by instance since the counts were zeroed,
+    as {"rows x keys" or "float32": n}; checks that every tensor-core
+    launch ran mcfg's default tile and that no variant ran (no caller in
+    the port passes a tile or a variant)."""
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
+        flash_prefill as fp)
+
+    fn = wrapper("K1")
+    check(set(fn.tile_launches) <= {fp.default_tile(fp._CAUSAL,
+                                                    mcfg.head_dim), "float32"}
+          and not fn.variant_launches,
+          f"K1 ran only its default tile and kernel: {fn.tile_launches}, "
+          f"{fn.variant_launches}")
+    return {_tile_name(t): n for t, n in fn.tile_launches.items()}
+
+
+def phase_k1_tuning(device, tiny, big, qwen2) -> dict:
+    """K1's tuning surface (the wrappers' block_q / block_k and mode (a)'s
+    fold_gqa, exp_bf16, stats_via_mxu), on the card's own instances:
+    - the `kernel_autotune` CLI (in-process) at TinyLlama's and
+      Llama-2-7B's heads (B=1, S=PROMPT, bf16, its defaults otherwise), a
+      path of its own: counts zeroed before, and every built tile of mode
+      (a) launched 1 + 5 x 10 times (the CLI's check and readings), each
+      held once to its plain version and timed by the CLI; mode (a)'s
+      plain version and SDPA timed beside it at each heads;
+    - every built tile of mode (b) and mode (d) at phase_k1_chunk's shape
+      (B=2, the last CHUNK rows at q_offset PROMPT - CHUNK over PROMPT
+      keys; mode (d) over the PROMPT - CHUNK earlier positions as
+      unordered slots, a fifth invalid) and of the diagonal pair and mode
+      (c) at phase_k1_full_pair's (B=2, S_q = S_k = CHUNK), at both heads,
+      once each against its plain version (lse too);
+    - each variant at both heads (mode (a), strided q/k/v as the path's
+      fused QKV gives them, B=1, S=PROMPT) and fold_gqa at Qwen2-0.5B's
+      n_rep 7: each call counted, held to its plain version (exp_bf16 to
+      the plain version with the same rounding, its prompt mass within
+      TOL_MASS_EXP_BF16, and the default kernel's share of that limit
+      logged beside it) and timed in turns with it (TUNE_REPS calls a
+      reading), SDPA causal as the yardstick.
+    Returns {"cli": each heads' artifact, "tiles": each mode's worst
+    errors, "variants": each variant's numbers, launches and worst share
+    of its limit}."""
+    from realtime_kv_cache_compression_tpu_torch.experiments import (
+        kernel_autotune)
+    from realtime_kv_cache_compression_tpu_torch.ops.attention import (
+        chunk_attention_with_prompt_mass, prefill_attention_with_prompt_mass)
+    from realtime_kv_cache_compression_tpu_torch.ops.cuda import (
+        flash_prefill as fp)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    heads = {"tinyllama": tiny, "llama2_7b": big}
+    k1 = fp.flash_prefill_with_prompt_mass
+    out = {"cli": {}, "tiles": {}, "variants": {}}
+    for name, cfg in heads.items():
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        _zero_counts()
+        art = kernel_autotune.main([
+            "--seq", str(PROMPT), "--heads", str(hq), "--kv-heads", str(hkv),
+            "--head-dim", str(d), "--output-dir",
+            f"build/kernel_autotune/{name}", "--device", str(device)])
+        built = fp.built_tiles(fp._CAUSAL, d)
+        check(k1.tile_launches == {t: 51 for t in built}
+              and k1.launches == 51 * len(built),
+              f"kernel_autotune at {name}'s heads: every built tile "
+              f"{built} launched 51 times: {k1.tile_launches}")
+        q, k, v = (x.contiguous() for x in _fused_qkv(
+            gen, 1, PROMPT, hq, hkv, d, torch.bfloat16, device))
+        plain_ms = cuda_ms(lambda: prefill_attention_with_prompt_mass(
+            q, k, v, 128), TUNE_REPS)[1]
+        art["plain_ms"] = plain_ms
+        art["library_ms"] = _sdpa_ms(q, k, v, TUNE_REPS, is_causal=True)
+        out["cli"][name] = art
+        log(f"kernel_autotune {name} (B=1 S={PROMPT} {hq}/{hkv} d={d}): "
+            f"best {art['best']['block_q']}x{art['best']['block_k']} "
+            f"{art['best']['ms']:.4f} ms; plain {plain_ms:.3f} ms, SDPA "
+            f"{art['library_ms']} ms")
+
+    # Every built tile of the other modes, once against the plain version.
+    b, c, s_k = PREFIX_BATCH, CHUNK, PROMPT
+    off = s_k - c
+    for name, cfg in heads.items():
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = _fused_qkv(gen, b, c, hq, hkv, d, torch.bfloat16, device)[0]
+        k, v = (torch.randn((b, s_k, hkv, d), generator=gen, device=device)
+                .to(torch.bfloat16) for _ in range(2))
+        plens = torch.tensor([100, 3000], dtype=torch.int32, device=device)
+        slots = torch.randperm(off, generator=gen, device=device)
+        kpos = torch.where(
+            torch.rand((b, off), generator=gen, device=device) > 0.2,
+            slots.to(torch.int32)[None].expand(b, -1),
+            fp.POS_SENTINEL).to(torch.int32).contiguous()
+        kp, vp = k[:, :off], v[:, :off]
+        kc, vc, plen_c = k[:, :c], v[:, :c], plens.clamp(max=c)
+        modes = {
+            "b": (fp._CAUSAL, lambda **t: fp.flash_chunk_attention_with_prompt_mass(  # noqa: E501
+                q, k, v, off, 3000, prompt_lens=plens, **t),
+                lambda: k1_refs(chunk_attention_with_prompt_mass, q, k, v,
+                                off, 3000, prompt_lens=plens)),
+            "d": (fp._POSITIONED, lambda **t: fp.flash_positioned_attention(
+                q, kp, vp, kpos, off, 3000, **t),
+                lambda: k1_refs(fp.positioned_attention_plain, q, kp, vp,
+                                kpos, off, 3000)),
+            "pair": (fp._CAUSAL, lambda **t: fp.flash_diagonal_pair_attention(
+                q, kc, vc, plen_c, **t),
+                lambda: k1_refs(fp.pair_attention_plain, q, kc, vc, plen_c,
+                                causal=True)),
+            "c": (fp._FULL, lambda **t: fp.flash_full_pair_attention(
+                q, kc, vc, plen_c, **t),
+                lambda: k1_refs(fp.pair_attention_plain, q, kc, vc, plen_c,
+                                causal=False)),
+        }
+        for mode_name, (mode, kernel, refs) in modes.items():
+            ref = refs()
+            worst = 0.0
+            for tile in fp.built_tiles(mode, d):
+                what = (f"K1 mode {mode_name} tile {_tile_name(tile)} at "
+                        f"{name}'s heads")
+                got = kernel(block_q=tile[0], block_k=tile[1])
+                if mode_name == "b":
+                    (o_ref, pm_ref), o_abs = ref
+                    err = max(check_close(got[0], o_ref, TOL_K1_F32, what,
+                                          ref_abs=o_abs),
+                              check_close(got[1], pm_ref, TOL_MASS,
+                                          what + " prompt mass"))
+                else:
+                    err = check_partial(got, ref, what)
+                worst = max(worst, err)
+            out["tiles"].setdefault(mode_name, {})[name] = {
+                "tiles": [_tile_name(t) for t in fp.built_tiles(mode, d)],
+                "max_abs_err": worst}
+            del ref
+
+    # The variants: counted, held to the plain version, timed.
+    sdpa_ms = {}
+    for name, cfg in (*heads.items(), ("qwen2_0_5b", qwen2)):
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, k, v = _fused_qkv(gen, 1, PROMPT, hq, hkv, d, torch.bfloat16,
+                             device)
+        plens = None
+        for variant, replaces in K1_VARIANTS.items():
+            if name == "qwen2_0_5b" and variant != "fold_gqa":
+                continue
+            flag = {variant: True}
+            exp = variant == "exp_bf16"
+            plain = functools.partial(
+                prefill_attention_with_prompt_mass, exp_bf16=exp,
+                exp_block_k=fp.exp_block_keys(
+                    q.dtype, fp.default_tile(fp._CAUSAL, d)) if exp else None)
+            tol_mass = TOL_MASS_EXP_BF16 if exp else TOL_MASS
+            _zero_counts()
+            o, pm = k1(q, k, v, 128, prompt_lens=plens, **flag)
+            launches = k1.variant_launches.get(variant, 0)
+            check(k1.variant_launches == {variant: 1} and k1.launches == 1,
+                  f"K1 {variant} at {name}'s heads launched its instance: "
+                  f"{k1.variant_launches}")
+            (o_ref, pm_ref), o_abs = k1_refs(plain, q, k, v, 128)
+            what = f"K1 {variant} (B=1 S={PROMPT} {hq}/{hkv} d={d})"
+            err = max(check_close(o, o_ref, TOL_K1_F32, what, ref_abs=o_abs),
+                      check_close(pm, pm_ref, tol_mass,
+                                  what + " prompt mass"))
+            share = max(limit_share(o, o_ref, TOL_K1_F32, ref_abs=o_abs),
+                        limit_share(pm, pm_ref, tol_mass))
+            row = {"launches": launches, "max_abs_err": err,
+                   "worst_share_of_limit": share,
+                   "prompt_mass_max_abs_err": max_err(pm, pm_ref)}
+            if exp:
+                # The check's power: the unrounded default kernel on the
+                # same inputs, against the same plain version and limits.
+                o_def, pm_def = k1(q, k, v, 128, prompt_lens=plens)
+                o_share = limit_share(o_def, o_ref, TOL_K1_F32, ref_abs=o_abs)
+                pm_share = limit_share(pm_def, pm_ref, tol_mass)
+                row["default_kernel_share_of_limit"] = max(o_share, pm_share)
+                log(f"{what}: the default kernel against the same plain "
+                    f"version at {o_share:.3f} of the output's limit and "
+                    f"{pm_share:.3f} of the prompt mass's")
+                del o_def, pm_def
+            del o_ref, pm_ref, o_abs
+            if name != "qwen2_0_5b":
+                ms, p_ms = kernel_and_plain_ms(
+                    lambda: k1(q, k, v, 128, **flag),  # noqa: B023
+                    lambda: plain(q, k, v, 128), TUNE_REPS)  # noqa: B023
+                if name not in sdpa_ms:
+                    sdpa_ms[name] = _sdpa_ms(q, k, v, TUNE_REPS,
+                                             is_causal=True)
+                row.update(ms=ms, plain_ms=p_ms, library_ms=sdpa_ms[name],
+                           **bound(nbytes(q, k, v, o) + PROMPT * 4,
+                                   4 * hq * d * PROMPT * (PROMPT + 1) / 2,
+                                   torch.bfloat16))
+                log_speed(what, row)
+            row["shape"] = (f"B=1 S={PROMPT} Hq={hq} Hkv={hkv} d={d}, "
+                            f"strided q/k/v, bf16")
+            out["variants"].setdefault(variant, {"replaces": replaces})[
+                name] = row
+    _zero_counts()
+    return out
+
+
+def _sweep_entries(cli: dict) -> dict:
+    """The kernels line's record of phase_k1_tuning's `kernel_autotune`
+    runs, by heads."""
+    note = ("kernel_autotune's sweep of every built tile of mode (a), bf16: "
+            "ms the median of 5 readings of 10 calls, its spread, share of "
+            "the operations bound, error against the plain version; "
+            "plain_ms and library_ms (SDPA causal) at the same shape")
+    fields = ("ms", "spread", "share_of_bound", "max_abs_err",
+              "worst_share_of_bf16_limit", "prompt_mass_max_abs_err")
+    return {"note": note, **{name: {
+        "shape": "B={b} S={s} Hq={hq} Hkv={hkv} d={d}".format(
+            **art["shape"]),
+        "device": art["device"], "plain_ms": art["plain_ms"],
+        "library_ms": art["library_ms"],
+        "tiles": {f"{r['block_q']}x{r['block_k']}": {
+            f: r[f] for f in fields if f in r}
+            for r in art["results"] if "error" not in r}}
+        for name, art in cli.items()}}
+
+
+def _variant_entry(variant: str, rec: dict) -> dict:
+    """The kernels line's entry of one mode (a) variant of K1 from
+    phase_k1_tuning's record: the Llama-2-7B heads' numbers on top, the
+    other heads beside them."""
+    rows = {m: r for m, r in rec.items() if m != "replaces"}
+    top = rows["llama2_7b"]
+    return {"name": f"flash_prefill_with_prompt_mass({variant}=True)",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/flash_prefill_variants.cu",
+            "replaces": rec["replaces"],
+            "launches": sum(r["launches"] for r in rows.values()),
+            **{f: top[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "worst_share_of_limit": max(r["worst_share_of_limit"]
+                                        for r in rows.values()),
+            **({"default_kernel_share_of_limit": min(
+                r["default_kernel_share_of_limit"] for r in rows.values())}
+               if "default_kernel_share_of_limit" in top else {}),
+            "launches_note": "the counted calls of phase_k1_tuning, one a "
+                             "heads; no path of the port passes a variant "
+                             "(phase_main checks K1's tiles)",
+            "shape": top["shape"],
+            **{m: r for m, r in rows.items() if m != "llama2_7b"}}
 
 
 def phase_k1_activations(device, mcfg, prompt: int = 1024) -> float:
@@ -1056,7 +1365,7 @@ def _pooled_ccfg(num_layers: int, group_size: int = GROUP_SIZE,
 
 
 def phase_k1_chunk(device, shape, offsets=(0, 1024, 2048, 3072),
-                   chunk: int = CHUNK, reps: int = 10) -> dict:
+                   chunk: int = CHUNK, reps: int = K1_REPS) -> dict:
     """K1 mode (b) against `chunk_attention_with_prompt_mass`: batch 2 with
     the chunked path's per-row prompt lengths, `chunk` query rows (strided
     slices of one fused QKV, as the path hands them over) over a
@@ -1202,7 +1511,7 @@ def _prefix_pools(device, mcfg, gen):
     return pools
 
 
-def phase_k1_prefix(device, mcfg, reps: int = 10) -> dict:
+def phase_k1_prefix(device, mcfg, reps: int = K1_REPS) -> dict:
     """K1 mode (d) and the diagonal pair against their plain versions at the
     compressed-prefix path's shapes: B=2, CHUNK query rows (strided slices
     of one fused QKV) at each chunk offset, mode (d) over the pools a real
@@ -1282,7 +1591,8 @@ def phase_k1_prefix(device, mcfg, reps: int = 10) -> dict:
                    "per_offset": r} for name, r in rows.items()}
 
 
-def phase_k1_full_pair(device, shape, s: int = CHUNK, reps: int = 10) -> dict:
+def phase_k1_full_pair(device, shape, s: int = CHUNK,
+                       reps: int = K1_REPS) -> dict:
     """K1 mode (c), the non-causal pair (ring attention's off-diagonal
     block, not on a path the port runs yet): B=2, S_q = S_k = s, strided q
     and contiguous K/V, per-row local prompt lengths, bf16 and float32;
@@ -2098,10 +2408,11 @@ def phase_main(label: str, device, mcfg, params, expect, prompt: int = PROMPT,
     rate = n_steps / (dec_ms / 1e3)
     launches = _launches()
     routes = {key: dict(wrapper(key).route_launches) for key in routed}
+    k1_tiles = _k1_tiles(mcfg)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     summary = summarize_layer_stats(stats)
     log(f"{label} launches: {launches} (expect {expect}); by route "
-        f"{routes}")
+        f"{routes}; K1 by tile {k1_tiles}")
     check(launches == expect, f"{label}: launches per kernel")
     check(toks.shape == (1, n_steps) and bool(torch.isfinite(logits).all()),
           f"{label}: output shape and finite logits")
@@ -2170,7 +2481,7 @@ def _profile_window(label: str, what: str, fn, top: int = 6) -> None:
                                key=lambda kv: -kv[1][1])[:top]:
         log(f"  {t / 1e3:9.3f} ms  {n:5d} x  {name[:90]}")
     k1 = [(n, t) for name, (n, t) in kernels.items()
-          if "flash_tc_kernel" in name or "flash_prefill_kernel" in name]
+          if "flash_tc_" in name or "flash_prefill_kernel" in name]
     if k1:
         log(f"  K1 in {label} {what}: {sum(t for _, t in k1) / 1e3:.3f} ms "
             f"of device time over {sum(n for n, _ in k1)} launches")
@@ -3316,6 +3627,25 @@ def phase_parity_speculative(device, mcfg, prompt: int = 1024,
 def _zero_counts() -> None:
     for key in KERNELS:
         setattr(wrapper(key), _counter(key), 0)
+        if KERNELS[key][0] == "flash_prefill":
+            _init_counts(wrapper(key))
+
+
+def _init_counts(fn) -> None:
+    """A K1 wrapper's (or a stand-in's) counters at zero: its launches,
+    and its launches by tile and by variant."""
+    fn.launches = 0
+    fn.tile_launches = {}
+    fn.variant_launches = {}
+
+
+def _add_counts(into, fn) -> None:
+    """Adds a K1 stand-in's counts to the wrapper's."""
+    into.launches += fn.launches
+    for name in ("tile_launches", "variant_launches"):
+        counts = getattr(into, name)
+        for key, n in getattr(fn, name).items():
+            counts[key] = counts.get(key, 0) + n
 
 
 def phase_beam_path(label: str, device, mcfg, main_run) -> dict:
@@ -3725,15 +4055,17 @@ def _held_to_plain(audit: dict, stride: int = 1):
         _check_partial(key, f"{key} {tuple(q.shape)} over {k.shape[1]} "
                             f"keys", result, plain, q, k, v, args, audit)
 
-    def positioned(q, k, v, k_pos, q_offset, prompt_len):
+    def positioned(q, k, v, k_pos, q_offset, prompt_len, **tile):
         result = kernels["flash_positioned_attention"](q, k, v, k_pos,
-                                                       q_offset, prompt_len)
+                                                       q_offset, prompt_len,
+                                                       **tile)
         with_lse("K1d", fp.positioned_attention_plain, q, k, v,
                  (k_pos, q_offset, prompt_len), result)
         return result
 
-    def pair(q, k, v, plen_local):
-        result = kernels["flash_diagonal_pair_attention"](q, k, v, plen_local)
+    def pair(q, k, v, plen_local, **tile):
+        result = kernels["flash_diagonal_pair_attention"](q, k, v, plen_local,
+                                                          **tile)
         with_lse("K1p", lambda *a: fp.pair_attention_plain(*a, causal=True),
                  q, k, v, (plen_local,), result)
         return result
@@ -3742,7 +4074,8 @@ def _held_to_plain(audit: dict, stride: int = 1):
         "flash_positioned_attention", "flash_diagonal_pair_attention")}
     # The originals count their launches on the module's name, which is
     # the wrapper while it stands.
-    positioned.launches = pair.launches = 0
+    for wrapped in (positioned, pair):
+        _init_counts(wrapped)
     llama.flash_prefill_with_prompt_mass = prefill
     llama.flash_chunk_attention_with_prompt_mass = chunk
     llama.fused_decode_attention = decode
@@ -3755,7 +4088,7 @@ def _held_to_plain(audit: dict, stride: int = 1):
             setattr(llama, name, fn)
         for (name, fn), wrapped in zip(kernels.items(), (positioned, pair)):
             setattr(fp, name, fn)
-            fn.launches += wrapped.launches
+            _add_counts(fn, wrapped)
 
 
 def _check_partial(key: str, what: str, result, plain, q, k, v, args,
@@ -3806,8 +4139,8 @@ def _ring_held_to_plain(audit: dict):
     def held(key, name, causal):
         kernel = getattr(ra, name)
 
-        def call(q, k, v, plen_local):
-            result = kernel(q, k, v, plen_local)
+        def call(q, k, v, plen_local, **tile):
+            result = kernel(q, k, v, plen_local, **tile)
             _check_partial(key, f"{key} {tuple(q.shape)} over {k.shape[1]} "
                                 f"keys", result,
                            lambda *a: fp.pair_attention_plain(
@@ -7381,6 +7714,9 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
     k1c_big = phase_k1_full_pair(device, (big.num_heads, big.num_kv_heads,
                                           big.head_dim))
     k1_activations = phase_k1_activations(device, two(tiny))
+    mark("K1 phases")
+    k1_tuning = phase_k1_tuning(device, tiny, big, qwen2)
+    mark("K1 tuning phase")
     k2_tiny = phase_k2(device, two(tiny))
     k2 = phase_k2(device, two(big))
     k2p_tiny = phase_k2_pool(device, two(tiny), groups=(1, 2))
@@ -7613,6 +7949,9 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                                  f"Hq={tiny.num_heads} Hkv="
                                  f"{tiny.num_kv_heads} d={tiny.head_dim}, "
                                  f"bf16"}
+    def tile_checks(mode):
+        return {"tiles_held_to_plain": k1_tuning["tiles"][mode]}
+
     kernels = [
         entry("K1", {**k1, "max_abs_err": max(worst(
             k1, k1_tiny, *(g[m]["K1"] for m in g),
@@ -7632,7 +7971,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "pipeline_audit": audit_note(pipe["audit"]["K1"], pipe_shape),
             "sharded_serving_audit": audit_note(ss["audit"]["K1"],
                                                 ss_shape),
-            **serving_extra("K1")}),
+            **serving_extra("K1"),
+            "tile_sweep": _sweep_entries(k1_tuning["cli"])}),
         entry("K1b", {**k1b_tiny, "max_abs_err": max(worst(
             k1b_tiny, k1b_big, *(g[m]["K1b"] for m in g), serving="K1b"),
             ss["audit"]["K1b"][1])},
@@ -7645,6 +7985,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "llama2_7b": {**k1b_big, "shape": chunk_note.format(
                 big.num_heads, big.num_kv_heads, big.head_dim)},
             **d256("K1b", chunk_note), **serving_extra("K1b"),
+            **tile_checks("b"),
             "sharded_serving_audit": audit_note(ss["audit"]["K1b"],
                                                 ss_shape)}),
         entry("K1c", {**k1c_tiny, "max_abs_err": max(worst(
@@ -7659,7 +8000,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                        "mass",
             "llama2_7b": {**k1c_big, "shape": pair_note.format(
                 big.num_heads, big.num_kv_heads, big.head_dim)},
-            **d256("K1c", pair_note)}),
+            **d256("K1c", pair_note), **tile_checks("c")}),
         entry("K1d", {**k1_prefix_tiny["positioned"], "max_abs_err": worst(
             k1_prefix_tiny["positioned"], k1_prefix_big["positioned"],
             *(g[m]["K1prefix"]["positioned"] for m in g))},
@@ -7673,7 +8014,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                           "shape": prefix_note.format(
                               big.num_heads, big.num_kv_heads,
                               big.head_dim)},
-            **d256("K1prefix", prefix_note, lambda r: r["positioned"])}),
+            **d256("K1prefix", prefix_note, lambda r: r["positioned"]),
+            **tile_checks("d")}),
         entry("K1p", {**k1_prefix_tiny["pair"], "max_abs_err": max(worst(
             k1_prefix_tiny["pair"], k1_prefix_big["pair"],
             *(g[m]["K1prefix"]["pair"] for m in g)),
@@ -7688,7 +8030,8 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
                           "shape": prefix_note.format(
                               big.num_heads, big.num_kv_heads,
                               big.head_dim)},
-            **d256("K1prefix", prefix_note, lambda r: r["pair"])}),
+            **d256("K1prefix", prefix_note, lambda r: r["pair"]),
+            **tile_checks("pair")}),
         entry("K2", {**k2, "max_abs_err": k2_err}, "llama2_7b_int4", {
             "shape": "layer 0 of a 4096-token Llama-2-7B state, 8/4/2, "
                      "tiers + ring, bf16",
@@ -7774,6 +8117,7 @@ def run_all(device, tiny, big, gemma, gemma7, mixtral, qwen2,
             "launches_by_route": routes["w8a8"],
             "library": "torch._int_mm + scaling, the faster of the [K, N] "
                        "weights and a K-major copy (refuses M=1)"}),
+        *(_variant_entry(v, k1_tuning["variants"][v]) for v in K1_VARIANTS),
     ]
     return kernels
 

@@ -55,6 +55,15 @@
 // see (all POS_SENTINEL, say) is skipped before its K/V are staged;
 // visibility is then tested per key. The scalar kernel skips a 16-key
 // sub-tile with no visible key per row, so exp2(-inf - -inf) never arises.
+//
+// Per call (FlashLaunch rows / keys / variant, 0 for the defaults): a
+// bf16 launch may name another tensor-core tile (flash_prefill_tiles.cu)
+// or, in mode (a), a variant (flash_prefill_variants.cu); both are
+// described in flash_prefill_tc.cuh. The float32 route has one layout:
+// the wrappers validate a tile request and send none, and of the variants
+// it takes only exp_bf16 (EXP below: s - m and p rounded to bf16 as the
+// tensor-core variant rounds them), since fold_gqa and stats_via_mxu
+// choose a layout that computes the same function.
 
 #pragma once
 
@@ -82,6 +91,16 @@ struct FlashParams {
   float sm_scale;
 };
 
+// A launch: the kernel's arguments and what the host dispatch reads
+// besides them, a tile (rows x keys) or a variant of mode (a) (0: the
+// defaults). The kernels take FlashParams alone: a larger argument struct
+// gives some default instances other registers. Mirrored by ctypes
+// Structures in ops/cuda/flash_prefill.py.
+struct FlashLaunch {
+  FlashParams p;
+  int rows, keys, variant;
+};
+
 namespace rkv {
 namespace flash {
 
@@ -105,172 +124,25 @@ struct ScalarShape {
   static constexpr int kBN = D <= 64 ? 64 : D <= 128 ? 32 : 16;
 };
 
+#define RKV_FLASH_SCALAR_KERNEL flash_prefill_kernel
+#define RKV_FLASH_SCALAR_EXP 0
+#include "flash_prefill_scalar.cuh"
+#undef RKV_FLASH_SCALAR_KERNEL
+#undef RKV_FLASH_SCALAR_EXP
+
+// exp_bf16's float32 kernel, defined where flash_prefill_variants.cu
+// includes flash_prefill_scalar.cuh again.
 template <int D, int MODE>
 __global__ void __launch_bounds__(kRows)
-flash_prefill_kernel(const FlashParams p) {
-  using SS = ScalarShape<D>;
-  constexpr int BN = SS::kBN, kLanes = SS::kLanes, kDL = SS::kDL;
-  constexpr int SUB = 16;                // keys per register sub-tile
-  __shared__ __align__(16) float sK[BN][D];
-  __shared__ __align__(16) float sV[BN][D];
-  __shared__ int sPos[MODE == kPositioned ? BN : 1];
+flash_prefill_exp_kernel(const FlashParams p);
 
-  const int b = blockIdx.z, hq = blockIdx.y;
-  const int hk = hq / (p.Hq / p.Hkv);
-  const int row0 = blockIdx.x * SS::kRowsPerBlock;
-  // The local row indexes q, o, pm and lse; causality takes the global row
-  // row + q_offset, with q_offset read where it is used (at d=128, where
-  // the kernel spills, this keeps one register fewer live).
-  const int row = row0 + threadIdx.x / kLanes;
-  const int lane_c = threadIdx.x % kLanes;  // this thread's channel share
-  // The kLanes threads of a row are neighbours in one warp: they take the
-  // same branches, and shuffle among themselves only.
-  const unsigned row_mask =
-      kLanes == 1 ? 0u
-                  : ((1u << kLanes) - 1u) << ((threadIdx.x % 32) & ~(kLanes - 1));
-  const bool live = row < p.S_q;
-
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-
-  // Channel d = 4 (kLanes i + lane_c) + e of this thread's i-th float4, so
-  // the kLanes threads of a row read neighbouring 16-byte words.
-  float qr[kDL];
-  float acc[kDL];
-  const float qscale = p.sm_scale * kLog2e;
-#pragma unroll
-  for (int i = 0; i < kDL; ++i) {
-    const int d = 4 * (kLanes * (i / 4) + lane_c) + i % 4;
-    qr[i] = live ? q[b * p.q_sb + row * p.q_ss + hq * p.q_sh + d] * qscale
-                 : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f, pmass = 0.f;
-  const int plen = p.plen[b];
-  // Causal: keys past the block's last global row are unseen.
-  const int kv_end = MODE == kCausal
-                         ? min(p.S_k, p.q_offset + row0 + SS::kRowsPerBlock)
-                         : p.S_k;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    __syncthreads();
-    if constexpr (MODE == kPositioned) {
-      // Stage the tile's key positions; skip the tile (block-uniform)
-      // when the block's last live row sees none of its keys.
-      int seen = 0;
-      if (threadIdx.x < BN) {
-        const int key = k0 + threadIdx.x;
-        const int pos = key < p.S_k ? p.kpos[b * p.S_k + key] : kPosSentinel;
-        sPos[threadIdx.x] = pos;
-        seen = pos <= p.q_offset + min(row0 + SS::kRowsPerBlock, p.S_q) - 1;
-      }
-      if (!__syncthreads_or(seen)) continue;
-    }
-    for (int i = threadIdx.x; i < BN * D; i += kRows) {
-      const int j = i / D, d = i % D, key = k0 + j;
-      float kf = 0.f, vf = 0.f;
-      if (key < p.S_k) {
-        kf = k[b * p.k_sb + key * p.k_ss + hk * p.k_sh + d];
-        vf = v[b * p.v_sb + key * p.v_ss + hk * p.v_sh + d];
-      }
-      sK[j][d] = kf;
-      sV[j][d] = vf;
-    }
-    __syncthreads();
-    if (!live) continue;
-    int jmax = BN;  // keys of the tile this row may see
-    if constexpr (MODE == kCausal) {
-      if (k0 > row + p.q_offset) continue;
-      jmax = min(BN, row + p.q_offset - k0 + 1);
-    } else if constexpr (MODE == kFull) {
-      jmax = min(BN, p.S_k - k0);
-    }
-    for (int j0 = 0; j0 < jmax; j0 += SUB) {
-      float s[SUB];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int j = j0 + jj;
-        bool visible;
-        if constexpr (MODE == kPositioned) {
-          visible = sPos[j] <= row + p.q_offset;
-        } else {
-          visible = j < jmax;
-        }
-        float dot = -INFINITY;
-        if (visible) {
-          dot = 0.f;
-          const float4* kr = reinterpret_cast<const float4*>(sK[j]) + lane_c;
-#pragma unroll
-          for (int d4 = 0; d4 < kDL / 4; ++d4) {
-            const float4 kk = kr[kLanes * d4];
-            dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-            dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-            dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-            dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-          }
-#pragma unroll
-          for (int o = 1; o < kLanes; o <<= 1)
-            dot += __shfl_xor_sync(row_mask, dot, o);
-        }
-        s[jj] = dot;
-        mt = fmaxf(mt, dot);
-      }
-      if constexpr (MODE == kPositioned) {
-        // No key of the sub-tile is visible: nothing to add, and m may
-        // still be -inf, where exp2(m - m_new) would be NaN.
-        if (mt == -INFINITY) continue;
-      }
-      // Causal and full modes: j0 < jmax, so mt is finite and so is m_new.
-      const float m_new = fmaxf(m, mt);
-      const float alpha = exp2f(m - m_new);  // m = -inf on the first tile: 0
-      l *= alpha;
-      pmass *= alpha;
-#pragma unroll
-      for (int d = 0; d < kDL; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float pj = exp2f(s[jj] - m_new);  // masked: exp2(-inf) = 0
-        l += pj;
-        bool prompt;
-        if constexpr (MODE == kPositioned) {
-          prompt = sPos[j0 + jj] < plen;
-        } else {
-          prompt = k0 + j0 + jj < plen;
-        }
-        if (prompt) pmass += pj;
-        const float4* vr =
-            reinterpret_cast<const float4*>(sV[j0 + jj]) + lane_c;
-#pragma unroll
-        for (int d4 = 0; d4 < kDL / 4; ++d4) {
-          const float4 vv = vr[kLanes * d4];
-          acc[4 * d4 + 0] = fmaf(pj, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(pj, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(pj, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(pj, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (live) {
-    const float inv = l > 0.f ? 1.f / l : 1.f;
-    float* o = static_cast<float*>(p.o);
-#pragma unroll
-    for (int i = 0; i < kDL; ++i) {
-      const int d = 4 * (kLanes * (i / 4) + lane_c) + i % 4;
-      o[b * p.o_sb + row * p.o_ss + hq * p.o_sh + d] = acc[i] * inv;
-    }
-    if (lane_c == 0) {
-      const long long stat =
-          (static_cast<long long>(b) * p.Hq + hq) * p.S_q + row;
-      p.pm[stat] = pmass * inv;
-      // m is base 2; the lse is natural, -inf for a row that saw no key.
-      if (p.lse != nullptr) p.lse[stat] = m * kLn2 + logf(fmaxf(l, 1e-30f));
-    }
-  }
+// The float32 kernel of exp_bf16 (EXP) or of the default.
+template <int D, int MODE, bool EXP>
+constexpr auto scalar_kernel_of() {
+  if constexpr (EXP)
+    return &flash_prefill_exp_kernel<D, MODE>;
+  else
+    return &flash_prefill_kernel<D, MODE>;
 }
 
 }  // namespace flash
@@ -284,12 +156,12 @@ namespace flash {
 // Launches mode MODE at the route of p.dtype and its head_dim; one source
 // per mode instantiates it (flash_prefill*.cu), so nvcc builds the modes
 // in parallel.
-template <int D, int MODE>
+template <int D, int MODE, bool EXP = false>
 cudaError_t launch_scalar(const FlashParams& p, cudaStream_t stream) {
   const dim3 grid((p.S_q + ScalarShape<D>::kRowsPerBlock - 1) /
                       ScalarShape<D>::kRowsPerBlock,
                   p.Hq, p.B);
-  flash_prefill_kernel<D, MODE><<<grid, kRows, 0, stream>>>(p);
+  scalar_kernel_of<D, MODE, EXP>()<<<grid, kRows, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -316,29 +188,45 @@ cudaError_t launch_mode(const FlashParams& p, cudaStream_t stream) {
   }
 }
 
-// What the build made of one instance of mode MODE: index 0-4 the float32
-// route at head_dim 16, 32, 64, 128, 256, index 5-9 the bf16 tensor-core
-// route. Mirrored by a ctypes Structure in ops/cuda/flash_prefill.py.
+// What the build made of one instance: its route, head_dim, tile (rows
+// and keys per block; the float32 route's rows per block and keys per
+// shared tile) and variant, registers, local memory and shared memory.
+// Index 0-4 of mode MODE's defaults are the float32 route at head_dim 16,
+// 32, 64, 128, 256, index 5-9 the bf16 tensor-core route. Mirrored by a
+// ctypes Structure in ops/cuda/flash_prefill.py.
 struct FlashInstanceInfo {
-  int bf16, head_dim, regs, local_bytes, static_smem, dynamic_smem, threads;
+  int bf16, head_dim, regs, local_bytes, static_smem, dynamic_smem, threads,
+      rows, keys, variant;
 };
 
 constexpr int kInstanceDims = 5;
 
-template <int D, int MODE>
+template <int D, int MODE, int ROWS = tc::DefaultTile<D, MODE>::kRows,
+          int BN = tc::DefaultTile<D, MODE>::kBN, int VAR = 0>
 cudaError_t fill_info(bool bf16, FlashInstanceInfo* out) {
+  using L = tc::Layout<D, MODE, ROWS, BN, VAR>;
+  using Def = tc::DefaultTile<D, MODE>;
+  // A float32 instance exists for the default tile, plain or exp_bf16.
+  constexpr bool kScalar = ROWS == Def::kRows && BN == Def::kBN &&
+                           (VAR == 0 || VAR == tc::kExpBf16);
   cudaFuncAttributes a;
-  const cudaError_t err =
-      bf16 ? cudaFuncGetAttributes(&a, tc::flash_tc_kernel<D, MODE>)
-           : cudaFuncGetAttributes(&a, flash_prefill_kernel<D, MODE>);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (bf16)
+    err = cudaFuncGetAttributes(&a, tc::kernel_of<D, MODE, ROWS, BN, VAR>());
+  else if constexpr (kScalar)
+    err = cudaFuncGetAttributes(
+        &a, scalar_kernel_of<D, MODE, VAR == tc::kExpBf16>());
   if (err != cudaSuccess) return err;
   out->bf16 = bf16;
   out->head_dim = D;
   out->regs = a.numRegs;
   out->local_bytes = static_cast<int>(a.localSizeBytes);
   out->static_smem = static_cast<int>(a.sharedSizeBytes);
-  out->dynamic_smem = bf16 ? tc::Layout<D, MODE>::kAlloc : 0;
-  out->threads = bf16 ? tc::Layout<D, MODE>::kThreads : kRows;
+  out->dynamic_smem = bf16 ? L::kAlloc : 0;
+  out->threads = bf16 ? L::kThreads : kRows;
+  out->rows = bf16 ? ROWS : ScalarShape<D>::kRowsPerBlock;
+  out->keys = bf16 ? BN : ScalarShape<D>::kBN;
+  out->variant = bf16 ? VAR : VAR & tc::kExpBf16;
   return cudaSuccess;
 }
 
@@ -361,6 +249,21 @@ cudaError_t launch_full(const FlashParams& p, cudaStream_t stream);
 cudaError_t launch_positioned(const FlashParams& p, cudaStream_t stream);
 cudaError_t instance_info_full(int index, FlashInstanceInfo* out);
 cudaError_t instance_info_positioned(int index, FlashInstanceInfo* out);
+
+// The non-default tiles of mode MODE (bf16 only; rows x keys), in the
+// object that flash_prefill_tiles.cu builds for MODE; and mode (a)'s
+// variant VAR (1-7) at the default tile, in the object that
+// flash_prefill_variants.cu builds for VAR. Each returns
+// cudaErrorInvalidValue for an instance the build lacks.
+template <int MODE>
+cudaError_t launch_tile(const FlashParams& p, int rows, int keys,
+                        cudaStream_t stream);
+template <int MODE>
+cudaError_t tile_info(int d, int rows, int keys, FlashInstanceInfo* out);
+template <int VAR>
+cudaError_t launch_variant(const FlashParams& p, cudaStream_t stream);
+template <int VAR>
+cudaError_t variant_info(int d, bool bf16, FlashInstanceInfo* out);
 
 }  // namespace flash
 }  // namespace rkv

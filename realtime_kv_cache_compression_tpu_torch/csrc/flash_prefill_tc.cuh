@@ -47,6 +47,34 @@
 // neighbours, so their K/V tiles meet in L2, and the row tiles run in
 // reverse, so the longest causal rows start first.
 // Bound: operations (4 B Hq d S_q S_visible at 989 TFLOP/s bf16).
+//
+// Tiles per call (the wrappers' block_q / block_k): the rows (64: one
+// consumer warpgroup; 128: two) and the keys per tile (64 or 128) are
+// template parameters, and the shared-memory layout, the TMA boxes and the
+// grid follow from them. Each mode's default tile (DefaultTile) is built
+// at every head_dim; at head_dim 64 and 128 the other tiles of
+// {64, 128} x {64, 128} are built too but mode (d)'s 128 x 128
+// (`tile_built`), in sources of their own (flash_prefill_tiles.cu, one
+// object per mode).
+//
+// Variants of mode (a) (JAX's fold_gqa, exp_bf16 and stats_via_mxu, a bit
+// mask VAR, at the default tile; flash_prefill_variants.cu, one object
+// per combination):
+// - kFold: the block takes the n_rep query heads of one kv head, packed
+//   into the rows: tile row r is position row0 + r / n_rep of query head
+//   hk n_rep + r % n_rep, kRows / n_rep positions a block (rows past
+//   n_rep (kRows / n_rep) hold no query and are never stored), so each
+//   K/V tile is staged once for the group. The Q box spans (D, n_rep
+//   heads, kRows / n_rep positions); grid (Hkv, position tiles, B).
+// - kExpBf16: s - m is rounded to bf16 and exponentiated on bf16 pairs
+//   (ex2.approx.ftz.bf16x2), so P is the value product's bf16 operand as
+//   it is; l and the prompt mass sum those bf16 probabilities in float32.
+// - kStatsMxu: l and the prompt mass come from one m64n8k16 wgmma per
+//   k-step of P with a [kBN x 8] shared operand [ones | prompt indicator |
+//   zeros] (row 1 written by the producer per tile), not from the quad's
+//   row sums. A float32 P is split into a bf16 high and low part (two
+//   products; the part left, p - hi - lo, is within 2^-16 |p|); with
+//   kExpBf16 P is bf16 already and one product is exact.
 
 #pragma once
 
@@ -59,6 +87,31 @@ namespace flash {
 namespace tc {
 
 constexpr int kStages = 2;  // K/V ring depth
+
+// Mode (a)'s variants, a bit mask (see above); 0 is the default kernel.
+enum Variant : int { kFold = 1, kExpBf16 = 2, kStatsMxu = 4 };
+
+// Each mode's tile at head_dim D when the call names none.
+template <int D, int MODE>
+struct DefaultTile {
+  static constexpr int kRows = D > 128 ? 64 : 128;
+  static constexpr int kBN = MODE == kPositioned || D > 128 ? 64 : 128;
+};
+
+// Whether the build holds the bf16 tile of `rows` x `keys` of `mode` at
+// head_dim `d`: the default tile everywhere, and every tile of 64 or 128
+// rows by 64 or 128 keys at head_dim 64 and 128 but mode (d)'s 128 x 128,
+// whose per-key position tests spill past the 168 registers a thread of a
+// 288-thread block has (16 and 56 bytes at head_dim 64 and 128; the reason
+// mode (d) takes 64-key tiles by default). Mirrored by `built_tiles` in
+// ops/cuda/flash_prefill.py.
+constexpr bool tile_built(int mode, int d, int rows, int keys) {
+  return (d == 64 || d == 128)
+             ? (rows == 64 || rows == 128) && (keys == 64 || keys == 128) &&
+                   !(mode == kPositioned && rows == 128 && keys == 128)
+             : rows == (d > 128 ? 64 : 128) &&
+                   keys == (mode == kPositioned || d > 128 ? 64 : 128);
+}
 
 // Tile sizes and shared-memory layout of one instance (byte offsets from a
 // 1024-aligned base): Q [kSubs][kRows][kBoxD], K and V
@@ -76,20 +129,27 @@ constexpr int kStages = 2;  // K/V ring depth
 //   warp (160 threads: up to 255 registers), 64-key tiles in every mode,
 //   four 128-byte boxes per row: Q 32 KB + 2 x (K + V) 128 KB. S = Q K^T is
 //   m64n64 over 16 k-steps, O += P V m64n256 (V MN-major as before).
-template <int D, int MODE>
+// Those are the defaults (DefaultTile); a call may name another tile of
+// ROWS x BN at head_dim 64 and 128. kStatsMxu adds per stage the [8 x kBN]
+// bf16 stats operand, K-major in kBN / 64 boxes of 8 swizzled 128-byte
+// rows (1 KB each), between V and the key positions.
+template <int D, int MODE, int ROWS = DefaultTile<D, MODE>::kRows,
+          int BN = DefaultTile<D, MODE>::kBN, int VAR = 0>
 struct Layout {
-  static constexpr int kRows = D > 128 ? 64 : 128;  // query rows per block
+  static constexpr int kRows = ROWS;  // query rows per block
   static constexpr int kConsumers = 2 * kRows;  // one warpgroup per 64 rows
   static constexpr int kThreads = kConsumers + 32;  // + the producer warp
-  static constexpr int kBN = MODE == kPositioned || D > 128 ? 64 : 128;
+  static constexpr int kBN = BN;
   static constexpr int kSwBytes = D >= 64 ? 128 : 2 * D;  // one box row
   static constexpr int kBoxD = kSwBytes / 2;
   static constexpr int kSubs = D / kBoxD;
   static constexpr int kQBytes = kRows * D * 2;
   static constexpr int kKVBytes = kBN * D * 2;  // K or V, one stage
+  static constexpr int kStatsBytes = VAR & kStatsMxu ? kBN / 64 * 1024 : 0;
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKVBytes;
-  static constexpr int kPosOff = kVOff + kStages * kKVBytes;
+  static constexpr int kStatsOff = kVOff + kStages * kKVBytes;
+  static constexpr int kPosOff = kStatsOff + kStages * kStatsBytes;
   static constexpr int kTileOff = kPosOff + kStages * kBN * 4;
   static constexpr int kBarOff = kTileOff + 16;
   static constexpr int kBytes = kBarOff + 8 * (1 + 2 * kStages);
@@ -98,6 +158,11 @@ struct Layout {
                 "head_dim 16..256");
   static_assert(kKVBytes % 1024 == 0 && kQBytes % 1024 == 0, "alignment");
   static_assert(kAlloc <= 232448, "shared memory of one block");
+  static_assert((ROWS == 64 || (ROWS == 128 && D <= 128)) &&
+                    (BN == 64 || BN == 128),
+                "tiles of 64 or 128 rows (64 at head_dim 256) by 64 or 128 "
+                "keys");
+  static_assert(VAR == 0 || MODE == kCausal, "the variants are mode (a)'s");
 };
 
 using namespace rkv::hopper;  // csrc/wgmma.cuh
@@ -112,286 +177,58 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// exp2 of two bf16 on the bf16 lanes (kExpBf16), and the two halves of a
+// bf16 pair as float32.
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// threadIdx.x and blockIdx.x read anew (the compiler may not keep an
+// earlier read live in a register for them).
+__device__ __forceinline__ int tid_x() {
+  int x;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(x));
+  return x;
+}
+
+__device__ __forceinline__ int ctaid_x() {
+  int x;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(x));
+  return x;
+}
+
 // ---------------------------------------------------------------------------
-// The kernel
+// The kernel (flash_prefill_tc_kernel.cuh): flash_tc_kernel<D, MODE>, each
+// mode's default tile and kernel, and flash_tc_tuned_kernel<D, MODE, ROWS,
+// BN, VAR>, the other tiles and the variants
 // ---------------------------------------------------------------------------
 
-template <int D, int MODE>
-__global__ void __launch_bounds__(Layout<D, MODE>::kThreads, 1)
-flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
-                const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v) {
-  using L = Layout<D, MODE>;
-  constexpr int kBN = L::kBN, kRows = L::kRows;
-  extern __shared__ uint8_t smem_raw[];
-  // The swizzle repeats every 1024 bytes and TMA and wgmma both read it
-  // from the address bits, so every tile starts on a 1024-byte boundary.
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t s_base = smem_u32(smem);
-  int* s_pos = reinterpret_cast<int*>(smem + L::kPosOff);
-  int* s_tile = reinterpret_cast<int*>(smem + L::kTileOff);
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
-  uint64_t* full = bar_q + 1;
-  uint64_t* empty = full + kStages;
+#define RKV_FLASH_TC_TUNED 0
+#include "flash_prefill_tc_kernel.cuh"
+#undef RKV_FLASH_TC_TUNED
+#define RKV_FLASH_TC_TUNED 1
+#include "flash_prefill_tc_kernel.cuh"
+#undef RKV_FLASH_TC_TUNED
 
-  const int b = blockIdx.z, hq = blockIdx.x;
-  const int hk = hq / (p.Hq / p.Hkv);
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], L::kConsumers);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == L::kConsumers / 32) {
-    // ---- producer warp ---------------------------------------------------
-    const int rows_live = min(row0 + kRows, p.S_q);  // local rows < S_q
-    const int q_last = p.q_offset + rows_live - 1;   // last live position
-    const int kv_end =
-        MODE == kCausal ? min(p.S_k, p.q_offset + rows_live) : p.S_k;
-    const int n_tiles = (kv_end + kBN - 1) / kBN;
-    if (lane == 0) {
-      mbar_expect_tx(bar_q, L::kQBytes);
-#pragma unroll
-      for (int c = 0; c < L::kSubs; ++c)
-        tma_load_4d(smem + c * kRows * L::kSwBytes, &tm_q, bar_q,
-                    c * L::kBoxD, hq, row0, b);
-    }
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kBN;
-      int pos[MODE == kPositioned ? kBN / 32 : 1];
-      if constexpr (MODE == kPositioned) {
-        bool seen = false;
-#pragma unroll
-        for (int i = 0; i < kBN / 32; ++i) {
-          const int key = k0 + lane + 32 * i;
-          pos[i] = key < p.S_k
-                       ? p.kpos[static_cast<long long>(b) * p.S_k + key]
-                       : kPosSentinel;
-          seen |= pos[i] <= q_last;
-        }
-        if (!__any_sync(0xffffffffu, seen)) continue;  // no copy issued
-      }
-      mbar_wait(&empty[stage], phase ^ 1);
-      if constexpr (MODE == kPositioned) {
-#pragma unroll
-        for (int i = 0; i < kBN / 32; ++i)
-          s_pos[stage * kBN + lane + 32 * i] = pos[i];
-        __syncwarp();
-      }
-      if (lane == 0) {
-        s_tile[stage] = k0;
-        mbar_expect_tx(&full[stage], 2 * L::kKVBytes);
-        uint8_t* k_dst = smem + L::kKOff + stage * L::kKVBytes;
-        uint8_t* v_dst = smem + L::kVOff + stage * L::kKVBytes;
-#pragma unroll
-        for (int c = 0; c < L::kSubs; ++c) {
-          tma_load_4d(k_dst + c * kBN * L::kSwBytes, &tm_k, &full[stage],
-                      c * L::kBoxD, hk, k0, b);
-          tma_load_4d(v_dst + c * kBN * L::kSwBytes, &tm_v, &full[stage],
-                      c * L::kBoxD, hk, k0, b);
-        }
-      }
-      __syncwarp();
-      if (++stage == kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    // End of the key stream: the consumers stop at the stage marked -1.
-    mbar_wait(&empty[stage], phase ^ 1);
-    if (lane == 0) {
-      s_tile[stage] = -1;
-      mbar_arrive(&full[stage]);
-    }
-    return;
-  }
-
-  // ---- consumer warpgroups ------------------------------------------------
-  const int wg = warp / 4;
-  const int g = lane / 4, t4 = lane % 4;
-  const int r0 = row0 + wg * 64 + (warp % 4) * 16 + g;  // local rows r0, r1
-  const int r1 = r0 + 8;
-  const int qp0 = p.q_offset + r0, qp1 = p.q_offset + r1;
-  const int wg_first = p.q_offset + row0 + wg * 64;  // its first position
-  const int plen = p.plen[b];
-  const float scale = p.sm_scale * kLog2e;
-  const uint32_t q_base = s_base + wg * 64 * L::kSwBytes;
-
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;
-  float l0 = 0.f, l1 = 0.f, pm0 = 0.f, pm1 = 0.f;  // partial over the quad
-
-  mbar_wait(bar_q, 0);
-  int stage = 0;
-  uint32_t phase = 0;
-  for (;;) {
-    mbar_wait(&full[stage], phase);
-    const int k0 = s_tile[stage];
-    if (k0 < 0) break;
-    // Causal: a tile wholly in this warpgroup's future adds nothing.
-    if (MODE != kCausal || k0 <= wg_first + 63) {
-      const uint32_t k_base = s_base + L::kKOff + stage * L::kKVBytes;
-      const uint32_t v_base = s_base + L::kVOff + stage * L::kKVBytes;
-      const int* pos = s_pos + stage * kBN;
-
-      float s[kBN / 2];
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
-      fence_regs(s);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kBN, 0>(s, kmajor_desc<L::kSwBytes>(q_base, kRows, kk),
-                         kmajor_desc<L::kSwBytes>(k_base, kBN, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(s);
-
-      // Element i of s: row r0 (i % 4 < 2) or r1, key column
-      // 8 (i / 4) + 2 t4 + i % 2 of the tile.
-      uint32_t prompt_bits = 0;  // mode (d): bit 2 (i / 4) + i % 2
-      if constexpr (MODE == kPositioned) {
-        // Each thread reads its 32 key positions once, as pairs, and keeps
-        // only their prompt bits: the positions need no registers later.
-#pragma unroll
-        for (int j = 0; j < kBN / 8; ++j) {
-          const int2 kp = *reinterpret_cast<const int2*>(pos + 8 * j + 2 * t4);
-          if (kp.x > qp0) s[4 * j] = -INFINITY;
-          if (kp.y > qp0) s[4 * j + 1] = -INFINITY;
-          if (kp.x > qp1) s[4 * j + 2] = -INFINITY;
-          if (kp.y > qp1) s[4 * j + 3] = -INFINITY;
-          prompt_bits |= static_cast<uint32_t>(kp.x < plen) << (2 * j);
-          prompt_bits |= static_cast<uint32_t>(kp.y < plen) << (2 * j + 1);
-        }
-      } else if (MODE == kCausal ? k0 + kBN - 1 > wg_first
-                                 : k0 + kBN > p.S_k) {
-#pragma unroll
-        for (int i = 0; i < kBN / 2; ++i) {
-          const int key = k0 + 8 * (i / 4) + 2 * t4 + (i % 2);
-          const bool visible = MODE == kCausal
-                                   ? key <= (i % 4 < 2 ? qp0 : qp1)
-                                   : key < p.S_k;
-          if (!visible) s[i] = -INFINITY;
-        }
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
-        if (i % 4 < 2) mx0 = fmaxf(mx0, s[i]);
-        else mx1 = fmaxf(mx1, s[i]);
-      }
-      const float mn0 = fmaxf(m0, quad_max(mx0) * scale);
-      const float mn1 = fmaxf(m1, quad_max(mx1) * scale);
-      // A row that has seen no key yet keeps m = -inf: its p and alpha are
-      // taken against 0, never as exp2(-inf - -inf).
-      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
-      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-      const float a0 = exp2f(m0 - mu0), a1 = exp2f(m1 - mu1);
-      m0 = mn0;
-      m1 = mn1;
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
-        const float pv = exp2f(fmaf(s[i], scale, i % 4 < 2 ? -mu0 : -mu1));
-        s[i] = pv;
-        if (i % 4 < 2) ls0 += pv;
-        else ls1 += pv;
-      }
-      // Prompt mass: l's own increment where the tile lies wholly before
-      // the prompt length, a masked sum only where it straddles it.
-      float ps0 = 0.f, ps1 = 0.f;
-      if (MODE != kPositioned && k0 + kBN <= plen) {
-        ps0 = ls0;
-        ps1 = ls1;
-      } else if (MODE == kPositioned || k0 < plen) {
-#pragma unroll
-        for (int i = 0; i < kBN / 2; ++i) {
-          const bool prompt =
-              MODE == kPositioned
-                  ? (prompt_bits >> (2 * (i / 4) + i % 2)) & 1u
-                  : k0 + 8 * (i / 4) + 2 * t4 + (i % 2) < plen;
-          if (prompt) {
-            if (i % 4 < 2) ps0 += s[i];
-            else ps1 += s[i];
-          }
-        }
-      }
-      l0 = l0 * a0 + ls0;
-      l1 = l1 * a1 + ls1;
-      pm0 = pm0 * a0 + ps0;
-      pm1 = pm1 * a1 + ps1;
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= i % 4 < 2 ? a0 : a1;
-
-      // P as the A operand: k-step kk takes s[8 kk .. 8 kk + 7] pairwise.
-      uint32_t pr[kBN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          pr[kk][j] = pack_bf16x2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-      fence_regs(pr);
-      fence_regs(o);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_rs_tb<D>(o, pr[kk], mnmajor_desc<L::kSwBytes>(v_base, kBN, kk));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(o);
-      fence_regs(pr);
-    }
-    mbar_arrive(&empty[stage]);
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  pm0 = quad_sum(pm0);
-  pm1 = quad_sum(pm1);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) +
-                       static_cast<long long>(b) * p.o_sb +
-                       static_cast<long long>(hq) * p.o_sh + 2 * t4;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (r0 < p.S_q)
-      *reinterpret_cast<uint32_t*>(out + r0 * p.o_ss + 8 * j) =
-          pack_bf16x2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    if (r1 < p.S_q)
-      *reinterpret_cast<uint32_t*>(out + r1 * p.o_ss + 8 * j) =
-          pack_bf16x2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
-  if (t4 == 0) {
-    const long long stat = (static_cast<long long>(b) * p.Hq + hq) * p.S_q;
-    // m is base 2; the lse is natural, -inf for a row that saw no key.
-    if (r0 < p.S_q) {
-      p.pm[stat + r0] = pm0 * inv0;
-      if (p.lse != nullptr)
-        p.lse[stat + r0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
-    }
-    if (r1 < p.S_q) {
-      p.pm[stat + r1] = pm1 * inv1;
-      if (p.lse != nullptr)
-        p.lse[stat + r1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
-    }
-  }
+// The kernel of an instance: flash_tc_kernel for the default tile and
+// kernel, flash_tc_tuned_kernel otherwise.
+template <int D, int MODE, int ROWS, int BN, int VAR>
+constexpr auto kernel_of() {
+  if constexpr (ROWS == DefaultTile<D, MODE>::kRows &&
+                BN == DefaultTile<D, MODE>::kBN && VAR == 0)
+    return &flash_tc_kernel<D, MODE>;
+  else
+    return &flash_tc_tuned_kernel<D, MODE, ROWS, BN, VAR>;
 }
 
 // ---------------------------------------------------------------------------
@@ -399,13 +236,14 @@ flash_tc_kernel(const FlashParams p, const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 
 // A bf16 [B][S][H][D] view with element strides (sb, ss, sh, 1) as a 4-d
-// tensor map whose box is `rows` rows of one head, box_d elements wide.
-// Rows past S read as zeros. The wrapper has checked TMA's rules (16-byte
-// base and strides); the driver refuses anything else.
+// tensor map whose box is `rows` rows of `heads` heads (position-major in
+// shared memory: row r is head r % heads), box_d elements wide. Rows past
+// S read as zeros. The wrapper has checked TMA's rules (16-byte base and
+// strides); the CUDA driver refuses anything else.
 inline cudaError_t encode_map(CUtensorMap* map, const void* base, int D,
                               int H, int S, int B, long long sh, long long ss,
                               long long sb, int box_d, int rows,
-                              CUtensorMapSwizzle swizzle) {
+                              CUtensorMapSwizzle swizzle, int heads = 1) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
@@ -413,22 +251,30 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int D,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), 1,
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d),
+                             static_cast<cuuint32_t>(heads),
                              static_cast<cuuint32_t>(rows), 1};
   return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
                            dims, strides, box, swizzle);
 }
 
-template <int D, int MODE>
+template <int D, int MODE, int ROWS = DefaultTile<D, MODE>::kRows,
+          int BN = DefaultTile<D, MODE>::kBN, int VAR = 0>
 cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
-  using L = Layout<D, MODE>;
+  using L = Layout<D, MODE, ROWS, BN, VAR>;
   const CUtensorMapSwizzle swizzle =
       L::kSwBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : L::kSwBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  // Folded, a block's Q box is kRows / n_rep positions of n_rep heads.
+  constexpr bool kFoldQ = VAR & kFold;
+  const int n_rep = p.Hq / p.Hkv;
+  const int span = kFoldQ ? L::kRows / n_rep : L::kRows;
+  if (span == 0) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err = encode_map(&tm_q, p.q, D, p.Hq, p.S_q, p.B, p.q_sh,
-                               p.q_ss, p.q_sb, L::kBoxD, L::kRows, swizzle);
+                               p.q_ss, p.q_sb, L::kBoxD, span, swizzle,
+                               kFoldQ ? n_rep : 1);
   if (err == cudaSuccess)
     err = encode_map(&tm_k, p.k, D, p.Hkv, p.S_k, p.B, p.k_sh, p.k_ss,
                      p.k_sb, L::kBoxD, L::kBN, swizzle);
@@ -437,13 +283,12 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
                      p.v_sb, L::kBoxD, L::kBN, swizzle);
   if (err != cudaSuccess) return err;
   // Above 48 KB of shared memory only after opting in, once per instance.
+  constexpr auto kernel = kernel_of<D, MODE, ROWS, BN, VAR>();
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_tc_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kAlloc);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid(p.Hq, (p.S_q + L::kRows - 1) / L::kRows, p.B);
-  flash_tc_kernel<D, MODE><<<grid, L::kThreads, L::kAlloc, stream>>>(
-      p, tm_q, tm_k, tm_v);
+  const dim3 grid(kFoldQ ? p.Hkv : p.Hq, (p.S_q + span - 1) / span, p.B);
+  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(p, tm_q, tm_k, tm_v);
   return cudaGetLastError();
 }
 

@@ -390,6 +390,19 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A B, m64n8k16: A from registers as in wgmma_rs_tb, B from shared
+// memory K-major (imm-trans-b = 0): K1's stats_via_mxu product of P with
+// an [n = 8 x k] operand.
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 // D += A B, m64nNk32 over int8: A and B from shared memory, both K-major
 // (8-bit operands have no transpose bit), s8 x s8 into exact int32 sums

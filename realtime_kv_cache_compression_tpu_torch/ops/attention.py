@@ -32,6 +32,19 @@ import torch.nn.functional as F
 from .. import comm
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+def ex2_bf16(x: torch.Tensor) -> torch.Tensor:
+    """exp2 of bf16 values x as the H100's `ex2.approx.ftz.bf16x2` gives
+    them, in float32: exp2 truncated to bf16, 1 where |x| < 2^-23, and 0
+    below -126, where the result would be subnormal
+    (scripts/torch_ex2_bf16_probe.py holds this to the card bit for bit on
+    every bf16 input)."""
+    x = x.float()
+    e = torch.exp2(x).view(torch.int32).bitwise_and(-65536).view(torch.float32)
+    return torch.where(x.abs() < 2.0 ** -23, 1.0,
+                       torch.where(x < -126, 0.0, e))
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -63,6 +76,8 @@ def prefill_attention_with_prompt_mass(
     causal: bool = True,
     prompt_lens: Optional[torch.Tensor] = None,
     group=None,
+    exp_bf16: bool = False,
+    exp_block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense causal attention + prompt attention mass.
 
@@ -71,6 +86,15 @@ def prefill_attention_with_prompt_mass(
     q's dtype, prompt_mass [B, S] float32 = mean over heads of the softmax
     mass on key columns < the row's prompt length; with `group`, over the
     heads of every rank of the group, `head_mean`).
+
+    exp_bf16: the probabilities of the flash kernel's exp_bf16 variant (JAX
+    `flash_prefill_with_prompt_mass(exp_bf16=True)`): the base-2 logits
+    less a running maximum rounded to bf16 and exponentiated on bf16 lanes
+    as the card does it (`ex2_bf16`); each is rescaled in float32 from its
+    running maximum to the row's, and the softmax divides them by their
+    sum. The running maximum is the kernel's: over the keys up to the end
+    of each `exp_block_k`-key block from key 0 (None: one block, the row's
+    maximum).
     """
     b, s, hq, d = q.shape
     n_rep = hq // k.shape[2]
@@ -83,7 +107,19 @@ def prefill_attention_with_prompt_mass(
         visible = pos[None, :] <= pos[:, None]
         logits = torch.where(visible[None, None], logits,
                              torch.full((), NEG_INF, device=q.device))
-    attn = torch.softmax(logits, dim=-1)
+    if exp_bf16:
+        s2 = logits * LOG2E
+        s_k = s2.shape[-1]
+        blk = s_k if exp_block_k is None else exp_block_k
+        nb = -(-s_k // blk)
+        m_blk = F.pad(s2, (0, nb * blk - s_k), value=NEG_INF).unflatten(
+            -1, (nb, blk)).amax(dim=-1).cummax(dim=-1).values
+        m_run = m_blk.repeat_interleave(blk, dim=-1)[..., :s_k]
+        p = ex2_bf16((s2 - m_run).to(torch.bfloat16)) * torch.exp2(
+            m_run - m_blk[..., -1:])
+        attn = p / p.sum(dim=-1, keepdim=True)
+    else:
+        attn = torch.softmax(logits, dim=-1)
     prompt_probs = attn[:, :, :, :prompt_len]
     if prompt_lens is not None:
         col = torch.arange(prompt_probs.shape[-1], device=q.device)

@@ -3,7 +3,8 @@
 `csrc/*.cu` compile with nvcc for sm_90a into a library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes seconds).
 Each source compiles in its own nvcc process, all started together, and one
-more links the objects. The library lands in
+more links the objects; a source in SPLIT_SOURCES compiles once per define
+listed there, each into an object of its own. The library lands in
 `build/cuda_kernels/<hash of sources and flags>/` at the root of the
 checkout, at first use; later calls and processes reuse it.
 Nothing here runs at import time: the CPU tests import every module of the
@@ -30,6 +31,16 @@ CSRC = _PACKAGE / "csrc"
 BUILD_ROOT = _PACKAGE.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Sources built more than once, each time with one more define, so that
+# nvcc compiles their instances in parallel: K1's non-default tiles, one
+# object per mode (csrc/flash_prefill.cuh: kCausal, kFull, kPositioned),
+# and its mode (a) variants, one object per combination of the three flags.
+SPLIT_SOURCES = {
+    "flash_prefill_tiles.cu": tuple(f"RKV_FLASH_TILE_MODE={m}"
+                                    for m in range(3)),
+    "flash_prefill_variants.cu": tuple(f"RKV_FLASH_VARIANT={v}"
+                                       for v in range(1, 8)),
+}
 # C entries: each takes a pointer to its params struct and a stream.
 ENTRIES = ("flash_prefill_launch", "decode_attention_launch",
            "int4_matmul_launch", "int8_matmul_launch")
@@ -53,6 +64,19 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _objects():
+    """(object stem, source, extra nvcc flags) of every object to build."""
+    objs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        defines = SPLIT_SOURCES.get(src.name)
+        if defines is None:
+            objs.append((src.stem, src, ()))
+        else:
+            objs += [(f"{src.stem}.{i}", src, ("-D" + d,))
+                     for i, d in enumerate(defines)]
+    return objs
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
@@ -68,6 +92,7 @@ def _nvcc() -> str:
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernels; raises if nvcc fails."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SPLIT_SOURCES.items())).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -82,13 +107,12 @@ def load_library() -> KernelLibrary:
         # first uses (test workers) never load a half-written one.
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             nvcc, tmp = _nvcc(), Path(tmp)
-            objs = [tmp / (src.stem + ".o")
-                    for src in sorted(CSRC.glob("*.cu"))]
+            plan = _objects()
+            objs = [tmp / (stem + ".o") for stem, _, _ in plan]
             procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                 str(CSRC / (obj.stem + ".cu"))],
+                [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for obj in objs]
+                for obj, (_, src, extra) in zip(objs, plan)]
             logs = [proc.communicate()[0] for proc in procs]
             link = subprocess.run(
                 [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / "lib.so"),

@@ -41,6 +41,21 @@ prefill_attention_with_prompt_mass` or `chunk_attention_with_prompt_mass`
 for modes (a) and (b), `pair_attention_plain` and
 `positioned_attention_plain` (beside the wrappers here) for the others.
 A CUDA tensor launches the kernel or raises; there is no fallback.
+
+Tuning surface, as JAX's wrappers have it (`kernel_autotune` sweeps it):
+every wrapper takes `block_q` / `block_k`, the tensor-core tile's query
+rows and keys (`resolve_tile`: None is the kernel's own tile; a value
+that is not a power of two raises ValueError, one past the sequence is
+clamped to it as JAX clamps, and a tile the build lacks, `built_tiles`,
+raises ValueError naming those it has; never another tile instead), and
+mode (a) takes JAX's three variants, `fold_gqa`, `exp_bf16` and
+`stats_via_mxu` (`csrc/flash_prefill_tc.cuh`). The defaults run the
+kernel every path uses; no caller in the package passes them. A CPU tensor runs the
+same checks and then the plain version (a tile does not change the
+function; `exp_bf16` does, and the plain version takes it too). Each
+wrapper counts its launches by the instance that ran in `tile_launches`
+(a (rows, keys) tile of the tensor-core route, or "float32") and by
+variant name in `variant_launches`, beside `launches`.
 """
 
 from __future__ import annotations
@@ -57,6 +72,13 @@ from . import _build
 
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 _CAUSAL, _FULL, _POSITIONED = 0, 1, 2  # Mode in csrc/flash_prefill.cuh
+_MODE_NAMES = {_CAUSAL: "causal", _FULL: "full", _POSITIONED: "positioned"}
+# Mode (a)'s variants, tc::Variant in csrc/flash_prefill_tc.cuh.
+VARIANT_FLAGS = (("fold_gqa", 1), ("exp_bf16", 2), ("stats_via_mxu", 4))
+_FOLD, _EXP_BF16, _STATS_MXU = (flag for _, flag in VARIANT_FLAGS)
+_TILE_SIDES = (64, 128)   # rows and keys of a non-default tile
+_TILE_HEAD_DIMS = (64, 128)
+_SCALAR_SUB_KEYS = 16     # keys per running-maximum step of the float32 route
 
 # Position of an invalid pool slot: above every query position, so it is
 # never visible and never a prompt column (decode_attention / kv_cache use
@@ -78,6 +100,14 @@ class FlashParams(ctypes.Structure):
                     "B", "S_q", "S_k", "q_offset", "Hq", "Hkv", "D",
                     "dtype", "mode")]
                 + [("sm_scale", ctypes.c_float)])
+
+
+class FlashLaunch(ctypes.Structure):
+    """Mirror of `FlashLaunch` in csrc/flash_prefill.cuh: the kernel's
+    arguments and the tile or variant the dispatch reads (0: defaults)."""
+
+    _fields_ = [("p", FlashParams)] + [(n, ctypes.c_int) for n in (
+        "rows", "keys", "variant")]
 
 
 # The limit a bf16 K1 output is held to against its plain version in
@@ -114,31 +144,140 @@ class InstanceInfo(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "bf16", "head_dim", "regs", "local_bytes", "static_smem",
-        "dynamic_smem", "threads")]
+        "dynamic_smem", "threads", "rows", "keys", "variant")]
+
+
+def default_tile(mode: int, d: int) -> Tuple[int, int]:
+    """(query rows, keys) of `mode`'s tensor-core tile at head_dim `d` when
+    a call names none (tc::DefaultTile)."""
+    return (64 if d > 128 else 128,
+            64 if mode == _POSITIONED or d > 128 else 128)
+
+
+def built_tiles(mode: int, d: int) -> Tuple[Tuple[int, int], ...]:
+    """Every (rows, keys) tile the build holds for `mode` at head_dim `d`
+    (tc::tile_built): at head_dim 64 and 128 every tile of 64 or 128 rows
+    by 64 or 128 keys but mode (d)'s 128 x 128 (it spills), elsewhere the
+    default alone."""
+    if d in _TILE_HEAD_DIMS:
+        return tuple((r, k) for r in _TILE_SIDES for k in _TILE_SIDES
+                     if (mode, r, k) != (_POSITIONED, 128, 128))
+    return (default_tile(mode, d),)
+
+
+def variant_name(variant: int) -> str:
+    """The flags of a variant bit mask, JAX's names joined by "+"; ""
+    for the default kernel."""
+    return "+".join(name for name, flag in VARIANT_FLAGS if variant & flag)
 
 
 def kernel_instances() -> list:
-    """What the build made of each K1 instance (3 modes x 2 routes x 5
-    head dims): registers, local memory (spill) bytes, static and dynamic
-    shared memory, threads per block. Builds the library if needed; needs
-    a CUDA device."""
-    fn = _build.load_library().lib.flash_prefill_instance_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """What the build made of each K1 instance: the defaults (3 modes x 2
+    routes x 5 head dims), the non-default tensor-core tiles
+    (`built_tiles`) and mode (a)'s variants (7 combinations x 5 head dims
+    in bf16, and exp_bf16 in float32): registers, local memory (spill)
+    bytes, static and dynamic shared memory, threads per block, the tile
+    (rows, keys) and the variant. Builds the library if needed; needs a
+    CUDA device."""
+    lib = _build.load_library().lib
+    entries = {
+        "default": (lib.flash_prefill_instance_info, [ctypes.c_int] * 2),
+        "tile": (lib.flash_prefill_tile_info, [ctypes.c_int] * 4),
+        "variant": (lib.flash_prefill_variant_info, [ctypes.c_int] * 3)}
+    for fn, args in entries.values():
+        fn.argtypes = args + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    calls = [("default", (mode, index), mode) for mode in _MODE_NAMES
+             for index in range(2 * len(_HEAD_DIMS))]
+    calls += [("tile", (mode, d, r, k), mode) for mode in _MODE_NAMES
+              for d in _TILE_HEAD_DIMS for r, k in built_tiles(mode, d)
+              if (r, k) != default_tile(mode, d)]
+    calls += [("variant", (v, d, bf16), _CAUSAL) for v in range(1, 8)
+              for d in _HEAD_DIMS for bf16 in (1, 0)
+              if bf16 or v == _EXP_BF16]
     rows = []
-    for mode, name in ((_CAUSAL, "causal"), (_FULL, "full"),
-                       (_POSITIONED, "positioned")):
-        for index in range(2 * len(_HEAD_DIMS)):
-            info = InstanceInfo()
-            err = fn(mode, index, ctypes.addressof(info))
-            if err:
-                raise RuntimeError(f"flash_prefill_instance_info({name}, "
-                                   f"{index}) failed: CUDA error {err}")
-            rows.append({"mode": name,
-                         "dtype": "bfloat16" if info.bf16 else "float32",
-                         **{n: getattr(info, n) for n, _ in
-                            InstanceInfo._fields_ if n != "bf16"}})
+    for entry, args, mode in calls:
+        info = InstanceInfo()
+        err = entries[entry][0](*args, ctypes.addressof(info))
+        if err:
+            raise RuntimeError(f"flash_prefill_{entry}_info{args} failed: "
+                               f"CUDA error {err}")
+        rows.append({"mode": _MODE_NAMES[mode],
+                     "dtype": "bfloat16" if info.bf16 else "float32",
+                     **{n: getattr(info, n) for n, _ in
+                        InstanceInfo._fields_ if n not in ("bf16",
+                                                           "variant")},
+                     "variant": variant_name(info.variant)})
     return rows
+
+
+def resolve_tile(mode: int, d: int, s_q: int, s_k: int,
+                 block_q: Optional[int] = None,
+                 block_k: Optional[int] = None) -> Tuple[int, int]:
+    """The (rows, keys) tile a K1 call of `mode` at head_dim `d` over
+    `s_q` query rows and `s_k` keys runs: the default tile where the
+    call names none, else `block_q` / `block_k` clamped to the next power
+    of two of the sequence (at least 8), as JAX clamps. Raises ValueError
+    for a size that is not a power of two (as JAX does) and for a tile
+    the build lacks, naming the tiles built for that mode and head_dim."""
+    for name, n in (("block_q", block_q), ("block_k", block_k)):
+        if n is not None and (n < 1 or n & (n - 1)):
+            raise ValueError(f"flash prefill: {name}={n}: block sizes must "
+                             f"be powers of two")
+    rows, keys = default_tile(mode, d)
+    if block_q is not None:
+        rows = min(block_q, max(8, 1 << (s_q - 1).bit_length()))
+    if block_k is not None:
+        keys = min(block_k, max(8, 1 << (s_k - 1).bit_length()))
+    tiles = built_tiles(mode, d)
+    if (rows, keys) not in tiles:
+        raise ValueError(f"flash prefill: no {rows} x {keys} tile (block_q "
+                         f"x block_k) is built for mode "
+                         f"{_MODE_NAMES[mode]} at head_dim {d}; built: "
+                         f"{list(tiles)}")
+    return rows, keys
+
+
+def _resolve_variant(q, k, tile, fold_gqa, exp_bf16, stats_via_mxu) -> int:
+    """Mode (a)'s variant bit mask; raises ValueError for a variant off
+    the default tile, or a fold whose group outgrows the tile's rows."""
+    variant = ((_FOLD if fold_gqa else 0) | (_EXP_BF16 if exp_bf16 else 0)
+               | (_STATS_MXU if stats_via_mxu else 0))
+    d = q.shape[3]
+    if variant and tile != default_tile(_CAUSAL, d):
+        raise ValueError(f"flash prefill: {variant_name(variant)} is built "
+                         f"at the default tile {default_tile(_CAUSAL, d)} "
+                         f"only, not at {tile}")
+    n_rep = q.shape[2] // max(k.shape[2], 1)
+    if variant & _FOLD and n_rep > tile[0]:
+        raise ValueError(f"flash prefill: fold_gqa packs the {n_rep} query "
+                         f"heads of a kv head into one block's {tile[0]} "
+                         f"rows, which must hold one position of each")
+    return variant
+
+
+def exp_block_keys(dtype: torch.dtype, tile: Tuple[int, int]) -> int:
+    """Keys per block of the running maximum against which the exp_bf16
+    route rounds s - m (the plain version's `exp_block_k`): the tile's
+    keys on the bf16 route, the scalar kernel's 16-key sub-tile
+    (csrc/flash_prefill_scalar.cuh, SUB) on the float32 one."""
+    return tile[1] if dtype == torch.bfloat16 else _SCALAR_SUB_KEYS
+
+
+def _count(wrapper, q: torch.Tensor, tile: Tuple[int, int],
+           variant: int = 0) -> None:
+    """One launch on `wrapper`'s counters: `launches`, `tile_launches` by
+    the instance that ran (`tile` on the tensor-core route, "float32" on
+    the scalar one) and, for a variant, `variant_launches` by its name
+    (the float32 route runs exp_bf16 alone)."""
+    wrapper.launches += 1
+    bf16 = q.dtype == torch.bfloat16
+    key = tile if bf16 else "float32"
+    wrapper.tile_launches[key] = wrapper.tile_launches.get(key, 0) + 1
+    name = variant_name(variant if bf16 else variant & _EXP_BF16)
+    if name:
+        wrapper.variant_launches[name] = (
+            wrapper.variant_launches.get(name, 0) + 1)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,12 +333,20 @@ def _row_lengths(lens: Union[int, torch.Tensor], b: int,
 
 
 def _launch(q, k, v, q_offset: int, plen: torch.Tensor, mode: int = _CAUSAL,
-            kpos: Optional[torch.Tensor] = None, with_lse: bool = False):
-    """Checks, allocates and launches K1. plen: int32 [B] on q's device.
-    Returns (out, lse [B, Hq, S_q] or None, prompt mass [B, Hq, S_q]), the
-    statistics per head."""
+            kpos: Optional[torch.Tensor] = None, with_lse: bool = False,
+            tile: Optional[Tuple[int, int]] = None, variant: int = 0):
+    """Checks, allocates and launches K1. plen: int32 [B] on q's device;
+    tile: the (rows, keys) from `resolve_tile` (None: the default);
+    variant: mode (a)'s bit mask. Returns (out, lse [B, Hq, S_q] or None,
+    prompt mass [B, Hq, S_q]), the statistics per head."""
     _check(q, k, v, q_offset, mode)
     b, s_q, hq, d = q.shape
+    # The float32 route has one layout and, of the variants, exp_bf16.
+    bf16 = q.dtype == torch.bfloat16
+    rows, keys = ((0, 0) if not bf16 or tile in (None,
+                                                 default_tile(mode, d))
+                  else tile)
+    variant = variant if bf16 else variant & _EXP_BF16
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     pm = torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
     lse = torch.empty_like(pm) if with_lse else None
@@ -208,7 +355,7 @@ def _launch(q, k, v, q_offset: int, plen: torch.Tensor, mode: int = _CAUSAL,
                 or not kpos.is_contiguous() or kpos.device != q.device):
             raise ValueError("flash prefill: key positions must be a "
                              "contiguous int32 [B, S_k] tensor on q's device")
-    p = FlashParams(
+    params = FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=out.data_ptr(),
         pm=pm.data_ptr(), lse=lse.data_ptr() if with_lse else None,
         plen=plen.data_ptr(), kpos=None if kpos is None else kpos.data_ptr(),
@@ -218,7 +365,8 @@ def _launch(q, k, v, q_offset: int, plen: torch.Tensor, mode: int = _CAUSAL,
         B=b, S_q=s_q, S_k=k.shape[1], q_offset=q_offset, Hq=hq,
         Hkv=k.shape[2], D=d, dtype=_build.dtype_code(q.dtype), mode=mode,
         sm_scale=1.0 / d ** 0.5)
-    _build.launch("flash_prefill_launch", p,
+    _build.launch("flash_prefill_launch",
+                  FlashLaunch(p=params, rows=rows, keys=keys, variant=variant),
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out, lse, pm
 
@@ -237,6 +385,11 @@ def flash_prefill_with_prompt_mass(
     prompt_len: int,
     prompt_lens: Optional[torch.Tensor] = None,
     group=None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    fold_gqa: Optional[bool] = None,
+    exp_bf16: bool = False,
+    stats_via_mxu: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mode (a): causal attention + prompt attention mass, the contract of
     `prefill_attention_with_prompt_mass`.
@@ -246,17 +399,38 @@ def flash_prefill_with_prompt_mass(
     dtype, prompt_mass [B, S] float32 averaged over heads: the kernel's
     per-head mass, gathered over `group` first under tensor parallelism,
     `head_mean`).
+
+    block_q / block_k: the tile (`resolve_tile`). JAX's variants, each a
+    hand-written instance of the bf16 route at the default tile:
+    fold_gqa=True packs a kv head's n_rep query heads into one block's
+    rows, so each K/V tile is staged once for the group (None, the
+    default, and False: one query head a block; JAX's default is True);
+    exp_bf16 rounds s - max to bf16 and exponentiates on bf16 lanes (this
+    changes the function: the plain version rounds alike, against the
+    same running maximum, `exp_block_keys`); stats_via_mxu takes l and
+    the prompt mass from a tensor-core product of P with [ones | prompt
+    indicator]. The float32 route computes the same function with its one
+    layout: it applies exp_bf16's rounding and has no fold_gqa or
+    stats_via_mxu layout, which leave the function as it is.
     """
+    tile = resolve_tile(_CAUSAL, q.shape[3], q.shape[1], k.shape[1],
+                        block_q, block_k)
+    variant = _resolve_variant(q, k, tile, fold_gqa, exp_bf16,
+                               stats_via_mxu)
     if q.device.type == "cpu":
         return prefill_attention_with_prompt_mass(q, k, v, prompt_len,
                                                   prompt_lens=prompt_lens,
-                                                  group=group)
+                                                  group=group,
+                                                  exp_bf16=exp_bf16,
+                                                  exp_block_k=exp_block_keys(
+                                                      q.dtype, tile))
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash prefill: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
     out, _, pm = _launch(q, k, v, 0, _prompt_len_rows(q, prompt_len,
-                                                      prompt_lens))
-    flash_prefill_with_prompt_mass.launches += 1
+                                                      prompt_lens),
+                         tile=tile, variant=variant)
+    _count(flash_prefill_with_prompt_mass, q, tile, variant)
     return out, head_mean(pm, group)
 
 
@@ -268,6 +442,8 @@ def flash_chunk_attention_with_prompt_mass(
     prompt_len: int,
     prompt_lens: Optional[torch.Tensor] = None,
     group=None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mode (b): one prefill chunk over the position-ordered KV buffer, the
     contract of `chunk_attention_with_prompt_mass`.
@@ -276,16 +452,20 @@ def flash_chunk_attention_with_prompt_mass(
     int: the chunk loop runs on the host); k_buf, v_buf: [B, S, H_kv, D]
     with the chunk written, q_offset + c <= S. Returns (out [B, c, H_q, D]
     in q's dtype, prompt_mass [B, c] float32; `group` as in mode (a)).
+    block_q / block_k: the tile (`resolve_tile`, over c rows and S keys).
     """
     q_offset = int(q_offset)
+    tile = resolve_tile(_CAUSAL, q.shape[3], q.shape[1], k_buf.shape[1],
+                        block_q, block_k)
     if q.device.type == "cpu":
         return chunk_attention_with_prompt_mass(q, k_buf, v_buf, q_offset,
                                                 prompt_len,
                                                 prompt_lens=prompt_lens,
                                                 group=group)
     out, _, pm = _launch(q, k_buf, v_buf, q_offset,
-                         _prompt_len_rows(q, prompt_len, prompt_lens))
-    flash_chunk_attention_with_prompt_mass.launches += 1
+                         _prompt_len_rows(q, prompt_len, prompt_lens),
+                         tile=tile)
+    _count(flash_chunk_attention_with_prompt_mass, q, tile)
     return out, head_mean(pm, group)
 
 
@@ -349,39 +529,47 @@ def positioned_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_diagonal_pair_attention(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor,
-                                  plen_local: Union[int, torch.Tensor]
-                                  ) -> Partial:
+                                  plen_local: Union[int, torch.Tensor],
+                                  block_q: Optional[int] = None,
+                                  block_k: Optional[int] = None) -> Partial:
     """The diagonal pair: mode (a) with the lse output over the block's own
     keys, with its local prompt length (see `flash_pair_attention`)."""
+    tile = resolve_tile(_CAUSAL, q.shape[3], q.shape[1], k.shape[1],
+                        block_q, block_k)
     if q.device.type == "cpu":
         return pair_attention_plain(q, k, v, plen_local, causal=True)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"diagonal pair: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} must be one block")
     result = _launch(q, k, v, 0, _row_lengths(plen_local, q.shape[0],
-                                              q.device), with_lse=True)
-    flash_diagonal_pair_attention.launches += 1
+                                              q.device), with_lse=True,
+                     tile=tile)
+    _count(flash_diagonal_pair_attention, q, tile)
     return result
 
 
 def flash_full_pair_attention(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
-                              plen_local: Union[int, torch.Tensor]
-                              ) -> Partial:
+                              plen_local: Union[int, torch.Tensor],
+                              block_q: Optional[int] = None,
+                              block_k: Optional[int] = None) -> Partial:
     """Mode (c): every query sees every key of the block (see
     `flash_pair_attention`)."""
+    tile = resolve_tile(_FULL, q.shape[3], q.shape[1], k.shape[1],
+                        block_q, block_k)
     if q.device.type == "cpu":
         return pair_attention_plain(q, k, v, plen_local, causal=False)
     result = _launch(q, k, v, 0, _row_lengths(plen_local, q.shape[0],
                                               q.device), mode=_FULL,
-                     with_lse=True)
-    flash_full_pair_attention.launches += 1
+                     with_lse=True, tile=tile)
+    _count(flash_full_pair_attention, q, tile)
     return result
 
 
 def flash_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          plen_local: Union[int, torch.Tensor],
-                         causal: bool) -> Partial:
+                         causal: bool, block_q: Optional[int] = None,
+                         block_k: Optional[int] = None) -> Partial:
     """One (query block, key block) pair of blockwise / ring attention.
 
     q: [B, S_q, H_q, D]; k, v: [B, S_k, H_kv, D], one key block;
@@ -390,16 +578,23 @@ def flash_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the diagonal pair (S_q = S_k), False a key block that precedes every
     query. Returns (o [B, S_q, H_q, D] normalized, lse [B, H_q, S_q],
     pm [B, H_q, S_q] per head) for `merge_attention_partials`; a row with
-    no visible key has o = 0, pm = 0 and lse = -inf.
+    no visible key has o = 0, pm = 0 and lse = -inf. block_q / block_k:
+    the tile (`resolve_tile`; the diagonal pair's of mode (a), the full
+    pair's of mode (c)).
     """
     if causal:
-        return flash_diagonal_pair_attention(q, k, v, plen_local)
-    return flash_full_pair_attention(q, k, v, plen_local)
+        return flash_diagonal_pair_attention(q, k, v, plen_local,
+                                             block_q=block_q,
+                                             block_k=block_k)
+    return flash_full_pair_attention(q, k, v, plen_local, block_q=block_q,
+                                     block_k=block_k)
 
 
 def flash_positioned_attention(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, k_pos: torch.Tensor,
-                               q_offset: int, prompt_len: int) -> Partial:
+                               q_offset: int, prompt_len: int,
+                               block_q: Optional[int] = None,
+                               block_k: Optional[int] = None) -> Partial:
     """Mode (d): chunk queries over positioned key slots.
 
     q: [B, c, H_q, D] at global positions q_offset .. q_offset + c - 1 (a
@@ -407,17 +602,21 @@ def flash_positioned_attention(q: torch.Tensor, k: torch.Tensor,
     int32 global positions (invalid slots at POS_SENTINEL); key j is
     visible to row i iff k_pos[j] <= q_offset + i and is a prompt column
     iff k_pos[j] < prompt_len. Returns (o, lse, pm) as
-    `flash_pair_attention` does.
+    `flash_pair_attention` does. block_q / block_k: the tile
+    (`resolve_tile`, over c rows and N slots).
     """
     q_offset = int(q_offset)
+    tile = resolve_tile(_POSITIONED, q.shape[3], q.shape[1], k.shape[1],
+                        block_q, block_k)
     if q.device.type == "cpu":
         return positioned_attention_plain(q, k, v, k_pos, q_offset,
                                           prompt_len)
     result = _launch(q, k, v, q_offset,
                      _row_lengths(prompt_len, q.shape[0], q.device),
                      mode=_POSITIONED,
-                     kpos=k_pos.to(torch.int32).contiguous(), with_lse=True)
-    flash_positioned_attention.launches += 1
+                     kpos=k_pos.to(torch.int32).contiguous(), with_lse=True,
+                     tile=tile)
+    _count(flash_positioned_attention, q, tile)
     return result
 
 
@@ -454,6 +653,10 @@ def flash_compressed_prefix_attention(
     q_offset: int,
     prompt_len: int,
     group=None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    pool_block_q: Optional[int] = None,
+    pool_block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk attention over {compressed pools} ++ {own chunk}, flash form:
     mode (d) over the dequantized pools, the diagonal pair over the chunk's
@@ -465,7 +668,8 @@ def flash_compressed_prefix_attention(
     q: [B, c, Hq, D] at q_offset (host int); k_pool, v_pool: [B, N, Hkv, D]
     in q's dtype; pos_pool [B, N] int32, valid_pool [B, N] bool; k_chunk,
     v_chunk: [B, c, Hkv, D]. Returns (out [B, c, Hq, D], prompt_mass [B, c];
-    `group` as in mode (a)).
+    `group` as in mode (a)). block_q / block_k: the diagonal pair's tile,
+    pool_block_q / pool_block_k mode (d)'s (`resolve_tile`).
     """
     b, c = q.shape[:2]
     q_offset = int(q_offset)
@@ -473,16 +677,21 @@ def flash_compressed_prefix_attention(
                        torch.full((), POS_SENTINEL, dtype=torch.int32,
                                   device=pos_pool.device))
     part_pool = flash_positioned_attention(q, k_pool, v_pool, kpos, q_offset,
-                                           prompt_len)
+                                           prompt_len, block_q=pool_block_q,
+                                           block_k=pool_block_k)
     plen_local = min(max(prompt_len - q_offset, 0), c)
     part_self = flash_pair_attention(q, k_chunk, v_chunk, plen_local,
-                                     causal=True)
+                                     causal=True, block_q=block_q,
+                                     block_k=block_k)
     out, pm = merge_attention_partials([part_pool, part_self])
     return out.to(q.dtype), head_mean(pm, group)
 
 
-flash_prefill_with_prompt_mass.launches = 0
-flash_chunk_attention_with_prompt_mass.launches = 0
-flash_diagonal_pair_attention.launches = 0
-flash_full_pair_attention.launches = 0
-flash_positioned_attention.launches = 0
+for _wrapper in (flash_prefill_with_prompt_mass,
+                 flash_chunk_attention_with_prompt_mass,
+                 flash_diagonal_pair_attention, flash_full_pair_attention,
+                 flash_positioned_attention):
+    _wrapper.launches = 0
+    _wrapper.tile_launches = {}
+    _wrapper.variant_launches = {}
+del _wrapper

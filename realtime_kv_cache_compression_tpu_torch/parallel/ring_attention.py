@@ -22,8 +22,9 @@ computation's up to float association. Skipping is decided on the host
 (the offsets are host ints); the ring's send and receive run on every rank
 at every step, since a rank that skipped one would leave its neighbours
 waiting. CPU tensors run the plain pair (`pair_attention_plain`), CUDA
-tensors the kernels. K1's tiles are fixed when it is compiled, so JAX's
-`block_q`, `block_k` and `interpret` have no counterpart here.
+tensors the kernels. `block_q` and `block_k` name K1's tile as JAX's do
+(both pairs take the same; `flash_prefill.resolve_tile` checks them, also
+where the plain pair runs); JAX's `interpret` has no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.cuda.flash_prefill import (flash_diagonal_pair_attention,
+from ..ops.cuda.flash_prefill import (_CAUSAL, _FULL,
+                                      flash_diagonal_pair_attention,
                                       flash_full_pair_attention,
                                       merge_attention_partials,
-                                      pair_attention_plain)
+                                      pair_attention_plain, resolve_tile)
 from .. import comm
 
 
@@ -47,6 +49,8 @@ def ring_prefill_attention(
     group,
     prompt_lens: Optional[torch.Tensor] = None,
     use_flash: Optional[bool] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal attention + prompt mass with the sequence sharded over
     `group` (None: one rank).
@@ -57,16 +61,22 @@ def ring_prefill_attention(
     rows, right-padded: padding keys lie after every real query, so
     causality hides them, and padding query rows give values the caller
     masks). use_flash (None: on CUDA tensors) runs K1's pair kernels, else
-    their plain version.
+    their plain version. block_q / block_k: the pairs' K1 tile.
     Returns (out [B, S_loc, H_q, D] in q's dtype, prompt_mass [B, S_loc]
     float32 averaged over heads): this rank's rows of the global result.
     """
     if use_flash is None:
         use_flash = q.is_cuda
-    diagonal = (flash_diagonal_pair_attention if use_flash else
-                lambda *a: pair_attention_plain(*a, causal=True))
-    full = (flash_full_pair_attention if use_flash else
-            lambda *a: pair_attention_plain(*a, causal=False))
+    tile = {"block_q": block_q, "block_k": block_k}
+    for mode in (_CAUSAL, _FULL):
+        resolve_tile(mode, q.shape[3], q.shape[1], k.shape[1], **tile)
+    if use_flash:
+        diagonal = lambda *a: flash_diagonal_pair_attention(  # noqa: E731
+            *a, **tile)
+        full = lambda *a: flash_full_pair_attention(*a, **tile)  # noqa
+    else:
+        diagonal = lambda *a: pair_attention_plain(*a, causal=True)  # noqa
+        full = lambda *a: pair_attention_plain(*a, causal=False)  # noqa
     rank, n = comm.rank_and_size(group)
     s_loc = q.shape[1]
     q_off = rank * s_loc

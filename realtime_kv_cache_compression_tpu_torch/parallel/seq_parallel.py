@@ -86,6 +86,8 @@ def seq_parallel_prefill(
     max_decode_len: int = 128,
     sharded_compression: bool = False,
     lengths: Optional[torch.Tensor] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, llama.DecodeState, List[Dict[str, torch.Tensor]]]:
     """Compressed prefill with the sequence sharded over `group` (None:
     one rank), called by every rank with the same arguments.
@@ -109,7 +111,8 @@ def seq_parallel_prefill(
     ValueError if a tier would have no capacity at S/n tokens a rank.
     Decode the returned state with `slot_group=group` (no gather), or
     pass it through `gather_sharded_state` first.
-    The ring runs K1 on CUDA inputs and its plain version on CPU ones.
+    The ring runs K1 on CUDA inputs and its plain version on CPU ones;
+    block_q / block_k name its tile (`ring_prefill_attention`).
     Returns (last-position logits [B, V], DecodeState, per-layer
     stats), the same on every rank but the sharded caches.
     """
@@ -157,7 +160,9 @@ def seq_parallel_prefill(
         k = llama.apply_rope(k, cos, sin)
         attn, pmass = ring_prefill_attention(q, k, v, prompt_len, group,
                                              prompt_lens=prompt_lens,
-                                             use_flash=input_ids.is_cuda)
+                                             use_flash=input_ids.is_cuda,
+                                             block_q=block_q,
+                                             block_k=block_k)
         qmass = None
         if need_qmass:
             q_w, q_pos = _window_queries(q, q_off, win_start, w_win, group)
